@@ -4,9 +4,11 @@
 
 Phases (any failure exits non-zero; nothing is caught and swallowed):
 
-1. Environment and build: the card's name and power limit, then the CUDA
-   SpMV kernel (``photon_ml_tpu_torch/csrc/spmv.cu``) built from source
-   with ``nvcc`` for sm_90a, with ptxas's register and spill lines.
+1. Environment and build: the card's name and power limit, then every
+   CUDA kernel library under ``photon_ml_tpu_torch/csrc/`` built from
+   source with ``nvcc`` for sm_90a (one ``nvcc`` per library, all at
+   once), with ptxas's registers and spills for each kernel.  The
+   production SpMV instances must spill nothing.
 2. Kernel against its plain PyTorch version, per operation, on three
    matrices: 2^20 x 8192 with 32 normal values a row (valued), the same
    shape with binary values (value-free layout), and 2^18 rows with an
@@ -17,7 +19,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    input local to the outputs whose segments hold it.  Times are the
    median of 50 launches under CUDA events, beside the byte bound, the
    plain version and one cuSPARSE call on the same CSR (a yardstick only;
-   the port never calls it).
+   the port never calls it).  On the valued matrix the SpMV kernel's
+   ablation modes (full, nogather, stream) are held to the same checks,
+   and none may run faster than 0.95 x its byte bound (that would mean a
+   load was optimised away).
 3. The slice through the library boundary at full width: L2-logistic
    L-BFGS over a λ grid on the 2^20 x 8192 valued data (make_glm_data →
    GlmOptimizationProblem.run_grid → score → AUC), checked against the
@@ -25,16 +30,26 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
 4. The slice through the driver: LIBSVM files with binary features in a
    temporary directory, ``glm_driver.run(... --device cuda)``, the saved
    model loaded back and its validation AUC recomputed on the host.
+5. The experiments (``photon_ml_tpu_torch/experiments/``) through their
+   entry points at full size (``g8192``, ``g8192_v2``, ``ablate`` mains),
+   then the ELL kernel and its chain captured as a CUDA graph, and the
+   window kernel, each against its plain version on the reference's data
+   (2^20 x 32 entries from an 8192-wide w, seed 0): rtol 1e-5, bitwise
+   repeats, the graph chain bitwise equal to the eager one, the window
+   kernel against the ELL kernel when the layout spilled nothing; times
+   beside the byte bounds and cuSPARSE on the same entries.
 
-Launch counts are zeroed just before each of phases 3 and 4 and read just
-after; every kernel operation those paths run must have launched.  The
-second-to-last line is the kernels' JSON record and the last line
-``{"ok": true, "device": {...}}``.
+Launch counts are zeroed just before each main-path run of phases 3, 4
+and 5 and read just after; every kernel those paths run must have
+launched.  The second-to-last line is the kernels' JSON record and the
+last line ``{"ok": true, "device": {...}}``.
 """
 
+import functools
 import json
 import os
-import statistics
+import re
+import shutil
 import subprocess
 import sys
 import tempfile
@@ -59,6 +74,12 @@ HBM_BYTES_PER_S = 3.35e12
 F32_FLOP_PER_S = 67e12
 KERNEL_SOURCE = "photon_ml_tpu_torch/csrc/spmv.cu"
 TPU_KERNEL = "photon_ml_tpu/ops/sparse_pallas.py:400"
+ELL_SOURCE = "photon_ml_tpu_torch/csrc/ell_matvec.cu"
+WINDOW_SOURCE = "photon_ml_tpu_torch/csrc/window_matvec.cu"
+TPU_ELL = "experiments/exp_g8192.py:48"
+TPU_ELL_CHAIN = "experiments/exp_g8192.py:93"
+TPU_WINDOW = "experiments/exp_g8192_v2.py:76"
+TPU_ABLATE = "experiments/exp_ablate.py:69"
 OPS = ("matvec", "rmatvec", "row_sq_matvec", "sq_rmatvec")
 DEVICE = "cuda"
 
@@ -117,20 +138,34 @@ def skewed_triples(seed=2):
 
 
 def median_ms(fn, n=N_TIMED):
-    """Median device time of one call, each call between its own CUDA
-    events.  A device-side sleep first lets the host queue all n calls, so
-    host launch overhead does not open gaps inside the timed spans."""
+    """Median device time of one call (CUDA events around each call, the
+    host's launches queued behind a device-side sleep)."""
+    from photon_ml_tpu_torch.utils.timer import median_ms as timer_median_ms
+
+    return timer_median_ms(fn, DEVICE, n)
+
+
+def wall_ms(fn, n=20):
+    """Median host-clock time of one call of ``fn`` from an idle device to
+    its end (synchronize before and after): unlike :func:`median_ms`, the
+    host's launch cost is inside the span whenever the device waits on it."""
     fn()
-    torch.cuda.synchronize()
-    events = [(torch.cuda.Event(enable_timing=True),
-               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
-    torch.cuda._sleep(50_000_000)
-    for start, end in events:
-        start.record()
+    times = []
+    for _ in range(n):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
         fn()
-        end.record()
-    torch.cuda.synchronize()
-    return statistics.median(s.elapsed_time(e) for s, e in events)
+        torch.cuda.synchronize()
+        times.append((time.perf_counter() - t0) * 1e3)
+    return sorted(times)[n // 2]
+
+
+def bytes_bound(nbytes, flops=0):
+    """Least time for work that moves ``nbytes`` through HBM and does
+    ``flops`` f32 operations: (ms, "bytes" | "operations")."""
+    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
+    return (max(t_bytes, t_ops) * 1e3,
+            "bytes" if t_bytes >= t_ops else "operations")
 
 
 def bound(n_out, n_in, nnz, unit, square):
@@ -139,9 +174,36 @@ def bound(n_out, n_in, nnz, unit, square):
     f32 rate.  Returns (ms, "bytes" | "operations")."""
     nbytes = 8 * (n_out + 1) + nnz * (4 if unit else 8) + 4 * n_in + 4 * n_out
     flops = nnz * (1 if unit else (3 if square else 2))
-    t_bytes, t_ops = nbytes / HBM_BYTES_PER_S, flops / F32_FLOP_PER_S
-    return (max(t_bytes, t_ops) * 1e3,
-            "bytes" if t_bytes >= t_ops else "operations")
+    return bytes_bound(nbytes, flops)
+
+
+def ptxas_kernels(lines):
+    """[(kernel, registers, spill bytes)] from ``nvcc -Xptxas -v`` lines."""
+    out, entry, spill = [], None, 0
+    for ln in lines:
+        m = re.search(r"Compiling entry function '([^']+)'", ln)
+        if m:
+            entry, spill = m.group(1), 0
+            continue
+        m = re.search(r"(\d+) bytes spill stores, (\d+) bytes spill loads", ln)
+        if m:
+            spill = int(m.group(1)) + int(m.group(2))
+            continue
+        m = re.search(r"Used (\d+) registers", ln)
+        if m and entry:
+            out.append((entry, int(m.group(1)), spill))
+            entry = None
+    return out
+
+
+def demangle(names):
+    cxxfilt = shutil.which("c++filt")
+    if not cxxfilt or not names:
+        return list(names)
+    res = subprocess.run([cxxfilt], input="\n".join(names),
+                         capture_output=True, text=True)
+    out = res.stdout.splitlines()
+    return out if res.returncode == 0 and len(out) == len(names) else names
 
 
 # -- phases ---------------------------------------------------------------
@@ -160,14 +222,26 @@ def phase_environment():
     from photon_ml_tpu_torch.ops import _kernels
 
     t0 = time.perf_counter()
-    _kernels.load_library()
-    info = _kernels.BUILD_INFO
-    log(f"kernel build: {'built' if info['built'] else 'cached'} "
-        f"{info['path']} in {info['seconds']:.2f} s "
-        f"(load {time.perf_counter() - t0:.2f} s)")
-    for line in info["ptxas"]:
-        if "registers" in line or "spill" in line:
-            log(f"  {line}")
+    _kernels.build_libraries()
+    log(f"kernel builds: {len(_kernels.BUILD_INFO)} libraries in "
+        f"{time.perf_counter() - t0:.2f} s, one nvcc each, in parallel")
+    production = []
+    for name, info in _kernels.BUILD_INFO.items():
+        log(f"  {name}: {'built' if info['built'] else 'cached'} "
+            f"{info['path']} ({info['seconds']:.2f} s)")
+        kernels = ptxas_kernels(info["ptxas"])
+        check(bool(kernels), f"{name}: no ptxas register lines in the build")
+        for (mangled, regs, spill), pretty in zip(
+                kernels, demangle([k[0] for k in kernels])):
+            log(f"    {pretty}: {regs} registers, {spill} bytes of spill")
+            if re.search(r"spmv_warp_kernelILi0E", mangled):
+                production.append((pretty, regs, spill))
+    check(len(production) == 3,
+          f"expected 3 production spmv instances, found {len(production)}")
+    check(all(spill == 0 for _, _, spill in production),
+          "a production spmv instance spills")
+    log(f"production spmv instances: registers "
+        f"{[regs for _, regs, _ in production]}, no spill")
     return smi
 
 
@@ -279,9 +353,84 @@ def phase_kernels(bench):
         if label == "skewed":
             check(M.has_dense_cols, "skewed: no dense column stripes")
         results[label] = kernel_vs_plain(label, M, gen)
+        if label == "valued":
+            results["ablate"] = ablation_vs_plain(M)
         del M
         torch.cuda.empty_cache()
     return results
+
+
+def ablation_vs_plain(M):
+    """Phase 2 on the valued matrix: each ablation mode of the SpMV kernel
+    against its plain version for matvec (CSR) and rmatvec (CSC), bitwise
+    repeat, and its time against its own byte bound.  Returns
+    {(mode, op): record}."""
+    from photon_ml_tpu_torch.experiments import ablate
+
+    out = {}
+    for op in ablate.OPS:
+        indptr, idx, val, n_in = ablate.side(M, op)
+        x = ablate.operand(M, op)
+        n_out, nnz = indptr.shape[0] - 1, idx.shape[0]
+        with warnings.catch_warnings():  # "sparse CSR support is in beta"
+            warnings.simplefilter("ignore", UserWarning)
+            A = torch.sparse_csr_tensor(indptr.to(torch.int32), idx, val,
+                                        size=(n_out, n_in),
+                                        check_invariants=False)
+        library = {
+            "full": lambda: torch.mv(A, x),
+            "nogather": None,  # no one PyTorch call reads x at k mod n_in
+            "stream": lambda: torch.segment_reduce(val, "sum",
+                                                   offsets=indptr),
+        }
+        for mode in ablate.MODES:
+            def kernel(mode=mode):
+                return ablate.spmv_ablate(mode, indptr, idx, val, x, n_in, op)
+
+            def plain(mode=mode):
+                return ablate.spmv_ablate_plain(mode, indptr, idx, val, x,
+                                                n_in)
+
+            y, y2 = kernel(), kernel()
+            ref = plain()
+            scale = ablate.spmv_ablate_plain(mode, indptr, idx, val.abs(),
+                                             x.abs(), n_in)
+            torch.cuda.synchronize()
+            label = f"ablate {mode} {op}"
+            check(torch.equal(y, y2), f"{label}: two launches differ")
+            err = (y - ref).abs()
+            check(bool((err <= RTOL * scale).all()),
+                  f"{label}: kernel vs plain beyond rtol {RTOL}")
+            # stream moves indptr, idx, val and y; the other modes x too.
+            nbytes = 8 * (n_out + 1) + 8 * nnz + 4 * n_out
+            if mode != "stream":
+                nbytes += 4 * n_in
+            bound_ms, bound_by = bytes_bound(
+                nbytes, nnz * (1 if mode == "stream" else 2))
+            ms = median_ms(kernel)
+            rec = dict(max_abs_err=float(err.max()), ms=ms,
+                       plain_ms=median_ms(plain),
+                       library_ms=(median_ms(library[mode])
+                                   if library[mode] else None),
+                       bound_ms=bound_ms, bound_by=bound_by)
+            check(ms >= 0.95 * bound_ms,
+                  f"{label}: {ms:.4f} ms is below 0.95 x its {bound_by} "
+                  f"bound {bound_ms:.4f} ms: a load was optimised away")
+            out[mode, op] = rec
+            lib_txt = ("none" if rec["library_ms"] is None
+                       else f"{rec['library_ms']:.4f} ms")
+            log(f"  {label:22s} ok  kernel {ms:.4f} ms ({bound_ms / ms:.1%} "
+                f"of the {bound_by} bound {bound_ms:.4f} ms)  plain "
+                f"{rec['plain_ms']:.4f} ms  library {lib_txt}  max|err| "
+                f"{rec['max_abs_err']:.3g}")
+        t = {mode: out[mode, op]["ms"] for mode in ablate.MODES}
+        log(f"  ablation {op}: full - nogather = "
+            f"{t['full'] - t['nogather']:.4f} ms (the dependent gather of "
+            f"x), nogather - stream = {t['nogather'] - t['stream']:.4f} ms "
+            f"(reading x at all), stream = {t['stream']:.4f} ms (indptr, "
+            f"idx, val and y)")
+        del A
+    return out
 
 
 def phase_library(bench):
@@ -459,6 +608,181 @@ def phase_driver():
     return launches
 
 
+def run_main_path(label, mod, kernels):
+    """One experiment's entry point at full size, with the launch counts
+    zeroed just before and read just after; each of ``kernels`` must have
+    launched."""
+    from photon_ml_tpu_torch.ops import _kernels
+
+    log(f"experiments: python -m {mod.__name__} --rows {N_ROWS}")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    res = mod.main(["--rows", str(N_ROWS)])
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    log(f"experiments: {label} main {time.perf_counter() - t0:.1f} s; "
+        f"launches {json.dumps({k: v for k, v in launches.items() if v})}")
+    for key in kernels:
+        check(launches[key] > 0, f"{label} main: {key} never launched")
+    return res, launches
+
+
+def phase_experiments():
+    """Phase 5: the three experiments through their entry points, then the
+    ELL kernel, its graph chain and the window kernel against their plain
+    versions on the reference's data."""
+    from photon_ml_tpu_torch.experiments import ablate, common, g8192, g8192_v2
+
+    ell_main, ell_launches = run_main_path("g8192", g8192, ["ell_matvec"])
+    win_main, win_launches = run_main_path("g8192_v2", g8192_v2,
+                                           ["window_matvec"])
+    _, abl_launches = run_main_path(
+        "ablate", ablate,
+        [f"spmv_ablate_{m}_{op}" for m in ablate.MODES for op in ablate.OPS])
+
+    n, k, d = N_ROWS, g8192.K, g8192.D
+    cols_T, vals_T, w = g8192.make_ell(n, k, d, seed=0)
+    c_d, v_d, w_d = (torch.as_tensor(a, device=DEVICE)
+                     for a in (cols_T, vals_T, w))
+    recs = {}
+
+    # -- ELL mat-vec ------------------------------------------------------
+    def ell():
+        return g8192.ell_matvec(c_d, v_d, w_d)
+
+    def ell_plain():
+        return g8192.ell_matvec_plain(c_d, v_d, w_d)
+
+    m, m2 = ell(), ell()
+    ref = ell_plain()
+    scale = g8192.ell_matvec_plain(c_d, v_d.abs(), w_d.abs())
+    torch.cuda.synchronize()
+    check(torch.equal(m, m2), "ell_matvec: two launches differ")
+    err = (m - ref).abs()
+    check(bool((err <= RTOL * scale).all()),
+          f"ell_matvec: kernel vs plain beyond rtol {RTOL}")
+    # cuSPARSE on the same entries: the CSR with k entries a row, columns
+    # sorted within each row.
+    cols_sorted, perm = torch.sort(c_d.t(), dim=1)
+    with warnings.catch_warnings():  # "sparse CSR support is in beta"
+        warnings.simplefilter("ignore", UserWarning)
+        A = torch.sparse_csr_tensor(
+            torch.arange(0, n * k + 1, k, dtype=torch.int32, device=DEVICE),
+            cols_sorted.reshape(-1).contiguous(),
+            torch.gather(v_d.t(), 1, perm).reshape(-1).contiguous(),
+            size=(n, d), check_invariants=False)
+    lib = torch.mv(A, w_d)
+    torch.cuda.synchronize()
+    check(bool(((lib - ref).abs() <= RTOL * scale).all()),
+          "ell_matvec: library yardstick disagrees")
+    library_ms = median_ms(lambda: torch.mv(A, w_d))
+    ell_bound = bytes_bound(n * k * 8 + 4 * n + 4 * d, 2 * n * k)
+    recs["ell"] = dict(max_abs_err=float(err.max()), ms=median_ms(ell),
+                       plain_ms=median_ms(ell_plain), library_ms=library_ms,
+                       bound_ms=ell_bound[0], bound_by=ell_bound[1])
+
+    # -- its chain of R passes as one CUDA graph --------------------------
+    reps = common.REPS
+    step = functools.partial(g8192.step, cols_T=c_d, vals_T=v_d)
+
+    def plain_step(x):
+        return x + 1e-20 * g8192.ell_matvec_plain(c_d, v_d, x)[:d]
+
+    graph = common.ChainGraph(step, w_d, reps)
+    w_graph = graph(w_d)
+    w_eager = common.run_chain(step, w_d, reps)
+    w_plain = common.run_chain(plain_step, w_d, reps)
+    torch.cuda.synchronize()
+    check(torch.equal(w_graph, w_eager), "ell chain: graph != eager chain")
+    chain_err = (w_graph - w_plain).abs()
+    check(bool((chain_err <= RTOL * w_plain.abs().clamp_min(1.0)).all()),
+          "ell chain: kernel chain vs plain chain beyond rtol")
+    graph_ms = median_ms(graph.replay) / reps
+    eager_ms = median_ms(lambda: common.run_chain(step, w_d, reps)) / reps
+    graph_wall = wall_ms(graph.replay) / reps
+    eager_wall = wall_ms(lambda: common.run_chain(step, w_d, reps)) / reps
+    chain_bound = bytes_bound(n * k * 8 + 8 * d, 2 * n * k + 2 * d)
+    recs["chain"] = dict(
+        max_abs_err=float(chain_err.max()), ms=graph_ms,
+        plain_ms=median_ms(lambda: common.run_chain(plain_step, w_d, reps),
+                           n=10) / reps,
+        library_ms=None, bound_ms=chain_bound[0], bound_by=chain_bound[1])
+    r = recs["ell"]
+    log(f"  ell ok  kernel {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of "
+        f"the {r['bound_by']} bound {r['bound_ms']:.4f} ms)  plain "
+        f"{r['plain_ms']:.4f} ms  cuSPARSE {library_ms:.4f} ms  max|err| "
+        f"{r['max_abs_err']:.3g}")
+    r = recs["chain"]
+    log(f"  ell chain of {reps} ok: graph replay {graph_ms:.4f} ms/pass "
+        f"({r['bound_ms'] / graph_ms:.1%} of the {r['bound_by']} bound "
+        f"{r['bound_ms']:.4f} ms), eager host loop {eager_ms:.4f} ms/pass "
+        f"(gap {eager_ms - graph_ms:.4f} ms/pass), plain "
+        f"{r['plain_ms']:.4f} ms/pass; graph == eager bitwise")
+    log(f"  ell chain of {reps} alone (host clock, synchronize around one "
+        f"chain): graph {graph_wall:.4f} ms/pass, eager {eager_wall:.4f} "
+        f"ms/pass: host launch cost {eager_wall - graph_wall:.4f} ms/pass")
+    del A, cols_sorted, perm
+
+    # -- window layout mat-vec --------------------------------------------
+    t0 = time.perf_counter()
+    lo, v, rhi, n_spill = g8192_v2.build_layout(cols_T.T, vals_T.T, n)
+    log(f"window: host layout build {time.perf_counter() - t0:.1f} s, "
+        f"spill {n_spill} of {n * k} entries")
+    lo_d, vv_d, rhi_d = (torch.as_tensor(a, device=DEVICE)
+                         for a in (lo, v, rhi))
+    del lo, v, rhi
+
+    def win():
+        return g8192_v2.window_matvec(lo_d, vv_d, rhi_d, w_d)
+
+    def win_plain():
+        return g8192_v2.window_matvec_plain(lo_d, vv_d, rhi_d, w_d)
+
+    o, o2 = win(), win()
+    ref = win_plain()
+    wscale = g8192_v2.window_matvec_plain(lo_d, vv_d.abs(), rhi_d, w_d.abs())
+    torch.cuda.synchronize()
+    check(torch.equal(o, o2), "window_matvec: two launches differ")
+    werr = (o - ref).abs()
+    check(bool((werr <= RTOL * wscale).all()),
+          f"window_matvec: kernel vs plain beyond rtol {RTOL}")
+    if n_spill == 0:
+        check(bool(((o.reshape(-1) - m).abs() <= RTOL * scale).all()),
+              "window_matvec: disagrees with the ELL kernel")
+        log("  window == ELL kernel within rtol (nothing spilled)")
+    slots = lo_d.numel()
+    win_bound = bytes_bound(12 * slots + 4 * d + 4 * o.numel(), 2 * slots)
+    recs["window"] = dict(max_abs_err=float(werr.max()), ms=median_ms(win),
+                          plain_ms=median_ms(win_plain, n=10),
+                          library_ms=library_ms, bound_ms=win_bound[0],
+                          bound_by=win_bound[1])
+    r = recs["window"]
+    log(f"  window ok  kernel {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%}"
+        f" of the slot bound {r['bound_ms']:.4f} ms; the live entries alone "
+        f"bound {ell_bound[0]:.4f} ms)  plain {r['plain_ms']:.4f} ms  "
+        f"cuSPARSE {library_ms:.4f} ms  max|err| {r['max_abs_err']:.3g}")
+    wstep = functools.partial(g8192_v2.step, lo=lo_d, v=vv_d, rhi=rhi_d)
+    wgraph = common.ChainGraph(wstep, w_d, reps)
+    check(torch.equal(wgraph(w_d), common.run_chain(wstep, w_d, reps)),
+          "window chain: graph != eager chain")
+    log(f"  window chain of {reps}: graph replay "
+        f"{median_ms(wgraph.replay) / reps:.4f} ms/pass, eager host loop "
+        f"{median_ms(lambda: common.run_chain(wstep, w_d, reps)) / reps:.4f}"
+        f" ms/pass; graph == eager bitwise")
+
+    # The graph's launches happen at replay, where no wrapper counts them:
+    # the main path's graph launched the kernel reps x replays times.
+    recs["ell"]["launches"] = ell_launches["ell_matvec"]
+    recs["chain"]["launches"] = ell_main["reps"] * ell_main["graph_replays"]
+    recs["window"]["launches"] = win_launches["window_matvec"]
+    log(f"experiments main path: ell_matvec {recs['ell']['launches']} "
+        f"launches by the wrapper, graph chain {ell_main['reps']} x "
+        f"{ell_main['graph_replays']} replays = {recs['chain']['launches']}; "
+        f"window_matvec {recs['window']['launches']} (+ "
+        f"{win_main['reps']} x {win_main['graph_replays']} in its graph)")
+    return recs, abl_launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -478,6 +802,9 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("phase 4: driver")
     drv_launches = phase_driver()
+    torch.cuda.empty_cache()
+    log("phase 5: experiments")
+    exp, abl_launches = phase_experiments()
 
     log("not on the main path (no caller in the GLM slice), checked in "
         "phase 2: " + json.dumps({
@@ -496,6 +823,20 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             })
+    fields = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
+              "bound_by", "library_ms")
+    for name, key, source, replaces in (
+            ("ell_matvec", "ell", ELL_SOURCE, TPU_ELL),
+            ("ell_matvec.chain_graph", "chain", ELL_SOURCE, TPU_ELL_CHAIN),
+            ("window_matvec", "window", WINDOW_SOURCE, TPU_WINDOW)):
+        records.append({"name": name, "route": "cuda", "source": source,
+                        "replaces": replaces,
+                        **{f: exp[key][f] for f in fields}})
+    for (mode, op), r in kern["ablate"].items():
+        records.append({"name": f"spmv_ablate.{mode}.{op}", "route": "cuda",
+                        "source": KERNEL_SOURCE, "replaces": TPU_ABLATE,
+                        "launches": abl_launches[f"spmv_ablate_{mode}_{op}"],
+                        **{f: r[f] for f in fields[1:]}})
     log(f"metrics: {json.dumps(lib_metrics)}; total "
         f"{time.perf_counter() - t_start:.1f} s")
     log(smi)

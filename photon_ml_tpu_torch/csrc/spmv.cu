@@ -32,26 +32,42 @@
 // threshold) is one warp's serial work; balancing such segments and
 // vectorising the loads are later work (ROADMAP.md).
 //
-// Interface: a plain C function, built with nvcc into a shared library and
-// called through ctypes.  It launches on the caller's stream, does not
-// synchronise, allocates nothing, and returns cudaGetLastError().
+// Ablations (the counterpart of experiments/exp_ablate.py's modes, valued
+// layout only): MODE takes parts of the FULL loop away to show what each
+// costs.  NOGATHER reads x at x[k mod n_in], an address that does not depend
+// on the index (consecutive lanes, consecutive addresses); STREAM reads no x
+// at all and sums the values.  Both still load idx[k] and keep it live: a
+// negative index would turn the value into NaN, so nvcc cannot drop the load
+// and the mode streams the bytes it claims to.  photon_spmv launches only
+// FULL; photon_spmv_ablate launches any mode.
+//
+// Interface: plain C functions, built with nvcc into a shared library and
+// called through ctypes.  They launch on the caller's stream, do not
+// synchronise, allocate nothing, and return cudaGetLastError().
 
 #include <cstdint>
 #include <cuda_runtime.h>
+
+#include "common.cuh"
 
 namespace {
 
 constexpr int kThreads = 256;
 constexpr int kWarpsPerBlock = kThreads / 32;
 
-template <bool UNIT, bool SQUARE>
+constexpr int kFull = 0;
+constexpr int kNoGather = 1;
+constexpr int kStream = 2;
+
+template <int MODE, bool UNIT, bool SQUARE>
 __global__ void __launch_bounds__(kThreads)
 spmv_warp_kernel(const int64_t* __restrict__ indptr,
                  const int32_t* __restrict__ idx,
                  const float* __restrict__ val,
                  const float* __restrict__ x,
                  float* __restrict__ y,
-                 int64_t n_out) {
+                 int64_t n_out,
+                 int64_t n_in) {
   const int64_t warp =
       (static_cast<int64_t>(blockIdx.x) * kThreads + threadIdx.x) >> 5;
   const int lane = threadIdx.x & 31;
@@ -59,13 +75,29 @@ spmv_warp_kernel(const int64_t* __restrict__ indptr,
   const int64_t start = indptr[warp];
   const int64_t end = indptr[warp + 1];
   float acc = 0.0f;
-  for (int64_t k = start + lane; k < end; k += 32) {
-    const float xv = __ldg(x + idx[k]);
-    if (UNIT) {
-      acc += xv;
-    } else {
-      const float v = val[k];
-      acc += (SQUARE ? v * v : v) * xv;
+  if constexpr (MODE == kFull) {
+    for (int64_t k = start + lane; k < end; k += 32) {
+      const float xv = __ldg(x + idx[k]);
+      if (UNIT) {
+        acc += xv;
+      } else {
+        const float v = val[k];
+        acc += (SQUARE ? v * v : v) * xv;
+      }
+    }
+  } else {
+    static_assert(!UNIT && !SQUARE, "ablations run on the valued layout");
+    int64_t kx = (start + lane) % n_in;  // k mod n_in, kept incrementally
+    for (int64_t k = start + lane; k < end; k += 32) {
+      float v = val[k];
+      v = (idx[k] < 0) ? __int_as_float(0x7fc00000) : v;  // keeps idx live
+      if constexpr (MODE == kNoGather) {
+        acc += v * __ldg(x + kx);
+        kx += 32;
+        while (kx >= n_in) kx -= n_in;
+      } else {
+        acc += v;
+      }
     }
   }
 #pragma unroll
@@ -75,13 +107,14 @@ spmv_warp_kernel(const int64_t* __restrict__ indptr,
   if (lane == 0) y[warp] = acc;
 }
 
-template <bool UNIT, bool SQUARE>
+template <int MODE, bool UNIT, bool SQUARE>
 void launch(const int64_t* indptr, const int32_t* idx, const float* val,
-            const float* x, float* y, int64_t n_out, cudaStream_t stream) {
+            const float* x, float* y, int64_t n_out, int64_t n_in,
+            cudaStream_t stream) {
   const int64_t blocks = (n_out + kWarpsPerBlock - 1) / kWarpsPerBlock;
-  spmv_warp_kernel<UNIT, SQUARE>
+  spmv_warp_kernel<MODE, UNIT, SQUARE>
       <<<static_cast<unsigned int>(blocks), kThreads, 0, stream>>>(
-          indptr, idx, val, x, y, n_out);
+          indptr, idx, val, x, y, n_out, n_in);
 }
 
 }  // namespace
@@ -100,17 +133,41 @@ int photon_spmv(const void* indptr, const void* idx, const void* val,
   auto* yv = static_cast<float*>(y);
   auto s = static_cast<cudaStream_t>(stream);
   if (unit) {
-    launch<true, false>(ip, ix, v, xv, yv, n_out, s);
+    launch<kFull, true, false>(ip, ix, v, xv, yv, n_out, 0, s);
   } else if (square) {
-    launch<false, true>(ip, ix, v, xv, yv, n_out, s);
+    launch<kFull, false, true>(ip, ix, v, xv, yv, n_out, 0, s);
   } else {
-    launch<false, false>(ip, ix, v, xv, yv, n_out, s);
+    launch<kFull, false, false>(ip, ix, v, xv, yv, n_out, 0, s);
   }
   return static_cast<int>(cudaGetLastError());
 }
 
-const char* photon_cuda_error_string(int code) {
-  return cudaGetErrorString(static_cast<cudaError_t>(code));
+// The valued, unsquared kernel with parts taken away: mode 0 FULL (the
+// production instance), 1 NOGATHER, 2 STREAM.  n_in (the length of x) must
+// be positive.  An unknown mode returns cudaErrorInvalidValue unlaunched.
+int photon_spmv_ablate(int mode, const void* indptr, const void* idx,
+                       const void* val, const void* x, void* y,
+                       long long n_out, long long n_in, void* stream) {
+  const auto* ip = static_cast<const int64_t*>(indptr);
+  const auto* ix = static_cast<const int32_t*>(idx);
+  const auto* v = static_cast<const float*>(val);
+  const auto* xv = static_cast<const float*>(x);
+  auto* yv = static_cast<float*>(y);
+  auto s = static_cast<cudaStream_t>(stream);
+  switch (mode) {
+    case kFull:
+      launch<kFull, false, false>(ip, ix, v, xv, yv, n_out, n_in, s);
+      break;
+    case kNoGather:
+      launch<kNoGather, false, false>(ip, ix, v, xv, yv, n_out, n_in, s);
+      break;
+    case kStream:
+      launch<kStream, false, false>(ip, ix, v, xv, yv, n_out, n_in, s);
+      break;
+    default:
+      return static_cast<int>(cudaErrorInvalidValue);
+  }
+  return static_cast<int>(cudaGetLastError());
 }
 
 }  // extern "C"

@@ -1,0 +1,18 @@
+"""The port's copies of the kernel design experiments under ``experiments/``.
+
+The top-level ``experiments/`` directory holds the reference's JAX scripts,
+which time the TPU kernels behind ``_tile_kernel``'s design.  Each module
+here computes the same function with a hand-written CUDA kernel and times
+it on the card:
+
+- ``g8192``    — ``exp_g8192.py``: the ELL mat-vec gathering from an
+                 8192-wide w (``csrc/ell_matvec.cu``), and its chain of
+                 passes captured as one CUDA graph;
+- ``g8192_v2`` — ``exp_g8192_v2.py``: the same mat-vec over the window
+                 layout (``csrc/window_matvec.cu``);
+- ``ablate``   — ``exp_ablate.py``: the SpMV kernel with the gather, then
+                 every read of x, taken away (``csrc/spmv.cu``'s ``MODE``).
+
+Run each as ``python -m photon_ml_tpu_torch.experiments.<name>``; the card
+is the default, ``--device cpu`` runs the plain PyTorch versions.
+"""

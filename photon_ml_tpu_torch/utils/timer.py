@@ -39,3 +39,37 @@ class Timer:
 
     def __exit__(self, *exc) -> None:
         self.stop()
+
+
+def median_ms(fn, device, n: int = 50) -> float:
+    """Median milliseconds of one call of ``fn`` over ``n`` calls, after one
+    warm-up call.
+
+    On a CUDA device each call sits between its own CUDA events, and a
+    device-side sleep first lets the host queue all ``n`` calls, so host
+    launch overhead opens no gaps inside the timed spans: the result is
+    device time.  On the CPU it is host-clock time around each call."""
+    import statistics
+
+    import torch
+
+    device = torch.device(device)
+    fn()
+    if device.type != "cuda":
+        times = []
+        for _ in range(n):
+            t0 = time.perf_counter()
+            fn()
+            times.append((time.perf_counter() - t0) * 1e3)
+        return statistics.median(times)
+    torch.cuda.synchronize(device)
+    events = [(torch.cuda.Event(enable_timing=True),
+               torch.cuda.Event(enable_timing=True)) for _ in range(n)]
+    with torch.cuda.device(device):
+        torch.cuda._sleep(50_000_000)
+        for start, end in events:
+            start.record()
+            fn()
+            end.record()
+    torch.cuda.synchronize(device)
+    return statistics.median(s.elapsed_time(e) for s, e in events)

@@ -1,20 +1,23 @@
-"""The CUDA SpMV kernel on the card, against its plain PyTorch version.
+"""The port's CUDA kernels on the card, against their plain PyTorch versions.
 
-Needs a CUDA card and ``nvcc`` (the kernel is built at first use); skips
+Needs a CUDA card and ``nvcc`` (the kernels are built at first use); skips
 without a card.  This file imports only torch, numpy and the port, so it
 runs on a machine without JAX:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
-Tolerance: the kernel sums each segment in a lane-strided order with a
-warp-shuffle tree, the plain version sequentially, so they agree to
-rtol 1e-5 on the scale Σ|f(v)·x| of each output, and never bitwise.
+Tolerance: each kernel sums in its own fixed order (the SpMV a lane-strided
+order with a warp-shuffle tree, the ELL and window kernels one thread per
+output), the plain versions in PyTorch's reduction order, so they agree to
+rtol 1e-5 on the scale Σ|f(v)·x| of each output, and never bitwise.  Two
+launches of one kernel are bitwise equal (no atomics).
 """
 
 import numpy as np
 import pytest
 import torch
 
+from photon_ml_tpu_torch.experiments import ablate, common, g8192, g8192_v2
 from photon_ml_tpu_torch.ops import _kernels
 from photon_ml_tpu_torch.ops.sparse import from_coo
 from photon_ml_tpu_torch.ops.sparse_cuda import build_cuda_matrix
@@ -116,3 +119,106 @@ def test_wrapper_refuses_bad_operands_on_the_card(cuda):
                       unit=False)
     out = _kernels.spmv(indptr, idx, val, x, n_in=3, op="matvec", unit=False)
     assert out.device.type == "cuda" and out.tolist() == [1.0, 1.0]
+
+
+def _within(y, ref, scale):
+    return float(((y - ref).abs() - 1e-5 * scale).max()) <= 0.0
+
+
+@pytest.mark.parametrize("n,k,d", [(50_000, 32, 8192), (1000, 7, 16384),
+                                   (300, 0, 64)],
+                         ids=["reference-width", "64KB-table", "empty-rows"])
+def test_ell_kernel_matches_plain(cuda, n, k, d):
+    cols_T, vals_T, w = (torch.as_tensor(a, device=cuda)
+                         for a in g8192.make_ell(n, k, d, seed=1))
+    _kernels.reset_launches()
+    m = g8192.ell_matvec(cols_T, vals_T, w)
+    m2 = g8192.ell_matvec(cols_T, vals_T, w)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["ell_matvec"] == 2
+    assert m.shape == (n,) and torch.equal(m, m2)
+    ref = g8192.ell_matvec_plain(cols_T, vals_T, w)
+    scale = g8192.ell_matvec_plain(cols_T, vals_T.abs(), w.abs())
+    assert _within(m, ref, scale)
+
+
+def test_ell_table_beyond_shared_memory_is_refused(cuda):
+    limit = g8192.max_dim(cuda)
+    assert limit >= 8192  # 227 KB on an H100
+    cols_T = torch.zeros((2, 64), dtype=torch.int32, device=cuda)
+    vals_T = torch.ones((2, 64), device=cuda)
+    with pytest.raises(ValueError, match="shared memory"):
+        g8192.ell_matvec(cols_T, vals_T, torch.ones(limit + 1, device=cuda))
+    m = g8192.ell_matvec(cols_T, vals_T, torch.ones(limit, device=cuda))
+    assert m.tolist() == [2.0] * 64
+
+
+def test_window_kernel_matches_plain(cuda):
+    cols_T, vals_T, w = g8192.make_ell(3 * g8192_v2.BLOCK_ROWS, 32, 8192, 2)
+    lo, v, rhi, spill = g8192_v2.build_layout(cols_T.T, vals_T.T,
+                                              3 * g8192_v2.BLOCK_ROWS)
+    lo, v, rhi, w = (torch.as_tensor(a, device=cuda) for a in (lo, v, rhi, w))
+    _kernels.reset_launches()
+    out = g8192_v2.window_matvec(lo, v, rhi, w)
+    out2 = g8192_v2.window_matvec(lo, v, rhi, w)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["window_matvec"] == 2
+    assert out.shape == (3, 64, 128) and torch.equal(out, out2)
+    ref = g8192_v2.window_matvec_plain(lo, v, rhi, w)
+    scale = g8192_v2.window_matvec_plain(lo, v.abs(), rhi, w.abs())
+    assert _within(out, ref, scale)
+    if spill == 0:
+        ell = g8192.ell_matvec(*(torch.as_tensor(a, device=cuda)
+                                 for a in (cols_T, vals_T)), w)
+        ell_scale = g8192.ell_matvec_plain(
+            torch.as_tensor(cols_T, device=cuda),
+            torch.as_tensor(vals_T, device=cuda).abs(), w.abs())
+        assert _within(out.reshape(-1), ell, ell_scale)
+
+
+@pytest.mark.parametrize("which", ["g8192", "g8192_v2"])
+def test_graph_chain_equals_eager_chain(cuda, which):
+    cols_T, vals_T, w = g8192.make_ell(g8192_v2.BLOCK_ROWS, 32, 8192, 3)
+    vals_T = vals_T * np.float32(1e19)  # each pass moves w
+    w = torch.as_tensor(w, device=cuda)
+    if which == "g8192":
+        args = [torch.as_tensor(a, device=cuda) for a in (cols_T, vals_T)]
+        mod = g8192
+    else:
+        lo, v, rhi, _ = g8192_v2.build_layout(cols_T.T, vals_T.T,
+                                              g8192_v2.BLOCK_ROWS)
+        args = [torch.as_tensor(a, device=cuda) for a in (lo, v, rhi)]
+        mod = g8192_v2
+    eager = mod.chain(w, *args, reps=4, graph=False)
+    graph = mod.chain(w, *args, reps=4, graph=True)
+    torch.cuda.synchronize()
+    assert not torch.equal(eager, w)
+    assert torch.equal(graph, eager)
+    # Replaying one captured graph twice from the same input repeats it.
+    g = common.ChainGraph(lambda x: mod.step(x, *args), w, reps=4)
+    assert torch.equal(g(w), eager) and torch.equal(g(w), eager)
+    assert g.replays == 2
+
+
+@pytest.mark.parametrize("op", ablate.OPS)
+def test_ablation_modes_match_plain(cuda, op):
+    rows, cols, vals = _matrix(4, 1 << 14, 8192, 32, unit=False)
+    M = build_cuda_matrix(rows, cols, vals, 1 << 14, 8192,
+                          unit_values=False, device=cuda)
+    indptr, idx, val, n_in = ablate.side(M, op)
+    x = ablate.operand(M, op)
+    _kernels.reset_launches()
+    for mode in ablate.MODES:
+        y = ablate.spmv_ablate(mode, indptr, idx, val, x, n_in, op)
+        y2 = ablate.spmv_ablate(mode, indptr, idx, val, x, n_in, op)
+        torch.cuda.synchronize()
+        assert torch.equal(y, y2), mode
+        ref = ablate.spmv_ablate_plain(mode, indptr, idx, val, x, n_in)
+        scale = ablate.spmv_ablate_plain(mode, indptr, idx, val.abs(),
+                                         x.abs(), n_in)
+        assert _within(y, ref, scale), mode
+        assert _kernels.LAUNCHES[f"spmv_ablate_{mode}_{op}"] == 2
+    # FULL is the production instance: bitwise the same as spmv.
+    prod = _kernels.spmv(indptr, idx, val, x, n_in=n_in, op=op, unit=False)
+    full = ablate.spmv_ablate("full", indptr, idx, val, x, n_in, op)
+    assert torch.equal(prod, full)
