@@ -8,12 +8,18 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    CUDA kernel library under ``photon_ml_tpu_torch/csrc/`` built from
    source with ``nvcc`` for sm_90a (one ``nvcc`` per library, all at
    once), with ptxas's registers and spills for each kernel.  The
-   production SpMV instances must spill nothing.
+   production SpMV instances (the row kernel's FULL instances for each
+   lane group G, the column kernel's FULL instances and the combine
+   kernel) must spill nothing.
 2. Kernel against its plain PyTorch version, per operation, on three
    matrices: 2^20 x 8192 with 32 normal values a row (valued), the same
    shape with binary values (value-free layout), and 2^18 rows with an
    intercept column plus a zipf(1.1) column head (dense stripes engaged,
-   long column segments just below the stripe threshold).  Each operation
+   long column segments just below the stripe threshold).  The row side
+   (matvec, row_sq_matvec) runs the row kernel, the column side (rmatvec,
+   sq_rmatvec) the row-blocked column kernel and its combine; the script
+   prints G, R, the row blocks, the column ranges, the block table's and
+   the scratch's bytes and the table's host build time.  Each operation
    must agree with the plain version to rtol 1e-5 on the scale
    Σ|f(v)·x| of each output, repeat bitwise, and keep an inf in the
    input local to the outputs whose segments hold it.  Times are the
@@ -225,7 +231,14 @@ def phase_environment():
     _kernels.build_libraries()
     log(f"kernel builds: {len(_kernels.BUILD_INFO)} libraries in "
         f"{time.perf_counter() - t0:.2f} s, one nvcc each, in parallel")
-    production = []
+    # The FULL (mode 0) instances: 3 (UNIT, SQUARE) row and column
+    # instances for each lane group, and the combine kernel.
+    production = {"row": r"spmv_rows_kernelILi\d+ELi0E",
+                  "column": r"spmv_cols_kernelILi\d+ELi0E",
+                  "combine": r"spmv_combine_kernel"}
+    expected = {"row": 3 * len(_kernels.GROUPS),
+                "column": 3 * len(_kernels.GROUPS), "combine": 1}
+    found = {kind: [] for kind in production}
     for name, info in _kernels.BUILD_INFO.items():
         log(f"  {name}: {'built' if info['built'] else 'cached'} "
             f"{info['path']} ({info['seconds']:.2f} s)")
@@ -234,21 +247,63 @@ def phase_environment():
         for (mangled, regs, spill), pretty in zip(
                 kernels, demangle([k[0] for k in kernels])):
             log(f"    {pretty}: {regs} registers, {spill} bytes of spill")
-            if re.search(r"spmv_warp_kernelILi0E", mangled):
-                production.append((pretty, regs, spill))
-    check(len(production) == 3,
-          f"expected 3 production spmv instances, found {len(production)}")
-    check(all(spill == 0 for _, _, spill in production),
-          "a production spmv instance spills")
-    log(f"production spmv instances: registers "
-        f"{[regs for _, regs, _ in production]}, no spill")
+            for kind, pattern in production.items():
+                if name == "spmv" and re.search(pattern, mangled):
+                    found[kind].append((pretty, regs, spill))
+    for kind, n in expected.items():
+        check(len(found[kind]) == n, f"expected {n} production spmv {kind} "
+              f"instances, found {len(found[kind])}")
+        check(all(spill == 0 for _, _, spill in found[kind]),
+              f"a production spmv {kind} instance spills")
+        log(f"production spmv {kind} instances: registers "
+            f"{[regs for _, regs, _ in found[kind]]}, no spill")
     return smi
 
 
 def _side(M, op):
+    """(indptr, idx, val, n_in, t_indptr, t_idx) of ``op``'s CSR and of
+    the transposed one (for the inf probe)."""
     if op in ("matvec", "row_sq_matvec"):
         return M.f_indptr, M.f_idx, M.f_val, M.n_cols, M.b_indptr, M.b_idx
     return M.b_indptr, M.b_idx, M.b_val, M.n_rows, M.f_indptr, M.f_idx
+
+
+def spmv_kernel(M, op, v):
+    """``op``'s kernel on M's streamed entries (no dense stripes)."""
+    from photon_ml_tpu_torch.ops import _kernels
+
+    sq = "sq" in op
+    if op in _kernels.ROW_OPS:
+        return _kernels.spmv_rows(M.f_indptr, M.f_idx, M.f_val, v,
+                                  group=M.row_group, n_in=M.n_cols, op=op,
+                                  unit=M.unit_vals, square=sq)
+    return _kernels.spmv_cols(M.b_blockptr, M.b_idx, M.b_val, v,
+                              group=M.col_group, n_in=M.n_rows, op=op,
+                              unit=M.unit_vals, square=sq)
+
+
+def describe_layout(label, M):
+    """Log the two kernels' layout parameters; rebuild the block table on
+    the host to time it and check it is the matrix's."""
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.ops.sparse_cuda import row_block_table
+
+    b_indptr, b_idx = M.b_indptr.cpu().numpy(), M.b_idx.cpu().numpy()
+    t0 = time.perf_counter()
+    table = row_block_table(b_indptr, b_idx, M.n_rows)
+    table_s = time.perf_counter() - t0
+    check(np.array_equal(table, M.b_blockptr.cpu().numpy()),
+          f"{label}: block table differs from a host rebuild")
+    n_rb = table.shape[1] - 1
+    ranges = _kernels.col_ranges(M.col_group, M.n_cols, M.n_rows)
+    log(f"  {label} layout: G={M.row_group} lanes a row (mean streamed row "
+        f"{M.f_idx.shape[0] / M.n_rows:.2f} entries); R={_kernels.ROW_BLOCK}"
+        f" rows a block, n_rb={n_rb}, {M.col_group} lanes a column "
+        f"sub-range, {ranges} column ranges (grid {n_rb * ranges} CTAs; x "
+        f"restaged {ranges} times, {ranges * 4 * M.n_rows} bytes from L2), "
+        f"block table {table.nbytes} bytes, partial scratch "
+        f"{n_rb * M.n_cols * 4 if n_rb > 1 else 0} bytes, table host build "
+        f"{table_s:.3f} s")
 
 
 def kernel_vs_plain(label, M, gen):
@@ -257,6 +312,7 @@ def kernel_vs_plain(label, M, gen):
     from photon_ml_tpu_torch.ops import _kernels
 
     unit = M.unit_vals
+    describe_layout(label, M)
     out = {}
     for op in OPS:
         indptr, idx, val, n_in, t_indptr, t_idx = _side(M, op)
@@ -265,8 +321,7 @@ def kernel_vs_plain(label, M, gen):
         x = torch.randn(n_in, device=DEVICE, generator=gen)
 
         def kernel(v=x):
-            return _kernels.spmv(indptr, idx, val, v, n_in=n_in, op=op,
-                                 unit=unit, square=sq)
+            return spmv_kernel(M, op, v)
 
         def plain(v=x):
             return _kernels.spmv_plain(indptr, idx, val, v, unit=unit,
@@ -369,7 +424,7 @@ def ablation_vs_plain(M):
 
     out = {}
     for op in ablate.OPS:
-        indptr, idx, val, n_in = ablate.side(M, op)
+        indptr, idx, val, n_in, layout = ablate.side(M, op)
         x = ablate.operand(M, op)
         n_out, nnz = indptr.shape[0] - 1, idx.shape[0]
         with warnings.catch_warnings():  # "sparse CSR support is in beta"
@@ -385,7 +440,8 @@ def ablation_vs_plain(M):
         }
         for mode in ablate.MODES:
             def kernel(mode=mode):
-                return ablate.spmv_ablate(mode, indptr, idx, val, x, n_in, op)
+                return ablate.spmv_ablate(mode, indptr, idx, val, x, n_in, op,
+                                          **layout)
 
             def plain(mode=mode):
                 return ablate.spmv_ablate_plain(mode, indptr, idx, val, x,
@@ -810,13 +866,18 @@ def main() -> int:
         "phase 2: " + json.dumps({
             f"{v}.row_sq_matvec": kern[v]["row_sq_matvec"]
             for v in ("valued", "binary")}))
+    # The skewed matrix runs the valued instances: its records carry the
+    # valued main path's launches of the same operation.
     records = []
     for variant, suffix, launches in (("valued", "", lib_launches),
-                                      ("binary", "_unit", drv_launches)):
+                                      ("binary", "_unit", drv_launches),
+                                      ("skewed", "", lib_launches)):
         for op in ("matvec", "rmatvec", "sq_rmatvec"):
             r = kern[variant][op]
+            name = f"spmv.{op}{suffix}"
             records.append({
-                "name": f"spmv.{op}{suffix}", "route": "cuda",
+                "name": name + (".skewed" if variant == "skewed" else ""),
+                "route": "cuda",
                 "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
                 "launches": launches[op + suffix],
                 "max_abs_err": r["max_abs_err"], "ms": r["ms"],

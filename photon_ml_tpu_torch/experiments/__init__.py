@@ -10,8 +10,11 @@ it on the card:
                  passes captured as one CUDA graph;
 - ``g8192_v2`` — ``exp_g8192_v2.py``: the same mat-vec over the window
                  layout (``csrc/window_matvec.cu``);
-- ``ablate``   — ``exp_ablate.py``: the SpMV kernel with the gather, then
-                 every read of x, taken away (``csrc/spmv.cu``'s ``MODE``).
+- ``ablate``   — ``exp_ablate.py``: the SpMV row and column kernels with
+                 the gather, then every read of x, taken away
+                 (``csrc/spmv.cu``'s ``MODE``);
+- ``row_block`` — the port's own probe: the column kernel's row block R,
+                 chosen by timing the library built at each candidate R.
 
 Run each as ``python -m photon_ml_tpu_torch.experiments.<name>``; the card
 is the default, ``--device cpu`` runs the plain PyTorch versions.

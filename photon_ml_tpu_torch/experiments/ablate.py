@@ -4,13 +4,16 @@
     python -m photon_ml_tpu_torch.experiments.ablate [--rows N] [--device D]
 
 The reference ablates the TPU tile kernel on its production layout to find
-its dominant cost.  Here the production kernel ``csrc/spmv.cu`` runs on the
-port's production layout (the CSR of ``build_cuda_matrix`` for matvec, its
-CSC copy for rmatvec) in three modes:
+its dominant cost.  Here the production kernels of ``csrc/spmv.cu`` run on
+the port's production layout — the row kernel on the CSR of
+``build_cuda_matrix`` for matvec, the column kernel on its CSC copy and
+row-block table for rmatvec — in three modes:
 
 - ``full``     — the production kernel;
-- ``nogather`` — x read at ``x[k mod n_in]``, an address that does not
-                 depend on the index (the reference's ``nogather``);
+- ``nogather`` — x read at ``x[k mod n_in]``, k the entry's position in
+                 ``idx``: an address that does not depend on the index (the
+                 reference's ``nogather``; the column kernel then stages no
+                 u in shared memory);
 - ``stream``   — no x at all: the index and value streams and the segment
                  sums (the reference's ``dma``).
 
@@ -50,11 +53,15 @@ def spmv_ablate_plain(mode, indptr, idx, val, x, n_in):
     return torch.segment_reduce(val, "sum", offsets=indptr)
 
 
-def spmv_ablate(mode, indptr, idx, val, x, n_in, op):
+def spmv_ablate(mode, indptr, idx, val, x, n_in, op, *, group=None,
+                blockptr=None):
     """The valued SpMV ``y[r] = Σ_{k ∈ segment r} val[k]·x[…]`` in ablation
     ``mode`` (see the module docstring), counted under
-    ``LAUNCHES["spmv_ablate_<mode>_<op>"]``.  CUDA tensors run the kernel,
-    CPU tensors the plain version; any other device raises."""
+    ``LAUNCHES["spmv_ablate_<mode>_<op>"]``.  On the card matvec runs the
+    row kernel with ``group`` lanes a row and rmatvec the column kernel over
+    the row-block table ``blockptr`` (the segments of ``indptr`` cut into
+    row blocks) with ``group`` lanes a sub-range; CPU tensors run the plain
+    version over ``indptr``; any other device raises."""
     _kernels.need(mode in MODES, f"unknown mode {mode!r}; expected one of "
                   f"{MODES}", KERNEL)
     _kernels.need(op in OPS, f"unknown op {op!r}; expected one of {OPS}",
@@ -63,23 +70,35 @@ def spmv_ablate(mode, indptr, idx, val, x, n_in, op):
     _kernels.check_csr(indptr, idx, val, x, n_in, unit=False, kernel=KERNEL)
     if x.device.type == "cpu":
         return spmv_ablate_plain(mode, indptr, idx, val, x, n_in)
-    n_out = indptr.shape[0] - 1
-    y = torch.empty(n_out, dtype=torch.float32, device=x.device)
-    if n_out == 0:
-        return y
-    _kernels.launch("spmv", "photon_spmv_ablate", f"{KERNEL}_{mode}_{op}",
-                    x.device, _kernels.ABLATE_MODES.index(mode),
-                    indptr.data_ptr(), idx.data_ptr(), val.data_ptr(),
-                    x.data_ptr(), y.data_ptr(), n_out, n_in)
-    return y
+    key = f"{KERNEL}_{mode}_{op}"
+    code = _kernels.ABLATE_MODES.index(mode)
+    _kernels.need(group is not None, f"{op} needs the kernel's group",
+                  KERNEL)
+    if op == "matvec":
+        return _kernels.launch_rows(code, key, indptr, idx, val, x,
+                                    group=group, n_in=n_in, unit=False,
+                                    square=False)
+    _kernels.need(blockptr is not None
+                  and blockptr.shape[0] == indptr.shape[0] - 1,
+                  "rmatvec needs the row-block table of indptr's segments",
+                  KERNEL)
+    _kernels.check_blocks(blockptr, idx, val, x, n_in, unit=False,
+                          kernel=KERNEL)
+    return _kernels.launch_cols(code, key, blockptr, idx, val, x,
+                                group=group, n_in=n_in, unit=False,
+                                square=False)
 
 
 def side(M, op):
-    """``(indptr, idx, val, n_in)`` of the orientation ``op`` runs on: the
-    CSR for matvec, the CSC copy for rmatvec."""
+    """``(indptr, idx, val, n_in, layout)`` of the orientation ``op`` runs
+    on: the CSR for matvec (layout: its row group), the CSC copy for rmatvec
+    (layout: its row-block table and column group).  ``layout`` is the
+    keyword arguments of :func:`spmv_ablate`."""
     if op == "matvec":
-        return M.f_indptr, M.f_idx, M.f_val, M.n_cols
-    return M.b_indptr, M.b_idx, M.b_val, M.n_rows
+        return (M.f_indptr, M.f_idx, M.f_val, M.n_cols,
+                {"group": M.row_group})
+    return (M.b_indptr, M.b_idx, M.b_val, M.n_rows,
+            {"blockptr": M.b_blockptr, "group": M.col_group})
 
 
 def operand(M, op, seed: int = 1):
@@ -92,10 +111,11 @@ def operand(M, op, seed: int = 1):
 def run_mode(mode, M, op):
     """Time one mode on the valued matrix ``M`` for ``op``: ``(ms, clock)``,
     the median of single launches."""
-    indptr, idx, val, n_in = side(M, op)
+    indptr, idx, val, n_in, layout = side(M, op)
     x = operand(M, op)
     return common.timed_ms(
-        lambda: spmv_ablate(mode, indptr, idx, val, x, n_in, op), M.device)
+        lambda: spmv_ablate(mode, indptr, idx, val, x, n_in, op, **layout),
+        M.device)
 
 
 def main(argv=None) -> dict:
@@ -118,10 +138,10 @@ def main(argv=None) -> dict:
 
     times = {op: {} for op in OPS}
     for op in OPS:
-        indptr, idx, val, n_in = side(M, op)
+        indptr, idx, val, n_in, layout = side(M, op)
         x = operand(M, op)
         for mode in MODES:
-            y = spmv_ablate(mode, indptr, idx, val, x, n_in, op)
+            y = spmv_ablate(mode, indptr, idx, val, x, n_in, op, **layout)
             ref = spmv_ablate_plain(mode, indptr, idx, val, x, n_in)
             scale = spmv_ablate_plain(mode, indptr, idx, val.abs(), x.abs(),
                                       n_in)

@@ -7,9 +7,12 @@ a cost-model depth, a compact COO spill for overflow and a column
 permutation to balance hot windows.  A GPU gathers from its caches
 directly, so the port stores plain CSR for the row orientation and a CSC
 copy (the CSR of Xᵀ, built on the host) for the column orientation, and
-runs all four hot operations through one hand-written CUDA kernel
-(``csrc/spmv.cu`` via :func:`photon_ml_tpu_torch.ops._kernels.spmv`).  A CSR
-segment has no depth cap, so nothing spills.
+runs the four hot operations through two hand-written CUDA kernels
+(``csrc/spmv.cu``): the row kernel over the CSR, with ``row_group`` lanes a
+row (:func:`photon_ml_tpu_torch.ops._kernels.spmv_rows`), and the column
+kernel over the CSC copy cut into row blocks by ``b_blockptr``
+(:func:`row_block_table`, :func:`~photon_ml_tpu_torch.ops._kernels.spmv_cols`).
+A CSR segment has no depth cap, so nothing spills.
 
 Storage classes, split at build time exactly as the reference splits them:
 
@@ -36,7 +39,14 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device, to_numpy
-from photon_ml_tpu_torch.ops._kernels import spmv
+from photon_ml_tpu_torch.ops._kernels import (
+    ROW_BLOCK,
+    col_group,
+    n_row_blocks,
+    row_group,
+    spmv_cols,
+    spmv_rows,
+)
 from photon_ml_tpu_torch.ops.sparse import DenseMatrix, canonicalize_coo
 
 Tensor = torch.Tensor
@@ -103,9 +113,12 @@ class HostCoo:
 class CudaSparseMatrix:
     """Sparse feature matrix whose hot operations run in the CUDA kernel.
 
-    ``f_*``: row-major CSR (matvec, row_sq_matvec); ``b_*``: the CSC copy
-    (rmatvec, sq_rmatvec).  ``f_val``/``b_val`` are empty when
-    ``unit_vals`` (binary layout).  Dense stripes keep their true values."""
+    ``f_*``: row-major CSR (matvec, row_sq_matvec), summed with
+    ``row_group`` lanes a row; ``b_*``: the CSC copy (rmatvec, sq_rmatvec),
+    summed over the row blocks of ``b_blockptr`` with ``col_group`` lanes a
+    (column, row block) sub-range.  ``f_val``/``b_val`` are
+    empty when ``unit_vals`` (binary layout).  Dense stripes keep their
+    true values."""
 
     f_indptr: Tensor       # (n_rows + 1,) int64
     f_idx: Tensor          # (nnz_streamed,) int32 — column of each entry
@@ -120,6 +133,9 @@ class CudaSparseMatrix:
     host_coo: HostCoo
     n_rows: int
     n_cols: int
+    b_blockptr: Tensor     # (n_cols, n_rb + 1) int64 — row_block_table
+    row_group: int         # lanes a row of the row kernel (_kernels.GROUPS)
+    col_group: int         # lanes a sub-range of the column kernel
     unit_vals: bool = False
 
     @property
@@ -145,9 +161,9 @@ class CudaSparseMatrix:
 
     # -- hot paths ---------------------------------------------------------
     def _rows_side(self, v: Tensor, op: str, square: bool) -> Tensor:
-        out = spmv(self.f_indptr, self.f_idx, self.f_val, v.contiguous(),
-                   n_in=self.n_cols, op=op, unit=self.unit_vals,
-                   square=square)
+        out = spmv_rows(self.f_indptr, self.f_idx, self.f_val, v.contiguous(),
+                        group=self.row_group, n_in=self.n_cols, op=op,
+                        unit=self.unit_vals, square=square)
         if self.has_dense_cols:
             dc = self.dense_cols * self.dense_cols if square else self.dense_cols
             out = out + v[self.dense_col_ids] @ dc
@@ -158,9 +174,10 @@ class CudaSparseMatrix:
         return out
 
     def _cols_side(self, u: Tensor, op: str, square: bool) -> Tensor:
-        out = spmv(self.b_indptr, self.b_idx, self.b_val, u.contiguous(),
-                   n_in=self.n_rows, op=op, unit=self.unit_vals,
-                   square=square)
+        out = spmv_cols(self.b_blockptr, self.b_idx, self.b_val,
+                        u.contiguous(), group=self.col_group,
+                        n_in=self.n_rows, op=op, unit=self.unit_vals,
+                        square=square)
         if self.has_dense_cols:
             dc = self.dense_cols * self.dense_cols if square else self.dense_cols
             ids = self.dense_col_ids
@@ -214,6 +231,28 @@ def _indptr(seg_ids: np.ndarray, n: int) -> np.ndarray:
     return indptr
 
 
+def row_block_table(b_indptr: np.ndarray, b_idx: np.ndarray, n_rows: int,
+                    block_rows: int = ROW_BLOCK) -> np.ndarray:
+    """The column kernel's block table over a CSC layout whose rows ascend
+    within each column: ``table[j, t]`` is the first entry of column j whose
+    row is ``>= t·block_rows``, for t in ``[0, n_rb]`` with ``n_rb =
+    ceil(n_rows / block_rows)`` (at least 1).  So ``table[j, 0] =
+    b_indptr[j]``, ``table[j, n_rb] = b_indptr[j+1]``, and the entries of
+    column j in row block t are ``[table[j, t], table[j, t+1])``.  Shape
+    (n_cols, n_rb + 1), int64: one ``searchsorted`` over the entries' sorted
+    (column, row block) keys."""
+    b_indptr = np.asarray(b_indptr, np.int64)
+    n_cols = b_indptr.shape[0] - 1
+    n_rb = n_row_blocks(int(n_rows), block_rows)
+    keys = (np.repeat(np.arange(n_cols, dtype=np.int64) * n_rb,
+                      np.diff(b_indptr))
+            + np.asarray(b_idx, np.int64) // block_rows)
+    queries = (np.arange(n_cols, dtype=np.int64)[:, None] * n_rb
+               + np.arange(n_rb + 1, dtype=np.int64)[None, :])
+    return np.searchsorted(keys, queries.ravel(), side="left").reshape(
+        n_cols, n_rb + 1).astype(np.int64)
+
+
 def build_cuda_matrix(
     rows: np.ndarray,
     cols: np.ndarray,
@@ -233,7 +272,8 @@ def build_cuda_matrix(
     Canonicalize on the host (sum duplicates, sort, pad/validate the nnz
     budget), drop zero-valued entries (padding included: ``nnz`` still
     reports the budget), extract dense stripes, then lay the rest out as
-    CSR and CSC.  ``unit_values="auto"`` drops the value stream when every
+    CSR and CSC, with the CSC's row-block table and the kernels' lanes a
+    segment (from the mean streamed row and sub-range lengths).  ``unit_values="auto"`` drops the value stream when every
     streamed value is 1.0; ``True`` forces it (and refuses non-unit
     values), ``False`` keeps the valued layout."""
     if dtype != torch.float32:
@@ -286,6 +326,7 @@ def build_cuda_matrix(
     b_indptr = _indptr(c, n_cols)
     b_idx = r[order]
     b_val = v[order]
+    b_blockptr = row_block_table(b_indptr, b_idx, n_rows)
 
     def t(a, dt=None):
         return torch.as_tensor(np.ascontiguousarray(a, dt), device=dev)
@@ -300,6 +341,8 @@ def build_cuda_matrix(
         dense_rows=t(dense_rows), dense_row_ids=t(dense_row_ids, np.int64),
         host_coo=host_coo,
         n_rows=int(n_rows), n_cols=int(n_cols),
+        b_blockptr=t(b_blockptr), row_group=row_group(r.size, n_rows),
+        col_group=col_group(np.diff(b_blockptr, axis=1)),
         unit_vals=unit,
     )
 

@@ -26,7 +26,13 @@ from jax.experimental import pallas as pl
 
 from photon_ml_tpu.ops.sparse_pallas import TILE_C, WIN, WINS, build_pallas_matrix
 
-from photon_ml_tpu_torch.experiments import ablate, common, g8192, g8192_v2
+from photon_ml_tpu_torch.experiments import (
+    ablate,
+    common,
+    g8192,
+    g8192_v2,
+    row_block,
+)
 from photon_ml_tpu_torch.ops import _kernels
 from photon_ml_tpu_torch.ops.sparse_cuda import build_cuda_matrix
 
@@ -199,8 +205,9 @@ def test_ablate_full_matches_reference_kernel(ref_ablate, ablate_data):
     )(P.f_code.reshape(nbo * nbg, a, WIN), P.f_val.reshape(nbo * nbg, a, WIN),
       jnp.asarray(vec).reshape(nbg, WINS, WIN))
     ref = np.asarray(out).reshape(-1)[:n]
-    indptr, idx, val, n_in = ablate.side(M, "matvec")
-    y = ablate.spmv_ablate("full", indptr, idx, val, _t(w), n_in, "matvec")
+    indptr, idx, val, n_in, layout = ablate.side(M, "matvec")
+    y = ablate.spmv_ablate("full", indptr, idx, val, _t(w), n_in, "matvec",
+                           **layout)
     scale = np.bincount(rows, weights=np.abs(vals * w[cols]), minlength=n)
     _assert_close(y.numpy(), ref, scale)
 
@@ -209,9 +216,9 @@ def test_ablate_full_matches_reference_kernel(ref_ablate, ablate_data):
 @pytest.mark.parametrize("mode", ["stream", "nogather"])
 def test_ablate_modes_match_numpy(ablate_data, mode, op):
     _, _, _, M = ablate_data
-    indptr, idx, val, n_in = ablate.side(M, op)
+    indptr, idx, val, n_in, layout = ablate.side(M, op)
     x = ablate.operand(M, op)
-    y = ablate.spmv_ablate(mode, indptr, idx, val, x, n_in, op)
+    y = ablate.spmv_ablate(mode, indptr, idx, val, x, n_in, op, **layout)
     ip, v = indptr.numpy(), val.numpy().astype(np.float64)
     seg = np.repeat(np.arange(len(ip) - 1), np.diff(ip))
     if mode == "nogather":
@@ -251,7 +258,8 @@ def test_chain_matches_numpy_loop(ell, which):
 
 # -- (f) the entry points -------------------------------------------------------
 
-ENTRY_POINTS = {"g8192": g8192, "g8192_v2": g8192_v2, "ablate": ablate}
+ENTRY_POINTS = {"g8192": g8192, "g8192_v2": g8192_v2, "ablate": ablate,
+                "row_block": row_block}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -271,6 +279,10 @@ def test_main_runs_on_cpu(capsys, name):
         assert set(res["ms"]) == set(ablate.OPS)
         assert all(set(t) == set(ablate.MODES) for t in res["ms"].values())
         assert "nogather - stream" in printed
+    elif name == "row_block":
+        assert set(res["ms"]) == {"valued", "binary", "skewed"}
+        assert all(set(t) == {14, 15} for t in res["ms"].values())
+        assert "1 row blocks" in printed  # 8192 rows: one block of each R
     else:
         assert res["max_err"] is not None and res["max_err"] < 1e-3
         assert res["eager_ms_per_pass"] > 0 and "graph_ms_per_pass" not in res

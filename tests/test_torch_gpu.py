@@ -6,11 +6,12 @@ runs on a machine without JAX:
 
     python -m pytest --noconftest -q -m gpu tests/test_torch_gpu.py
 
-Tolerance: each kernel sums in its own fixed order (the SpMV a lane-strided
-order with a warp-shuffle tree, the ELL and window kernels one thread per
-output), the plain versions in PyTorch's reduction order, so they agree to
-rtol 1e-5 on the scale Σ|f(v)·x| of each output, and never bitwise.  Two
-launches of one kernel are bitwise equal (no atomics).
+Tolerance: each kernel sums in its own fixed order (the SpMV row and column
+kernels lane-strided with a shuffle tree, the column kernel then over its
+row blocks in order; the ELL and window kernels one thread per output), the
+plain versions in PyTorch's reduction order, so they agree to rtol 1e-5 on
+the scale Σ|f(v)·x| of each output, and never bitwise.  Two launches of one
+kernel are bitwise equal (no atomics).
 """
 
 import numpy as np
@@ -49,9 +50,44 @@ def _matrix(seed, n, d, k, unit, skew=False):
 
 
 def _side(M, op):
-    if op in ("matvec", "row_sq_matvec"):
+    """(indptr, idx, val, n_in) of the CSR ``op`` runs on: the plain
+    version's operands."""
+    if op in _kernels.ROW_OPS:
         return M.f_indptr, M.f_idx, M.f_val, M.n_cols
     return M.b_indptr, M.b_idx, M.b_val, M.n_rows
+
+
+def _kernel(M, op, x):
+    """``op``'s kernel launch on M's own layout (no dense stripes)."""
+    sq = "sq" in op
+    if op in _kernels.ROW_OPS:
+        return _kernels.spmv_rows(M.f_indptr, M.f_idx, M.f_val, x,
+                                  group=M.row_group, n_in=M.n_cols, op=op,
+                                  unit=M.unit_vals, square=sq)
+    return _kernels.spmv_cols(M.b_blockptr, M.b_idx, M.b_val, x,
+                              group=M.col_group, n_in=M.n_rows, op=op,
+                              unit=M.unit_vals, square=sq)
+
+
+def _check_ops(M, gen, ops=OPS):
+    """Every op's kernel against its plain version (rtol 1e-5 of
+    Σ|f(v)·x|), twice (bitwise), one launch count each."""
+    for op in ops:
+        indptr, idx, val, n_in = _side(M, op)
+        sq = "sq" in op
+        x = torch.randn(n_in, device=indptr.device, generator=gen)
+        _kernels.reset_launches()
+        y, y2 = _kernel(M, op, x), _kernel(M, op, x)
+        torch.cuda.synchronize()
+        assert _kernels.LAUNCHES[op + ("_unit" if M.unit_vals else "")] == 2
+        assert torch.equal(y, y2), op  # no atomics: bitwise repeatable
+        ref = _kernels.spmv_plain(indptr, idx, val, x, unit=M.unit_vals,
+                                  square=sq)
+        mag = (val.abs() if not M.unit_vals
+               else torch.ones_like(idx, dtype=x.dtype))
+        scale = _kernels.spmv_plain(indptr, idx, mag * mag if sq else mag,
+                                    x.abs(), unit=False)
+        assert _within(y, ref, scale), op
 
 
 @pytest.mark.parametrize("skew", [False, True], ids=["uniform", "zipf"])
@@ -64,24 +100,11 @@ def test_kernel_matches_plain(cuda, unit, skew):
         assert M.has_dense_cols
     C = from_coo(rows, cols, vals, 1 << 16, 8192, device=cuda)
     C_abs = from_coo(rows, cols, np.abs(vals), 1 << 16, 8192, device=cuda)
+    assert M.b_blockptr.shape == (8192, 3)  # 2^16 rows: two row blocks
     gen = torch.Generator(device=cuda).manual_seed(1)
+    _check_ops(M, gen)
     for op in OPS:
-        indptr, idx, val, n_in = _side(M, op)
-        sq = "sq" in op
-        x = torch.randn(n_in, device=cuda, generator=gen)
-        _kernels.reset_launches()
-        y = _kernels.spmv(indptr, idx, val, x, n_in=n_in, op=op, unit=unit,
-                          square=sq)
-        y2 = _kernels.spmv(indptr, idx, val, x, n_in=n_in, op=op, unit=unit,
-                           square=sq)
-        torch.cuda.synchronize()
-        assert _kernels.LAUNCHES[op + ("_unit" if unit else "")] == 2
-        assert torch.equal(y, y2)  # no atomics: bitwise repeatable
-        ref = _kernels.spmv_plain(indptr, idx, val, x, unit=unit, square=sq)
-        mag = val.abs() if not unit else torch.ones_like(idx, dtype=x.dtype)
-        scale = _kernels.spmv_plain(indptr, idx, mag * mag if sq else mag,
-                                    x.abs(), unit=False)
-        assert float(((y - ref).abs() - 1e-5 * scale).max()) <= 0.0, op
+        x = torch.randn(_side(M, op)[3], device=cuda, generator=gen)
         # The full matrix operation (stripes included) against the COO
         # matrix built from the same triples.
         full = getattr(M, op)(x)
@@ -112,13 +135,96 @@ def test_wrapper_refuses_bad_operands_on_the_card(cuda):
     val = torch.ones(2, device=cuda)
     x = torch.ones(3, device=cuda)
     with pytest.raises(ValueError, match="idx"):
-        _kernels.spmv(indptr, idx.long(), val, x, n_in=3, op="matvec",
-                      unit=False)
+        _kernels.spmv_rows(indptr, idx.long(), val, x, group=8, n_in=3,
+                           op="matvec", unit=False)
     with pytest.raises(ValueError, match="one device"):
-        _kernels.spmv(indptr, idx, val, x.cpu(), n_in=3, op="matvec",
-                      unit=False)
-    out = _kernels.spmv(indptr, idx, val, x, n_in=3, op="matvec", unit=False)
+        _kernels.spmv_rows(indptr, idx, val, x.cpu(), group=8, n_in=3,
+                           op="matvec", unit=False)
+    with pytest.raises(ValueError, match="group"):
+        _kernels.spmv_rows(indptr, idx, val, x, group=6, n_in=3,
+                           op="matvec", unit=False)
+    out = _kernels.spmv_rows(indptr, idx, val, x, group=8, n_in=3,
+                             op="matvec", unit=False)
     assert out.device.type == "cuda" and out.tolist() == [1.0, 1.0]
+    # A table cut into other row blocks than the library's is refused.
+    two_blocks = torch.tensor([[0, 1, 1], [1, 1, 2]], dtype=torch.int64,
+                              device=cuda)
+    with pytest.raises(ValueError, match="row blocks"):
+        _kernels.spmv_cols(two_blocks, idx, val, x, group=4, n_in=3,
+                           op="rmatvec", unit=False)
+    blockptr = two_blocks[:, ::2].contiguous()
+    for group in _kernels.GROUPS:
+        out = _kernels.spmv_cols(blockptr, idx, val, x, group=group, n_in=3,
+                                 op="rmatvec", unit=False)
+        assert out.tolist() == [1.0, 1.0]
+
+
+R = _kernels.ROW_BLOCK
+
+
+def _edge_case(case):
+    """(rows, cols, vals, n_rows, n_cols) for the row-block edge cases."""
+    rng = np.random.default_rng(7)
+    d = 512
+    if case == "column-in-every-block":
+        n = 3 * R + 123  # not a multiple of R: a short last block
+        rows = np.repeat(np.arange(n, dtype=np.int64), 2)
+        cols = rng.integers(1, d, size=2 * n)
+        hot = np.append(np.arange(0, n, R // 4), n - 1)  # column 0
+        rows, cols = np.append(rows, hot), np.append(cols, np.zeros_like(hot))
+    elif case == "empty-row-block":
+        n = 2 * R + R // 2
+        rows = np.repeat(np.arange(n, dtype=np.int64), 3)
+        rows = rows[(rows < R) | (rows >= 2 * R)]  # block 1 holds nothing
+        cols = rng.integers(0, d, size=rows.size)
+    elif case == "short-and-long-rows":
+        n = R + 1000  # rows of 1 entry, every 97th row of 120
+        long_rows = np.arange(0, n, 97, dtype=np.int64)
+        rows = np.concatenate([np.arange(n, dtype=np.int64),
+                               np.repeat(long_rows, 120)])
+        cols = np.concatenate([rng.integers(0, d, size=n),
+                               np.tile(np.arange(120) * 4 + 1,
+                                       long_rows.size)])
+    else:  # one row block: the column kernel writes y, nothing combines
+        n = 5000
+        rows = np.repeat(np.arange(n, dtype=np.int64), 6)
+        cols = rng.integers(0, d, size=rows.size)
+    keys = np.unique(rows * d + cols)
+    rows, cols = keys // d, keys % d
+    return rows, cols, rng.normal(size=rows.size).astype(np.float32), n, d
+
+
+@pytest.mark.parametrize("case", ["column-in-every-block", "empty-row-block",
+                                  "short-and-long-rows", "one-row-block"])
+@pytest.mark.parametrize("unit", [False, True], ids=["valued", "unit"])
+def test_kernels_on_row_block_edges(cuda, case, unit):
+    rows, cols, vals, n, d = _edge_case(case)
+    if unit:
+        vals = np.ones_like(vals)
+    M = build_cuda_matrix(rows, cols, vals, n, d, dense_budget_bytes=0,
+                          device=cuda)
+    assert M.unit_vals is unit and not M.has_dense_cols
+    n_rb = M.b_blockptr.shape[1] - 1
+    assert n_rb == -(-n // R)
+    bp = M.b_blockptr.cpu()
+    if case == "column-in-every-block":
+        assert bool((bp[0, 1:] > bp[0, :-1]).all())  # column 0 spans them
+    if case == "empty-row-block":
+        assert torch.equal(bp[:, 1], bp[:, 2])
+    if case == "short-and-long-rows":
+        assert M.row_group == 4
+        assert int((M.f_indptr[1:] - M.f_indptr[:-1]).max()) > 8 * 4
+    _check_ops(M, torch.Generator(device=cuda).manual_seed(3))
+    # An inf in u at the last row reaches exactly the columns holding it.
+    u = torch.ones(n, device=cuda)
+    base = _kernel(M, "rmatvec", u)
+    u[n - 1] = float("inf")
+    probe = _kernel(M, "rmatvec", u)
+    touched = torch.zeros(d, dtype=torch.bool, device=cuda)
+    touched[torch.as_tensor(cols[rows == n - 1], device=cuda)] = True
+    assert bool(touched.any())
+    assert bool((~torch.isfinite(probe[touched])).all())
+    assert torch.equal(probe[~touched], base[~touched])
 
 
 def _within(y, ref, scale):
@@ -202,15 +308,17 @@ def test_graph_chain_equals_eager_chain(cuda, which):
 
 @pytest.mark.parametrize("op", ablate.OPS)
 def test_ablation_modes_match_plain(cuda, op):
-    rows, cols, vals = _matrix(4, 1 << 14, 8192, 32, unit=False)
-    M = build_cuda_matrix(rows, cols, vals, 1 << 14, 8192,
-                          unit_values=False, device=cuda)
-    indptr, idx, val, n_in = ablate.side(M, op)
+    n = 3 * (1 << 14)  # one and a half row blocks of the column kernel
+    rows, cols, vals = _matrix(4, n, 8192, 32, unit=False)
+    M = build_cuda_matrix(rows, cols, vals, n, 8192, unit_values=False,
+                          device=cuda)
+    indptr, idx, val, n_in, layout = ablate.side(M, op)
     x = ablate.operand(M, op)
     _kernels.reset_launches()
     for mode in ablate.MODES:
-        y = ablate.spmv_ablate(mode, indptr, idx, val, x, n_in, op)
-        y2 = ablate.spmv_ablate(mode, indptr, idx, val, x, n_in, op)
+        y = ablate.spmv_ablate(mode, indptr, idx, val, x, n_in, op, **layout)
+        y2 = ablate.spmv_ablate(mode, indptr, idx, val, x, n_in, op,
+                                **layout)
         torch.cuda.synchronize()
         assert torch.equal(y, y2), mode
         ref = ablate.spmv_ablate_plain(mode, indptr, idx, val, x, n_in)
@@ -218,7 +326,7 @@ def test_ablation_modes_match_plain(cuda, op):
                                          x.abs(), n_in)
         assert _within(y, ref, scale), mode
         assert _kernels.LAUNCHES[f"spmv_ablate_{mode}_{op}"] == 2
-    # FULL is the production instance: bitwise the same as spmv.
-    prod = _kernels.spmv(indptr, idx, val, x, n_in=n_in, op=op, unit=False)
-    full = ablate.spmv_ablate("full", indptr, idx, val, x, n_in, op)
+    # FULL is the production instance: bitwise the same as the wrapper.
+    prod = _kernel(M, op, x)
+    full = ablate.spmv_ablate("full", indptr, idx, val, x, n_in, op, **layout)
     assert torch.equal(prod, full)

@@ -341,27 +341,39 @@ class TestWrapperAndBoundary:
 
     def test_wrapper_rejects_bad_operands(self):
         indptr = torch.tensor([0, 1, 2], dtype=torch.int64)
+        blockptr = torch.tensor([[0, 1], [1, 2]], dtype=torch.int64)
         idx = torch.tensor([0, 1], dtype=torch.int32)
         val = torch.ones(2)
         x = torch.ones(3)
-        out = _kernels.spmv(indptr, idx, val, x, n_in=3, op="matvec",
-                            unit=False)
-        assert out.tolist() == [1.0, 1.0]
-        with pytest.raises(ValueError, match="idx"):
-            _kernels.spmv(indptr, idx.long(), val, x, n_in=3, op="matvec",
-                          unit=False)
-        with pytest.raises(ValueError, match="x has"):
-            _kernels.spmv(indptr, idx, val, x, n_in=4, op="matvec",
-                          unit=False)
-        with pytest.raises(ValueError, match="val"):
-            _kernels.spmv(indptr, idx, val.double(), x, n_in=3, op="matvec",
-                          unit=False)
+
+        def rows(indptr=indptr, idx=idx, val=val, x=x, n_in=3, op="matvec"):
+            return _kernels.spmv_rows(indptr, idx, val, x, group=8,
+                                      n_in=n_in, op=op, unit=False)
+
+        def cols(blockptr=blockptr, idx=idx, val=val, x=x, n_in=3,
+                 op="rmatvec"):
+            return _kernels.spmv_cols(blockptr, idx, val, x, group=16,
+                                      n_in=n_in, op=op, unit=False)
+
+        assert rows().tolist() == [1.0, 1.0]
+        assert cols().tolist() == [1.0, 1.0]
+        for f in (rows, cols):
+            with pytest.raises(ValueError, match="idx"):
+                f(idx=idx.long())
+            with pytest.raises(ValueError, match="x has"):
+                f(n_in=4)
+            with pytest.raises(ValueError, match="val"):
+                f(val=val.double())
+            with pytest.raises(ValueError, match="unknown op"):
+                f(op="bogus")
+            with pytest.raises(ValueError, match="unsupported device"):
+                f(idx=idx.to("meta"), val=val.to("meta"), x=x.to("meta"),
+                  **({"indptr": indptr.to("meta")} if f is rows
+                     else {"blockptr": blockptr.to("meta")}))
         with pytest.raises(ValueError, match="unknown op"):
-            _kernels.spmv(indptr, idx, val, x, n_in=3, op="bogus",
-                          unit=False)
-        with pytest.raises(ValueError, match="unsupported device"):
-            _kernels.spmv(indptr.to("meta"), idx.to("meta"), val.to("meta"),
-                          x.to("meta"), n_in=3, op="matvec", unit=False)
+            rows(op="rmatvec")  # the row kernel serves the row side only
+        with pytest.raises(ValueError, match="blockptr"):
+            cols(blockptr=indptr)
 
     def test_float64_kernel_matrix_refused(self):
         with pytest.raises(ValueError, match="float32"):
