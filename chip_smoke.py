@@ -10,7 +10,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    once), with ptxas's registers and spills for each kernel.  The
    production SpMV instances (the row kernel's FULL instances for each
    lane group G, the column kernel's FULL instances and the combine
-   kernel) must spill nothing.
+   kernel) and the window kernel must spill nothing.
 2. Kernel against its plain PyTorch version, per operation, on three
    matrices: 2^20 x 8192 with 32 normal values a row (valued), the same
    shape with binary values (value-free layout), and 2^18 rows with an
@@ -42,7 +42,10 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    window kernel, each against its plain version on the reference's data
    (2^20 x 32 entries from an 8192-wide w, seed 0): rtol 1e-5, bitwise
    repeats, the graph chain bitwise equal to the eager one, the window
-   kernel against the ELL kernel when the layout spilled nothing; times
+   kernel against the ELL kernel when the layout spilled nothing, and its
+   NaN and inf outputs where the plain version has them for a w with an
+   inf read by padded slots and one at a live column; the window kernel's
+   design (tile, ring stages, accumulator copies, grid) is logged; times
    beside the byte bounds and cuSPARSE on the same entries.
 
 Launch counts are zeroed just before each main-path run of phases 3, 4
@@ -257,6 +260,13 @@ def phase_environment():
               f"a production spmv {kind} instance spills")
         log(f"production spmv {kind} instances: registers "
             f"{[regs for _, regs, _ in found[kind]]}, no spill")
+    window = [k for k in ptxas_kernels(
+        _kernels.BUILD_INFO["window_matvec"]["ptxas"])
+        if "window_matvec_kernel" in k[0]]
+    check(len(window) == 1, f"expected one window_matvec_kernel in the "
+          f"window_matvec build, found {len(window)}")
+    check(window[0][2] == 0, "window_matvec_kernel spills")
+    log(f"window_matvec_kernel: {window[0][1]} registers, no spill")
     return smi
 
 
@@ -806,6 +816,41 @@ def phase_experiments():
         check(bool(((o.reshape(-1) - m).abs() <= RTOL * scale).all()),
               "window_matvec: disagrees with the ELL kernel")
         log("  window == ELL kernel within rtol (nothing spilled)")
+    design = g8192_v2.window_config(DEVICE, lo_d.shape[0])
+    log(f"  window kernel design: S={design['tile']} sublanes a tile, "
+        f"P={design['stages']} ring stages "
+        f"({design['stages'] * 3 * design['tile'] * 512} B in flight a CTA), "
+        f"C={design['copies']} accumulator copies, {design['threads']} "
+        f"threads and {design['shared_bytes']} B of shared memory a CTA, "
+        f"grid {design['ctas']} CTAs for {lo_d.shape[0]} blocks")
+    check(design["stream_only"] == 0, "window_matvec: read-only build")
+
+    # Non-finite w: inf at w[5·128], read by every padded slot of window 5
+    # (0·inf = NaN in row group 0), and at a live column of window 9.
+    sub = slice(9 * g8192_v2.DEPTH, 10 * g8192_v2.DEPTH)
+    live = lo_d[0, sub][(vv_d[0, sub] != 0) & (lo_d[0, sub] != 0)]
+    w_inf = w_d.clone()
+    w_inf[5 * 128] = float("inf")
+    w_inf[9 * 128 + int(live[0])] = float("inf")
+    o_inf = g8192_v2.window_matvec(lo_d, vv_d, rhi_d, w_inf)
+    ref_inf = g8192_v2.window_matvec_plain(lo_d, vv_d, rhi_d, w_inf)
+    torch.cuda.synchronize()
+    for kind in (torch.isnan, torch.isposinf, torch.isneginf):
+        check(torch.equal(kind(o_inf), kind(ref_inf)),
+              f"window_matvec: {kind.__name__} positions differ from the "
+              f"plain version's for a non-finite w")
+    finite = torch.isfinite(ref_inf)
+    check(bool(torch.isnan(ref_inf[:, 0]).any())
+          and bool(torch.isinf(ref_inf).any()),
+          "window_matvec: the non-finite probe reached no output")
+    check(bool(((o_inf - ref_inf).abs()[finite] <= RTOL * wscale[finite])
+               .all()), "window_matvec: finite outputs beyond rtol with a "
+          "non-finite w")
+    log(f"  window non-finite w ok: {int(torch.isnan(o_inf).sum())} NaN and "
+        f"{int(torch.isinf(o_inf).sum())} inf outputs, where the plain "
+        f"version has them; the other {int(finite.sum())} within rtol")
+    del o_inf, ref_inf, w_inf, finite
+
     slots = lo_d.numel()
     win_bound = bytes_bound(12 * slots + 4 * d + 4 * o.numel(), 2 * slots)
     recs["window"] = dict(max_abs_err=float(werr.max()), ms=median_ms(win),

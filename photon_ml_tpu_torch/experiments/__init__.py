@@ -14,7 +14,10 @@ it on the card:
                  the gather, then every read of x, taken away
                  (``csrc/spmv.cu``'s ``MODE``);
 - ``row_block`` — the port's own probe: the column kernel's row block R,
-                 chosen by timing the library built at each candidate R.
+                 chosen by timing the library built at each candidate R;
+- ``window_ring`` — the port's own probe: the window kernel's tile, ring
+                 depth and accumulator copies, chosen the same way, with
+                 the read-only pass that gives its stream's ceiling.
 
 Run each as ``python -m photon_ml_tpu_torch.experiments.<name>``; the card
 is the default, ``--device cpu`` runs the plain PyTorch versions.

@@ -9,7 +9,9 @@ column // 128) and lane ``row % 128``, with ``lo = column % 128`` and
 ``rhi = (row % 8192) // 128`` beside its value.  The layout is built on
 the host by :func:`build_layout`, this package's own copy of the
 reference's; the mat-vec runs in the hand-written CUDA kernel
-``csrc/window_matvec.cu``.
+``csrc/window_matvec.cu`` (a ring of shared-memory stages filled by bulk
+copies, one owner thread per accumulator lane; its constants are reported
+by :func:`window_config`).
 
 The script builds the reference's data (2^20 rows, 32 entries a row, seed
 0), prints the layout's build time and spill, checks every row against
@@ -20,6 +22,7 @@ numpy when nothing spilled (as the reference does), and times a chain of
 from __future__ import annotations
 
 import argparse
+import ctypes
 import functools
 import time
 
@@ -38,6 +41,11 @@ A = W * DEPTH   # 4096 sublanes per block
 LANES = 128
 D = W * LANES   # 8192: the width of w the layout addresses
 KERNEL = "window_matvec"
+#: the kernel moves lo, v and rhi by bulk copies, which need their bases on
+#: a 16-byte boundary.
+ALIGN = 16
+CONFIG = ("tile", "stages", "copies", "threads", "shared_bytes", "ctas",
+          "stream_only")
 
 
 def build_layout(cols, vals, n_rows: int):
@@ -112,25 +120,53 @@ def _check(lo, v, rhi, w) -> None:
     need(all(t.device == w.device for t in (lo, v, rhi)),
          "all operands must live on one device")
     _kernels.check_device(w.device, KERNEL)
+    if w.device.type == "cuda":
+        need(all(t.data_ptr() % ALIGN == 0 for t in (lo, v, rhi)),
+             f"lo, v and rhi must start on a {ALIGN}-byte aligned address "
+             f"on the card (the kernel moves them by bulk copies)")
+
+
+def launch_window(library: str, key: str, lo, v, rhi, w):
+    """Launch the window kernel of ``library`` (``window_matvec`` or a
+    :func:`_kernels.variant` of it) on checked CUDA operands and count it
+    under ``LAUNCHES[key]``."""
+    nb = lo.shape[0]
+    out = torch.empty((nb, W, LANES), dtype=torch.float32, device=w.device)
+    if nb == 0:
+        return out
+    _kernels.launch(library, "photon_window_matvec", key, w.device,
+                    lo.data_ptr(), v.data_ptr(), rhi.data_ptr(),
+                    w.data_ptr(), out.data_ptr(), nb)
+    return out
 
 
 def window_matvec(lo, v, rhi, w):
     """``out[b, h, l] = Σ_{a: rhi[b,a,l]=h} v[b,a,l]·w[(a // 64)·128 +
     lo[b,a,l]]`` → ``(n_blocks, 64, 128)``, the margin of row
-    ``b·8192 + h·128 + l``.  CUDA tensors run the kernel, CPU tensors the
-    plain version; any other device raises.  ``lo`` in ``[0, 128)`` and
-    ``rhi`` in ``[0, 64)`` are :func:`build_layout`'s guarantee."""
+    ``b·8192 + h·128 + l``.  Every slot is summed, padded ones included, as
+    the reference sums them (a non-finite ``w[window·128]`` makes row group
+    0 NaN).  CUDA tensors run the kernel, CPU tensors the plain version; any
+    other device raises.  ``lo`` in ``[0, 128)`` and ``rhi`` in ``[0, 64)``
+    are :func:`build_layout`'s guarantee."""
     _check(lo, v, rhi, w)
     if w.device.type == "cpu":
         return window_matvec_plain(lo, v, rhi, w)
-    nb = lo.shape[0]
-    out = torch.empty((nb, W, LANES), dtype=torch.float32, device=w.device)
-    if nb == 0:
-        return out
-    _kernels.launch(KERNEL, "photon_window_matvec", KERNEL, w.device,
-                    lo.data_ptr(), v.data_ptr(), rhi.data_ptr(),
-                    w.data_ptr(), out.data_ptr(), nb)
-    return out
+    return launch_window(KERNEL, KERNEL, lo, v, rhi, w)
+
+
+def window_config(device, n_blocks: int, library: str = KERNEL) -> dict:
+    """The design of ``library``'s kernel on ``device``: S (``tile``
+    sublanes a stage), P (``stages``), C (accumulator ``copies``), threads
+    and dynamic shared bytes a CTA, the ``ctas`` of a launch over
+    ``n_blocks`` blocks, and whether it is the read-only build."""
+    lib = _kernels.load_library(library)
+    buf = (ctypes.c_int * len(CONFIG))()
+    with torch.cuda.device(device):
+        rc = lib.photon_window_config(n_blocks, buf)
+    if rc != 0:
+        raise RuntimeError(f"photon_window_config: CUDA error {rc} "
+                           f"({lib.photon_cuda_error_string(rc).decode()})")
+    return dict(zip(CONFIG, buf))
 
 
 def step(w, lo, v, rhi):
@@ -180,6 +216,10 @@ def main(argv=None) -> dict:
         if not err < 1e-3:
             raise RuntimeError(f"{KERNEL}: disagrees with numpy by {err}")
     print("correctness max err:", err)
+    if dev.type == "cuda":
+        design = window_config(dev, lo_d.shape[0])
+        print("kernel design: " + ", ".join(f"{k}={v}" for k, v in
+                                            design.items()))
 
     passes = functools.partial(step, lo=lo_d, v=v_d, rhi=rhi_d)
     out = {"rows": n, "n_spill": n_spill, "layout_seconds": build_s,

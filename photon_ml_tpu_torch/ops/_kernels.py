@@ -67,6 +67,7 @@ SIGNATURES = {
     },
     "window_matvec": {
         "photon_window_matvec": ([_P, _P, _P, _P, _P, _LL, _P], _I),
+        "photon_window_config": ([_LL, _P], _I),
     },
 }
 
@@ -96,6 +97,7 @@ LAUNCHES: dict[str, int] = {
     **{op + sfx: 0 for op in OPS for sfx in ("", "_unit")},
     "ell_matvec": 0,
     "window_matvec": 0,
+    "window_ring_probe": 0,
     "spmv_row_block_probe": 0,
     **{f"spmv_ablate_{mode}_{op}": 0
        for mode in ABLATE_MODES for op in ABLATE_OPS},

@@ -32,6 +32,7 @@ from photon_ml_tpu_torch.experiments import (
     g8192,
     g8192_v2,
     row_block,
+    window_ring,
 )
 from photon_ml_tpu_torch.ops import _kernels
 from photon_ml_tpu_torch.ops.sparse_cuda import build_cuda_matrix
@@ -139,11 +140,9 @@ def test_window_layout_is_the_reference_layout(ref_v2, monkeypatch, case):
 # -- (c) the window mat-vec ----------------------------------------------------
 
 
-@pytest.mark.parametrize("case", ["uniform", "overflow"])
-def test_window_plain_matches_reference_kernel(ref_v2, case):
-    cols, vals = _layout_case(case)
-    w = np.random.default_rng(4).normal(size=g8192_v2.D).astype(np.float32)
-    lo, v, rhi, spill = g8192_v2.build_layout(cols, vals, BLOCK)
+def _reference_window(ref_v2, lo, v, rhi, w):
+    """The reference's ``matvec_kernel`` over one block, in interpret mode,
+    with the per-sublane tables of ``make_matvec``."""
     A, W = g8192_v2.A, g8192_v2.W
     wt = jnp.repeat(jnp.asarray(w).reshape(W, 128), g8192_v2.DEPTH, axis=0)
     slots = pl.BlockSpec((1, A, 128), lambda i: (i, 0, 0))
@@ -155,6 +154,16 @@ def test_window_plain_matches_reference_kernel(ref_v2, case):
         out_specs=pl.BlockSpec((1, W, 128), lambda i: (i, 0, 0)),
         interpret=True,
     )(jnp.asarray(lo), jnp.asarray(v), jnp.asarray(rhi), wt)
+    return np.asarray(out)
+
+
+@pytest.mark.parametrize("case", ["uniform", "overflow"])
+def test_window_plain_matches_reference_kernel(ref_v2, case):
+    cols, vals = _layout_case(case)
+    w = np.random.default_rng(4).normal(size=g8192_v2.D).astype(np.float32)
+    lo, v, rhi, spill = g8192_v2.build_layout(cols, vals, BLOCK)
+    W = g8192_v2.W
+    out = _reference_window(ref_v2, lo, v, rhi, w)
     m = g8192_v2.window_matvec(_t(lo), _t(v), _t(rhi), _t(w))
     assert m.shape == (1, W, 128)
     scale = g8192_v2.window_matvec_plain(_t(lo), _t(np.abs(v)), _t(rhi),
@@ -164,6 +173,27 @@ def test_window_plain_matches_reference_kernel(ref_v2, case):
         ell_m = g8192.ell_matvec_plain(_t(cols.T), _t(vals.T), _t(w))
         _assert_close(m.numpy(), ell_m.numpy(),
                       np.abs(vals * w[cols]).sum(1))
+
+
+@pytest.mark.parametrize("case", ["uniform", "overflow"])
+def test_window_padded_slots_carry_nonfinite_w(ref_v2, case):
+    """The reference sums every slot, padded ones included: an inf at
+    w[5·128] reaches row group 0 as 0·inf = NaN through every padded slot
+    of window 5.  The plain version (what the card's kernel is held to)
+    puts NaN and inf in the same places; the rest agree within rtol."""
+    cols, vals = _layout_case(case)
+    w = np.random.default_rng(4).normal(size=g8192_v2.D).astype(np.float32)
+    w[5 * 128] = np.inf
+    lo, v, rhi, _ = g8192_v2.build_layout(cols, vals, BLOCK)
+    out = _reference_window(ref_v2, lo, v, rhi, w)
+    m = g8192_v2.window_matvec(_t(lo), _t(v), _t(rhi), _t(w)).numpy()
+    for kind in (np.isnan, np.isposinf, np.isneginf):
+        np.testing.assert_array_equal(kind(m), kind(out))
+    assert np.isnan(out[0, 0]).any()
+    finite = np.isfinite(out)
+    scale = g8192_v2.window_matvec_plain(_t(lo), _t(np.abs(v)), _t(rhi),
+                                         _t(np.abs(w))).numpy()
+    _assert_close(m[finite], out[finite], scale[finite])
 
 
 # -- (d) the ablation modes ----------------------------------------------------
@@ -259,7 +289,7 @@ def test_chain_matches_numpy_loop(ell, which):
 # -- (f) the entry points -------------------------------------------------------
 
 ENTRY_POINTS = {"g8192": g8192, "g8192_v2": g8192_v2, "ablate": ablate,
-                "row_block": row_block}
+                "row_block": row_block, "window_ring": window_ring}
 
 
 @pytest.mark.parametrize("name", sorted(ENTRY_POINTS))
@@ -283,10 +313,26 @@ def test_main_runs_on_cpu(capsys, name):
         assert set(res["ms"]) == {"valued", "binary", "skewed"}
         assert all(set(t) == {14, 15} for t in res["ms"].values())
         assert "1 row blocks" in printed  # 8192 rows: one block of each R
+    elif name == "window_ring":
+        assert set(res["ms"]) == {"plain"} and res["bound_ms"] > 0
     else:
         assert res["max_err"] is not None and res["max_err"] < 1e-3
         assert res["eager_ms_per_pass"] > 0 and "graph_ms_per_pass" not in res
         assert "correctness max err" in printed
+
+
+def test_window_ring_refuses_designs_that_do_not_fit():
+    assert window_ring.parse_designs("16x4x2,8x2x2") == [(16, 4, 2),
+                                                          (8, 2, 2)]
+    for bad in ("16x6x2", "12x4x1", "16x4x3"):  # 240 KB; S ∤ 64; C ∤ S
+        with pytest.raises(ValueError, match="227 KB"):
+            window_ring.parse_designs(bad)
+    names = {window_ring.library(d, ro) for d in
+             window_ring.parse_designs(window_ring.DESIGNS)
+             for ro in (False, True)}
+    assert len(names) == 2 * len(window_ring.DESIGNS.split(","))
+    assert all(n.startswith("window_matvec[PHOTON_WINDOW_TILE=")
+               for n in names)
 
 
 def test_plain_paths_do_not_count_launches(ell):

@@ -8,7 +8,9 @@ runs on a machine without JAX:
 
 Tolerance: each kernel sums in its own fixed order (the SpMV row and column
 kernels lane-strided with a shuffle tree, the column kernel then over its
-row blocks in order; the ELL and window kernels one thread per output), the
+row blocks in order; the ELL kernel one thread per output; the window
+kernel one owner thread per accumulator copy and lane, then its copies in
+order), the
 plain versions in PyTorch's reduction order, so they agree to rtol 1e-5 on
 the scale Σ|f(v)·x| of each output, and never bitwise.  Two launches of one
 kernel are bitwise equal (no atomics).
@@ -259,27 +261,120 @@ def test_ell_table_beyond_shared_memory_is_refused(cuda):
     assert m.tolist() == [2.0] * 64
 
 
-def test_window_kernel_matches_plain(cuda):
-    cols_T, vals_T, w = g8192.make_ell(3 * g8192_v2.BLOCK_ROWS, 32, 8192, 2)
-    lo, v, rhi, spill = g8192_v2.build_layout(cols_T.T, vals_T.T,
-                                              3 * g8192_v2.BLOCK_ROWS)
+WINDOW_CASES = ["1-block", "3-blocks", "133-blocks", "overflow"]
+
+
+def _window_case(case, cuda):
+    """(lo, v, rhi, w, ell) on the card: the reference's layout of 1 or 3
+    blocks, with ell = (cols_T, vals_T) when nothing spilled; a random
+    layout of 133 blocks, more than an H100 has SMs, so the persistent
+    grid wraps (ell None); or one block where every row of lane 0 puts its
+    32 entries in column window 0, so cell (window 0, lane 0) holds all 64
+    slots live and the rest spill (ell None)."""
+    B = g8192_v2.BLOCK_ROWS
+    if case == "133-blocks":
+        gen = torch.Generator(device=cuda).manual_seed(5)
+        shape = (133, g8192_v2.A, g8192_v2.LANES)
+        lo = torch.randint(0, 128, shape, generator=gen, device=cuda,
+                           dtype=torch.int32)
+        rhi = torch.randint(0, 64, shape, generator=gen, device=cuda,
+                            dtype=torch.int32)
+        live = torch.rand(shape, generator=gen, device=cuda) < 0.5
+        v = torch.randn(shape, generator=gen, device=cuda) * live
+        w = torch.randn(g8192_v2.D, generator=gen, device=cuda)
+        return lo, v, rhi, w, None
+    if case == "overflow":
+        rng = np.random.default_rng(3)
+        cols = rng.integers(0, 8192, size=(B, 32), dtype=np.int32)
+        vals = rng.normal(size=(B, 32)).astype(np.float32)
+        lane0 = np.arange(0, B, 128)
+        cols[lane0] = rng.integers(0, 128, size=(len(lane0), 32),
+                                   dtype=np.int32)
+        w = np.random.default_rng(4).normal(size=8192).astype(np.float32)
+        lo, v, rhi, spill = g8192_v2.build_layout(cols, vals, B)
+        assert spill > 0 and bool((v[0, :g8192_v2.DEPTH, 0] != 0).all())
+        ell = None
+    else:
+        nb = 1 if case == "1-block" else 3
+        cols_T, vals_T, w = g8192.make_ell(nb * B, 32, 8192, 2)
+        lo, v, rhi, spill = g8192_v2.build_layout(cols_T.T, vals_T.T, nb * B)
+        ell = (cols_T, vals_T) if spill == 0 else None
     lo, v, rhi, w = (torch.as_tensor(a, device=cuda) for a in (lo, v, rhi, w))
+    return lo, v, rhi, w, ell
+
+
+@pytest.mark.parametrize("case", WINDOW_CASES)
+def test_window_kernel_matches_plain(cuda, case):
+    lo, v, rhi, w, ell = _window_case(case, cuda)
+    nb = lo.shape[0]
     _kernels.reset_launches()
     out = g8192_v2.window_matvec(lo, v, rhi, w)
     out2 = g8192_v2.window_matvec(lo, v, rhi, w)
     torch.cuda.synchronize()
     assert _kernels.LAUNCHES["window_matvec"] == 2
-    assert out.shape == (3, 64, 128) and torch.equal(out, out2)
+    assert out.shape == (nb, 64, 128) and torch.equal(out, out2)
     ref = g8192_v2.window_matvec_plain(lo, v, rhi, w)
     scale = g8192_v2.window_matvec_plain(lo, v.abs(), rhi, w.abs())
     assert _within(out, ref, scale)
-    if spill == 0:
-        ell = g8192.ell_matvec(*(torch.as_tensor(a, device=cuda)
-                                 for a in (cols_T, vals_T)), w)
-        ell_scale = g8192.ell_matvec_plain(
-            torch.as_tensor(cols_T, device=cuda),
-            torch.as_tensor(vals_T, device=cuda).abs(), w.abs())
-        assert _within(out.reshape(-1), ell, ell_scale)
+    if ell is not None:
+        cols_T, vals_T = (torch.as_tensor(a, device=cuda) for a in ell)
+        m = g8192.ell_matvec(cols_T, vals_T, w)
+        ell_scale = g8192.ell_matvec_plain(cols_T, vals_T.abs(), w.abs())
+        assert _within(out.reshape(-1), m, ell_scale)
+
+
+def test_window_kernel_nonfinite_w_matches_plain(cuda):
+    """inf at w[5·128] (read by every padded slot of window 5: 0·inf = NaN
+    in row group 0) and at a live column of window 9: the kernel's NaN and
+    inf land where the plain version's do, the rest within rtol."""
+    lo, v, rhi, w, _ = _window_case("3-blocks", cuda)
+    sub = slice(9 * g8192_v2.DEPTH, 10 * g8192_v2.DEPTH)
+    live = lo[:, sub][(v[:, sub] != 0) & (lo[:, sub] != 0)]
+    w = w.clone()
+    w[5 * 128] = float("inf")
+    w[9 * 128 + int(live[0])] = float("inf")
+    out = g8192_v2.window_matvec(lo, v, rhi, w)
+    ref = g8192_v2.window_matvec_plain(lo, v, rhi, w)
+    torch.cuda.synchronize()
+    for kind in (torch.isnan, torch.isposinf, torch.isneginf):
+        assert torch.equal(kind(out), kind(ref)), kind.__name__
+    assert bool(torch.isnan(ref[:, 0]).any()) and bool(torch.isinf(ref).any())
+    finite = torch.isfinite(ref)
+    scale = g8192_v2.window_matvec_plain(lo, v.abs(), rhi, w.abs())
+    assert _within(out[finite], ref[finite], scale[finite])
+
+
+@pytest.mark.parametrize("operand", ["lo", "v", "rhi"])
+def test_window_kernel_refuses_misaligned_operands(cuda, operand):
+    """A contiguous view that starts 4 bytes past a 16-byte boundary: the
+    wrapper raises ValueError naming the alignment, and the library itself
+    refuses the launch (no bulk copy from a misaligned address)."""
+    lo, v, rhi, w, _ = _window_case("1-block", cuda)
+    ops = {"lo": lo, "v": v, "rhi": rhi}
+    t = ops[operand]
+    flat = torch.empty(t.numel() + 1, dtype=t.dtype, device=cuda)
+    view = flat[1:].view(t.shape)
+    view.copy_(t)
+    assert view.is_contiguous() and view.data_ptr() % 16 == 4
+    ops[operand] = view
+    with pytest.raises(ValueError, match="16-byte aligned"):
+        g8192_v2.window_matvec(ops["lo"], ops["v"], ops["rhi"], w)
+    with pytest.raises(RuntimeError, match="misaligned"):
+        g8192_v2.launch_window(g8192_v2.KERNEL, g8192_v2.KERNEL, ops["lo"],
+                               ops["v"], ops["rhi"], w)
+    assert torch.equal(g8192_v2.window_matvec_plain(ops["lo"], ops["v"],
+                                                    ops["rhi"], w),
+                       g8192_v2.window_matvec_plain(lo, v, rhi, w))
+
+
+def test_window_kernel_design_fits_the_card(cuda):
+    cfg = g8192_v2.window_config(cuda, 133)
+    sms = torch.cuda.get_device_properties(cuda).multi_processor_count
+    assert min(133, sms) <= cfg["ctas"] <= 133 and cfg["stream_only"] == 0
+    assert cfg["threads"] == 128 * cfg["copies"] + 32
+    ring = cfg["stages"] * 3 * cfg["tile"] * 512
+    assert cfg["shared_bytes"] == ring + (1 + cfg["copies"]) * 32768
+    assert cfg["shared_bytes"] <= 227 * 1024
 
 
 @pytest.mark.parametrize("which", ["g8192", "g8192_v2"])
