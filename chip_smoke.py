@@ -33,9 +33,31 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    L-BFGS over a λ grid on the 2^20 x 8192 valued data (make_glm_data →
    GlmOptimizationProblem.run_grid → score → AUC), checked against the
    plain (COO) objective at the solution.
+3b. The solvers at full width on phase 3's data (other losses: its
+   features with labels drawn from the bench's w_true margins), value
+   summed in float64: OWL-QN over a warm-started 3-λ logistic elastic-net
+   grid whose largest λ puts α·λ at the median |∂f/∂w_j| at w = 0 (it must
+   zero at least a tenth of the coefficients), and one L1 solve each for
+   squared, Poisson and smoothed-hinge losses; TRON on L2 logistic at
+   λ = 1; SPG on L2 logistic with a ±0.05 box on every coefficient.  Each
+   solve: the objective never rises and ends lower; value and gradient at
+   the solution match the plain objective (rtol 1e-5); OWL-QN converged,
+   |∂f/∂w_j| ≤ 1.01·λ1 at every zero, and the objective decrease a
+   diagonal Newton step on its pseudo-gradient would buy at most 1e-7 of
+   the objective; TRON converged, its objective within 1e-5 of L-BFGS's at
+   the same tolerance, its HVP matching the plain one; SPG inside its box
+   exactly, converged or reporting ``stalled``, its projected gradient
+   down to 0.1 of its start; one OWL-QN solve repeated bitwise.  Each
+   OWL-QN and the SPG solve is rerun stopped after half its iterations,
+   and that planted fault must fail its check.
+   Launch counts are zeroed before and read after each solver (matvec and
+   rmatvec must launch); evaluations and HVPs an iteration, the solve wall
+   and its kernel time (launches x phase 2's kernel ms) are logged.
 4. The slice through the driver: LIBSVM files with binary features in a
-   temporary directory, ``glm_driver.run(... --device cuda)``, the saved
-   model loaded back and its validation AUC recomputed on the host.
+   temporary directory, ``glm_driver.run(... --device cuda)`` three times
+   (L2 L-BFGS, ``--optimizer owlqn --reg-type elastic_net``, ``--solver
+   tron --reg-type l2``), each saved model loaded back and its validation
+   AUC recomputed on the host.
 5. The experiments (``photon_ml_tpu_torch/experiments/``) through their
    entry points at full size (``g8192``, ``g8192_v2``, ``ablate`` mains),
    then the ELL kernel and its chain captured as a CUDA graph, and the
@@ -48,12 +70,14 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    design (tile, ring stages, accumulator copies, grid) is logged; times
    beside the byte bounds and cuSPARSE on the same entries.
 
-Launch counts are zeroed just before each main-path run of phases 3, 4
-and 5 and read just after; every kernel those paths run must have
-launched.  The second-to-last line is the kernels' JSON record and the
+Launch counts are zeroed just before each main-path run of phases 3, 3b,
+4 and 5 and read just after; every kernel those paths run must have
+launched.  A kernel record's ``launches`` sums its main-path runs (phases 3
+and 3b for the valued instances, phase 4's three runs for the binary ones).  The second-to-last line is the kernels' JSON record and the
 last line ``{"ok": true, "device": {...}}``.
 """
 
+import dataclasses
 import functools
 import json
 import os
@@ -75,6 +99,24 @@ SKEW_ROWS = 1 << 18
 DRIVER_TRAIN_ROWS = 1 << 17
 DRIVER_VAL_ROWS = 1 << 15
 GRID = (10.0, 1.0, 0.1)
+# Phase 3b's relative solver tolerances.  OWL-QN stops on a relative
+# objective decrease of tol·1e-2 as readily as on its pseudo-gradient, so it
+# runs tighter.  Its KKT conditions: |g_j| ≤ λ1·(1 + KKT_ZERO) at the zeros,
+# and the objective decrease that a diagonal Newton step on the whole
+# pseudo-gradient would buy at most KKT_DECREMENT of F, 100 times the solve's
+# own stopping decrease.  SPG's projected-gradient norm must fall to
+# SPG_PG_DROP of its start even when it stops on its float32 value carry.
+# The same solves stopped after half their iterations must fail these checks.
+SOLVE_TOL = 1e-5
+OWLQN_TOL = 1e-7
+KKT_ZERO = 1e-2
+KKT_DECREMENT = 1e-7
+SPG_PG_DROP = 0.1
+DRIVER_RUNS = (
+    ("l2", ("--reg-type", "l2")),
+    ("elastic_net", ("--optimizer", "owlqn", "--reg-type", "elastic_net")),
+    ("tron", ("--solver", "tron", "--reg-type", "l2")),
+)
 N_TIMED = 50
 RTOL = 1e-5
 # H100 SXM peaks (NVIDIA data sheet): HBM3 bytes/s and f32 (non-tensor)
@@ -119,7 +161,7 @@ def bench_triples(seed=0):
     np.add.at(margins, rows, vals * w_true[cols])
     y = (rng.uniform(size=N_ROWS) < 1 / (1 + np.exp(-margins))).astype(
         np.float32)
-    return rows, cols, vals, y
+    return rows, cols, vals, y, margins
 
 
 def binary_rows(rng, n, d, k):
@@ -395,7 +437,7 @@ def kernel_vs_plain(label, M, gen):
 def phase_kernels(bench):
     from photon_ml_tpu_torch.ops.sparse_cuda import build_cuda_matrix
 
-    rows, cols, vals, _ = bench
+    rows, cols, vals, _, _ = bench
     gen = torch.Generator(device=DEVICE).manual_seed(0)
     results = {}
     rng = np.random.default_rng(1)
@@ -517,7 +559,7 @@ def phase_library(bench):
         RegularizationContext,
     )
 
-    rows, cols, vals, y = bench
+    rows, cols, vals, y, _ = bench
     X = sp.csr_matrix((vals, (rows, cols)), shape=(N_ROWS, N_FEATURES))
     t0 = time.perf_counter()
     data = make_glm_data(X, y, device=DEVICE)
@@ -578,28 +620,355 @@ def phase_library(bench):
     w = [m for lam, m, _ in grid if lam == best][0].coefficients.means
     plain_data = make_glm_data(X, y, use_kernel=False, device=DEVICE)
     obj = problem.objective
-    val_k, grad_k = obj.value_and_grad(w, data, best)
-    val_p, grad_p = obj.value_and_grad(w, plain_data, best)
-    m = obj.margins(w, plain_data)
-    u = (plain_data.weights * obj.loss.d1(m, plain_data.labels)).abs()
     F = plain_data.features
-    gscale = type(F)(F.row_ids, F.col_ids, F.values.abs(), F.n_rows,
-                     F.n_cols).rmatvec(u) + best * w.abs()
-    val_err = abs(float(val_k) - float(val_p)) / abs(float(val_p))
-    grad_err = float(((grad_k - grad_p).abs() / gscale.clamp_min(1e-30))
-                     .max())
+    abs_F = type(F)(F.row_ids, F.col_ids, F.values.abs(), F.n_rows, F.n_cols)
+    val_err, grad_err = objective_vs_plain(obj, w, data, plain_data, best,
+                                           abs_F)
     check(val_err <= RTOL, f"library: value vs plain {val_err:.3g}")
     check(grad_err <= RTOL, f"library: gradient vs plain {grad_err:.3g}")
     log(f"library: value_and_grad vs plain at the solution: value rel err "
         f"{val_err:.3g}, gradient err {grad_err:.3g} of Σ|x·u|")
-    del plain_data, F
 
     # Primary metric: rows per second of one value+grad pass.
     ms = median_ms(lambda: obj.value_and_grad(w, data, best), n=20)
     log(f"library: value+grad pass {ms:.4f} ms = "
         f"{N_ROWS / (ms / 1e3):.4g} rows/s")
     return launches, dict(rows_per_s=N_ROWS / (ms / 1e3),
-                          grid_wall_s=wall, iterations=iters)
+                          grid_wall_s=wall, iterations=iters), (
+        data, plain_data, abs_F)
+
+
+def objective_vs_plain(obj, w, data, plain_data, l2, abs_F):
+    """The kernel path's value and gradient at ``w`` against the plain
+    (COO) objective's: (value error relative to Σ|weight·ℓ| + ½·l2·‖w‖²,
+    the largest gradient error relative to its Σ|x·u| + l2·|w|).
+    ``abs_F`` is the COO matrix of |x|."""
+    val_k, grad_k = obj.value_and_grad(w, data, l2)
+    val_p, grad_p = obj.value_and_grad(w, plain_data, l2)
+    m = obj.margins(w, plain_data)
+    labels, weights = plain_data.labels, plain_data.weights
+    vscale = (weights * obj.loss.value(m, labels)).abs().sum() + (
+        0.5 * l2 * torch.dot(w, w))
+    u = (weights * obj.loss.d1(m, labels)).abs()
+    gscale = abs_F.rmatvec(u) + l2 * w.abs()
+    val_err = abs(float(val_k) - float(val_p)) / float(vscale)
+    grad_err = float(((grad_k - grad_p).abs() / gscale.clamp_min(1e-30))
+                     .max())
+    return val_err, grad_err
+
+
+def pseudo_gradient_host(w, g, l1):
+    """OWL-QN's pseudo-gradient of f + l1·‖w‖₁ on the host, in float64:
+    its entries are the KKT violations (g_j + l1·sign(w_j) on the support,
+    max(|g_j| − l1, 0) at zeros)."""
+    w, g = (t.double().cpu().numpy() for t in (w, g))
+    return np.where(w != 0, g + l1 * np.sign(w),
+                    np.sign(g) * np.maximum(np.abs(g) - l1, 0.0))
+
+
+def solver_labels(margins, seed=5):
+    """Labels for the other losses from the bench's own w_true margins
+    (numpy, seeded): squared loss margin + N(0, 1) noise; Poisson counts at
+    exp(0.25·margin), far from overflowing exp; smoothed hinge {0, 1} (the
+    loss maps them to ±1) from the sign of margin + noise."""
+    rng = np.random.default_rng(seed)
+    noise = rng.normal(size=margins.shape).astype(np.float32)
+    return {
+        "linear": margins + noise,
+        "poisson": rng.poisson(np.exp(0.25 * margins)).astype(np.float32),
+        "smoothed_hinge": (margins + noise > 0).astype(np.float32),
+    }
+
+
+def phase_solvers(data, plain_data, abs_F, margins, kern):
+    """Phase 3b: OWL-QN, TRON and SPG through GlmOptimizationProblem at full
+    width on phase 3's data (other losses: its features with new labels).
+    Returns ({op: launches}, {solver: record})."""
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        GlmOptimizationProblem,
+        OptimizerConfig,
+        OptimizerType,
+    )
+    from photon_ml_tpu_torch.optim.regularization import (
+        RegularizationContext,
+    )
+
+    t_phase = time.perf_counter()
+    kernel_ms = {op: kern["valued"][op]["ms"] for op in OPS}
+    total = {op: 0 for op in OPS}
+    records = {}
+
+    def problem(task, reg, optimizer=OptimizerType.LBFGS, tol=SOLVE_TOL,
+                max_iters=100):
+        # The value summed in float64 (the driver's --precise-accumulation):
+        # a float32 sum over 2^20 rows rounds at ~1e-7 relative, which is
+        # where these tolerances' decisions are taken.
+        return GlmOptimizationProblem(task, GlmOptimizationConfig(
+            optimizer=OptimizerConfig(optimizer=optimizer,
+                                      max_iters=max_iters, tolerance=tol),
+            regularization=reg), accumulate="f64")
+
+    def with_labels(task):
+        if task == "logistic":
+            return data, plain_data
+        y = torch.as_tensor(labels[task], device=DEVICE)
+        return (dataclasses.replace(data, labels=y),
+                dataclasses.replace(plain_data, labels=y))
+
+    def run(name, fn):
+        """One solver's main-path run under zeroed launch counters."""
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {op: _kernels.LAUNCHES[op] for op in OPS}
+        for op in OPS:
+            total[op] += launches[op]
+        check(launches["matvec"] > 0 and launches["rmatvec"] > 0,
+              f"solvers {name}: matvec/rmatvec never launched")
+        k_ms = sum(launches[op] * kernel_ms[op] for op in OPS)
+        log(f"solvers {name}: wall {wall:.3f} s, kernel time "
+            f"{k_ms / 1e3:.3f} s (launches x phase-2 kernel ms), launches "
+            f"{json.dumps({op: n for op, n in launches.items() if n})}")
+        return out, launches, wall, k_ms
+
+    def check_solve(name, res, obj, d, pd, l2):
+        v = res.values.numpy()[: res.iterations + 1].astype(np.float64)
+        check(bool(np.all(np.diff(v) <= 0)), f"solvers {name}: objective rose")
+        check(res.iterations > 0 and v[-1] < v[0],
+              f"solvers {name}: objective did not decrease")
+        val_err, grad_err = objective_vs_plain(obj, res.w, d, pd, l2, abs_F)
+        check(val_err <= RTOL and grad_err <= RTOL,
+              f"solvers {name}: kernel vs plain value {val_err:.3g}, "
+              f"gradient {grad_err:.3g}")
+        log(f"solvers {name}: value_and_grad vs plain at the solution: "
+            f"value rel err {val_err:.3g}, gradient err {grad_err:.3g}")
+        return v
+
+    def owlqn_record(name, res, l1, v):
+        zeros = int((res.w == 0).sum())
+        log(f"solvers {name}: λ1={l1:.6g}, {res.iterations} iterations, "
+            f"converged {res.converged}, value {v[0]:.8g} -> {v[-1]:.8g}, "
+            f"{zeros} of {N_FEATURES} coefficients zero")
+        return dict(iterations=res.iterations, converged=res.converged,
+                    zeros=zeros, nonzeros=N_FEATURES - zeros, l1=l1,
+                    value=v[-1])
+
+    def costs(launches, wall, k_ms, iterations, n_solves=1):
+        """Evaluations (one rmatvec each: OWL-QN and SPG run no HVP) an
+        iteration, beside the wall and kernel time."""
+        evals = launches["rmatvec"]
+        return dict(evals=evals,
+                    evals_per_iter=(evals - n_solves) / max(iterations, 1),
+                    hvps=0, wall_s=wall, kernel_s=k_ms / 1e3)
+
+    def kkt_residuals(res, obj, d, l1, l2):
+        """(max |g_j|/λ1 over the zeros, max |g_j + λ1·sign(w_j)|/λ1 over
+        the support, Σ_j pg_j²/(2·H_jj) / |F|) at res.w: pg is the
+        pseudo-gradient and H_jj = Σ_i x_ij²·ℓ''_i + l2 the smooth part's
+        diagonal curvature, so the last is the objective decrease that a
+        diagonal Newton step on the residual would buy, relative to F."""
+        f, g = obj.value_and_grad(res.w, d, l2)
+        hdiag = d.features.sq_rmatvec(obj.d2_weights(res.w, d)) + l2
+        f_all = float(f) + l1 * float(res.w.double().abs().sum())
+        w, g = res.w.double().cpu().numpy(), g.double().cpu().numpy()
+        hdiag = hdiag.double().cpu().numpy()
+        pg = pseudo_gradient_host(res.w, torch.as_tensor(g), l1)
+        zero = w == 0
+        at_zero = float((np.abs(g[zero]) / l1).max(initial=0.0))
+        support = float((np.abs(g[~zero] + l1 * np.sign(w[~zero])) / l1)
+                        .max(initial=0.0))
+        dec = float((pg * pg / (2 * np.maximum(hdiag, 1e-30))).sum()
+                    / abs(f_all))
+        return at_zero, support, dec
+
+    def kkt_holds(residuals):
+        at_zero, _, dec = residuals
+        return at_zero <= 1 + KKT_ZERO and dec <= KKT_DECREMENT
+
+    def kkt(name, res, half, obj, d, l1, l2):
+        """OWL-QN's KKT conditions at res.w (the zeros against λ1, the
+        whole residual through its decrement); ``half`` is the same solve
+        stopped after half its iterations, which must fail them.  Logs the
+        per-coordinate size of the gradient's terms, Σ_i |x_ij·u_i| with
+        u = weight·ℓ'(margin), beside λ1."""
+        full, cut = kkt_residuals(res, obj, d, l1, l2), kkt_residuals(
+            half, obj, d, l1, l2)
+        m = obj.margins(res.w, d)
+        u = (d.weights * obj.loss.d1(m, d.labels)).abs()
+        terms = abs_F.rmatvec(u)
+        log(f"solvers {name}: KKT |g|/λ1 at zeros {full[0]:.6g} (<= "
+            f"{1 + KKT_ZERO:g}), |g + λ1·sign(w)|/λ1 on the support "
+            f"{full[1]:.3g}, decrement {full[2]:.3g} (<= {KKT_DECREMENT:g}); "
+            f"λ1 {l1:.6g} beside "
+            f"Σ|x·u| median {float(terms.median()):.6g}, max "
+            f"{float(terms.max()):.6g}; stopped after {half.iterations} of "
+            f"{res.iterations} iterations: {cut[0]:.6g} at zeros, "
+            f"{cut[1]:.3g} on the support, decrement {cut[2]:.3g}")
+        check(res.converged and kkt_holds(full),
+              f"solvers {name}: converged {res.converged}, KKT residual "
+              f"{full[0]:.6g} at zeros, decrement {full[2]:.3g}")
+        check(not kkt_holds(cut),
+              f"solvers {name}: the KKT check passes the solve stopped "
+              f"after {half.iterations} iterations")
+
+    labels = solver_labels(margins)
+
+    # -- OWL-QN: logistic elastic net over a warm-started grid -----------
+    obj0 = problem("logistic", RegularizationContext.l2()).objective
+    _, g0 = obj0.value_and_grad(torch.zeros(N_FEATURES, device=DEVICE), data)
+    alpha = 0.5
+    # The largest λ puts α·λ at the median |∂f/∂w_j| at w = 0: half the
+    # coefficients start inside their zero interval.
+    lam_max = float(torch.quantile(g0.abs(), 0.5)) / alpha
+    grid = [lam_max, lam_max / 10, lam_max / 100]
+    en = problem("logistic", RegularizationContext.elastic_net(alpha),
+                 tol=OWLQN_TOL, max_iters=200)
+    out, launches, wall, k_ms = run(
+        "owlqn elastic-net grid", lambda: en.run_grid(data, grid))
+    grid_recs = []
+    w_prev = None
+    for lam, _, res in out:
+        l1 = float(np.float32(alpha) * np.float32(lam))
+        l2 = float(np.float32(1 - alpha) * np.float32(lam))
+        name = f"owlqn logistic elastic-net λ={lam:.6g}"
+        v = check_solve(name, res, en.objective, data, plain_data, l2)
+        half = problem("logistic", RegularizationContext.elastic_net(alpha),
+                       tol=OWLQN_TOL, max_iters=res.iterations // 2)
+        kkt(name, res, half.solve_single_device(data, lam, w_prev),
+            en.objective, data, l1, l2)
+        w_prev = res.w
+        grid_recs.append(dict(owlqn_record(name, res, l1, v), lam=lam,
+                              wall_s=en.grid_wall_seconds[lam]))
+        log(f"solvers {name}: solve wall {en.grid_wall_seconds[lam]:.3f} s")
+    check(grid_recs[0]["zeros"] >= N_FEATURES // 10,
+          f"solvers: the largest elastic-net λ zeroes only "
+          f"{grid_recs[0]['zeros']} coefficients")
+    iters = sum(r["iterations"] for r in grid_recs)
+    records["owlqn.elastic_net_grid"] = dict(
+        costs(launches, wall, k_ms, iters, n_solves=len(grid)),
+        iterations=iters, grid=grid_recs)
+    log(f"solvers owlqn elastic-net grid: {iters} iterations, "
+        f"{records['owlqn.elastic_net_grid']['evals_per_iter']:.2f} "
+        f"evaluations an iteration")
+
+    # -- OWL-QN: one L1 solve each for the other losses -------------------
+    for task in ("linear", "poisson", "smoothed_hinge"):
+        d, pd = with_labels(task)
+        l1p = problem(task, RegularizationContext.l1(), tol=OWLQN_TOL,
+                      max_iters=200)
+        _, g0 = l1p.objective.value_and_grad(
+            torch.zeros(N_FEATURES, device=DEVICE), d)
+        lam = float(torch.quantile(g0.abs(), 0.5))
+        name = f"owlqn {task} l1"
+        res, launches, wall, k_ms = run(name, lambda: l1p.solve(d, lam))
+        l1 = float(np.float32(lam))
+        v = check_solve(name, res, l1p.objective, d, pd, 0.0)
+        half = problem(task, RegularizationContext.l1(), tol=OWLQN_TOL,
+                       max_iters=res.iterations // 2)
+        kkt(name, res, half.solve(d, lam), l1p.objective, d, l1, 0.0)
+        records[f"owlqn.{task}_l1"] = dict(
+            owlqn_record(name, res, l1, v),
+            **costs(launches, wall, k_ms, res.iterations))
+        if task == "linear":
+            again = l1p.solve(d, lam)
+            check(torch.equal(again.w, res.w),
+                  f"solvers {name}: a repeated solve is not bitwise equal")
+            log(f"solvers {name}: repeated solve bitwise equal")
+        del d, pd
+
+    # -- TRON: L2 logistic at λ = 1, against L-BFGS -----------------------
+    tp = problem("logistic", RegularizationContext.l2(), OptimizerType.TRON)
+    res, launches, wall, k_ms = run("tron logistic l2",
+                                    lambda: tp.solve(data, 1.0))
+    v = check_solve("tron", res, tp.objective, data, plain_data, 1.0)
+    check(res.converged, "solvers tron: not converged")
+    lb = problem("logistic", RegularizationContext.l2(), max_iters=300)
+    ref = lb.solve(data, 1.0)
+    gap = abs(float(res.value) - float(ref.value)) / abs(float(ref.value))
+    check(ref.converged and gap <= 1e-5,
+          f"solvers tron: objective {float(res.value):.9g} vs L-BFGS "
+          f"{float(ref.value):.9g} (gap {gap:.3g}, L-BFGS converged "
+          f"{ref.converged})")
+    # Its Hessian-vector product through the kernels against the plain one.
+    vec = torch.randn(N_FEATURES, device=DEVICE,
+                      generator=torch.Generator(device=DEVICE).manual_seed(9))
+    hv_k = tp.objective.hvp(res.w, vec, data, 1.0)
+    hv_p = tp.objective.hvp(res.w, vec, plain_data, 1.0)
+    d2w = tp.objective.d2_weights(res.w, plain_data)
+    hscale = abs_F.rmatvec(d2w * abs_F.matvec(vec.abs())) + vec.abs()
+    hvp_err = float(((hv_k - hv_p).abs() / hscale).max())
+    check(hvp_err <= RTOL, f"solvers tron: HVP vs plain {hvp_err:.3g}")
+    evals = res.iterations + 1  # the start and one trial an iteration
+    hvps = launches["rmatvec"] - evals
+    records["tron.logistic_l2"] = dict(
+        iterations=res.iterations, converged=res.converged, evals=evals,
+        evals_per_iter=1.0, hvps=hvps, hvps_per_iter=hvps / res.iterations,
+        wall_s=wall, kernel_s=k_ms / 1e3, value=v[-1], lbfgs_gap=gap,
+        lbfgs_iterations=ref.iterations)
+    log(f"solvers tron: {res.iterations} iterations, converged, value "
+        f"{v[0]:.8g} -> {v[-1]:.8g}; {hvps} HVPs "
+        f"({hvps / res.iterations:.2f} an iteration), {evals} evaluations, "
+        f"{launches['matvec'] - launches['rmatvec']} d2 passes; L-BFGS "
+        f"{ref.iterations} iterations, objective gap {gap:.3g}; HVP vs "
+        f"plain {hvp_err:.3g}")
+
+    # -- SPG: L2 logistic with a box on every coefficient -----------------
+    cap = 0.05
+    lower = torch.full((N_FEATURES,), -cap, device=DEVICE)
+    upper = torch.full((N_FEATURES,), cap, device=DEVICE)
+    sp_ = problem("logistic", RegularizationContext.l2())
+    res, launches, wall, k_ms = run(
+        "spg logistic l2 box", lambda: sp_.solve(data, 1.0,
+                                                 bounds=(lower, upper)))
+    v = check_solve("spg", res, sp_.objective, data, plain_data, 1.0)
+    check(bool(((res.w >= lower) & (res.w <= upper)).all()),
+          "solvers spg: a coefficient left its box")
+    def pg_norm(w):
+        _, g = sp_.objective.value_and_grad(w, data, 1.0)
+        return float(torch.linalg.vector_norm(
+            w - torch.clamp(w - g, lower, upper)))
+
+    pg, pg0 = pg_norm(res.w), float(res.grad_norms[0])
+    eps = SOLVE_TOL * max(1.0, pg0)
+    half = problem("logistic", RegularizationContext.l2(),
+                   max_iters=res.iterations // 2).solve(
+                       data, 1.0, bounds=(lower, upper))
+    pg_half = pg_norm(half.w)
+    log(f"solvers spg: projected gradient by iteration "
+        f"{[float(x) for x in res.grad_norms[: res.iterations + 1]]}; "
+        f"stopped after {half.iterations} iterations: {pg_half:.3g}")
+    check((res.converged and pg <= eps) or res.stalled,
+          f"solvers spg: projected gradient {pg:.3g} (tolerance {eps:.3g}), "
+          f"converged {res.converged}, stalled {res.stalled}")
+    check(pg <= SPG_PG_DROP * pg0,
+          f"solvers spg: projected gradient {pg:.3g}, above {SPG_PG_DROP:g} "
+          f"of its start {pg0:.3g}")
+    check(pg_half > SPG_PG_DROP * pg0,
+          f"solvers spg: the solve stopped after {half.iterations} "
+          f"iterations already has projected gradient {pg_half:.3g} <= "
+          f"{SPG_PG_DROP:g} x {pg0:.3g}")
+    at_bound = int(((res.w == lower) | (res.w == upper)).sum())
+    rec = records["spg.logistic_l2_box"] = dict(
+        costs(launches, wall, k_ms, res.iterations),
+        iterations=res.iterations, converged=res.converged,
+        stalled=res.stalled, value=v[-1], at_bound=at_bound,
+        projected_gradient=pg, projected_gradient_start=pg0)
+    log(f"solvers spg: {res.iterations} iterations, converged "
+        f"{res.converged}, stalled {res.stalled}, value {v[0]:.8g} -> "
+        f"{v[-1]:.8g}, projected gradient {pg0:.3g} -> {pg:.3g} (tolerance "
+        f"{eps:.3g}; {SPG_PG_DROP:g} x the start {SPG_PG_DROP * pg0:.3g}), "
+        f"{at_bound} of {N_FEATURES} coefficients at a bound, "
+        f"{rec['evals']} evaluations ({rec['evals_per_iter']:.2f} an "
+        f"iteration)")
+    log(f"phase 3b: {time.perf_counter() - t_phase:.1f} s wall; launches "
+        f"{json.dumps(total)}")
+    log(f"solver records: {json.dumps(records)}")
+    return total, records
 
 
 def write_libsvm_binary(path, rows, cols, n, y):
@@ -611,16 +980,9 @@ def write_libsvm_binary(path, rows, cols, n, y):
 
 
 def phase_driver():
-    """Phase 4: the driver on binary LIBSVM data, then a host re-score."""
-    from photon_ml_tpu_torch.data.index_map import IndexMap
-    from photon_ml_tpu_torch.data.libsvm import read_libsvm
-    from photon_ml_tpu_torch.drivers import glm_driver
-    from photon_ml_tpu_torch.evaluation.evaluators import (
-        AreaUnderROCCurveEvaluator,
-    )
-    from photon_ml_tpu_torch.io.model_store import load_glm_model
-    from photon_ml_tpu_torch.ops import _kernels
-
+    """Phase 4: the driver on binary LIBSVM data (L2 L-BFGS, elastic-net
+    OWL-QN and L2 TRON), each saved model re-scored on the host.  Returns
+    the launches summed over the runs."""
     rng = np.random.default_rng(3)
     n = DRIVER_TRAIN_ROWS + DRIVER_VAL_ROWS
     rows, cols = binary_rows(rng, n, N_FEATURES, NNZ_PER_ROW)
@@ -639,38 +1001,59 @@ def phase_driver():
                             y[DRIVER_TRAIN_ROWS:])
         log(f"driver: wrote {DRIVER_TRAIN_ROWS} + {DRIVER_VAL_ROWS} LIBSVM "
             f"rows in {time.perf_counter() - t0:.1f} s")
-        out = os.path.join(td, "out")
-        _kernels.reset_launches()
-        t0 = time.perf_counter()
-        result = glm_driver.run([
-            "--train-data", train, "--validate-data", val,
-            "--output-dir", out, "--task", "logistic", "--reg-type", "l2",
-            "--reg-weights", "0.1,1,10", "--max-iters", "50",
-            "--n-features", str(N_FEATURES), "--device", DEVICE,
-        ])
-        torch.cuda.synchronize()
-        wall = time.perf_counter() - t0
-        launches = dict(_kernels.LAUNCHES)
-        check(os.path.exists(os.path.join(out, "training_result.json")),
-              "driver: no training_result.json")
-        best = result["best_lambda"]
-        model, _ = load_glm_model(
-            os.path.join(out, f"model_lambda_{best:g}.avro"),
-            index_map=IndexMap.load(out), device=DEVICE)
-        w = model.coefficients.means.cpu().numpy().astype(np.float64)
-        X_val, y_val = read_libsvm(val, n_features=N_FEATURES,
-                                   add_intercept=True, drop_out_of_range=True)
-        host_auc = AreaUnderROCCurveEvaluator().evaluate(X_val @ w, y_val)
-        drv_auc = result["metrics"][str(best)]
-        log(f"driver: {wall:.1f} s end to end; selected λ={best:g}, AUC "
-            f"{drv_auc:.6f} (host re-score {host_auc:.6f}); solver walls "
-            f"{json.dumps(result['solver_wall_seconds'])}")
-        log(f"driver launches: {json.dumps(launches)}")
-        check(drv_auc > 0.5, f"driver: AUC {drv_auc}")
-        check(abs(drv_auc - host_auc) <= 1e-6,
-              f"driver: AUC {drv_auc} vs host {host_auc}")
-        for op in ("matvec_unit", "rmatvec_unit", "sq_rmatvec_unit"):
-            check(launches[op] > 0, f"driver: {op} never launched")
+        total = {}
+        for label, flags in DRIVER_RUNS:
+            launches = driver_run(label, flags, td, train, val)
+            for k, n in launches.items():
+                total[k] = total.get(k, 0) + n
+    return total
+
+
+def driver_run(label, flags, td, train, val):
+    """One ``glm_driver.run`` on the LIBSVM pair under zeroed launch
+    counters, its saved model re-scored on the host."""
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.data.libsvm import read_libsvm
+    from photon_ml_tpu_torch.drivers import glm_driver
+    from photon_ml_tpu_torch.evaluation.evaluators import (
+        AreaUnderROCCurveEvaluator,
+    )
+    from photon_ml_tpu_torch.io.model_store import load_glm_model
+    from photon_ml_tpu_torch.ops import _kernels
+
+    out = os.path.join(td, f"out_{label}")
+    _kernels.reset_launches()
+    t0 = time.perf_counter()
+    result = glm_driver.run([
+        "--train-data", train, "--validate-data", val,
+        "--output-dir", out, "--task", "logistic", *flags,
+        "--reg-weights", "0.1,1,10", "--max-iters", "50",
+        "--n-features", str(N_FEATURES), "--device", DEVICE,
+    ])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    launches = dict(_kernels.LAUNCHES)
+    check(os.path.exists(os.path.join(out, "training_result.json")),
+          f"driver {label}: no training_result.json")
+    best = result["best_lambda"]
+    model, _ = load_glm_model(
+        os.path.join(out, f"model_lambda_{best:g}.avro"),
+        index_map=IndexMap.load(out), device=DEVICE)
+    w = model.coefficients.means.cpu().numpy().astype(np.float64)
+    X_val, y_val = read_libsvm(val, n_features=N_FEATURES,
+                               add_intercept=True, drop_out_of_range=True)
+    host_auc = AreaUnderROCCurveEvaluator().evaluate(X_val @ w, y_val)
+    drv_auc = result["metrics"][str(best)]
+    log(f"driver {label} ({' '.join(flags)}): {wall:.1f} s end to end; "
+        f"selected λ={best:g}, AUC {drv_auc:.6f} (host re-score "
+        f"{host_auc:.6f}), {int((w == 0).sum())} of {w.size} coefficients "
+        f"zero; solver walls {json.dumps(result['solver_wall_seconds'])}")
+    log(f"driver {label} launches: {json.dumps(launches)}")
+    check(drv_auc > 0.5, f"driver {label}: AUC {drv_auc}")
+    check(abs(drv_auc - host_auc) <= 1e-6,
+          f"driver {label}: AUC {drv_auc} vs host {host_auc}")
+    for op in ("matvec_unit", "rmatvec_unit", "sq_rmatvec_unit"):
+        check(launches[op] > 0, f"driver {label}: {op} never launched")
     return launches
 
 
@@ -898,8 +1281,13 @@ def main() -> int:
     log("phase 2: kernel against plain version")
     kern = phase_kernels(bench)
     log("phase 3: library boundary")
-    lib_launches, lib_metrics = phase_library(bench)
-    del bench
+    lib_launches, lib_metrics, (data, plain_data, abs_F) = phase_library(bench)
+    log("phase 3b: solvers")
+    sol_launches, sol_records = phase_solvers(data, plain_data, abs_F,
+                                              bench[4], kern)
+    # The valued kernels' main-path launches: phase 3's and phase 3b's.
+    val_launches = {op: lib_launches[op] + sol_launches[op] for op in OPS}
+    del bench, data, plain_data, abs_F
     torch.cuda.empty_cache()
     log("phase 4: driver")
     drv_launches = phase_driver()
@@ -914,9 +1302,9 @@ def main() -> int:
     # The skewed matrix runs the valued instances: its records carry the
     # valued main path's launches of the same operation.
     records = []
-    for variant, suffix, launches in (("valued", "", lib_launches),
+    for variant, suffix, launches in (("valued", "", val_launches),
                                       ("binary", "_unit", drv_launches),
-                                      ("skewed", "", lib_launches)):
+                                      ("skewed", "", val_launches)):
         for op in ("matvec", "rmatvec", "sq_rmatvec"):
             r = kern[variant][op]
             name = f"spmv.{op}{suffix}"
@@ -943,8 +1331,9 @@ def main() -> int:
                         "source": KERNEL_SOURCE, "replaces": TPU_ABLATE,
                         "launches": abl_launches[f"spmv_ablate_{mode}_{op}"],
                         **{f: r[f] for f in fields[1:]}})
-    log(f"metrics: {json.dumps(lib_metrics)}; total "
-        f"{time.perf_counter() - t_start:.1f} s")
+    log(f"metrics: {json.dumps(lib_metrics)}; solvers: "
+        f"{json.dumps({k: r['wall_s'] for k, r in sol_records.items()})}; "
+        f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

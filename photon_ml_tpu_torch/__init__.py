@@ -14,11 +14,17 @@ Layout mirrors the reference so each module's counterpart is easy to find:
                    in the hand-written CUDA SpMV kernel (``csrc/spmv.cu``).
 - ``data``       — GLM datasets, LIBSVM ingest, index maps, normalization,
                    summary statistics.
-- ``optim``      — the GLM objective, the weak-Wolfe line search, L-BFGS
-                   (a host loop over device tensors) and the λ-grid problem.
+- ``optim``      — the GLM objective, the weak-Wolfe line search, L-BFGS,
+                   OWL-QN (L1 / elastic-net), TRON (trust-region Newton) and
+                   SPG (box constraints) — host loops over device tensors —
+                   and the λ-grid problem.
+- ``solvers``    — the solver registry: named solvers and the routing
+                   (bounds → SPG, any L1 → OWL-QN, else the optimizer).
 - ``models``     — GLM model classes.
 - ``evaluation`` — validation metrics (host numpy).
-- ``io``         — the Avro container codec, model and summary persistence.
+- ``io``         — the Avro container codec, model and summary persistence,
+                   the λ-grid checkpoint (numpy ``.npz``, the reference's
+                   format).
 - ``utils``      — logging, timing, convergence traces.
 - ``drivers``    — ``glm_driver``: the legacy GLM pipeline end to end.
 - ``convert``    — hands numpy parameters to this package (parity tests).

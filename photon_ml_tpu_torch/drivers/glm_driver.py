@@ -10,11 +10,13 @@ Ingest and evaluation run on the host; the data, the objective and the
 solver run on ``--device`` (CUDA by default), where sparse features go
 through the hand-written CUDA SpMV kernel.
 
-This slice offers the flags of L2-logistic (and smooth-loss) training with
-L-BFGS.  Streaming, data-parallel training, the solver registry,
-checkpoint/resume, initial models, bounds, telemetry and the ops plane,
-retries, the training report and the compile cache are later slices
-(ROADMAP.md).
+The flags cover the four losses with L1, L2 and elastic-net regularization,
+the resident solvers of the registry (L-BFGS, OWL-QN, TRON, SPG) with
+``--optimizer``/``--solver``, box constraints (``--coefficient-bounds``)
+and λ-grid checkpoint/resume (``--resume``).  Streaming, data-parallel
+training, the host-kind solvers and their ``--solver-option``/
+``--solver-shards``, initial models, telemetry and the ops plane, retries,
+the training report and the compile cache are later slices (ROADMAP.md).
 
 Usage:
     python -m photon_ml_tpu_torch.drivers.glm_driver \\
@@ -25,10 +27,14 @@ Usage:
 from __future__ import annotations
 
 import argparse
+import hashlib
 import json
 import os
 import sys
 from typing import Optional, Sequence
+
+import numpy as np
+import torch
 
 from photon_ml_tpu_torch.data import libsvm
 from photon_ml_tpu_torch.data.dataset import make_glm_data
@@ -43,6 +49,7 @@ from photon_ml_tpu_torch.evaluation.evaluators import (
     default_evaluator_for_task,
     get_evaluator,
 )
+from photon_ml_tpu_torch.io.checkpoint import GridCheckpointer
 from photon_ml_tpu_torch.io.model_store import save_glm_model
 from photon_ml_tpu_torch.io.summary_store import save_feature_summary
 from photon_ml_tpu_torch.optim.problem import (
@@ -74,14 +81,22 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="logistic | linear | poisson | smoothed_hinge (or reference "
         "TaskType names like LOGISTIC_REGRESSION)",
     )
-    p.add_argument("--optimizer", default="lbfgs",
-                   choices=[OptimizerType.LBFGS.value])
+    p.add_argument(
+        "--optimizer", default="lbfgs", choices=[t.value for t in OptimizerType]
+    )
+    p.add_argument(
+        "--solver",
+        help="registered solver name (photon_ml_tpu_torch/solvers): lbfgs | "
+        "owlqn | tron | spg.  Unset keeps the historical routing (bounds → "
+        "spg, any L1 → owlqn, else --optimizer)",
+    )
     p.add_argument(
         "--reg-type",
         default="none",
-        choices=[RegularizationType.NONE.value, RegularizationType.L2.value],
+        choices=[t.value for t in RegularizationType],
     )
     p.add_argument("--reg-weights", default="0.0", help="comma-separated λ grid")
+    p.add_argument("--elastic-net-alpha", type=float, default=0.5)
     p.add_argument(
         "--normalization",
         default="none",
@@ -89,6 +104,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--max-iters", type=int, default=100)
     p.add_argument("--tolerance", type=float, default=1e-7)
+    p.add_argument(
+        "--coefficient-bounds",
+        help="JSON file mapping feature key -> [lower, upper] box "
+        "constraints (the reference's constraint map); unlisted features "
+        "are unconstrained",
+    )
     p.add_argument("--intercept", action="store_true", default=True)
     p.add_argument("--no-intercept", dest="intercept", action="store_false")
     p.add_argument("--compute-variances", action="store_true")
@@ -100,6 +121,12 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="write only the selected model or every grid point",
     )
     p.add_argument("--n-features", type=int, help="fixed feature-space width")
+    p.add_argument(
+        "--resume",
+        action="store_true",
+        help="continue from the λ-grid checkpoint in the output dir "
+        "(skips already-solved weights, keeps the warm-start chain)",
+    )
     p.add_argument(
         "--precise-accumulation",
         action="store_true",
@@ -165,6 +192,13 @@ def _run_impl(args, logger) -> dict:
     )
 
     # Stage 3: train over the λ grid ----------------------------------------
+    if args.solver is not None:
+        from photon_ml_tpu_torch.solvers import registry as solver_registry
+
+        try:
+            solver_registry.get(args.solver)
+        except (KeyError, NotImplementedError) as e:
+            raise SystemExit(str(e))
     problem = GlmOptimizationProblem(
         args.task,
         GlmOptimizationConfig(
@@ -172,9 +206,10 @@ def _run_impl(args, logger) -> dict:
                 optimizer=OptimizerType(args.optimizer),
                 max_iters=args.max_iters,
                 tolerance=args.tolerance,
+                solver=args.solver,
             ),
             regularization=RegularizationContext(
-                RegularizationType(args.reg_type)
+                RegularizationType(args.reg_type), args.elastic_net_alpha
             ),
             compute_variances=args.compute_variances,
         ),
@@ -182,15 +217,67 @@ def _run_impl(args, logger) -> dict:
         accumulate="f64" if args.precise_accumulation else "f32",
     )
     reg_weights = [float(s) for s in args.reg_weights.split(",")]
-    grid = problem.run_grid(train_data, reg_weights)
+    l1_mask = None
+    if args.intercept and index_map.intercept_index is not None:
+        # The reference never regularizes the intercept with L1.
+        l1_mask = torch.ones(d, dtype=torch.float32, device=device)
+        l1_mask[index_map.intercept_index] = 0.0
+
+    # Checkpoint/resume: each solved λ is persisted; --resume skips
+    # finished λs bit-exactly.  The RESOLVED bounds are fingerprinted: a
+    # resume under other bounds would warm-start the remaining λs from
+    # incompatibly constrained coefficients.
+    bounds = bounds_fp = None
+    if args.coefficient_bounds:
+        lower, upper = _read_bounds(args, index_map, d, normalization)
+        logger.info("box constraints on %d of %d coefficients",
+                    int((np.isfinite(lower) | np.isfinite(upper)).sum()), d)
+        bounds = (torch.as_tensor(lower, device=device),
+                  torch.as_tensor(upper, device=device))
+        h = hashlib.sha256()
+        h.update(lower.tobytes())
+        h.update(upper.tobytes())
+        bounds_fp = h.hexdigest()
+    ckpt = GridCheckpointer(os.path.join(args.output_dir, "checkpoints"))
+    if args.resume:
+        saved_fp = ckpt.load_meta().get("bounds_fingerprint")
+        if ckpt.exists() and saved_fp != bounds_fp:
+            raise SystemExit(
+                "--resume: the grid checkpoint was written under "
+                f"different --coefficient-bounds (saved fingerprint "
+                f"{saved_fp}, this run {bounds_fp}); clear "
+                f"{ckpt.path} or rerun with the matching bounds"
+            )
+        solved = ckpt.load()
+    else:
+        # A stale checkpoint (possibly from a run on other data) must not
+        # survive into a later --resume.
+        ckpt.clear()
+        solved = {}
+    if solved:
+        logger.info("resuming: %d of %d grid points already solved",
+                    len(solved), len(reg_weights))
+    solved_acc = dict(solved)
+
+    def on_solved(lam, w):
+        solved_acc[lam] = to_numpy(w)
+        ckpt.save(solved_acc, extra_meta={"bounds_fingerprint": bounds_fp})
+
+    grid = problem.run_grid(train_data, reg_weights, l1_mask=l1_mask,
+                            solved=solved, on_solved=on_solved,
+                            bounds=bounds)
     grid_walls = problem.grid_wall_seconds
     for lam, _, res in grid:
         tracker = OptimizationStatesTracker.from_solve_result(
             res, wall_seconds=grid_walls.get(lam, float("nan"))
         )
+        if tracker.restored:
+            logger.info("lambda=%g: restored from checkpoint", lam)
+            continue
         logger.info(
-            "lambda=%g: value=%.8g iters=%d converged=%s wall=%.3fs",
+            "lambda=%g: value=%.8g iters=%d converged=%s%s wall=%.3fs",
             lam, float(res.value), tracker.iterations, tracker.converged,
+            "" if tracker.stalled is None else f" stalled={tracker.stalled}",
             tracker.wall_seconds,
         )
 
@@ -254,6 +341,42 @@ def _run_impl(args, logger) -> dict:
         result["wall_seconds"],
     )
     return result
+
+
+def _read_bounds(args, index_map, d, normalization):
+    """The ``--coefficient-bounds`` JSON map as (lower, upper) float32
+    arrays of width ``d`` (unlisted features ±inf), with the reference
+    driver's checks."""
+    # Under normalization the solver's coefficients live in scaled space,
+    # where a per-feature box does not map back to the user's box.
+    if normalization is not None:
+        raise SystemExit("--coefficient-bounds requires --normalization none")
+    if args.compute_variances:
+        # The diag-inverse-Hessian variance assumes an interior optimum.
+        raise SystemExit(
+            "--coefficient-bounds is incompatible with --compute-variances"
+        )
+    with open(args.coefficient_bounds) as f:
+        bounds_map = json.load(f)
+    lower = np.full((d,), -np.inf, np.float32)
+    upper = np.full((d,), np.inf, np.float32)
+    unknown = [k for k in bounds_map if index_map.get_index(k) < 0]
+    if unknown:
+        raise SystemExit(
+            f"--coefficient-bounds names unknown features: {unknown[:5]}"
+        )
+    for key, (lo, hi) in bounds_map.items():
+        lo, hi = float(lo), float(hi)
+        if np.isnan(lo) or np.isnan(hi) or lo > hi:
+            # json.load accepts NaN literals, and a clamp with lower >
+            # upper silently returns upper: both would train a wrong model.
+            raise SystemExit(
+                f"--coefficient-bounds: invalid bounds for {key!r}: "
+                f"[{lo}, {hi}]"
+            )
+        idx = index_map.get_index(key)
+        lower[idx], upper[idx] = lo, hi
+    return lower, upper
 
 
 def main() -> None:

@@ -5,9 +5,10 @@ trained ``GeneralizedLinearModel``, optionally with coefficient variances,
 and sweeps a regularization-weight grid with warm starts (the reference's
 ``ModelTraining`` chain).
 
-This slice of the port routes every solve through L-BFGS.  OWL-QN (any L1
-component), TRON, box constraints (SPG) and named registry solvers raise
-``NotImplementedError`` pointing at the ROADMAP item that ports them.
+Every solve dispatches through the solver registry
+(``photon_ml_tpu_torch/solvers/registry.py``): bounds → SPG, any L1
+component → OWL-QN, else the configured optimizer, or the solver that
+``OptimizerConfig.solver`` names.
 """
 
 from __future__ import annotations
@@ -16,23 +17,19 @@ import dataclasses
 import enum
 from typing import Optional, Sequence
 
+import numpy as np
 import torch
 
 from photon_ml_tpu_torch.data.dataset import GlmData
 from photon_ml_tpu_torch.data.normalization import NormalizationContext
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_ml_tpu_torch.ops import losses as losses_lib
-from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, SolveResult, lbfgs_solve
+from photon_ml_tpu_torch.optim.lbfgs import SolveResult
+from photon_ml_tpu_torch.optim.linesearch import np_dtype
 from photon_ml_tpu_torch.optim.objective import GlmObjective
 from photon_ml_tpu_torch.optim.regularization import RegularizationContext
 
 Tensor = torch.Tensor
-
-_NOT_PORTED = (
-    "is not ported to photon_ml_tpu_torch yet (ROADMAP.md, PyTorch/CUDA "
-    "port, Queue 1 item 6: OWL-QN, TRON, SPG and the solver registry); "
-    "this slice trains with L-BFGS and L2/no regularization only"
-)
 
 
 class OptimizerType(enum.Enum):
@@ -44,13 +41,15 @@ class OptimizerType(enum.Enum):
 @dataclasses.dataclass(frozen=True)
 class OptimizerConfig:
     """The reference's ``OptimizerConfig`` (optimizerType,
-    maximumIterations, tolerance).  ``solver`` names a registry solver in
-    the reference; here any name raises."""
+    maximumIterations, tolerance).  ``solver`` names a registered solver
+    (``photon_ml_tpu_torch/solvers/registry.py``) explicitly; None keeps the
+    historical routing (bounds → SPG, any L1 component → OWL-QN, else
+    ``optimizer``)."""
 
     optimizer: OptimizerType = OptimizerType.LBFGS
     max_iters: int = 100
     tolerance: float = 1e-7
-    history: int = 10  # L-BFGS corrections
+    history: int = 10  # L-BFGS/OWL-QN corrections
     solver: Optional[str] = None
 
 
@@ -88,11 +87,12 @@ class GlmOptimizationProblem:
         reg_weight: float = 0.0,
         w0: Optional[Tensor] = None,
         l1_mask: Optional[Tensor] = None,
-        bounds=None,
+        bounds: Optional[tuple[Tensor, Tensor]] = None,
     ) -> SolveResult:
-        """One solve on the data's device (the reference's jit-cached
-        single-device entry; the port runs eagerly)."""
-        return self.solve(data, reg_weight, w0, l1_mask, bounds)
+        """The reference's jit-cached single-device entry, which hands λ to
+        the solve as a float32 scalar; the port runs eagerly."""
+        return self.solve(data, float(np.float32(reg_weight)), w0, l1_mask,
+                          bounds)
 
     def solve(
         self,
@@ -100,42 +100,55 @@ class GlmOptimizationProblem:
         reg_weight: float = 0.0,
         w0: Optional[Tensor] = None,
         l1_mask: Optional[Tensor] = None,
-        bounds=None,
+        bounds: Optional[tuple[Tensor, Tensor]] = None,
     ) -> SolveResult:
         """One optimization run at one regularization weight.
 
-        ``l1_mask`` only ever shapes an L1 penalty, so with the L2/none
-        regularization this slice supports it changes nothing (as in the
-        reference's L-BFGS route)."""
+        ``bounds`` = (lower, upper) per-coefficient tensors (±inf entries
+        unconstrained) routes the solve to the box-constrained SPG path.
+        ``l1_mask`` exempts coordinates (the intercept) from an L1
+        penalty."""
         cfg = self.config
-        opt = cfg.optimizer
-        l1_frac = cfg.regularization.l1_weight(1.0)
-        if bounds is not None:
-            raise NotImplementedError(f"box constraints (SPG) {_NOT_PORTED}")
-        if opt.solver is not None:
-            raise NotImplementedError(f"solver {opt.solver!r} {_NOT_PORTED}")
-        if l1_frac > 0.0:
-            raise NotImplementedError(
-                f"L1 / elastic-net regularization (OWL-QN) {_NOT_PORTED}"
-            )
-        if opt.optimizer is not OptimizerType.LBFGS:
-            raise NotImplementedError(
-                f"optimizer {opt.optimizer.value!r} {_NOT_PORTED}"
+        if bounds is not None and cfg.compute_variances:
+            # The diag-inverse-Hessian variance assumes an interior
+            # optimum; a coefficient pinned at an active bound has a
+            # nonzero gradient there and its variance would be meaningless.
+            raise ValueError(
+                "bounds are incompatible with compute_variances=True: "
+                "diag-inverse-Hessian variances assume an interior "
+                "optimum and are wrong for coefficients at an active "
+                "bound — drop the bounds or the variance request"
             )
         if w0 is None:
             w0 = torch.zeros(data.n_features, dtype=torch.float32,
                              device=data.device)
-        l2 = cfg.regularization.l2_weight(1.0) * float(reg_weight)
-        obj = self.objective
-        return lbfgs_solve(
-            lambda w: obj.value_and_grad(w, data, l2_weight=l2),
-            w0,
-            LBFGSConfig(
-                max_iters=opt.max_iters,
-                tolerance=opt.tolerance,
-                history=opt.history,
-            ),
+        # λ in the coefficients' dtype, split as the reference's traced
+        # arithmetic splits it (a float fraction times that scalar).
+        wt = np_dtype(w0)
+        lam = wt(reg_weight)
+        l1_frac = cfg.regularization.l1_weight(1.0)
+        l1 = float(wt(l1_frac) * lam)
+        l2 = float(wt(cfg.regularization.l2_weight(1.0)) * lam)
+        opt = cfg.optimizer
+
+        if bounds is not None and l1_frac > 0.0:
+            # Box constraints conflict with the orthant-wise machinery for
+            # any solver choice.
+            raise NotImplementedError(
+                "box constraints combined with L1 regularization are "
+                "not supported: the orthant-wise and projection "
+                "machineries conflict (drop the L1 component or the "
+                "bounds)"
+            )
+        from photon_ml_tpu_torch.solvers import registry as solver_registry
+
+        defn = solver_registry.resolve(
+            opt, l1_frac=l1_frac, has_bounds=bounds is not None
         )
+        return defn.resident(solver_registry.ResidentSolve(
+            objective=self.objective, data=data, w0=w0, l1=l1, l2=l2,
+            opt=opt, l1_mask=l1_mask, bounds=bounds,
+        ))
 
     def coefficient_variances(self, w: Tensor, data: GlmData,
                               reg_weight: float = 0.0) -> Tensor:
@@ -163,25 +176,43 @@ class GlmOptimizationProblem:
         reg_weights: Sequence[float],
         w0: Optional[Tensor] = None,
         warm_start: bool = True,
+        solved: Optional[dict] = None,
+        on_solved=None,
         variance_fn=None,
-    ) -> list[tuple[float, GeneralizedLinearModel, SolveResult]]:
+    ) -> list[tuple[float, GeneralizedLinearModel, Optional[SolveResult]]]:
         """The warm-started λ chain (largest λ first): ``solve_fn(lam,
-        w_prev) → SolveResult``.  Each solve is wall-clocked to completion
-        into ``self.grid_wall_seconds``; ``variance_fn(w, lam)`` runs for
-        every grid point when variances are requested."""
+        w_prev) → SolveResult``.
+
+        Checkpoint/resume: ``solved`` (λ → coefficient tensor, from
+        ``io/checkpoint.GridCheckpointer``) skips already-solved λs — their
+        entries come back with ``res=None`` and the warm-start chain
+        continues from the restored coefficients, so a resumed grid matches
+        the uninterrupted one bit for bit.  ``on_solved(lam, w)`` fires
+        after each fresh solve (the driver persists the checkpoint there).
+        ``variance_fn(w, lam)`` runs for every grid point, restored ones
+        included, when variances are requested.  Each fresh solve is
+        wall-clocked to completion into ``self.grid_wall_seconds``."""
         from photon_ml_tpu_torch.utils.timer import Timer
 
         self.grid_wall_seconds = {}
         results = []
         w_prev = w0
+        solved = solved or {}
         for lam in sorted(reg_weights, reverse=True):
-            timer = Timer().start()
-            res = solve_fn(lam, w_prev)
-            self.grid_wall_seconds[lam] = timer.stop_blocking(res.w)
-            variances = variance_fn(res.w, lam) if variance_fn else None
-            results.append((lam, self.make_model(res.w, variances), res))
+            if lam in solved:
+                w = torch.as_tensor(solved[lam])
+                res = None
+            else:
+                timer = Timer().start()
+                res = solve_fn(lam, w_prev)
+                self.grid_wall_seconds[lam] = timer.stop_blocking(res.w)
+                w = res.w
+                if on_solved is not None:
+                    on_solved(lam, w)
+            variances = variance_fn(w, lam) if variance_fn else None
+            results.append((lam, self.make_model(w, variances), res))
             if warm_start:
-                w_prev = res.w
+                w_prev = w
         return results
 
     def run_grid(
@@ -191,10 +222,19 @@ class GlmOptimizationProblem:
         w0: Optional[Tensor] = None,
         l1_mask: Optional[Tensor] = None,
         warm_start: bool = True,
-        bounds=None,
-    ) -> list[tuple[float, GeneralizedLinearModel, SolveResult]]:
-        """Train one model per regularization weight (see
-        :meth:`grid_loop`)."""
+        solved: Optional[dict] = None,
+        on_solved=None,
+        bounds: Optional[tuple[Tensor, Tensor]] = None,
+    ) -> list[tuple[float, GeneralizedLinearModel, Optional[SolveResult]]]:
+        """Train one model per regularization weight (see :meth:`grid_loop`
+        for the warm-start and checkpoint semantics)."""
+        if bounds is not None and self.config.compute_variances:
+            # solve()'s guard, raised before the grid touches the device.
+            raise ValueError(
+                "run_grid with bounds is incompatible with "
+                "compute_variances=True: diag-inverse-Hessian variances "
+                "assume an interior optimum (see solve())"
+            )
 
         def solve_fn(lam, w_prev):
             return self.solve_single_device(data, lam, w_prev, l1_mask, bounds)
@@ -204,5 +244,9 @@ class GlmOptimizationProblem:
             def variance_fn(w, lam):
                 return self.coefficient_variances(w, data, lam)
 
+        restored = {
+            lam: torch.as_tensor(np.asarray(w), device=data.device)
+            for lam, w in (solved or {}).items()
+        }
         return self.grid_loop(solve_fn, reg_weights, w0, warm_start,
-                              variance_fn)
+                              restored, on_solved, variance_fn)

@@ -1,0 +1,227 @@
+"""Config-keyed solver registry (port of ``photon_ml_tpu/solvers/registry.py``).
+
+Each solver registers a :class:`SolverDef` under a name, and
+``OptimizerConfig.solver`` selects one explicitly — or, when unset,
+:func:`resolve` applies the reference's historical routing (bounds → SPG,
+any L1 component → OWL-QN, else the configured optimizer).
+
+Every registered solver is resident: one solve over device tensors
+(L-BFGS, OWL-QN, TRON, SPG), called through its ``resident`` callable.
+The reference's host-kind solvers (consensus-ADMM, distributed block CD)
+drive a sharded step program from a host loop, which the port has not got
+yet: ``get("admm")`` and ``get("block_cd")`` raise ``NotImplementedError``
+naming the ROADMAP item that ports them.
+
+Registration is guarded by a lock: drivers resolve concurrently while tests
+register scratch solvers.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import threading
+from typing import Any, Callable, NamedTuple, Optional
+
+import torch
+
+Tensor = torch.Tensor
+
+#: The reference's host-kind solvers, not registered in the port yet.
+NOT_PORTED = {
+    "admm": "consensus-ADMM",
+    "block_cd": "distributed block coordinate descent",
+}
+
+
+class ResidentSolve(NamedTuple):
+    """One resident solve request — what ``problem.solve`` hands a
+    solver.  ``l1``/``l2`` are the already-split regularization
+    weights; ``opt`` is the ``OptimizerConfig``."""
+
+    objective: Any  # GlmObjective
+    data: Any  # GlmData
+    w0: Tensor
+    l1: float
+    l2: float
+    opt: Any  # OptimizerConfig
+    l1_mask: Optional[Tensor] = None
+    bounds: Optional[tuple] = None
+
+
+@dataclasses.dataclass(frozen=True)
+class SolverDef:
+    """One registered solver and the resident callable that runs it."""
+
+    name: str
+    description: str
+    resident: Callable[[ResidentSolve], Any]
+    supports_l1: bool = False
+    supports_bounds: bool = False
+
+
+_REGISTRY: dict[str, SolverDef] = {}
+_LOCK = threading.Lock()
+
+
+def register(defn: SolverDef, replace: bool = False) -> SolverDef:
+    """Register a solver under ``defn.name``; duplicate names are refused
+    unless ``replace=True`` (tests swapping in instrumented doubles)."""
+    with _LOCK:
+        if defn.name in _REGISTRY and not replace:
+            raise ValueError(
+                f"solver {defn.name!r} is already registered "
+                "(pass replace=True to override)"
+            )
+        _REGISTRY[defn.name] = defn
+    return defn
+
+
+def get(name: str) -> SolverDef:
+    with _LOCK:
+        defn = _REGISTRY.get(name)
+    if defn is None and name in NOT_PORTED:
+        raise NotImplementedError(
+            f"solver {name!r} ({NOT_PORTED[name]}) is not ported to "
+            "photon_ml_tpu_torch yet: it runs over sharded data (ROADMAP.md, "
+            "PyTorch/CUDA port, Queue 1 item 10: multi-device)"
+        )
+    if defn is None:
+        raise KeyError(
+            f"unknown solver {name!r}; registered: {names()}"
+        )
+    return defn
+
+
+def names() -> list[str]:
+    with _LOCK:
+        return sorted(_REGISTRY)
+
+
+def resolve(opt, *, l1_frac: float, has_bounds: bool = False) -> SolverDef:
+    """Pick the solver for an ``OptimizerConfig``.
+
+    ``opt.solver`` unset applies the historical routing: bounds → SPG for
+    any smooth config, any L1 component → OWL-QN (the only L1-capable
+    machinery), else the configured optimizer.  An explicit name is honored
+    as-is, but incompatible combinations (an L1 component with a solver
+    that has no subgradient handling; bounds with anything but SPG) are
+    rejected here, before any compute is spent."""
+    name = getattr(opt, "solver", None)
+    if name is None:
+        if has_bounds:
+            return get("spg")
+        if l1_frac > 0.0:
+            return get("owlqn")
+        return get(opt.optimizer.value)
+    defn = get(name)
+    if has_bounds and not defn.supports_bounds:
+        raise ValueError(
+            f"solver {name!r} does not support box constraints; "
+            "only 'spg' does — drop the bounds or the solver override"
+        )
+    if l1_frac > 0.0 and not defn.supports_l1:
+        raise ValueError(
+            f"solver {name!r} has no L1 subgradient handling; use "
+            "'owlqn', 'admm', or 'block_cd' for L1/elastic-net configs"
+        )
+    if name == "spg" and not has_bounds:
+        # SPG is a projection method: without box constraints there is no
+        # feasible set to project onto.
+        raise ValueError(
+            "solver 'spg' needs box constraints (lower/upper bounds); "
+            "use 'lbfgs' or 'tron' for unconstrained smooth configs"
+        )
+    return defn
+
+
+# ---------------------------------------------------------------------------
+# Built-in solvers: each builds the closure the reference's
+# resident callable builds, so explicit and implicit routing run the same
+# solve.
+# ---------------------------------------------------------------------------
+
+
+def _value_and_grad(ctx: ResidentSolve):
+    obj, data = ctx.objective, ctx.data
+    return lambda w: obj.value_and_grad(w, data, l2_weight=ctx.l2)
+
+
+def _lbfgs_resident(ctx: ResidentSolve):
+    from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, lbfgs_solve
+
+    opt = ctx.opt
+    return lbfgs_solve(
+        _value_and_grad(ctx),
+        ctx.w0,
+        LBFGSConfig(
+            max_iters=opt.max_iters,
+            tolerance=opt.tolerance,
+            history=opt.history,
+        ),
+    )
+
+
+def _owlqn_resident(ctx: ResidentSolve):
+    from photon_ml_tpu_torch.optim.owlqn import OWLQNConfig, owlqn_solve
+
+    opt = ctx.opt
+    return owlqn_solve(
+        _value_and_grad(ctx),
+        ctx.w0,
+        ctx.l1,
+        OWLQNConfig(
+            max_iters=opt.max_iters,
+            tolerance=opt.tolerance,
+            history=opt.history,
+        ),
+        l1_mask=ctx.l1_mask,
+    )
+
+
+def _tron_resident(ctx: ResidentSolve):
+    from photon_ml_tpu_torch.optim.tron import TRONConfig, tron_solve
+
+    obj, data = ctx.objective, ctx.data
+    return tron_solve(
+        _value_and_grad(ctx),
+        lambda w, v, aux: obj.hvp(w, v, data, l2_weight=ctx.l2, d2w=aux),
+        ctx.w0,
+        TRONConfig(max_iters=ctx.opt.max_iters, tolerance=ctx.opt.tolerance),
+        d2_fn=lambda w: obj.d2_weights(w, data),
+    )
+
+
+def _spg_resident(ctx: ResidentSolve):
+    from photon_ml_tpu_torch.optim.projected import SPGConfig, spg_solve
+
+    return spg_solve(
+        _value_and_grad(ctx),
+        ctx.w0,
+        ctx.bounds[0],
+        ctx.bounds[1],
+        SPGConfig(max_iters=ctx.opt.max_iters, tolerance=ctx.opt.tolerance),
+    )
+
+
+register(SolverDef(
+    name="lbfgs",
+    description="limited-memory BFGS (smooth objectives)",
+    resident=_lbfgs_resident,
+))
+register(SolverDef(
+    name="owlqn",
+    description="orthant-wise L-BFGS (L1/elastic-net)",
+    supports_l1=True,
+    resident=_owlqn_resident,
+))
+register(SolverDef(
+    name="tron",
+    description="trust-region Newton-CG (smooth objectives)",
+    resident=_tron_resident,
+))
+register(SolverDef(
+    name="spg",
+    description="spectral projected gradient (box constraints)",
+    supports_bounds=True,
+    resident=_spg_resident,
+))

@@ -27,6 +27,7 @@ from photon_ml_tpu.data.normalization import (
     NormalizationContext as JaxNormalization,
 )
 from photon_ml_tpu.drivers import glm_driver as jax_driver
+from photon_ml_tpu.io import avro as jax_avro
 from photon_ml_tpu.io import model_store as jax_store
 from photon_ml_tpu.ops.sparse import from_coo as jax_from_coo
 
@@ -110,10 +111,11 @@ def test_artifacts_match(both_runs):
     for key in ("mean", "variance", "min", "max"):
         np.testing.assert_allclose(s[key], rs[key], rtol=1e-5, atol=1e-6)
     assert s["nnz"] == rs["nnz"] and s["count"] == rs["count"]
-    # The five stages' artifacts (telemetry, checkpoints and traces of the
-    # JAX driver belong to later slices of the port).
+    # The five stages' artifacts and the λ-grid checkpoint (telemetry and
+    # traces of the JAX driver belong to later slices of the port).
     stage_files = {"feature_summary.json", "feature_summary.avro",
-                   "index_map.json", "training_result.json", "photon.log"}
+                   "index_map.json", "training_result.json", "photon.log",
+                   "checkpoints"}
     for lam in ("0.1", "1", "10"):
         stage_files |= {f"model_lambda_{lam}.avro",
                         f"model_lambda_{lam}.avro.meta.json"}
@@ -217,3 +219,149 @@ def test_convert_matrix_from_coo(rng, use_kernel):
     np.testing.assert_allclose(M.matvec(torch.from_numpy(w)).numpy(),
                                np.asarray(C.matvec(jnp.asarray(w))),
                                rtol=1e-5, atol=1e-5)
+
+
+def _both(train, val, tmp_path, *extra, reg_type="l2",
+          weights="0.1,1.0,10.0", tolerance="1e-5"):
+    """The port's and the reference's driver on the same files and flags.
+    OWL-QN routes (any L1 component) stop at 1e-3: its Armijo backtrack has
+    no curvature condition, so below that its last float32 steps are ulps
+    of decrease that the two packages round apart — enough to swap one
+    validation pair (1e-4 of AUC on 200 rows)."""
+    argv = [
+        "--train-data", train, "--validate-data", val, "--task", "logistic",
+        "--reg-type", reg_type, "--reg-weights", weights,
+        "--n-features", str(D), "--tolerance", tolerance, *extra,
+    ]
+    ours_dir, ref_dir = str(tmp_path / "torch"), str(tmp_path / "jax")
+    ours = glm_driver.run(argv + ["--output-dir", ours_dir, "--device", "cpu"])
+    ref = jax_driver.run(argv + ["--output-dir", ref_dir])
+    assert ours["best_lambda"] == ref["best_lambda"]
+    assert ours["metrics"].keys() == ref["metrics"].keys()
+    for lam, auc in ours["metrics"].items():
+        assert abs(auc - ref["metrics"][lam]) <= 1e-4, lam
+    return ours, ref, ours_dir, ref_dir
+
+
+def _saved_means(out, lam):
+    """The coefficient records an Avro model file holds (zeros are not
+    written), read with the reference's container reader."""
+    _, recs = jax_avro.read_container(os.path.join(out, f"model_lambda_{lam}.avro"))
+    return len(recs[0]["means"])
+
+
+def test_owlqn_l1_output_mode_all_and_sparsity(a1a_shaped, tmp_path):
+    train, val = a1a_shaped
+    ours, _, ours_dir, ref_dir = _both(
+        train, val, tmp_path, "--optimizer", "owlqn", "--output-mode", "all",
+        reg_type="l1", weights="1.0,5.0", tolerance="1e-3")
+    # Stronger L1 ⇒ a sparser model file, in both packages alike.
+    sizes = {lam: _saved_means(ours_dir, lam) for lam in ("1", "5")}
+    assert sizes["5"] < sizes["1"] < D + 1
+    for lam in ("1", "5"):
+        assert abs(sizes[lam] - _saved_means(ref_dir, lam)) <= 2
+        m, _ = model_store.load_glm_model(
+            os.path.join(ours_dir, f"model_lambda_{lam}.avro"), device="cpu")
+        jm, _ = jax_store.load_glm_model(
+            os.path.join(ref_dir, f"model_lambda_{lam}.avro"))
+        w, jw = m.coefficients.means.numpy(), np.asarray(jm.coefficients.means)
+        assert np.abs(w - jw).max() <= 1e-3 * np.abs(jw).max()
+        assert w[-1] != 0.0  # the intercept carries no L1 penalty
+    assert ours["metrics"][str(ours["best_lambda"])] > 0.7
+
+
+@pytest.mark.parametrize("flags", [("--solver", "tron"),
+                                   ("--optimizer", "tron"),
+                                   ("--reg-type", "elastic_net",
+                                    "--elastic-net-alpha", "0.3")],
+                         ids=["solver-tron", "optimizer-tron", "elastic-net"])
+def test_solver_routes_match_jax(a1a_shaped, tmp_path, flags):
+    train, val = a1a_shaped
+    tolerance = "1e-3" if "elastic_net" in flags else "1e-5"
+    ours, _, ours_dir, ref_dir = _both(train, val, tmp_path, *flags,
+                                       tolerance=tolerance)
+    name = f"model_lambda_{ours['best_lambda']:g}.avro"
+    m, _ = model_store.load_glm_model(os.path.join(ours_dir, name),
+                                      device="cpu")
+    jm, _ = jax_store.load_glm_model(os.path.join(ref_dir, name))
+    w, jw = m.coefficients.means.numpy(), np.asarray(jm.coefficients.means)
+    assert np.abs(w - jw).max() <= 1e-3 * np.abs(jw).max()
+
+
+def _bounds_file(tmp_path, bounds_map, name="bounds.json"):
+    path = str(tmp_path / name)
+    with open(path, "w") as f:
+        json.dump(bounds_map, f)
+    return path
+
+
+def test_box_constrained_driver_end_to_end(a1a_shaped, tmp_path):
+    """--coefficient-bounds clamps the named coefficients into their box,
+    selects what the reference selects, and matches a scipy L-BFGS-B
+    oracle's objective on the same data."""
+    import scipy.optimize
+
+    train, val = a1a_shaped
+    cap = 0.05
+    bounds_map = {f"f{j}": [-cap, cap] for j in range(10)}
+    path = _bounds_file(tmp_path, bounds_map)
+    _, _, ours_dir, ref_dir = _both(train, val, tmp_path,
+                                    "--coefficient-bounds", path,
+                                    weights="1.0")
+    model, imap = model_store.load_glm_model(
+        os.path.join(ours_dir, "model_lambda_1.avro"), device="cpu")
+    jm, _ = jax_store.load_glm_model(os.path.join(ref_dir,
+                                                  "model_lambda_1.avro"))
+    w = model.coefficients.means.numpy()
+    idx = [imap.get_index(k) for k in bounds_map]
+    assert np.all(np.abs(w[idx]) <= cap)
+    assert np.any(np.abs(w[idx]) == np.float32(cap))  # the box binds
+    jw = np.asarray(jm.coefficients.means)
+    assert np.abs(w - jw).max() <= 1e-3 * np.abs(jw).max()
+
+    X, y = jax_libsvm.read_libsvm(train, n_features=D, add_intercept=True)
+    Xd, y = X.toarray(), np.asarray(y, np.float64)
+    lo, hi = np.full(D + 1, -np.inf), np.full(D + 1, np.inf)
+    lo[idx], hi[idx] = -cap, cap
+
+    def f(wv):
+        m = Xd @ wv
+        return (np.sum(np.logaddexp(0, m) - y * m) + 0.5 * wv @ wv,
+                Xd.T @ (1 / (1 + np.exp(-m)) - y) + wv)
+
+    oracle = scipy.optimize.minimize(
+        f, np.zeros(D + 1), jac=True, method="L-BFGS-B",
+        bounds=list(zip(lo, hi)),
+        options={"maxiter": 1000, "ftol": 1e-14, "gtol": 1e-10})
+    assert f(w.astype(np.float64))[0] <= oracle.fun * (1 + 1e-5) + 1e-6
+
+
+@pytest.mark.parametrize("case", ["nan", "lo-above-hi", "unknown-key",
+                                  "normalization", "variances"])
+def test_coefficient_bounds_refusals(a1a_shaped, tmp_path, case):
+    train, val = a1a_shaped
+    bounds_map = {"nan": {"f0": [float("nan"), 1.0]},
+                  "lo-above-hi": {"f1": [0.5, -0.5]},
+                  "unknown-key": {"f0": [-1.0, 1.0], "no_such": [0.0, 1.0]},
+                  }.get(case, {"f0": [-1.0, 1.0]})
+    extra = {"normalization": ["--normalization", "standardization"],
+             "variances": ["--compute-variances"]}.get(case, [])
+    match = {"nan": "invalid bounds", "lo-above-hi": "invalid bounds",
+             "unknown-key": "unknown features",
+             "normalization": "normalization none",
+             "variances": "compute-variances"}[case]
+    with pytest.raises(SystemExit, match=match):
+        glm_driver.run(_argv(train, val, str(tmp_path / "out"),
+                             "--coefficient-bounds",
+                             _bounds_file(tmp_path, bounds_map), *extra,
+                             "--device", "cpu"))
+
+
+@pytest.mark.parametrize("solver,error", [("admm", "Queue 1 item 10"),
+                                          ("levenberg", "unknown solver")])
+def test_driver_refuses_unported_and_unknown_solvers(a1a_shaped, tmp_path,
+                                                     solver, error):
+    train, val = a1a_shaped
+    with pytest.raises(SystemExit, match=error):
+        glm_driver.run(_argv(train, val, str(tmp_path / "out"),
+                             "--solver", solver, "--device", "cpu"))

@@ -425,3 +425,105 @@ def test_ablation_modes_match_plain(cuda, op):
     prod = _kernel(M, op, x)
     full = ablate.spmv_ablate("full", indptr, idx, val, x, n_in, op, **layout)
     assert torch.equal(prod, full)
+
+
+# -- the solvers on the kernels ------------------------------------------------
+
+
+def _glm_pair(cuda, task="logistic", n=1 << 15, d=2048, k=16):
+    """The same GLM data twice on the card: through the SpMV kernels and as
+    the COO matrix (plain PyTorch products)."""
+    import scipy.sparse as sp
+
+    from photon_ml_tpu_torch.data.dataset import make_glm_data
+
+    rows, cols, vals = _matrix(11, n, d, k, unit=False)
+    rng = np.random.default_rng(12)
+    w_true = rng.normal(size=d) * (rng.uniform(size=d) < 0.2)
+    m = np.bincount(rows, weights=vals * w_true[cols], minlength=n)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-m))).astype(np.float32)
+    X = sp.csr_matrix((vals, (rows, cols)), shape=(n, d))
+    return (make_glm_data(X, y, use_kernel=True, device=cuda),
+            make_glm_data(X, y, use_kernel=False, device=cuda))
+
+
+def _solver_problem(solver):
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        GlmOptimizationProblem,
+        OptimizerConfig,
+    )
+    from photon_ml_tpu_torch.optim.regularization import RegularizationContext
+
+    reg = (RegularizationContext.elastic_net(0.5) if solver == "owlqn"
+           else RegularizationContext.l2())
+    # A float64 value: above the float32 noise floor, where the kernels'
+    # and the COO products' summation orders would decide the last steps.
+    return GlmOptimizationProblem("logistic", GlmOptimizationConfig(
+        optimizer=OptimizerConfig(max_iters=200, tolerance=1e-5,
+                                  solver=solver),
+        regularization=reg), accumulate="f64")
+
+
+@pytest.mark.parametrize("solver", ["owlqn", "tron", "spg"])
+def test_solver_on_kernels_matches_coo(cuda, solver):
+    """Each solver through the SpMV kernels against the same solve on the
+    COO matrix: coefficients within 1e-4 of max|w|, the objective within
+    rtol 1e-6, iterations within ±3, the same convergence (and support for
+    OWL-QN, active bounds for SPG, up to coefficients within 1e-4·max|w|)."""
+    kernel, plain = _glm_pair(cuda)
+    d = kernel.n_features
+    bounds = None
+    if solver == "spg":
+        bounds = (torch.full((d,), -0.05, device=cuda),
+                  torch.full((d,), 0.05, device=cuda))
+    problem = _solver_problem(solver)
+    _kernels.reset_launches()
+    res = problem.solve(kernel, 4.0, bounds=bounds)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["matvec"] > 0 and _kernels.LAUNCHES["rmatvec"] > 0
+    ref = problem.solve(plain, 4.0, bounds=bounds)
+    w, rw = res.w.cpu().numpy(), ref.w.cpu().numpy()
+    scale = np.abs(rw).max()
+    assert np.abs(w - rw).max() <= 1e-4 * scale
+    np.testing.assert_allclose(float(res.value), float(ref.value), rtol=1e-6)
+    assert abs(res.iterations - ref.iterations) <= 3
+    assert res.converged == ref.converged and res.stalled == ref.stalled
+    small = np.maximum(np.abs(w), np.abs(rw)) <= 1e-4 * scale
+    if solver == "owlqn":
+        assert 0 < int((w == 0).sum()) < d
+        assert np.all(small[(w == 0) != (rw == 0)])
+    if solver == "spg":
+        lo, hi = (b.cpu().numpy() for b in bounds)
+        assert np.all((w >= lo) & (w <= hi))
+        for b in (lo, hi):
+            near = np.maximum(np.abs(w - b), np.abs(rw - b)) <= 1e-4 * scale
+            assert np.all(near[(w == b) != (rw == b)])
+
+
+def test_owlqn_solve_repeats_bitwise(cuda):
+    kernel, _ = _glm_pair(cuda)
+    problem = _solver_problem("owlqn")
+    a = problem.solve(kernel, 4.0)
+    b = problem.solve(kernel, 4.0)
+    assert torch.equal(a.w, b.w) and a.iterations == b.iterations
+    assert int((a.w == 0).sum()) > 0
+
+
+def test_tron_hvp_on_kernels_matches_plain(cuda):
+    kernel, plain = _glm_pair(cuda)
+    obj = _solver_problem("tron").objective
+    gen = torch.Generator(device=cuda).manual_seed(13)
+    w = 0.1 * torch.randn(kernel.n_features, device=cuda, generator=gen)
+    v = torch.randn(kernel.n_features, device=cuda, generator=gen)
+    d2w = obj.d2_weights(w, kernel)
+    _kernels.reset_launches()
+    hv = obj.hvp(w, v, kernel, l2_weight=0.5, d2w=d2w)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["matvec"] == 1 and _kernels.LAUNCHES["rmatvec"] == 1
+    ref = obj.hvp(w, v, plain, l2_weight=0.5)
+    F = plain.features
+    absF = type(F)(F.row_ids, F.col_ids, F.values.abs(), F.n_rows, F.n_cols)
+    scale = absF.rmatvec(obj.d2_weights(w, plain) * absF.matvec(v.abs()))
+    assert _within(hv, ref, scale + 0.5 * v.abs())
+    assert torch.equal(hv, obj.hvp(w, v, kernel, l2_weight=0.5, d2w=d2w))

@@ -49,6 +49,29 @@ def test_import_leaves_jax_out_of_sys_modules():
     assert res["bad"] == []
 
 
+@pytest.mark.parametrize("module", [
+    "photon_ml_tpu_torch.optim.owlqn",
+    "photon_ml_tpu_torch.optim.tron",
+    "photon_ml_tpu_torch.optim.projected",
+    "photon_ml_tpu_torch.solvers",
+    "photon_ml_tpu_torch.solvers.registry",
+    "photon_ml_tpu_torch.io.checkpoint",
+])
+def test_solver_slice_module_imports_alone_without_jax(module):
+    """Each module of the solver slice, imported alone in a fresh process,
+    leaves jax and the JAX package out of sys.modules."""
+    code = (
+        "import importlib, json, sys\n"
+        f"importlib.import_module({module!r})\n"
+        "print(json.dumps(sorted(k for k in sys.modules if k.split('.')[0]\n"
+        "                        in ('jax', 'jaxlib', 'photon_ml_tpu'))))\n"
+    )
+    out = subprocess.run([sys.executable, "-c", code], cwd=ROOT,
+                         capture_output=True, text=True, timeout=120)
+    assert out.returncode == 0, out.stderr
+    assert json.loads(out.stdout.strip().splitlines()[-1]) == []
+
+
 @pytest.mark.parametrize(
     "path",
     sorted(str(p.relative_to(ROOT)) for p in PKG.rglob("*.py"))

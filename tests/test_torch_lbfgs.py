@@ -34,7 +34,6 @@ from photon_ml_tpu_torch.optim.problem import (
     GlmOptimizationConfig,
     GlmOptimizationProblem,
     OptimizerConfig,
-    OptimizerType,
 )
 from photon_ml_tpu_torch.optim.regularization import RegularizationContext
 
@@ -155,21 +154,14 @@ def test_lbfgs_on_quadratic_matches_jax():
     assert res.converged
 
 
-@pytest.mark.parametrize("route", ["l1", "elastic", "owlqn", "tron",
-                                   "solver", "bounds"])
+@pytest.mark.parametrize("route", ["admm", "block_cd"])
 def test_routes_outside_the_slice_raise(route):
+    """The reference's host-kind solvers run over sharded data, which the
+    port has not got yet: naming one raises, pointing at ROADMAP."""
     X, y = _logistic_problem(5, n=100, d=10)
     data = make_glm_data(X, y, device="cpu")
-    reg = {"l1": RegularizationContext.l1(),
-           "elastic": RegularizationContext.elastic_net(0.5)}.get(
-        route, RegularizationContext.l2())
-    opt = OptimizerConfig(
-        optimizer={"owlqn": OptimizerType.OWLQN,
-                   "tron": OptimizerType.TRON}.get(route, OptimizerType.LBFGS),
-        solver="admm" if route == "solver" else None,
-    )
-    problem = GlmOptimizationProblem(
-        "logistic", GlmOptimizationConfig(optimizer=opt, regularization=reg))
-    bounds = (torch.zeros(10), torch.ones(10)) if route == "bounds" else None
+    problem = GlmOptimizationProblem("logistic", GlmOptimizationConfig(
+        optimizer=OptimizerConfig(solver=route),
+        regularization=RegularizationContext.elastic_net(0.5)))
     with pytest.raises(NotImplementedError, match="ROADMAP"):
-        problem.solve(data, 1.0, bounds=bounds)
+        problem.solve(data, 1.0)
