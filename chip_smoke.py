@@ -70,10 +70,31 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    design (tile, ring stages, accumulator copies, grid) is logged; times
    beside the byte bounds and cuSPARSE on the same entries.
 
+6. GAME coordinate descent through the port's ``game`` package at the full
+   width of ``bench.py``'s ``bench_game_cd`` (640,155 rows: a 512-wide fixed
+   effect with 8 normal values a row, a per-user random effect 8 wide over
+   100,000 zipf(1.8) users capped at 128 rows, bucket growth 4, logistic,
+   L2 λ = 1, 10 iterations at tolerance 1e-6) and ``bench_game_multi_re``
+   (seed 3: per-user, per-item and per-context effects, the contexts capped
+   at 256 active rows so passive rows exist).  Host build times, buckets and
+   their (E, R), one warm iteration, one monitored run, then the median of
+   5 timed runs of 3 iterations as GAME iterations/s, each coordinate's
+   wall, Newton bodies and host reads an update.  Checks: the float64 GAME
+   objective never rises between updates beyond 2^-22 of its value; a second
+   run repeats every state and score bitwise; the scores equal a float64
+   host re-score of the finalized model to rtol 1e-5 of Σ|x·w|, passive rows
+   included; every random-effect lane its solver marks converged passes its
+   relative gradient test recomputed in float64, and the same buckets
+   stopped after one Newton body fail it; ``GameEstimator.fit`` with and
+   without device metrics gives the same train AUC within 1e-6; the SpMV
+   kernels launched and match their plain versions at the fixed effect's
+   shape (phase 2's checks).
+
 Launch counts are zeroed just before each main-path run of phases 3, 3b,
-4 and 5 and read just after; every kernel those paths run must have
+4, 5 and 6 and read just after; every kernel those paths run must have
 launched.  A kernel record's ``launches`` sums its main-path runs (phases 3
-and 3b for the valued instances, phase 4's three runs for the binary ones).  The second-to-last line is the kernels' JSON record and the
+and 3b for the valued instances, phase 4's three runs for the binary ones,
+phase 6's descents and estimator fits for the ``.game`` records).  The second-to-last line is the kernels' JSON record and the
 last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -133,6 +154,21 @@ TPU_WINDOW = "experiments/exp_g8192_v2.py:76"
 TPU_ABLATE = "experiments/exp_ablate.py:69"
 OPS = ("matvec", "rmatvec", "row_sq_matvec", "sq_rmatvec")
 DEVICE = "cuda"
+# Phase 6: bench.py's GAME configurations at full width.
+GAME_ENTITIES = 100_000
+GAME_FIXED_FEATURES = 512
+GAME_FIXED_NNZ = 8
+GAME_RE_DIM = 8
+GAME_ROW_CAP = 128
+GAME_BUCKET_GROWTH = 4.0
+GAME_CONTEXTS = 200
+GAME_CONTEXT_CAP = 256
+GAME_TIMED_ITERS = 3
+GAME_TIMED_RUNS = 5
+# The GAME objective (float64) may rise between updates by at most this
+# fraction of its value: the float32 value sum that the fixed effect's line
+# search decides on rounds at ~6e-8 of it.
+GAME_OBJ_RISE = 2.0 ** -22
 
 
 def check(ok: bool, what: str) -> None:
@@ -1267,6 +1303,513 @@ def phase_experiments():
     return recs, abl_launches
 
 
+# -- phase 6: GAME coordinate descent --------------------------------------
+
+
+def game_cd_data():
+    """``bench.py``'s ``bench_game_cd`` draw at full width (seed 1): zipf(1.8)
+    rows per user capped at 128, a 512-wide fixed effect with 8 normal values
+    a row, an 8-wide dense per-user random effect, coin-flip labels."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(1)
+    sizes = np.minimum(rng.zipf(1.8, GAME_ENTITIES), GAME_ROW_CAP)
+    n = int(sizes.sum())
+    users = np.repeat(
+        np.array([f"u{i}" for i in range(GAME_ENTITIES)], dtype=object),
+        sizes)
+    users = users[rng.permutation(n)]
+    nnzf = n * GAME_FIXED_NNZ
+    Xg = sp.csr_matrix(
+        (rng.normal(size=nnzf).astype(np.float32),
+         (np.repeat(np.arange(n, dtype=np.int64), GAME_FIXED_NNZ),
+          rng.integers(0, GAME_FIXED_FEATURES, size=nnzf))),
+        shape=(n, GAME_FIXED_FEATURES))
+    Xu = sp.csr_matrix(rng.normal(size=(n, GAME_RE_DIM)).astype(np.float32))
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    return n, Xg, y, [("per_user", users, Xu, None)]
+
+
+def game_multi_re_data():
+    """``bench.py``'s ``bench_game_multi_re`` draw at full width (seed 3):
+    the fixed effect plus per-user (zipf 1.8), per-item (zipf 1.5 pool of
+    20,000 items) and per-context (200 contexts, active cap 256: passive
+    rows) random effects, each 8 wide and dense."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(3)
+    sizes = np.minimum(rng.zipf(1.8, GAME_ENTITIES), GAME_ROW_CAP)
+    n = int(sizes.sum())
+    users = np.repeat(
+        np.array([f"u{i}" for i in range(GAME_ENTITIES)], dtype=object),
+        sizes)[rng.permutation(n)]
+    n_items = max(2, GAME_ENTITIES // 5)
+    item_sizes = np.minimum(rng.zipf(1.5, n_items), 4 * GAME_ROW_CAP)
+    item_pool = np.repeat(
+        np.array([f"i{i}" for i in range(n_items)], dtype=object),
+        item_sizes)
+    items = item_pool[rng.integers(0, len(item_pool), size=n)]
+    contexts = np.array([f"c{rng.integers(GAME_CONTEXTS)}" for _ in range(n)],
+                        dtype=object)
+    nnzf = n * GAME_FIXED_NNZ
+    Xg = sp.csr_matrix(
+        (rng.normal(size=nnzf).astype(np.float32),
+         (np.repeat(np.arange(n, dtype=np.int64), GAME_FIXED_NNZ),
+          rng.integers(0, GAME_FIXED_FEATURES, size=nnzf))),
+        shape=(n, GAME_FIXED_FEATURES))
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    effects = []
+    for name, keys, cap in (("per_user", users, None),
+                            ("per_item", items, None),
+                            ("per_context", contexts, GAME_CONTEXT_CAP)):
+        Xe = sp.csr_matrix(
+            rng.normal(size=(n, GAME_RE_DIM)).astype(np.float32))
+        effects.append((name, keys, Xe, cap))
+    return n, Xg, y, effects
+
+
+def game_objective(coords, y, scores, states, base, rows=None):
+    """The GAME objective in float64 on the device: the logistic losses at
+    base + Σ scores (over the rows where the bool mask ``rows`` holds, or
+    all rows), plus each coordinate's ½·λ·‖w‖²."""
+    from photon_ml_tpu_torch.ops import losses as losses_lib
+
+    total = (base + sum(scores.values())).double()
+    losses = losses_lib.logistic.value(total, y.double())
+    f = (losses if rows is None else losses[rows]).sum()
+    for c in coords:
+        st = states[c.name]
+        if st is None:
+            continue
+        l2 = c.reg_weight * c.problem.config.regularization.l2_weight(1.0) \
+            if hasattr(c, "problem") else c._reg()[1]
+        sq = sum((w.double() ** 2).sum() for w in st) if isinstance(
+            st, list) else (st.double() ** 2).sum()
+        f = f + 0.5 * l2 * sq
+    return f
+
+
+def re_gradients(coord, items, ws, tol):
+    """Each lane's gradient test at ``ws`` recomputed in float64 by a plain
+    per-bucket computation: (measure, threshold) a bucket.  The measure is
+    the solver's own (‖g‖; |xᵀg| for R == 1, whose solve runs in α with
+    w = α·x; |g| for D == 1) of g = Σ_r wt·ℓ'(m)·x + λ·w, m = x·w + offset;
+    the threshold is tol·max(1, the measure at the warm start) plus a
+    float32 rounding allowance of 64·2⁻²⁴ times the same measure of
+    Σ_r wt·(|ℓ'(m)| + |y| + ℓ''(m)·(|offset| + Σ_d |x·w|))·|x| + λ|w|: what
+    rounding the margin, the loss derivative and the sums can move g by."""
+    loss = coord._solver.loss
+    _, l2 = coord._reg()
+    out = []
+    for (b, off, w0), w in zip(items, ws):
+        X, yb, wt = b.X.double(), b.labels.double(), b.weights.double()
+        off = off.double()
+
+        def grad(w):
+            w = w.double()
+            xw = X * w[:, None, :]
+            m = xw.sum(-1) + off
+            u = wt * loss.d1(m, yb)
+            err = wt * (u.abs() / wt.clamp_min(1e-30) + yb.abs()
+                        + loss.d2(m, yb) * (off.abs() + xw.abs().sum(-1)))
+            return ((u[:, :, None] * X).sum(1) + l2 * w,
+                    (err[:, :, None] * X.abs()).sum(1) + l2 * w.abs())
+
+        def measure(g, absolute=False):
+            if b.rows_per_entity == 1:
+                x = X[:, 0, :].abs() if absolute else X[:, 0, :]
+                return (x * g).sum(1).abs()
+            if b.block_dim == 1:
+                return g[:, 0].abs()
+            return torch.linalg.vector_norm(g, dim=1)
+
+        g, g_err = grad(w)
+        g0, _ = grad(w0)
+        thresh = tol * torch.clamp(measure(g0), min=1.0) \
+            + 64 * 2.0 ** -24 * measure(g_err, absolute=True)
+        out.append((measure(g), thresh))
+    return out
+
+
+def re_gradient_check(glog, coord, offsets):
+    """A cold-start solve of ``coord`` at ``offsets``: every lane its solver
+    marks converged must pass its gradient test recomputed in float64
+    (:func:`re_gradients`); the same buckets stopped after one Newton body
+    (a planted fault) must fail it.  Returns the full solve's stats."""
+    from photon_ml_tpu_torch.game.coordinates import _gather_block_offsets
+
+    solver, (l1, l2) = coord._solver, coord._reg()
+    tol = coord.config.optimizer.tolerance
+    items = [(b, _gather_block_offsets(offsets, b),
+              torch.zeros((b.n_entities, b.block_dim), device=DEVICE))
+             for b in coord.dataset.blocks]
+    ws, stats = solver.solve_all(items, l1, l2)
+    cut = []
+    for b, off, w0 in items:
+        p = solver.program(b, off, w0, l1, l2)
+        p.body()
+        cut.append(p.result())
+
+    def worst(w_list):
+        """(lanes tested, lanes failing, max measure/threshold) over the
+        lanes the full solve marked converged."""
+        tested = failing = 0
+        ratio = 0.0
+        for (m, t), conv in zip(re_gradients(coord, items, w_list, tol),
+                                stats.converged):
+            tested += int(conv.sum())
+            failing += int((conv & (m > t)).sum())
+            if bool(conv.any()):
+                ratio = max(ratio, float((m / t)[conv].max()))
+        return tested, failing, ratio
+
+    n_lanes = sum(b.n_entities for b in coord.dataset.blocks)
+    tested, failing, ratio = worst(ws)
+    _, cut_failing, cut_ratio = worst(cut)
+    glog(f"{coord.name}: cold solve at the final offsets marks {tested} of "
+         f"{n_lanes} lanes converged (bodies {stats.bodies}, "
+         f"{stats.host_reads} host reads); float64 gradient test: "
+         f"{failing} fail, worst measure/threshold {ratio:.3g}; stopped "
+         f"after one Newton body: {cut_failing} of {tested} fail, worst "
+         f"{cut_ratio:.3g}")
+    check(tested > 0 and failing == 0,
+          f"game {coord.name}: {failing} converged lanes fail the float64 "
+          f"gradient test (worst {ratio:.3g})")
+    check(cut_failing > 0, f"game {coord.name}: the gradient test passes "
+          "the solve stopped after one Newton body")
+    return stats
+
+
+def host_rescore(model, n, Xg, effects):
+    """Float64 host scores of a finalized GameModel, per coordinate, and
+    the per-row scale Σ|x·w| each is held to."""
+    out = {}
+    w = model["fixed"].model.coefficients.means.cpu().numpy().astype(
+        np.float64)
+    Xg64 = Xg.astype(np.float64)
+    out["fixed"] = (Xg64 @ w, abs(Xg64) @ np.abs(w))
+    for name, keys, Xe, _ in effects:
+        re = model[name]
+        uniq, inv = np.unique(np.asarray(keys).astype(str),
+                              return_inverse=True)
+        W = np.zeros((len(uniq), re.n_features))
+        for i, k in enumerate(uniq):
+            cols, vals = re.coefficients[k]
+            W[i, cols] = vals
+        Xd = Xe.toarray().astype(np.float64)
+        Wr = W[inv]
+        out[name] = ((Xd * Wr).sum(1), (np.abs(Xd) * np.abs(Wr)).sum(1))
+    return out
+
+
+def run_game_config(glog, label, data_fn, kernels=False):
+    """One GAME configuration at full width: host builds, (with
+    ``kernels``) the SpMV kernels against their plain versions at the fixed
+    effect's shape before any descent, the descent's timed runs, and its
+    checks.  Returns (metrics, launches, kernel records or None, built
+    data)."""
+    import statistics
+
+    from photon_ml_tpu_torch.data.dataset import make_glm_data
+    from photon_ml_tpu_torch.game.coordinates import (
+        FixedEffectCoordinate,
+        RandomEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.game.data import (
+        FixedEffectDataset,
+        build_random_effect_dataset,
+    )
+    from photon_ml_tpu_torch.game.descent import CoordinateDescent
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        OptimizerConfig,
+    )
+    from photon_ml_tpu_torch.optim.regularization import (
+        RegularizationContext,
+    )
+
+    t0 = time.perf_counter()
+    n, Xg, y, effects = data_fn()
+    glog(f"{label}: host draw {time.perf_counter() - t0:.2f} s, {n} rows, "
+         f"fixed effect {GAME_FIXED_FEATURES} wide with {Xg.nnz} entries")
+    opt = GlmOptimizationConfig(
+        optimizer=OptimizerConfig(max_iters=10, tolerance=1e-6),
+        regularization=RegularizationContext.l2())
+    t0 = time.perf_counter()
+    fe_data = make_glm_data(Xg, y, device=DEVICE)
+    torch.cuda.synchronize()
+    M = fe_data.features
+    glog(f"{label}: make_glm_data {time.perf_counter() - t0:.3f} s (host "
+         f"build; {type(M).__name__}, {M.f_idx.shape[0]} streamed entries, "
+         f"{M.dense_col_ids.shape[0]} column / {M.dense_row_ids.shape[0]} row "
+         f"stripes)")
+    kern = None
+    if kernels:
+        log("phase 6: the SpMV kernels against their plain versions at the "
+            "GAME fixed effect's shape")
+        kern = kernel_vs_plain("game", M, torch.Generator(device=DEVICE)
+                               .manual_seed(6))
+        for op in ("matvec", "rmatvec"):
+            r = kern[op]
+            glog(f"{label}: {op} kernel {r['ms']:.4f} ms, bound "
+                 f"{r['bound_ms']:.4f} ms, plain {r['plain_ms']:.4f} ms, "
+                 f"cuSPARSE {r['library_ms']:.4f} ms, max|err| "
+                 f"{r['max_abs_err']:.3g}")
+    coords = [FixedEffectCoordinate(
+        "fixed", FixedEffectDataset(data=fe_data, n_global_rows=n),
+        "logistic", opt, reg_weight=1.0)]
+    passive_rows = {}
+    for name, keys, Xe, cap in effects:
+        t0 = time.perf_counter()
+        ds = build_random_effect_dataset(
+            keys, Xe, y, np.ones(n, np.float32), max_rows_per_entity=cap,
+            bucket_growth=GAME_BUCKET_GROWTH, device=DEVICE)
+        torch.cuda.synchronize()
+        shapes = [(b.n_entities, b.rows_per_entity) for b in ds.blocks]
+        prows = torch.cat([b.row_index.reshape(-1) for b in
+                           ds.passive_blocks if b is not None]
+                          or [torch.zeros(0, dtype=torch.int32,
+                                          device=DEVICE)])
+        passive_rows[name] = prows[prows < n].long()
+        check(cap is None or passive_rows[name].numel() > 0,
+              f"game {label}: {name} is capped at {cap} rows but has no "
+              "passive rows")
+        glog(f"{label}: {name}: build_random_effect_dataset "
+             f"{time.perf_counter() - t0:.3f} s (host build), "
+             f"{ds.n_entities} entities in {len(ds.blocks)} buckets (E, R) "
+             f"{shapes}, padding ratio {ds.padding_ratio:.3f}, "
+             f"{passive_rows[name].numel()} passive rows")
+        coords.append(RandomEffectCoordinate(
+            name, ds, "logistic", opt, reg_weight=1.0, entity_key=name))
+    cd = CoordinateDescent(coords)
+    base = torch.zeros(n, device=DEVICE)
+    y_dev = torch.as_tensor(y, device=DEVICE)
+    res_by = {c.name: c for c in coords}
+
+    # A capped coordinate trains on its active rows only: across its update
+    # the objective over those rows (+ every L2, the others' constant)
+    # never rises, while the objective over all rows may.  Every other
+    # update minimizes the objective over all rows.
+    active = {}
+    for c in coords[1:]:
+        if any(b is not None for b in c.dataset.passive_blocks):
+            rows = torch.zeros(n + 1, dtype=torch.bool, device=DEVICE)
+            for b in c.dataset.blocks:
+                rows[b.row_index.reshape(-1).long()] = True
+            active[c.name] = rows[:n]
+
+    def objectives(scores, states):
+        return {"objective": game_objective(coords, y_dev, scores, states,
+                                            base),
+                **{f"objective_{k}": game_objective(coords, y_dev, scores,
+                                                    states, base, rows)
+                   for k, rows in active.items()}}
+
+    def monitor(it, cname, scores, states):
+        entry = objectives(scores, states)
+        stats = getattr(res_by[cname], "last_solve", None)
+        if stats is not None:
+            entry.update(bodies=list(stats.bodies),
+                         host_reads=stats.host_reads)
+        return entry
+
+    def timed(n_it):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = cd.run(base, n_iterations=n_it)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    # The main path under zeroed launch counters: one warm iteration, one
+    # untimed (monitored) run of GAME_TIMED_ITERS, then GAME_TIMED_RUNS
+    # timed runs of GAME_TIMED_ITERS iterations each (bench.py's protocol).
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    warm, warm_s = timed(1)
+    torch.cuda.synchronize()
+    monitored = cd.run(base, n_iterations=GAME_TIMED_ITERS, eval_fn=monitor)
+    runs = [timed(GAME_TIMED_ITERS) for _ in range(GAME_TIMED_RUNS)]
+    torch.cuda.synchronize()
+    launches = dict(_kernels.LAUNCHES)
+    per_iter = [s / GAME_TIMED_ITERS for _, s in runs]
+    med = statistics.median(per_iter)
+    spread = (max(per_iter) - min(per_iter)) / med
+    glog(f"{label}: warm iteration {warm_s:.3f} s; {GAME_TIMED_RUNS} runs x "
+         f"{GAME_TIMED_ITERS} iterations: {[round(p, 5) for p in per_iter]} "
+         f"s an iteration, median {med:.5f} s = {1 / med:.4f} GAME "
+         f"iterations/s (spread {spread:.1%})")
+    glog(f"{label}: main-path launches "
+         f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    check(launches["matvec"] > 0 and launches["rmatvec"] > 0,
+          f"game {label}: the fixed effect's SpMV kernels never launched")
+
+    # Newton bodies and host reads a coordinate update; the objective, which
+    # no update may raise beyond GAME_OBJ_RISE of its value (over the
+    # updated coordinate's active rows when it is capped).
+    start = {k: float(v) for k, v in objectives(
+        {c.name: torch.zeros_like(base) for c in coords},
+        {c.name: None for c in coords}).items()}
+    prev, worst = start, -float("inf")
+    for h in monitored.history:
+        key = "objective_" + h["coordinate"]
+        key = key if key in h else "objective"
+        rise = h[key] - prev[key]
+        worst = max(worst, rise / abs(prev[key]))
+        check(rise <= GAME_OBJ_RISE * abs(prev[key]),
+              f"game {label}: {h['coordinate']}'s update raised its "
+              f"objective by {rise:.6g} (limit {GAME_OBJ_RISE:g} of its "
+              f"value)")
+        glog(f"{label}: iteration {h['iteration']} {h['coordinate']}: "
+             f"objective {h['objective']:.10g}"
+             + (f" (its active rows: {h[key]:.10g})" if key != "objective"
+                else "")
+             + f", host wall {h['wall_seconds']:.4f} s"
+             + (f", Newton bodies a bucket {h['bodies']}, {h['host_reads']} "
+                f"host reads" if "bodies" in h else ""))
+        prev = h
+    glog(f"{label}: objective {start['objective']:.10g} -> "
+         f"{monitored.history[-1]['objective']:.10g} over "
+         f"{len(monitored.history)} updates; largest relative change "
+         f"across an update {worst:.3g} (a rise is allowed up to "
+         f"{GAME_OBJ_RISE:g}, the float32 value noise of the fixed effect's "
+         f"line search)")
+
+    # Each coordinate's wall: train + score with a synchronize, best of 2,
+    # from the warm run's states.
+    scores = dict(warm.scores)
+    total = base + sum(scores.values())
+    walls = {}
+    for c in coords:
+        best = float("inf")
+        for _ in range(2):
+            offsets = total - scores[c.name]
+            torch.cuda.synchronize()
+            t0 = time.perf_counter()
+            c.score(c.train(offsets, warm_state=warm.states[c.name]))
+            torch.cuda.synchronize()
+            best = min(best, time.perf_counter() - t0)
+        walls[c.name] = best
+    glog(f"{label}: each coordinate's wall (train + score, best of 2) "
+         f"{json.dumps({k: round(v, 5) for k, v in walls.items()})}")
+
+    # A second run repeats every state and score bitwise.
+    (a, _), (b, _) = runs[0], runs[1]
+    for name in a.states:
+        sa, sb = a.states[name], b.states[name]
+        same = (torch.equal(sa, sb) if isinstance(sa, torch.Tensor)
+                else all(torch.equal(u, v) for u, v in zip(sa, sb)))
+        check(same and torch.equal(a.scores[name], b.scores[name]),
+              f"game {label}: {name}'s state or scores differ between runs")
+    glog(f"{label}: a repeated cd.run is bitwise equal (states and scores)")
+
+    # The descent's scores against a float64 host re-score of the model.
+    last = runs[-1][0]
+    model_coords = {c.name: c.finalize(last.states[c.name]) for c in coords}
+    from photon_ml_tpu_torch.game.model import GameModel
+
+    host = host_rescore(GameModel(models=model_coords, task="logistic"), n,
+                        Xg, effects)
+    for name, (h, scale) in host.items():
+        dev = last.scores[name].double().cpu().numpy()
+        err = float((np.abs(dev - h) / np.maximum(scale, 1e-30)).max())
+        check(err <= RTOL, f"game {label}: {name} scores vs the host "
+              f"re-score {err:.3g} of Σ|x·w|")
+        glog(f"{label}: {name} scores vs float64 host re-score of the "
+             f"finalized model: max err {err:.3g} of Σ|x·w|")
+    for name, rows in passive_rows.items():
+        if rows.numel():
+            s = last.scores[name][rows]
+            check(bool((s != 0).all()), f"game {label}: a passive row of "
+                  f"{name} was not scored")
+            glog(f"{label}: all {rows.numel()} passive rows of {name} scored")
+
+    # Converged lanes against the float64 gradient test, and the fault.
+    total = base + sum(last.scores.values())
+    for c in coords[1:]:
+        re_gradient_check(glog, c, total - last.scores[c.name])
+    metrics = dict(iters_per_s=1 / med, spread=spread,
+                   s_per_iter=per_iter, coordinate_s=walls,
+                   buckets={c.name: [(b.n_entities, b.rows_per_entity)
+                                     for b in c.dataset.blocks]
+                            for c in coords[1:]})
+    return metrics, launches, kern, (n, Xg, y, effects)
+
+
+def game_estimator_fits(glog, built):
+    """``GameEstimator.fit`` on the game_cd data with and without device
+    metrics: the device AUC of every update equals the host AUC within
+    1e-6.  Returns the fits' launches."""
+    from photon_ml_tpu_torch.game.estimator import (
+        FixedEffectCoordinateConfig,
+        GameEstimator,
+        RandomEffectCoordinateConfig,
+    )
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        OptimizerConfig,
+    )
+    from photon_ml_tpu_torch.optim.regularization import (
+        RegularizationContext,
+    )
+
+    n, Xg, y, effects = built
+    name, keys, Xe, _ = effects[0]
+    opt = GlmOptimizationConfig(
+        optimizer=OptimizerConfig(max_iters=10, tolerance=1e-6),
+        regularization=RegularizationContext.l2())
+    configs = {
+        "fixed": FixedEffectCoordinateConfig("global", opt, reg_weight=1.0),
+        name: RandomEffectCoordinateConfig(
+            name, name, opt, reg_weight=1.0,
+            bucket_growth=GAME_BUCKET_GROWTH),
+    }
+    shards, ids = {"global": Xg, name: Xe}, {name: keys}
+    hist = {}
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    for flag in (True, False):
+        t0 = time.perf_counter()
+        _, hist[flag] = GameEstimator(
+            "logistic", configs, n_iterations=1, device_metrics=flag,
+            device=DEVICE).fit(shards, ids, y)
+        torch.cuda.synchronize()
+        glog(f"estimator fit (device_metrics={flag}): "
+             f"{time.perf_counter() - t0:.2f} s with its host builds; "
+             f"train AUC {[h['train_metric'] for h in hist[flag]]}")
+    launches = dict(_kernels.LAUNCHES)
+    diff = max(abs(a["train_metric"] - b["train_metric"])
+               for a, b in zip(hist[True], hist[False]))
+    check(len(hist[True]) == len(hist[False]) == 2 and diff <= 1e-6,
+          f"game estimator: device AUC vs host AUC differ by {diff:.3g}")
+    glog(f"estimator: device AUC = host AUC within {diff:.3g} (limit 1e-6)")
+    return launches
+
+
+def phase_game(smi):
+    """Phase 6: GAME coordinate descent at bench.py's full width
+    (``game_cd`` and ``game_multi_re``).  Returns (kernel records at the
+    fixed effect's shape, main-path launches, metrics)."""
+    def glog(msg):
+        log(f"game [{smi}] {msg}")
+
+    metrics, launches, kern, built = run_game_config(
+        glog, "game_cd", game_cd_data, kernels=True)
+    fit_launches = game_estimator_fits(glog, built)
+    del built
+    torch.cuda.empty_cache()
+    m_metrics, m_launches, _, _ = run_game_config(glog, "game_multi_re",
+                                                  game_multi_re_data)
+    total = {op: launches[op] + fit_launches[op] + m_launches[op]
+             for op in ("matvec", "rmatvec")}
+    glog(f"GAME iterations/s: game_cd {metrics['iters_per_s']:.4f} (spread "
+         f"{metrics['spread']:.1%}), game_multi_re "
+         f"{m_metrics['iters_per_s']:.4f} (spread {m_metrics['spread']:.1%});"
+         f" main-path SpMV launches {json.dumps(total)}")
+    return kern, total, {"game_cd": metrics, "game_multi_re": m_metrics}
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -1294,11 +1837,16 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("phase 5: experiments")
     exp, abl_launches = phase_experiments()
+    torch.cuda.empty_cache()
+    log("phase 6: GAME coordinate descent")
+    kern_game, game_launches, game_metrics = phase_game(smi)
 
     log("not on the main path (no caller in the GLM slice), checked in "
         "phase 2: " + json.dumps({
             f"{v}.row_sq_matvec": kern[v]["row_sq_matvec"]
-            for v in ("valued", "binary")}))
+            for v in ("valued", "binary")} | {
+            f"game.{op}": kern_game[op] for op in ("row_sq_matvec",
+                                                   "sq_rmatvec")}))
     # The skewed matrix runs the valued instances: its records carry the
     # valued main path's launches of the same operation.
     records = []
@@ -1317,6 +1865,18 @@ def main() -> int:
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             })
+    # The GAME fixed effect's shape (640,155 x 512, 8 values a row): the
+    # valued instances, with phase 6's main-path launches.
+    for op in ("matvec", "rmatvec"):
+        r = kern_game[op]
+        records.append({
+            "name": f"spmv.{op}.game", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+            "launches": game_launches[op],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
     fields = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "bound_by", "library_ms")
     for name, key, source, replaces in (
@@ -1333,6 +1893,7 @@ def main() -> int:
                         **{f: r[f] for f in fields[1:]}})
     log(f"metrics: {json.dumps(lib_metrics)}; solvers: "
         f"{json.dumps({k: r['wall_s'] for k, r in sol_records.items()})}; "
+        f"GAME: {json.dumps(game_metrics)}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -13,7 +13,7 @@ Layout mirrors the reference so each module's counterpart is easy to find:
                    kernel-backed CSR/CSC matrix whose four hot operations run
                    in the hand-written CUDA SpMV kernel (``csrc/spmv.cu``).
 - ``data``       — GLM datasets, LIBSVM ingest, index maps, normalization,
-                   summary statistics.
+                   summary statistics, down-sampling.
 - ``optim``      — the GLM objective, the weak-Wolfe line search, L-BFGS,
                    OWL-QN (L1 / elastic-net), TRON (trust-region Newton) and
                    SPG (box constraints) — host loops over device tensors —
@@ -21,7 +21,12 @@ Layout mirrors the reference so each module's counterpart is easy to find:
 - ``solvers``    — the solver registry: named solvers and the routing
                    (bounds → SPG, any L1 → OWL-QN, else the optimizer).
 - ``models``     — GLM model classes.
-- ``evaluation`` — validation metrics (host numpy).
+- ``game``       — GAME, resident: entity bucketing (``data``), model
+                   containers, the fixed-effect and batched random-effect
+                   coordinates, coordinate descent and ``GameEstimator``.
+- ``evaluation`` — validation metrics: host evaluators, ``device`` (the
+                   same metrics on the scores' device, sort-based AUC) and
+                   ``suite`` (``EvaluationSuite``).
 - ``io``         — the Avro container codec, model and summary persistence,
                    the λ-grid checkpoint (numpy ``.npz``, the reference's
                    format).

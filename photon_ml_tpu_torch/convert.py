@@ -45,6 +45,23 @@ def normalization_from_numpy(factors, shifts,
                                 intercept_index)
 
 
+def game_states_from_numpy(states: dict, device=None) -> dict:
+    """Coordinate-descent states as the port's tensors: a fixed effect's
+    ``w`` array becomes one float32 tensor, a random effect's list of
+    per-bucket ``(E, D)`` arrays a list of them; ``None`` stays ``None``.
+    Both packages can then warm-start from the same point."""
+    dev = resolve_device(device)
+
+    def one(st):
+        if st is None:
+            return None
+        if isinstance(st, (list, tuple)):
+            return [_f32(a, dev) for a in st]
+        return _f32(st, dev)
+
+    return {name: one(st) for name, st in states.items()}
+
+
 def matrix_from_coo(rows, cols, vals, n_rows: int, n_cols: int,
                     use_kernel: bool = True, device=None, **kwargs):
     """A feature matrix from COO triples: the kernel-backed CSR/CSC matrix

@@ -97,3 +97,39 @@ def summarize_host(X, weights=None) -> BasicStatisticalSummary:
         nnz=np.asarray(nnz, np.int32),
         count=np.float64(w_sum),
     )
+
+
+def entity_shape_histogram(
+    row_counts, col_counts, max_entities: int = 500_000, seed: int = 0
+):
+    """Distinct per-entity (row count, active-feature count) shapes with
+    multiplicities — the summary the GAME entity repacker plans buckets
+    from (``game/data.py``).
+
+    Returns ``(shapes, counts, inverse)``: ``shapes`` is ``(K, 2)`` int64
+    sorted lexicographically, ``counts[k]`` how many entities have shape
+    k, and ``inverse[e]`` each entity's shape index.  Column counts clamp
+    to >= 1 (an entity with no active features still occupies a 1-wide
+    lane).  Above ``max_entities`` the multiplicities are estimated from a
+    seeded uniform subsample (scaled back up); ``inverse`` still covers
+    every entity, so assignment stays exact and only the cost estimates
+    coarsen.
+    """
+    rows = np.asarray(row_counts, np.int64)
+    cols = np.maximum(np.asarray(col_counts, np.int64), 1)
+    pairs = np.stack([rows, cols], axis=1)
+    shapes, inverse, counts = np.unique(
+        pairs, axis=0, return_inverse=True, return_counts=True
+    )
+    n_ent = len(rows)
+    if n_ent > max_entities:
+        rng = np.random.default_rng(seed)
+        sample = rng.choice(n_ent, size=max_entities, replace=False)
+        sample_counts = np.bincount(
+            inverse[sample], minlength=len(shapes)
+        ).astype(np.float64)
+        scale = n_ent / max_entities
+        counts = np.maximum(
+            np.round(sample_counts * scale), 1
+        ).astype(np.int64)
+    return shapes.astype(np.int64), counts.astype(np.int64), inverse

@@ -1,0 +1,133 @@
+"""Evaluation suites (port of ``photon_ml_tpu/evaluation/suite.py``).
+
+An ordered name→``Evaluator`` mapping evaluated together on one score
+pass, with a designated primary metric that drives model selection (the
+reference selects by the first configured evaluator).  Ungrouped
+evaluators only: per-group ("sharded") evaluation needs the grouped
+evaluators, which are not ported yet.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+from typing import Optional, Sequence, Union
+
+import numpy as np
+
+from photon_ml_tpu_torch.evaluation.evaluators import (
+    Evaluator,
+    default_evaluator_for_task,
+    get_evaluator,
+)
+
+_GROUPED_ITEM = (
+    "ROADMAP.md, PyTorch/CUDA port, Queue 1 item 2: the grouped evaluators"
+)
+
+
+def _refuse_groups() -> None:
+    raise NotImplementedError(
+        "grouped (per-query) evaluation is not ported to photon_ml_tpu_torch "
+        f"yet ({_GROUPED_ITEM})"
+    )
+
+
+@dataclasses.dataclass(frozen=True)
+class EvaluationSuite:
+    """Ordered collection of named evaluators; ``primary`` drives selection."""
+
+    evaluators: tuple  # tuple[(name, Evaluator), ...] — ordered
+    primary: str
+    #: always None in the port (see the module docstring).
+    group_column: Optional[str] = None
+
+    def __post_init__(self):
+        if self.group_column is not None:
+            _refuse_groups()
+        names = [n for n, _ in self.evaluators]
+        if len(set(names)) != len(names):
+            raise ValueError(f"duplicate evaluator names: {names}")
+        if self.primary not in names:
+            raise ValueError(
+                f"primary {self.primary!r} not among evaluators {names}"
+            )
+
+    @classmethod
+    def from_specs(
+        cls,
+        specs: Sequence[Union[str, Evaluator]],
+        primary: Optional[str] = None,
+        group_column: Optional[str] = None,
+    ) -> "EvaluationSuite":
+        """Build from spec strings (``"auc"``, ...) or ``Evaluator``
+        instances; primary defaults to the first."""
+        pairs = []
+        for spec in specs:
+            if isinstance(spec, Evaluator):
+                pairs.append((type(spec).__name__, spec))
+            else:
+                pairs.append((str(spec).strip().lower(), get_evaluator(spec)))
+        if not pairs:
+            raise ValueError("EvaluationSuite requires at least one evaluator")
+        return cls(
+            evaluators=tuple(pairs),
+            primary=primary if primary is not None else pairs[0][0],
+            group_column=group_column,
+        )
+
+    @classmethod
+    def for_task(cls, task: str) -> "EvaluationSuite":
+        ev = default_evaluator_for_task(task)
+        return cls(evaluators=((type(ev).__name__, ev),),
+                   primary=type(ev).__name__)
+
+    @property
+    def primary_evaluator(self) -> Evaluator:
+        return dict(self.evaluators)[self.primary]
+
+    def evaluate(self, scores, labels, weights=None, group_ids=None) -> dict:
+        """name → metric value, every evaluator on one host score pass."""
+        if group_ids is not None:
+            _refuse_groups()
+        return {
+            name: ev.evaluate(scores, labels, weights)
+            for name, ev in self.evaluators
+        }
+
+    def evaluate_primary(self, scores, labels, weights=None,
+                         group_ids=None) -> tuple[float, dict]:
+        """(primary metric, full name→value dict) from one score pass."""
+        values = self.evaluate(scores, labels, weights, group_ids)
+        return values[self.primary], values
+
+    def evaluate_device(self, scores, labels, weights=None,
+                        materialize: bool = True) -> dict:
+        """name → metric value computed on the scores' device; only scalars
+        come back.  Evaluators with no device implementation share ONE
+        host pullback.  ``materialize=False`` leaves the device metrics as
+        0-d tensors for the caller's batched readback."""
+        from photon_ml_tpu_torch.evaluation.device import device_evaluator_fn
+
+        out = {}
+        host_pull = None
+        for name, ev in self.evaluators:
+            fn = device_evaluator_fn(ev)
+            if fn is not None:
+                m = fn(scores, labels, weights)
+                out[name] = float(m) if materialize else m
+                continue
+            if host_pull is None:
+                host_pull = tuple(
+                    None if a is None else a.detach().cpu().numpy()
+                    for a in (scores, labels, weights)
+                )
+            out[name] = ev.evaluate(*host_pull)
+        return out
+
+    def better_than(self, a: Optional[float], b: Optional[float]) -> bool:
+        """Compare two PRIMARY metric values; None/NaN always loses."""
+        if a is None or np.isnan(a):
+            return False
+        if b is None or np.isnan(b):
+            return True
+        return self.primary_evaluator.better_than(a, b)

@@ -22,6 +22,7 @@ import torch
 
 from photon_ml_tpu_torch.data.dataset import GlmData
 from photon_ml_tpu_torch.data.normalization import NormalizationContext
+from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_ml_tpu_torch.ops import losses as losses_lib
 from photon_ml_tpu_torch.optim.lbfgs import SolveResult
@@ -179,15 +180,19 @@ class GlmOptimizationProblem:
         solved: Optional[dict] = None,
         on_solved=None,
         variance_fn=None,
+        device=None,
     ) -> list[tuple[float, GeneralizedLinearModel, Optional[SolveResult]]]:
         """The warm-started λ chain (largest λ first): ``solve_fn(lam,
         w_prev) → SolveResult``.
 
-        Checkpoint/resume: ``solved`` (λ → coefficient tensor, from
+        Checkpoint/resume: ``solved`` (λ → coefficients, from
         ``io/checkpoint.GridCheckpointer``) skips already-solved λs — their
         entries come back with ``res=None`` and the warm-start chain
         continues from the restored coefficients, so a resumed grid matches
-        the uninterrupted one bit for bit.  ``on_solved(lam, w)`` fires
+        the uninterrupted one bit for bit.  Restored coefficients keep their
+        dtype and land on ``device``; without it, on the device of the
+        chain's current coefficients (``w0`` or the last solve's), else on
+        the default device (:func:`resolve_device`).  ``on_solved(lam, w)`` fires
         after each fresh solve (the driver persists the checkpoint there).
         ``variance_fn(w, lam)`` runs for every grid point, restored ones
         included, when variances are requested.  Each fresh solve is
@@ -200,7 +205,10 @@ class GlmOptimizationProblem:
         solved = solved or {}
         for lam in sorted(reg_weights, reverse=True):
             if lam in solved:
-                w = torch.as_tensor(solved[lam])
+                dev = (resolve_device(device) if device is not None
+                       else w_prev.device if isinstance(w_prev, Tensor)
+                       else resolve_device(None))
+                w = torch.as_tensor(solved[lam], device=dev)
                 res = None
             else:
                 timer = Timer().start()
@@ -244,9 +252,6 @@ class GlmOptimizationProblem:
             def variance_fn(w, lam):
                 return self.coefficient_variances(w, data, lam)
 
-        restored = {
-            lam: torch.as_tensor(np.asarray(w), device=data.device)
-            for lam, w in (solved or {}).items()
-        }
         return self.grid_loop(solve_fn, reg_weights, w0, warm_start,
-                              restored, on_solved, variance_fn)
+                              solved, on_solved, variance_fn,
+                              device=data.device)

@@ -83,7 +83,7 @@ def get(name: str) -> SolverDef:
         raise NotImplementedError(
             f"solver {name!r} ({NOT_PORTED[name]}) is not ported to "
             "photon_ml_tpu_torch yet: it runs over sharded data (ROADMAP.md, "
-            "PyTorch/CUDA port, Queue 1 item 10: multi-device)"
+            "PyTorch/CUDA port, Queue 1 item 6: multi-device)"
         )
     if defn is None:
         raise KeyError(

@@ -191,3 +191,30 @@ def test_resume_refused_on_bounds_mismatch(libsvm_pair, tmp_path):
     with pytest.raises(SystemExit, match="coefficient-bounds"):
         glm_driver.run(base + ["--coefficient-bounds", bounds_file,
                                "--resume"])
+
+
+@pytest.mark.parametrize("w0", [None, "cpu"], ids=["no-w0", "cpu-w0"])
+def test_grid_loop_restores_onto_the_problem_device(rng, w0):
+    """Restored λs land on the requested device (here the CPU) in their own
+    dtype, and the next λ warm-starts from that tensor."""
+    from photon_ml_tpu_torch.optim.lbfgs import SolveResult
+    from photon_ml_tpu_torch.optim.problem import GlmOptimizationProblem
+
+    solved = _solved(rng, n=1)  # λ = 10 restored, λ = 1 solved
+    received = []
+
+    def solve_fn(lam, w_prev):
+        received.append(w_prev)
+        w = w_prev + 1.0
+        return SolveResult(w, w.sum(), w, 0, True, torch.zeros(1),
+                           torch.zeros(1))
+
+    start = None if w0 is None else torch.zeros(17, device=w0)
+    out = GlmOptimizationProblem("logistic").grid_loop(
+        solve_fn, [1.0, 10.0], w0=start, solved=solved, device="cpu")
+    assert [lam for lam, _, _ in out] == [10.0, 1.0]
+    (w_prev,) = received
+    assert isinstance(w_prev, torch.Tensor)
+    assert w_prev.device.type == "cpu" and w_prev.dtype == torch.float32
+    np.testing.assert_array_equal(w_prev.numpy(), solved[10.0])
+    assert out[0][2] is None and out[1][2] is not None

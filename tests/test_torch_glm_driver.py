@@ -357,7 +357,7 @@ def test_coefficient_bounds_refusals(a1a_shaped, tmp_path, case):
                              "--device", "cpu"))
 
 
-@pytest.mark.parametrize("solver,error", [("admm", "Queue 1 item 10"),
+@pytest.mark.parametrize("solver,error", [("admm", "Queue 1 item 6"),
                                           ("levenberg", "unknown solver")])
 def test_driver_refuses_unported_and_unknown_solvers(a1a_shaped, tmp_path,
                                                      solver, error):

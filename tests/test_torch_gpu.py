@@ -527,3 +527,151 @@ def test_tron_hvp_on_kernels_matches_plain(cuda):
     scale = absF.rmatvec(obj.d2_weights(w, plain) * absF.matvec(v.abs()))
     assert _within(hv, ref, scale + 0.5 * v.abs())
     assert torch.equal(hv, obj.hvp(w, v, kernel, l2_weight=0.5, d2w=d2w))
+
+
+# -- GAME on the card ----------------------------------------------------------
+
+
+def _game_dataset(device, d=5, n=6000, cap=None, dtype=torch.float32):
+    """A random effect whose buckets take every solver path: rank-1
+    (single-row entities), scalar Newton (d = 1) or batched Newton."""
+    import scipy.sparse as sp
+
+    from photon_ml_tpu_torch.game.data import build_random_effect_dataset
+
+    rng = np.random.default_rng(21)
+    sizes = np.minimum(rng.zipf(1.7, 800), 64)
+    keys = np.repeat(np.array([f"e{i}" for i in range(800)], dtype=object),
+                     sizes)[: n]
+    n = len(keys)
+    X = sp.csr_matrix(rng.normal(size=(n, d)).astype(np.float32))
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    off = (0.3 * rng.normal(size=n)).astype(np.float32)
+    ds = build_random_effect_dataset(keys, X, y, np.ones(n, np.float32),
+                                     max_rows_per_entity=cap, device=device,
+                                     dtype=dtype)
+    return ds, torch.as_tensor(off, device=device)
+
+
+def _re_coordinate(ds):
+    from photon_ml_tpu_torch.game.coordinates import RandomEffectCoordinate
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        OptimizerConfig,
+    )
+    from photon_ml_tpu_torch.optim.regularization import RegularizationContext
+
+    cfg = GlmOptimizationConfig(
+        optimizer=OptimizerConfig(max_iters=20, tolerance=1e-6),
+        regularization=RegularizationContext.l2())
+    return RandomEffectCoordinate("re", ds, "logistic", cfg, reg_weight=0.5)
+
+
+@pytest.mark.parametrize("d", [1, 5])
+def test_block_solvers_on_card_match_float64_cpu(cuda, d):
+    """Each bucket's float32 solve on the card against the same solver run
+    in float64 on the CPU: within 1e-4 of the bucket's largest coefficient
+    (the float32 solve stops at its own noise floor)."""
+    ds, off = _game_dataset(cuda, d=d)
+    ds64, off64 = _game_dataset("cpu", d=d, dtype=torch.float64)
+    coord, coord64 = _re_coordinate(ds), _re_coordinate(ds64)
+    assert ds.blocks[0].rows_per_entity == 1  # the rank-1 path runs
+    state = coord.train(off)
+    state64 = coord64.train(off64.double())
+    for w, w64 in zip(state, state64):
+        w64 = w64.numpy()
+        err = np.abs(w.cpu().numpy() - w64).max()
+        assert err <= 1e-4 * np.abs(w64).max(), err
+    assert coord.last_solve.host_reads == max(coord.last_solve.bodies) + 1
+
+
+def test_re_scoring_on_card_repeats_bitwise(cuda):
+    ds, off = _game_dataset(cuda, cap=8)
+    assert any(b is not None for b in ds.passive_blocks)
+    coord = _re_coordinate(ds)
+    state = coord.train(off)
+    a, b = coord.score(state), coord.score(state)
+    assert torch.equal(a, b) and bool((a != 0).all())
+    import dataclasses
+
+    from photon_ml_tpu_torch.game.coordinates import score_blocks
+
+    ds_cpu, _ = _game_dataset("cpu", cap=8)
+    host = _re_coordinate(ds_cpu).score([s.cpu() for s in state])
+
+    def absolute(blocks):
+        return [None if b is None else dataclasses.replace(b, X=b.X.abs())
+                for b in blocks]
+
+    scale = score_blocks(ds_cpu.n_global_rows, absolute(ds_cpu.blocks),
+                         absolute(ds_cpu.passive_blocks),
+                         [s.cpu().abs() for s in state], "cpu")
+    assert bool(((a.cpu() - host).abs() <= 1e-6 * scale).all())
+
+
+def test_device_auc_on_card_matches_host(cuda):
+    from photon_ml_tpu_torch.evaluation.device import device_auc
+    from photon_ml_tpu_torch.evaluation.evaluators import (
+        AreaUnderROCCurveEvaluator,
+    )
+
+    rng = np.random.default_rng(22)
+    s = np.round(rng.normal(size=200_000), 2).astype(np.float32)
+    y = (rng.uniform(size=s.size) < 0.3).astype(np.float32)
+    w = rng.uniform(0, 2, size=s.size).astype(np.float32)
+    got = device_auc(*(torch.as_tensor(a, device=cuda) for a in (s, y, w)))
+    assert got.device.type == "cuda"
+    assert abs(float(got) - AreaUnderROCCurveEvaluator().evaluate(s, y, w)
+               ) <= 1e-9
+
+
+def test_game_descent_on_card_runs_the_kernels_and_repeats(cuda):
+    import scipy.sparse as sp
+
+    from photon_ml_tpu_torch.data.dataset import make_glm_data
+    from photon_ml_tpu_torch.game.coordinates import FixedEffectCoordinate
+    from photon_ml_tpu_torch.game.data import FixedEffectDataset
+    from photon_ml_tpu_torch.game.descent import CoordinateDescent
+
+    ds, _ = _game_dataset(cuda)
+    re = _re_coordinate(ds)
+    n = ds.n_global_rows
+    rows, cols, vals = _matrix(23, n, 256, 8, unit=False)
+    y = (np.random.default_rng(24).uniform(size=n) < 0.5).astype(np.float32)
+    X = sp.csr_matrix((vals, (rows, cols)), shape=(n, 256))
+    fe = FixedEffectCoordinate(
+        "fixed", FixedEffectDataset(make_glm_data(X, y, device=cuda), n),
+        "logistic", re.config, reg_weight=1.0)
+    _kernels.reset_launches()
+    a = CoordinateDescent([fe, re]).run(torch.zeros(n, device=cuda), 2)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["matvec"] > 0 and _kernels.LAUNCHES["rmatvec"] > 0
+    b = CoordinateDescent([fe, re]).run(torch.zeros(n, device=cuda), 2)
+    assert torch.equal(a.states["fixed"], b.states["fixed"])
+    assert all(torch.equal(u, v) for u, v in zip(a.states["re"],
+                                                 b.states["re"]))
+    assert [h["score_norm"] for h in a.history] == [
+        h["score_norm"] for h in b.history]
+
+
+def test_grid_loop_restores_onto_the_card(cuda):
+    from photon_ml_tpu_torch.optim.lbfgs import SolveResult
+    from photon_ml_tpu_torch.optim.problem import GlmOptimizationProblem
+
+    received = []
+
+    def solve_fn(lam, w_prev):
+        received.append(w_prev)
+        return SolveResult(w_prev, w_prev.sum(), w_prev, 0, True,
+                           torch.zeros(1), torch.zeros(1))
+
+    solved = {10.0: np.arange(5, dtype=np.float32)}
+    GlmOptimizationProblem("logistic").grid_loop(
+        solve_fn, [10.0, 1.0], solved=solved, device=cuda)
+    assert received[0].device.type == "cuda"
+    assert received[0].dtype == torch.float32
+    # Without a device: the default device, CUDA here.
+    received.clear()
+    GlmOptimizationProblem("logistic").grid_loop(solve_fn, [10.0, 1.0],
+                                                 solved=solved)
+    assert received[0].device.type == "cuda"

@@ -56,10 +56,13 @@ def test_import_leaves_jax_out_of_sys_modules():
     "photon_ml_tpu_torch.solvers",
     "photon_ml_tpu_torch.solvers.registry",
     "photon_ml_tpu_torch.io.checkpoint",
+    "photon_ml_tpu_torch.game.estimator",
+    "photon_ml_tpu_torch.evaluation.device",
+    "photon_ml_tpu_torch.evaluation.suite",
 ])
 def test_solver_slice_module_imports_alone_without_jax(module):
-    """Each module of the solver slice, imported alone in a fresh process,
-    leaves jax and the JAX package out of sys.modules."""
+    """Each module of the solver and GAME slices, imported alone in a fresh
+    process, leaves jax and the JAX package out of sys.modules."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({module!r})\n"

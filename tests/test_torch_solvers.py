@@ -630,7 +630,7 @@ class TestRegistry:
 
     @pytest.mark.parametrize("name", ["admm", "block_cd"])
     def test_host_kind_solvers_not_ported(self, name):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 10"):
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
             registry.get(name)
         with pytest.raises(NotImplementedError, match="ROADMAP"):
             registry.resolve(OptimizerConfig(solver=name), l1_frac=0.5)
