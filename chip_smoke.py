@@ -90,11 +90,41 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    kernels launched and match their plain versions at the fixed effect's
    shape (phase 2's checks).
 
+7. The GAME drivers at ``bench_game_cd``'s width: GAME Avro files written
+   with the port's ``write_game_avro`` (640,155 training rows of 100,000
+   zipf(1.8) users, a 512-wide global shard with 8 normal values a row, an
+   8-wide dense per-user shard, labels from the logistic of a true fixed
+   effect plus a per-user margin; 80,000 validation rows from the same
+   users, 2 % from users the training rows never hold), then
+   ``game_training_driver.run`` (fixed L-BFGS L2 + per-user random effect,
+   3 iterations, validation after every update), the same config stopped
+   after iteration 1 and ``--resume``d to 3, a two-point per-user
+   ``reg_weight`` grid (``fit_grid`` and its checkpointer, metrics on the
+   card with ``--device-metrics``),
+   ``game_scoring_driver.run`` on the validation file with the host and the
+   device metric, and ``feature_indexing_driver.run``.  Checks: the native
+   decoder read every file of the training and scoring runs (their
+   results' ``decoders``/``decoder``); the scoring driver's scores equal a float64 host
+   re-score of the saved model (loaded back with ``load_game_model``) within
+   1e-5 of Σ|x·w|, unseen users contributing 0; its AUC equals the training
+   driver's validation metric and the device AUC within 1e-6; every
+   per-update validation metric equals the suite on a float64 host re-score
+   of that update's states within 1e-6; the final validation AUC exceeds the
+   fixed effect's alone; the resumed model's files equal the uninterrupted
+   run's byte for byte; the grid selects its better point; the SpMV kernels
+   launched in training and in validation scoring, and the row kernel
+   matches its plain version at the validation shape (phase 2's checks).
+   Read, build, descent, validation scoring, save and load times are
+   logged from the drivers' own ``stage_seconds``; the script wraps only
+   the validation scorers, to count their launches and copy the states
+   they score for the per-update check.
+
 Launch counts are zeroed just before each main-path run of phases 3, 3b,
-4, 5 and 6 and read just after; every kernel those paths run must have
+4, 5, 6 and 7 and read just after; every kernel those paths run must have
 launched.  A kernel record's ``launches`` sums its main-path runs (phases 3
 and 3b for the valued instances, phase 4's three runs for the binary ones,
-phase 6's descents and estimator fits for the ``.game`` records).  The second-to-last line is the kernels' JSON record and the
+phase 6's descents and estimator fits and phase 7's training runs for the
+``.game`` records, phase 7's validation scoring for ``.game_val``).  The second-to-last line is the kernels' JSON record and the
 last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -165,6 +195,12 @@ GAME_CONTEXTS = 200
 GAME_CONTEXT_CAP = 256
 GAME_TIMED_ITERS = 3
 GAME_TIMED_RUNS = 5
+# Phase 7: the GAME drivers at bench_game_cd's width, with a validation
+# file of GAME_VAL_ROWS rows (GAME_VAL_UNSEEN of them from unseen users).
+GAME_VAL_ROWS = 80_000
+GAME_VAL_UNSEEN = 0.02
+GAME_DRIVER_ITERS = 3
+GAME_GRID_RE_WEIGHTS = (1.0, 1e4)
 # The GAME objective (float64) may rise between updates by at most this
 # fraction of its value: the float32 value sum that the fixed effect's line
 # search decides on rounds at ~6e-8 of it.
@@ -1810,6 +1846,433 @@ def phase_game(smi):
     return kern, total, {"game_cd": metrics, "game_multi_re": m_metrics}
 
 
+# -- phase 7: the GAME drivers ---------------------------------------------
+
+
+def write_game_driver_files(td, glog):
+    """GAME Avro files at ``bench_game_cd``'s width, written with the port's
+    ``write_game_avro``: training rows with bench_game_cd's user draw (seed
+    1: 100,000 users, zipf(1.8) rows each capped at 128, 640,155 rows), a
+    ``global`` shard 512 wide with 8 normal values a row and a dense
+    ``userFeatures`` shard 8 wide; labels drawn from the logistic of a true
+    fixed effect plus a per-user margin.  Validation: GAME_VAL_ROWS rows from
+    the same population (users drawn in proportion to their training rows),
+    GAME_VAL_UNSEEN of them from users the training rows never hold.
+    Returns (train path, validation path, unseen user keys)."""
+    from photon_ml_tpu_torch.data.game_reader import write_game_avro
+
+    sizes = np.minimum(np.random.default_rng(1).zipf(1.8, GAME_ENTITIES),
+                       GAME_ROW_CAP)
+    rng = np.random.default_rng(7)
+    n_unseen_users = 2000
+    w_fixed = rng.normal(scale=0.5, size=GAME_FIXED_FEATURES)
+    b_user = rng.normal(scale=0.5, size=(GAME_ENTITIES + n_unseen_users,
+                                         GAME_RE_DIM))
+    g_names = [f"g{j}" for j in range(GAME_FIXED_FEATURES)]
+    x_names = [f"x{k}" for k in range(GAME_RE_DIM)]
+    user_keys = np.array([f"u{i}" for i in range(GAME_ENTITIES)]
+                         + [f"v{i}" for i in range(n_unseen_users)], object)
+
+    def rows(users, prefix):
+        """GAME records for the rows of ``users`` (indices into
+        ``user_keys``), drawn and converted in chunks."""
+        chunk = 1 << 16
+        for lo in range(0, len(users), chunk):
+            u = users[lo:lo + chunk]
+            m = len(u)
+            cols = rng.integers(0, GAME_FIXED_FEATURES,
+                                size=(m, GAME_FIXED_NNZ))
+            vals = rng.normal(size=(m, GAME_FIXED_NNZ))
+            xu = rng.normal(size=(m, GAME_RE_DIM))
+            margin = (vals * w_fixed[cols]).sum(1) + (xu * b_user[u]).sum(1)
+            y = (rng.uniform(size=m) < 1 / (1 + np.exp(-margin))).tolist()
+            cols, vals, xu = cols.tolist(), vals.tolist(), xu.tolist()
+            keys = user_keys[u].tolist()
+            for i in range(m):
+                yield {
+                    "uid": f"{prefix}{lo + i}", "response": float(y[i]),
+                    "weight": None, "offset": None,
+                    "ids": {"userId": keys[i]},
+                    "features": {
+                        "global": [{"name": g_names[c], "term": "",
+                                    "value": v}
+                                   for c, v in zip(cols[i], vals[i])],
+                        "userFeatures": [{"name": x_names[k], "term": "",
+                                          "value": v}
+                                         for k, v in enumerate(xu[i])],
+                    },
+                }
+
+    train_users = np.repeat(np.arange(GAME_ENTITIES), sizes)
+    train_users = train_users[rng.permutation(len(train_users))]
+    n_unseen = int(GAME_VAL_ROWS * GAME_VAL_UNSEEN)
+    val_users = np.concatenate([
+        rng.choice(GAME_ENTITIES, size=GAME_VAL_ROWS - n_unseen,
+                   p=sizes / sizes.sum()),
+        GAME_ENTITIES + rng.integers(0, n_unseen_users, size=n_unseen)])
+    val_users = val_users[rng.permutation(GAME_VAL_ROWS)]
+    paths = {}
+    for name, users in (("train", train_users), ("validate", val_users)):
+        paths[name] = os.path.join(td, f"{name}.avro")
+        t0 = time.perf_counter()
+        write_game_avro(paths[name], rows(users, name[0]))
+        glog(f"write_game_avro {name}: {len(users)} rows in "
+             f"{time.perf_counter() - t0:.1f} s (host, pure-Python Avro "
+             f"writer), {os.path.getsize(paths[name]) / 1e6:.1f} MB")
+    unseen = set(user_keys[GAME_ENTITIES:].tolist())
+    return paths["train"], paths["validate"], unseen
+
+
+def game_driver_config(path, iterations, re_weights=None):
+    """The driver's coordinate config: a fixed L-BFGS L2 coordinate over the
+    global shard and a per-user L-BFGS L2 random effect (its D = 8 buckets
+    take the Newton routes), phase 6's solver settings, two evaluators."""
+    per_user = {"name": "per_user", "type": "random",
+                "feature_shard": "userFeatures", "entity_key": "userId",
+                "optimizer": "lbfgs", "max_iters": 10, "tolerance": 1e-6,
+                "reg_type": "l2", "bucket_growth": GAME_BUCKET_GROWTH}
+    if re_weights is None:
+        per_user["reg_weight"] = 1.0
+    else:
+        per_user["reg_weights"] = list(re_weights)
+    with open(path, "w") as f:
+        json.dump({"task": "logistic", "iterations": iterations,
+                   "evaluators": ["auc", "logistic_loss"],
+                   "coordinates": [
+                       {"name": "fixed", "type": "fixed",
+                        "feature_shard": "global", "optimizer": "lbfgs",
+                        "max_iters": 10, "tolerance": 1e-6,
+                        "reg_type": "l2", "reg_weight": 1.0},
+                       per_user]}, f)
+    return path
+
+
+class ScorerRecorder:
+    """Wraps both coordinates' validation scorers during phase 7's training
+    runs: counts the matvec launches they make (to tell validation
+    scoring's kernel launches from training's) and, while ``record`` is
+    set, keeps a copy of every state they score for the per-update check.
+    Neither needs a device synchronisation; the stage times come from the
+    drivers' own results."""
+
+    def __init__(self):
+        self.val_matvec = 0
+        self.record = False
+        self.recorded = []
+        self._undo = []
+
+    def __enter__(self):
+        from photon_ml_tpu_torch.game import coordinates
+        from photon_ml_tpu_torch.ops import _kernels
+
+        rec = self
+
+        class Scorer:
+            def __init__(self, coord, inner):
+                self.coord, self.inner = coord, inner
+
+            def score(self, state):
+                before = _kernels.LAUNCHES["matvec"]
+                out = self.inner.score(state)
+                rec.val_matvec += _kernels.LAUNCHES["matvec"] - before
+                if rec.record:
+                    rec.recorded.append((self.coord, state.clone()
+                                         if torch.is_tensor(state)
+                                         else [s.clone() for s in state]))
+                return out
+
+        for cls in (coordinates.FixedEffectCoordinate,
+                    coordinates.RandomEffectCoordinate):
+            inner = cls.make_validation_scorer
+
+            def make(coord, shards, ids, _inner=inner):
+                return Scorer(coord, _inner(coord, shards, ids))
+
+            self._undo.append((cls, inner))
+            cls.make_validation_scorer = make
+        return self
+
+    def __exit__(self, *exc):
+        for cls, inner in self._undo:
+            cls.make_validation_scorer = inner
+
+
+def stage_summary(stages):
+    """One log line of a driver's ``stage_seconds``."""
+    return "; ".join(
+        f"{k} {' + '.join(f'{t:.3f}' for t in v)} s" if isinstance(v, list)
+        else f"{k} {v:.3f} s" for k, v in stages.items())
+
+
+def validation_rescore(coord, state, v_shards, v_ids):
+    """Float64 host scores of the validation rows under one coordinate's
+    device state, independent of the scorers: the fixed effect's
+    coefficients against the validation CSR, a random effect's finalized
+    per-entity table against the rows' dense features (entities it lacks
+    score 0)."""
+    from photon_ml_tpu_torch.game.coordinates import FixedEffectCoordinate
+
+    if isinstance(coord, FixedEffectCoordinate):
+        return v_shards[coord.feature_shard].astype(np.float64) @ \
+            state.double().cpu().numpy()
+    table = coord.finalize(state).coefficients
+    keys = v_ids[coord.entity_key]
+    X = v_shards[coord.feature_shard].toarray().astype(np.float64)
+    W = np.zeros_like(X)
+    for i, k in enumerate(keys):
+        entry = table.get(k) if k is not None else None
+        if entry is not None:
+            W[i, entry[0]] = entry[1]
+    return (X * W).sum(1)
+
+
+def phase_game_drivers(smi):
+    """Phase 7: the GAME drivers at ``bench_game_cd``'s width.  Returns
+    (validation-shape kernel records, training launches, validation-scoring
+    matvec launches, metrics)."""
+    from photon_ml_tpu_torch.data.game_reader import read_game_avro
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.drivers import (
+        feature_indexing_driver,
+        game_scoring_driver,
+        game_training_driver,
+    )
+    from photon_ml_tpu_torch.evaluation.suite import EvaluationSuite
+    from photon_ml_tpu_torch.io import avro
+    from photon_ml_tpu_torch.io.game_store import load_game_model
+    from photon_ml_tpu_torch.native import load_game_decoder
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.ops.sparse_cuda import from_scipy_csr_cuda
+
+    def glog(msg):
+        log(f"game drivers [{smi}] {msg}")
+
+    lib = load_game_decoder()
+    check(lib is not None, "the native GAME decoder did not build")
+    glog(f"native GAME decoder: {lib._name}")
+    td = tempfile.mkdtemp(prefix="photon_game_drivers_")
+    metrics = {}
+    try:
+        train, val, unseen = write_game_driver_files(td, glog)
+        cfg3 = game_driver_config(os.path.join(td, "cfg3.json"),
+                                  GAME_DRIVER_ITERS)
+        cfg1 = game_driver_config(os.path.join(td, "cfg1.json"), 1)
+        grid = game_driver_config(os.path.join(td, "grid.json"),
+                                  GAME_DRIVER_ITERS, GAME_GRID_RE_WEIGHTS)
+        out = {k: os.path.join(td, k) for k in ("full", "resumed", "grid")}
+        train_launches = {"matvec": 0, "rmatvec": 0}
+        decoders = []
+        with ScorerRecorder() as rec:
+            def training(label, argv, record=False):
+                rec.record = record
+                torch.cuda.synchronize()
+                _kernels.reset_launches()
+                rec.val_matvec = 0
+                t0 = time.perf_counter()
+                res = game_training_driver.run(argv + ["--device", DEVICE])
+                torch.cuda.synchronize()
+                wall = time.perf_counter() - t0
+                rec.record = False
+                launches = dict(_kernels.LAUNCHES)
+                check(launches["matvec"] > rec.val_matvec > 0
+                      and launches["rmatvec"] > 0,
+                      f"{label}: the SpMV kernels did not launch in training "
+                      "and in validation scoring")
+                for op in train_launches:
+                    train_launches[op] += launches[op] - (
+                        rec.val_matvec if op == "matvec" else 0)
+                decoders.extend(res["decoders"].values())
+                stages = res["stage_seconds"]
+                n_it = len({h["iteration"] for h in res["history"]})
+                val_ms = [1e3 * t for t in
+                          stages["validation scoring and metrics"]]
+                glog(f"{label}: driver wall {wall:.2f} s (its own "
+                     f"{res['wall_seconds']:.2f} s); {len(res['history'])} "
+                     f"updates; validation AUC {res.get('validation_metric')};"
+                     f" SpMV launches: matvec {launches['matvec']} (of them "
+                     f"{rec.val_matvec} validation scoring), rmatvec "
+                     f"{launches['rmatvec']}; decoders {res['decoders']}")
+                glog(f"{label}: driver stages (host s): "
+                     f"{stage_summary(stages)}; validation scoring and "
+                     f"metrics {np.mean(val_ms):.2f} ms an update")
+                metrics[label] = {"wall_s": wall,
+                                  "descent_s": stages["descent"],
+                                  "val_ms_per_update": float(np.mean(val_ms)),
+                                  "val_matvec": rec.val_matvec,
+                                  "launches": launches, "stages": stages}
+                return res, n_it, stages["descent"][-1]
+
+            common = ["--train-data", train, "--validate-data", val]
+            full, n_it, descent_s = training(
+                "train", common + ["--config", cfg3, "--output-dir",
+                                   out["full"]], record=True)
+            recorded = list(rec.recorded)
+            metrics["train"]["iters_per_s"] = n_it / descent_s
+            glog(f"train: {n_it} GAME iterations in {descent_s:.3f} s of "
+                 f"descent = {n_it / descent_s:.3f} GAME iterations/s inside "
+                 "the driver (with per-update validation)")
+            training("kill after iteration 1",
+                     common + ["--config", cfg1, "--output-dir",
+                               out["resumed"]])
+            resumed, _, _ = training(
+                "resume to 3", common + ["--config", cfg3, "--output-dir",
+                                         out["resumed"], "--resume"])
+            # The grid computes its metrics on the card (--device-metrics):
+            # its descents against run 1's, whose train and validation
+            # metrics are host numpy.
+            grid_res, _, _ = training(
+                "grid", common + ["--config", grid, "--output-dir",
+                                  out["grid"], "--device-metrics"])
+        grid_descents = metrics["grid"]["descent_s"]
+        metrics["grid"]["iters_per_s"] = [GAME_DRIVER_ITERS / t
+                                          for t in grid_descents]
+        glog(f"grid (device metrics): {GAME_DRIVER_ITERS} GAME "
+             f"iterations a point in {grid_descents} s of descent = "
+             f"{metrics['grid']['iters_per_s']} GAME iterations/s")
+
+        scoring = {}
+        for label, flags in (("host", []), ("device", ["--device-metrics"])):
+            _kernels.reset_launches()
+            t0 = time.perf_counter()
+            scoring[label] = game_scoring_driver.run([
+                "--data", val, "--model-dir", out["full"],
+                "--output-dir", os.path.join(td, f"score_{label}"),
+                "--evaluator", "auc", "--device", DEVICE, *flags])
+            torch.cuda.synchronize()
+            decoders.append(scoring[label]["decoder"])
+            glog(f"scoring ({label} metric): wall "
+                 f"{time.perf_counter() - t0:.2f} s (its own "
+                 f"{scoring[label]['wall_seconds']:.2f} s), AUC "
+                 f"{scoring[label]['metric']!r}; driver stages (host s): "
+                 f"{stage_summary(scoring[label]['stage_seconds'])}")
+            metrics[f"scoring {label}"] = scoring[label]["stage_seconds"]
+        t0 = time.perf_counter()
+        fi = feature_indexing_driver.run([
+            "--data", train, "--output-dir", os.path.join(td, "maps")])
+        glog(f"feature indexing: {fi} in {time.perf_counter() - t0:.2f} s")
+        glog(f"GAME decoders of the drivers' reads: {decoders}")
+        check(decoders and set(decoders) == {"native"},
+              f"a GAME file was not decoded natively: {decoders}")
+
+        # The scoring driver's scores against a float64 host re-score of
+        # the saved model, loaded back with the port's load_game_model.
+        t0 = time.perf_counter()
+        model, imaps = load_game_model(os.path.join(out["full"], "models"),
+                                       device="cpu")
+        glog(f"load_game_model: {time.perf_counter() - t0:.2f} s")
+        v_shards, v_ids, v_y, v_w, v_off, v_uids, _ = read_game_avro(
+            val, index_maps=imaps)
+        _, recs = avro.read_container(os.path.join(td, "score_host",
+                                                   "scores.avro"))
+        got = np.array([r["predictionScore"] for r in recs])
+        check([r["uid"] for r in recs] == list(v_uids),
+              "scores.avro rows are not the validation rows in order")
+        w = model["fixed"].model.coefficients.means.numpy().astype(
+            np.float64)
+        Xg = v_shards["global"].astype(np.float64)
+        host, scale = Xg @ w, abs(Xg) @ np.abs(w)
+        re = model["per_user"]
+        Xu = v_shards["userFeatures"].toarray().astype(np.float64)
+        W = np.zeros_like(Xu)
+        keys = v_ids["userId"]
+        for i, k in enumerate(keys):
+            if k in re.coefficients:
+                W[i, re.coefficients[k][0]] = re.coefficients[k][1]
+        host = host + (Xu * W).sum(1) + v_off
+        scale = scale + (np.abs(Xu) * np.abs(W)).sum(1)
+        err = float((np.abs(got - host) / np.maximum(scale, 1e-30)).max())
+        n_unseen = sum(k in unseen for k in keys)
+        check(n_unseen > 0 and not any(k in re.coefficients for k in unseen),
+              "the model holds coefficients for users the training rows "
+              "never hold")
+        check(err <= RTOL, f"scoring driver vs float64 host re-score: "
+              f"{err:.3g} of Σ|x·w|")
+        glog(f"scoring driver vs float64 host re-score of the saved model: "
+             f"max err {err:.3g} of Σ|x·w| over {len(got)} rows "
+             f"({n_unseen} rows of unseen users, random effect 0)")
+
+        check(abs(scoring["host"]["metric"] - full["validation_metric"])
+              <= 1e-6, "the scoring driver's AUC differs from the training "
+              "driver's validation_metric")
+        check(abs(scoring["device"]["metric"] - scoring["host"]["metric"])
+              <= 1e-6, "--device-metrics AUC differs from the host AUC")
+        glog(f"AUC: training driver {full['validation_metric']!r}, scoring "
+             f"driver {scoring['host']['metric']!r}, device metric "
+             f"{scoring['device']['metric']!r}")
+
+        # Every per-update validation metric against a float64 host
+        # re-score of that update's states (one recorded scorer call an
+        # update in a fresh run).
+        hist = full["history"]
+        check(len(recorded) == len(hist), f"recorded {len(recorded)} scorer "
+              f"calls for {len(hist)} updates")
+        suite = EvaluationSuite.from_specs(["auc", "logistic_loss"])
+        parts, worst = {}, 0.0
+        for h, (coord, state) in zip(hist, recorded):
+            check(h["coordinate"] == coord.name, "scorer calls out of order")
+            parts[coord.name] = validation_rescore(coord, state, v_shards,
+                                                   v_ids)
+            want = suite.evaluate(v_off + sum(parts.values()), v_y, v_w)
+            for k, v in want.items():
+                d = abs(h["validation"][k] - v)
+                worst = max(worst, d)
+                check(d <= 1e-6, f"update {h['iteration']} {h['coordinate']}"
+                      f": validation {k} {h['validation'][k]!r} vs host "
+                      f"re-score {v!r}")
+        glog(f"per-update validation metrics vs float64 host re-scores of "
+             f"each update's states: max |diff| {worst:.3g} over "
+             f"{len(hist)} updates; AUC by update "
+             f"{[round(h['validation_metric'], 6) for h in hist]}")
+        check(hist[-1]["validation_metric"] > hist[0]["validation_metric"],
+              "the random effect does not raise the validation AUC over the "
+              "fixed effect alone")
+
+        # Kill and resume: the same model files, byte for byte.
+        for rel in ("fixed-effect/fixed/coefficients.avro",
+                    "random-effect/per_user/coefficients.avro"):
+            a, b = (open(os.path.join(out[k], "models", rel), "rb").read()
+                    for k in ("full", "resumed"))
+            check(a == b, f"the resumed model's {rel} differs from the "
+                  "uninterrupted run's")
+        check([h["iteration"] for h in resumed["history"]] ==
+              [h["iteration"] for h in hist], "the resumed history differs")
+        glog("killed after iteration 1 and resumed to 3: the saved model "
+             "files equal the uninterrupted run's byte for byte")
+
+        # The grid selects the point with the better validation metric.
+        pts = grid_res["grid"]
+        best = max(pts, key=lambda g: g["metric"])
+        check(len(pts) == 2 and pts[0]["metric"] != pts[1]["metric"]
+              and best["best"] and sum(g["best"] for g in pts) == 1,
+              f"the grid's selection is not its best validation AUC: {pts}")
+        glog(f"grid: {[(g['reg_weights']['per_user'], g['metric']) for g in pts]}"
+             f"; selected per_user reg_weight "
+             f"{best['reg_weights']['per_user']}")
+        check(fi["n_rows"] == full["n_rows"] and fi["shards"] == {
+            "global": GAME_FIXED_FEATURES, "userFeatures": GAME_RE_DIM},
+            f"feature indexing: {fi}")
+        check(dict(IndexMap.load(os.path.join(td, "maps", "global"))) ==
+              dict(imaps["global"]), "feature indexing's global map differs "
+              "from the training driver's")
+
+        # The row kernel at the validation matrix's shape, against its
+        # plain version (phase 2's checks).
+        log("phase 7: the SpMV kernels against their plain versions at the "
+            "validation matrix's shape")
+        M = from_scipy_csr_cuda(v_shards["global"], device=DEVICE)
+        kern = kernel_vs_plain("game_val", M,
+                               torch.Generator(device=DEVICE).manual_seed(7))
+        val_launches = sum(metrics[k]["val_matvec"] for k in (
+            "train", "kill after iteration 1", "resume to 3", "grid"))
+        glog(f"main-path launches: training matvec "
+             f"{train_launches['matvec']}, rmatvec "
+             f"{train_launches['rmatvec']}; validation scoring matvec "
+             f"{val_launches}")
+        return kern, train_launches, val_launches, metrics
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -1840,13 +2303,22 @@ def main() -> int:
     torch.cuda.empty_cache()
     log("phase 6: GAME coordinate descent")
     kern_game, game_launches, game_metrics = phase_game(smi)
+    torch.cuda.empty_cache()
+    log("phase 7: GAME drivers")
+    kern_val, drv_train, drv_val, drv_metrics = phase_game_drivers(smi)
+    # The .game records count phase 6's and phase 7's training launches.
+    game_launches = {op: game_launches[op] + drv_train[op]
+                     for op in ("matvec", "rmatvec")}
 
     log("not on the main path (no caller in the GLM slice), checked in "
         "phase 2: " + json.dumps({
             f"{v}.row_sq_matvec": kern[v]["row_sq_matvec"]
             for v in ("valued", "binary")} | {
             f"game.{op}": kern_game[op] for op in ("row_sq_matvec",
-                                                   "sq_rmatvec")}))
+                                                   "sq_rmatvec")} | {
+            f"game_val.{op}": kern_val[op] for op in ("rmatvec",
+                                                      "row_sq_matvec",
+                                                      "sq_rmatvec")}))
     # The skewed matrix runs the valued instances: its records carry the
     # valued main path's launches of the same operation.
     records = []
@@ -1877,6 +2349,17 @@ def main() -> int:
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    # The validation matrix's shape (80,000 x 512, 8 values a row): the
+    # fixed-effect validation scorer's matvec in phase 7's training runs.
+    r = kern_val["matvec"]
+    records.append({
+        "name": "spmv.matvec.game_val", "route": "cuda",
+        "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+        "launches": drv_val,
+        "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+        "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+        "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+    })
     fields = ("launches", "max_abs_err", "ms", "plain_ms", "bound_ms",
               "bound_by", "library_ms")
     for name, key, source, replaces in (
@@ -1893,7 +2376,8 @@ def main() -> int:
                         **{f: r[f] for f in fields[1:]}})
     log(f"metrics: {json.dumps(lib_metrics)}; solvers: "
         f"{json.dumps({k: r['wall_s'] for k, r in sol_records.items()})}; "
-        f"GAME: {json.dumps(game_metrics)}; "
+        f"GAME: {json.dumps(game_metrics)}; GAME drivers: "
+        f"{json.dumps(drv_metrics)}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))

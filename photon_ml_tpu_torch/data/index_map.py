@@ -2,9 +2,9 @@
 
 The analogue of the reference's ``IndexMap`` / ``DefaultIndexMap``
 (photon-client ``...ml.index``).  The map lives only on the host (devices
-see int32 column ids exclusively) and is saved as JSON; the JAX package's
-hash-sorted binary layout for very wide spaces arrives with the slice that
-needs it.
+see int32 column ids exclusively) and is saved as JSON; ``save_binary``
+adds the hash-sorted ``.npz`` layout that :class:`BinaryIndexMap` queries
+without building a dict (the PalDB analogue), in the reference's format.
 
 Feature names follow the reference's ``name`` + ``term`` convention
 (``NameAndTerm``): the key is ``f"{name}\x01{term}"``; plain names are keys
@@ -17,6 +17,8 @@ from __future__ import annotations
 import json
 import os
 from typing import Iterable, Iterator, Mapping
+
+import numpy as np
 
 INTERCEPT_KEY = "(INTERCEPT)"
 _SEP = "\x01"
@@ -91,3 +93,50 @@ class IndexMap(Mapping[str, int]):
     def load(directory: str) -> "IndexMap":
         with open(os.path.join(directory, "index_map.json")) as f:
             return IndexMap(json.load(f))
+
+    def save_binary(self, directory: str) -> None:
+        """Hash-sorted binary layout for very wide spaces: query without
+        loading all names into a Python dict."""
+        os.makedirs(directory, exist_ok=True)
+        names = np.array(self._reverse)
+        hashes = np.array([_stable_hash(k) for k in self._reverse],
+                          dtype=np.uint64)
+        order = np.argsort(hashes, kind="stable")
+        np.savez(
+            os.path.join(directory, "index_map.npz"),
+            hashes=hashes[order],
+            indices=np.arange(len(names), dtype=np.int64)[order],
+            names=names[order],
+        )
+
+
+def _stable_hash(s: str) -> int:
+    """64-bit FNV-1a, stable across processes (Python's hash() is salted)."""
+    h = 0xCBF29CE484222325
+    for b in s.encode("utf-8"):
+        h = ((h ^ b) * 0x100000001B3) & 0xFFFFFFFFFFFFFFFF
+    return h
+
+
+class BinaryIndexMap:
+    """Reader for :meth:`IndexMap.save_binary` layouts: O(log n) lookups
+    over memory-mapped arrays, no dict materialization."""
+
+    def __init__(self, directory: str):
+        z = np.load(os.path.join(directory, "index_map.npz"), mmap_mode="r")
+        self._hashes = z["hashes"]
+        self._indices = z["indices"]
+        self._names = z["names"]
+
+    def __len__(self) -> int:
+        return len(self._hashes)
+
+    def get_index(self, key: str, default: int = -1) -> int:
+        h = np.uint64(_stable_hash(key))
+        lo = int(np.searchsorted(self._hashes, h, side="left"))
+        # Linear probe over (rare) hash collisions.
+        while lo < len(self._hashes) and self._hashes[lo] == h:
+            if self._names[lo] == key:
+                return int(self._indices[lo])
+            lo += 1
+        return default

@@ -2,9 +2,10 @@
 
 An ordered name→``Evaluator`` mapping evaluated together on one score
 pass, with a designated primary metric that drives model selection (the
-reference selects by the first configured evaluator).  Ungrouped
-evaluators only: per-group ("sharded") evaluation needs the grouped
-evaluators, which are not ported yet.
+reference selects by the first configured evaluator).  ``group_column``
+names an id column whose values group rows for the per-group evaluators
+(per-query AUC, precision@k); grouped metrics are host-side, so a grouped
+suite refuses :meth:`EvaluationSuite.evaluate_device`.
 """
 
 from __future__ import annotations
@@ -20,17 +21,6 @@ from photon_ml_tpu_torch.evaluation.evaluators import (
     get_evaluator,
 )
 
-_GROUPED_ITEM = (
-    "ROADMAP.md, PyTorch/CUDA port, Queue 1 item 2: the grouped evaluators"
-)
-
-
-def _refuse_groups() -> None:
-    raise NotImplementedError(
-        "grouped (per-query) evaluation is not ported to photon_ml_tpu_torch "
-        f"yet ({_GROUPED_ITEM})"
-    )
-
 
 @dataclasses.dataclass(frozen=True)
 class EvaluationSuite:
@@ -38,12 +28,11 @@ class EvaluationSuite:
 
     evaluators: tuple  # tuple[(name, Evaluator), ...] — ordered
     primary: str
-    #: always None in the port (see the module docstring).
+    #: id column whose values group rows for per-group evaluators; None
+    #: evaluates globally.
     group_column: Optional[str] = None
 
     def __post_init__(self):
-        if self.group_column is not None:
-            _refuse_groups()
         names = [n for n, _ in self.evaluators]
         if len(set(names)) != len(names):
             raise ValueError(f"duplicate evaluator names: {names}")
@@ -59,8 +48,8 @@ class EvaluationSuite:
         primary: Optional[str] = None,
         group_column: Optional[str] = None,
     ) -> "EvaluationSuite":
-        """Build from spec strings (``"auc"``, ...) or ``Evaluator``
-        instances; primary defaults to the first."""
+        """Build from spec strings (``"auc"``, ``"precision@5"``, ...) or
+        ``Evaluator`` instances; primary defaults to the first."""
         pairs = []
         for spec in specs:
             if isinstance(spec, Evaluator):
@@ -87,10 +76,8 @@ class EvaluationSuite:
 
     def evaluate(self, scores, labels, weights=None, group_ids=None) -> dict:
         """name → metric value, every evaluator on one host score pass."""
-        if group_ids is not None:
-            _refuse_groups()
         return {
-            name: ev.evaluate(scores, labels, weights)
+            name: ev.evaluate(scores, labels, weights, group_ids)
             for name, ev in self.evaluators
         }
 
@@ -103,9 +90,16 @@ class EvaluationSuite:
     def evaluate_device(self, scores, labels, weights=None,
                         materialize: bool = True) -> dict:
         """name → metric value computed on the scores' device; only scalars
-        come back.  Evaluators with no device implementation share ONE
-        host pullback.  ``materialize=False`` leaves the device metrics as
-        0-d tensors for the caller's batched readback."""
+        come back.  Evaluators with no device implementation (precision@k)
+        share ONE host pullback.  A grouped suite must use
+        :meth:`evaluate`: per-group metrics are host-side.
+        ``materialize=False`` leaves the device metrics as 0-d tensors for
+        the caller's batched readback."""
+        if self.group_column is not None:
+            raise ValueError(
+                "evaluate_device computes GLOBAL metrics; this suite has "
+                f"group_column={self.group_column!r} — use evaluate()"
+            )
         from photon_ml_tpu_torch.evaluation.device import device_evaluator_fn
 
         out = {}

@@ -87,8 +87,9 @@ class Coordinate:
         raise NotImplementedError
 
     def make_validation_scorer(self, shards: dict, ids: dict):
-        raise not_ported("a validation scorer", 2,
-                         "GAME IO, validation and drivers")
+        """A reusable validation scorer for this coordinate, built from raw
+        validation columns (see ``game/validation.py``)."""
+        raise NotImplementedError
 
 
 class FixedEffectCoordinate(Coordinate):
@@ -134,6 +135,14 @@ class FixedEffectCoordinate(Coordinate):
     def score(self, state: Tensor) -> Tensor:
         # Margin WITHOUT offsets: coordinate scores are additive pieces.
         return self.dataset.data.features.matvec(state)
+
+    def make_validation_scorer(self, shards: dict, ids: dict):
+        from photon_ml_tpu_torch.game.validation import (
+            FixedEffectValidationScorer,
+        )
+
+        return FixedEffectValidationScorer(shards[self.feature_shard],
+                                           device=self.device)
 
     def finalize(self, state: Tensor, offsets=None) -> FixedEffectModel:
         variances = None
@@ -510,6 +519,22 @@ class RandomEffectCoordinate(Coordinate):
     def score(self, state: list[Tensor]) -> Tensor:
         return score_blocks(self.dataset.n_global_rows, self.dataset.blocks,
                             self.dataset.passive_blocks, state, self.device)
+
+    def make_validation_scorer(self, shards: dict, ids: dict):
+        """A validation file with no rows for this entity column gives an
+        all-``None`` column: every row scores 0 (the reference raises a
+        KeyError there; the port scores such rows as ``GameTransformer``
+        does, so the per-update metric and the final transform agree)."""
+        from photon_ml_tpu_torch.game.validation import (
+            RandomEffectValidationScorer,
+        )
+
+        shard = shards[self.feature_shard]
+        entity_col = ids.get(self.entity_key)
+        if entity_col is None:
+            entity_col = np.full(shard.shape[0], None, object)
+        return RandomEffectValidationScorer(self.dataset, entity_col, shard,
+                                            device=self.device)
 
     def _block_variances(self, block: EntityBlock, coefs: Tensor,
                          offsets: Tensor) -> np.ndarray:

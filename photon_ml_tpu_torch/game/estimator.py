@@ -1,29 +1,36 @@
-"""GAME estimator, resident path (port of ``photon_ml_tpu/game/estimator.py``).
+"""GAME estimator and transformer, resident path (port of
+``photon_ml_tpu/game/estimator.py``).
 
 ``fit`` builds per-coordinate datasets from feature shards + entity-id
-columns, runs coordinate descent and returns a ``GameModel``; ``fit_grid``
-fits every coordinate-config combination over shared datasets and selects
-the best by its final train metric.  The "DataFrame" is (shards, ids,
-response, weight, offset) host arrays: ``shards`` maps feature-shard name →
-scipy CSR, ``ids`` maps id-column name → per-row entity keys.
+columns, runs coordinate descent (tracking a validation ``EvaluationSuite``
+after every coordinate update when validation data is given) and returns a
+``GameModel``; ``fit_grid`` fits every coordinate-config combination over
+shared datasets and validation scorers and selects the best by its final
+validation metric (train metric without validation), optionally resuming
+completed points from a ``GameGridCheckpointer``.  ``GameTransformer``
+scores data with a trained model on the host (unseen entities contribute
+0).  The "DataFrame" is (shards, ids, response, weight, offset) host
+arrays: ``shards`` maps feature-shard name → scipy CSR, ``ids`` maps
+id-column name → per-row entity keys.
 
 Every dataset lives on one device (CUDA unless the caller passes
 ``device="cpu"``).  What the reference runs beyond that — streaming and
-out-of-core coordinates, factored random effects, a device mesh, validation
-data and the grid checkpointer — raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+out-of-core coordinates, factored random effects and a device mesh —
+raises ``NotImplementedError`` naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
 
+import contextlib
 import dataclasses
+import time
 from typing import Optional, Sequence
 
 import numpy as np
 import torch
 
 from photon_ml_tpu_torch.data.dataset import make_glm_data
-from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.device import resolve_device, to_numpy
 from photon_ml_tpu_torch.evaluation.evaluators import Evaluator
 from photon_ml_tpu_torch.game.coordinates import (
     FixedEffectCoordinate,
@@ -113,6 +120,13 @@ class GameEstimator:
 
     ``device_metrics``: the per-update train metric computes on the device
     (``evaluation/device.py``) and rides the descent's batched readback.
+
+    ``stage_seconds`` maps a stage (the dataset and bucket builds, the
+    validation scorers' build, the descent, and inside it the train metric
+    and the validation scoring and metrics) to the host seconds of each
+    time it ran.  Device work still queued when a stage's block ends is
+    not in it; the descent ends in a readback of its history, so its time
+    is whole.
     """
 
     def __init__(
@@ -136,6 +150,16 @@ class GameEstimator:
         self.logger = logger
         self.pipeline = bool(pipeline)
         self.device = resolve_device(device)
+        self.stage_seconds: dict[str, list[float]] = {}
+
+    @contextlib.contextmanager
+    def _stage(self, name: str):
+        t0 = time.perf_counter()
+        try:
+            yield
+        finally:
+            self.stage_seconds.setdefault(name, []).append(
+                time.perf_counter() - t0)
 
     def build_coordinates(self, shards, ids, response, weight=None,
                           offset=None):
@@ -195,11 +219,13 @@ class GameEstimator:
             if isinstance(cfg, FixedEffectCoordinateConfig):
                 dataset = cache.get(key)
                 if dataset is None:
-                    data = make_glm_data(
-                        shard, response,
-                        weights=self._train_weight(cfg, response, weight),
-                        device=self.device,
-                    )
+                    with self._stage("fixed-effect dataset build"):
+                        data = make_glm_data(
+                            shard, response,
+                            weights=self._train_weight(cfg, response,
+                                                       weight),
+                            device=self.device,
+                        )
                     dataset = FixedEffectDataset(data=data, n_global_rows=n)
                     cache[key] = dataset
                 coordinates.append(FixedEffectCoordinate(
@@ -209,18 +235,19 @@ class GameEstimator:
                 continue
             dataset = cache.get(key)
             if dataset is None:
-                dataset = build_random_effect_dataset(
-                    ids[cfg.entity_key],
-                    shard,
-                    np.asarray(response, np.float32),
-                    weight,
-                    max_rows_per_entity=cfg.max_rows_per_entity,
-                    bucket_growth=cfg.bucket_growth,
-                    repack=cfg.repack,
-                    program_budget=cfg.program_budget,
-                    repack_seed=cfg.repack_seed,
-                    device=self.device,
-                )
+                with self._stage("random-effect bucket build"):
+                    dataset = build_random_effect_dataset(
+                        ids[cfg.entity_key],
+                        shard,
+                        np.asarray(response, np.float32),
+                        weight,
+                        max_rows_per_entity=cfg.max_rows_per_entity,
+                        bucket_growth=cfg.bucket_growth,
+                        repack=cfg.repack,
+                        program_budget=cfg.program_budget,
+                        repack_seed=cfg.repack_seed,
+                        device=self.device,
+                    )
                 cache[key] = dataset
             coordinates.append(RandomEffectCoordinate(
                 name, dataset, self.task, cfg.optimization, cfg.reg_weight,
@@ -264,19 +291,24 @@ class GameEstimator:
     ) -> tuple[GameModel, list]:
         """Train; returns (model, per-coordinate-update history).
 
+        ``validation`` is ``(shards, ids, response[, weight[, offset]])``;
+        with it, every history entry carries the full validation
+        ``EvaluationSuite`` after that coordinate update.
         ``initial_model`` warm-starts coordinate descent from a trained
         GameModel; ``locked_coordinates`` holds named coordinates at that
         model instead of retraining them; ``checkpointer`` is handed to
         :meth:`CoordinateDescent.run`."""
-        if validation is not None:
-            raise not_ported("validation data in GameEstimator.fit", 2,
-                              "GAME IO, validation and drivers")
         coordinates = self._build_coordinates(
             self.coordinate_configs, shards, ids, response, weight, offset
         )
+        train_groups = None
+        if suite is not None and suite.group_column is not None:
+            train_groups = np.asarray(ids[suite.group_column])
         return self.fit_coordinates(
-            coordinates, response, weight, offset, evaluator, suite=suite,
+            coordinates, response, weight, offset, evaluator,
+            validation=validation, suite=suite,
             initial_model=initial_model, checkpointer=checkpointer,
+            train_group_ids=train_groups,
             locked_coordinates=locked_coordinates,
         )
 
@@ -331,14 +363,28 @@ class GameEstimator:
         weight=None,
         offset=None,
         evaluator: Optional[Evaluator] = None,
+        validation=None,
         suite=None,
+        validation_scorers: Optional[dict] = None,
         initial_model: Optional[GameModel] = None,
         checkpointer=None,
+        train_group_ids=None,
         locked_coordinates: Sequence[str] = (),
     ) -> tuple[GameModel, list]:
         """Run coordinate descent over pre-built coordinates (see
-        :meth:`build_coordinates`) and finalize the GameModel.  Each
-        history entry carries the primary evaluator's train metric.
+        :meth:`build_coordinates`) and finalize the GameModel.  Each history
+        entry carries the primary evaluator's train metric and, with
+        ``validation``, the whole suite on the validation data.
+
+        Each coordinate's validation scores are refreshed incrementally:
+        only the just-updated coordinate re-scores.  ``validation_scorers``
+        (name → scorer, see ``game/validation.py``) lets grid loops reuse
+        scorers built once per shared dataset.  With ``device_metrics`` the
+        train and validation metrics compute on the device and ride the
+        descent's batched readback; an evaluator with no device version
+        (``evaluation/device.py::device_evaluator_fn`` gives None) is
+        evaluated on the host from the scores copied back, as the
+        reference does; a grouped suite is host-side and refuses it.
 
         ``locked_coordinates`` (partial retraining): each named coordinate
         takes its coefficients from ``initial_model`` and is never
@@ -359,32 +405,120 @@ class GameEstimator:
         w_host = None if weight is None else np.asarray(weight, np.float32)
         dev = self.device
         base_dev = torch.as_tensor(base_offsets, device=dev)
+        device_metrics = self.device_metrics
+        if device_metrics and (suite.group_column is not None
+                               or train_group_ids is not None):
+            raise ValueError(
+                "device_metrics computes GLOBAL metrics; grouped evaluation "
+                f"(suite group_column={suite.group_column!r} / explicit "
+                "train_group_ids) is host-side"
+            )
+
+        val = None
+        if validation is not None:
+            v_shards, v_ids, v_resp = validation[:3]
+            v_weight = validation[3] if len(validation) > 3 else None
+            v_offset = validation[4] if len(validation) > 4 else None
+            n_val = len(v_resp)
+            if validation_scorers is None:
+                with self._stage("validation scorer build"):
+                    validation_scorers = {
+                        c.name: c.make_validation_scorer(v_shards, v_ids)
+                        for c in coordinates
+                    }
+            val = {
+                "scorers": validation_scorers,
+                "resp": np.asarray(v_resp, np.float32),
+                "weight": (None if v_weight is None
+                           else np.asarray(v_weight, np.float32)),
+                "base": (np.zeros(n_val, np.float32) if v_offset is None
+                         else np.asarray(v_offset, np.float32)),
+                # Per-group evaluation: the suite's group column names an
+                # id column of the validation set.
+                "groups": (None if suite.group_column is None
+                           else np.asarray(v_ids[suite.group_column])),
+                # Per-coordinate validation scores, refreshed incrementally.
+                "scores": {c.name: np.zeros(n_val, np.float32)
+                           for c in coordinates},
+                "primed": False,
+            }
 
         primary_dev = None
-        if self.device_metrics:
+        if device_metrics:
             from photon_ml_tpu_torch.evaluation.device import (
                 device_evaluator_fn,
             )
 
             # Labels and weights go to the device ONCE; each update's
-            # metric then stays there and rides the descent's readback.
+            # metrics then stay there and ride the descent's readback.
             resp_dev = torch.as_tensor(response, device=dev)
             w_dev = None if w_host is None else torch.as_tensor(
                 w_host, device=dev)
             primary_dev = device_evaluator_fn(primary)
+            if val is not None:
+                val["resp"] = torch.as_tensor(val["resp"], device=dev)
+                if val["weight"] is not None:
+                    val["weight"] = torch.as_tensor(val["weight"], device=dev)
+                val["base"] = torch.as_tensor(val["base"], device=dev)
+                val["scores"] = {k: torch.zeros(len(v), dtype=torch.float32,
+                                                device=dev)
+                                 for k, v in val["scores"].items()}
+
+        def keep(scores):
+            return scores if device_metrics else to_numpy(scores)
 
         def eval_fn(it, cname, scores, states):
-            if primary_dev is not None:
+            with self._stage("train metric"):
+                entry = train_entry(scores)
+            if val is None:
+                return entry
+            with self._stage("validation scoring and metrics"):
+                metrics = validation_metrics(cname, states)
+            entry["validation"] = metrics
+            entry["validation_metric"] = metrics[suite.primary]
+            return entry
+
+        def train_entry(scores):
+            if device_metrics:
                 total = base_dev + sum(scores.values())
-                train_metric = primary_dev(total, resp_dev, w_dev)
+                train_metric = (
+                    primary_dev(total, resp_dev, w_dev)
+                    if primary_dev is not None
+                    else primary.evaluate(to_numpy(total), response, w_host)
+                )
+            elif suite.group_column is not None and train_group_ids is None:
+                # A per-group primary without train group ids records None
+                # rather than mixing global and per-group semantics.
+                train_metric = None
             else:
                 total = base_offsets + np.sum(
-                    [s.detach().cpu().numpy() for s in scores.values()],
-                    axis=0,
-                )
-                train_metric = primary.evaluate(total, response, w_host)
+                    [to_numpy(s) for s in scores.values()], axis=0)
+                train_metric = primary.evaluate(
+                    total, response, w_host, group_ids=train_group_ids)
             return {"train_metric": train_metric,
                     "evaluator": type(primary).__name__}
+
+        def validation_metrics(cname, states):
+            if not val["primed"]:
+                # First evaluation: warm starts and resumed runs carry live
+                # states for coordinates that have not updated yet this
+                # run; score them all once.
+                for c in coordinates:
+                    if states[c.name] is not None:
+                        val["scores"][c.name] = keep(
+                            val["scorers"][c.name].score(states[c.name]))
+                val["primed"] = True
+            else:
+                val["scores"][cname] = keep(
+                    val["scorers"][cname].score(states[cname]))
+            if device_metrics:
+                v_total = val["base"] + sum(val["scores"].values())
+                return suite.evaluate_device(
+                    v_total, val["resp"], val["weight"], materialize=False)
+            v_total = val["base"] + np.sum(list(val["scores"].values()),
+                                           axis=0)
+            return suite.evaluate(v_total, val["resp"], val["weight"],
+                                  group_ids=val["groups"])
 
         locked = tuple(locked_coordinates)
         if locked and initial_model is None:
@@ -406,15 +540,16 @@ class GameEstimator:
             if initial_model is not None else None
         )
         cd = CoordinateDescent(coordinates, pipeline=self.pipeline)
-        result = cd.run(
-            base_dev,
-            n_iterations=self.n_iterations,
-            eval_fn=eval_fn,
-            logger=self.logger,
-            checkpointer=checkpointer,
-            initial_states=initial_states,
-            locked=locked,
-        )
+        with self._stage("descent"):
+            result = cd.run(
+                base_dev,
+                n_iterations=self.n_iterations,
+                eval_fn=eval_fn,
+                logger=self.logger,
+                checkpointer=checkpointer,
+                initial_states=initial_states,
+                locked=locked,
+            )
 
         # Finalize with each coordinate's residual offsets (base + the
         # OTHER coordinates' scores), so variances, when a coordinate's
@@ -427,8 +562,7 @@ class GameEstimator:
         host_scores = None
         total_np = None
         if any(wants_variances(c) for c in coordinates):
-            host_scores = {k: s.detach().cpu().numpy()
-                           for k, s in result.scores.items()}
+            host_scores = {k: to_numpy(s) for k, s in result.scores.items()}
             total_np = base_offsets + np.sum(list(host_scores.values()),
                                              axis=0)
         models = {}
@@ -454,38 +588,76 @@ class GameEstimator:
         initial_model: Optional[GameModel] = None,
         grid_checkpointer=None,
     ) -> tuple[GameModel, list[dict]]:
-        """Fit EVERY coordinate-config combination and select the best by
-        its final train metric.  ``grid_configs`` is a list of name→config
-        mappings (one grid point each); datasets are built once per distinct
-        :meth:`dataset_key` and shared.  Returns ``(best_model,
-        point_results)``; each point result carries ``configs / model /
-        history / metric``."""
+        """Fit EVERY coordinate-config combination and select the best.
+
+        ``grid_configs`` is a list of name→config mappings (one grid point
+        each, same coordinate names).  Datasets and validation scorers are
+        built once per distinct :meth:`dataset_key` and shared across
+        points.  Selection: the final validation primary metric when
+        ``validation`` is given, else the final train metric.  Returns
+        ``(best_model, point_results)``; each point result carries
+        ``configs / model / history / metric``.
+
+        ``grid_checkpointer`` (``io.checkpoint.GameGridCheckpointer``):
+        completed points persist as saved models and are SKIPPED on
+        re-entry, so an interrupted grid resumes at the completed-point
+        boundary."""
         from photon_ml_tpu_torch.evaluation.suite import EvaluationSuite
 
-        if validation is not None:
-            raise not_ported("validation data in GameEstimator.fit_grid", 2,
-                              "GAME IO, validation and drivers")
-        if grid_checkpointer is not None:
-            raise not_ported("the GAME grid checkpointer", 2,
-                              "GAME IO, validation and drivers")
         if not grid_configs:
             raise ValueError("empty coordinate-config grid")
         if suite is None:
             suite = EvaluationSuite.for_task(self.task)
         dataset_cache: dict = {}
+        scorer_cache: dict = {}
         results: list[dict] = []
         best_idx, best_metric = None, None
-        metric_key = "train_metric"
+        metric_key = ("validation_metric" if validation is not None
+                      else "train_metric")
+        train_groups = (None if suite.group_column is None
+                        else np.asarray(ids[suite.group_column]))
         for gi, configs in enumerate(grid_configs):
-            coordinates = self._build_coordinates(
-                configs, shards, ids, response, weight, offset,
-                dataset_cache=dataset_cache,
-            )
-            model, history = self.fit_coordinates(
-                coordinates, response, weight, offset, suite=suite,
-                initial_model=initial_model,
-            )
-            metric = history[-1].get(metric_key) if history else None
+            loaded = (grid_checkpointer.load_point(gi, configs, metric_key)
+                      if grid_checkpointer is not None else None)
+            if loaded is not None:
+                model, metric, history = loaded
+                point = {"resumed": True}
+            else:
+                coordinates = self._build_coordinates(
+                    configs, shards, ids, response, weight, offset,
+                    dataset_cache=dataset_cache,
+                )
+                scorers = None
+                if validation is not None:
+                    scorers = {}
+                    for name, cfg in configs.items():
+                        # Fixed-effect scorers depend only on the feature
+                        # shard (down-sampling is train-side only).
+                        key = (
+                            ("fixed_scorer", cfg.feature_shard)
+                            if isinstance(cfg, FixedEffectCoordinateConfig)
+                            else (type(cfg).__name__,)
+                            + self.dataset_key(cfg)
+                        )
+                        if key not in scorer_cache:
+                            coord = next(c for c in coordinates
+                                         if c.name == name)
+                            with self._stage("validation scorer build"):
+                                scorer_cache[key] = \
+                                    coord.make_validation_scorer(
+                                        validation[0], validation[1])
+                        scorers[name] = scorer_cache[key]
+                model, history = self.fit_coordinates(
+                    coordinates, response, weight, offset,
+                    validation=validation, suite=suite,
+                    validation_scorers=scorers, initial_model=initial_model,
+                    train_group_ids=train_groups,
+                )
+                metric = history[-1].get(metric_key) if history else None
+                if grid_checkpointer is not None:
+                    grid_checkpointer.save_point(gi, configs, model, metric,
+                                                 metric_key, history)
+                point = {}
             results.append({
                 "grid_index": gi,
                 "configs": configs,
@@ -493,14 +665,136 @@ class GameEstimator:
                 "history": history,
                 "metric": metric,
                 "selected_by": metric_key,
+                **point,
             })
             if best_idx is None or suite.better_than(metric, best_metric):
                 best_idx, best_metric = gi, metric
             if self.logger is not None:
                 self.logger.info(
-                    "grid point %d/%d: %s = %s",
-                    gi + 1, len(grid_configs), metric_key, metric,
+                    "grid point %d/%d%s: %s = %s", gi + 1, len(grid_configs),
+                    " resumed from checkpoint" if loaded is not None else "",
+                    metric_key, metric,
                 )
         for r in results:
             r["best"] = r["grid_index"] == best_idx
         return results[best_idx]["model"], results
+
+
+@dataclasses.dataclass
+class PreparedScoringSet:
+    """Grouped block structures for scoring ONE dataset many times.
+
+    Grouping rows into per-entity blocks is the dominant host cost of
+    random-effect scoring; ``GameTransformer.prepare`` pays it once and every
+    later ``transform`` over the same data reuses it."""
+
+    n_rows: int
+    re_datasets: dict  # coordinate name -> host RandomEffectDataset
+
+
+class GameTransformer:
+    """Reference: ``GameTransformer`` — batch scoring with a GameModel:
+    fixed effect = one matvec; each random effect = a block gather of
+    per-entity coefficients; total = sum + offset.
+
+    Scoring is host compute (a scipy matvec, packed-table gathers and
+    ``np.add.at``, deterministic), as the reference designs it: uploading
+    scoring shards to the card just to pull scores back would cost more
+    than the products.  The math lives in ``serving/kernels.py``.  Repeated
+    calls on the SAME (shards, ids) objects reuse the entity grouping
+    automatically (a cache slot cleared by weakref callbacks when a source
+    array dies); for explicit control, call :meth:`prepare` once and pass
+    ``prepared=`` to every transform."""
+
+    def __init__(self, model: GameModel, logger=None):
+        self.model = model
+        self.logger = logger
+        # (value-identity key, [weakrefs to source arrays], prepared).
+        self._cache: Optional[tuple] = None
+
+    def prepare(self, shards: dict, ids: dict) -> PreparedScoringSet:
+        """Group scoring rows by entity for every random-effect coordinate
+        (build once, score many times)."""
+        n = next(iter(shards.values())).shape[0]
+        re_datasets = {}
+        for name, sub in self.model.models.items():
+            if isinstance(sub, RandomEffectModel):
+                # A file with NO rows carrying this id column yields no ids
+                # entry at all: the same join miss as rows individually
+                # missing it, zero contribution.
+                entity_col = ids.get(sub.entity_key)
+                if entity_col is None:
+                    entity_col = np.full(n, None, object)
+                re_datasets[name] = build_random_effect_dataset(
+                    np.asarray(entity_col),
+                    shards[sub.feature_shard],
+                    np.zeros(n, np.float32),
+                    np.ones(n, np.float32),
+                    device="cpu",
+                    # Rows without this entity id get zero contribution.
+                    allow_missing=True,
+                )
+        return PreparedScoringSet(n_rows=n, re_datasets=re_datasets)
+
+    @staticmethod
+    def _cache_key(shards: dict, ids: dict) -> tuple:
+        """Identity of the VALUE objects (not the dicts): replacing a matrix
+        or id column inside the same dict objects must miss the cache."""
+        return (
+            tuple(sorted((name, id(m)) for name, m in shards.items())),
+            tuple(sorted((name, id(a)) for name, a in ids.items())),
+        )
+
+    def _prepared_for(self, shards: dict, ids: dict) -> PreparedScoringSet:
+        import weakref
+
+        key = self._cache_key(shards, ids)
+        if self._cache is not None and self._cache[0] == key:
+            return self._cache[2]
+        prepared = self.prepare(shards, ids)
+
+        def _clear(_ref, _self=weakref.ref(self)):
+            t = _self()
+            if t is not None:
+                t._cache = None
+
+        refs = []
+        for obj in list(shards.values()) + list(ids.values()):
+            try:
+                refs.append(weakref.ref(obj, _clear))
+            except TypeError:
+                pass  # un-weakref-able value: the identity key still holds
+        self._cache = (key, refs, prepared)
+        return prepared
+
+    def transform(self, shards: dict, ids: dict,
+                  offset: Optional[np.ndarray] = None,
+                  prepared: Optional[PreparedScoringSet] = None
+                  ) -> np.ndarray:
+        n = next(iter(shards.values())).shape[0]
+        if prepared is not None and prepared.n_rows != n:
+            raise ValueError(
+                f"prepared scoring set covers {prepared.n_rows} rows but "
+                f"the shards have {n}; prepare() must be called on the same "
+                "data being transformed"
+            )
+        from photon_ml_tpu_torch.serving import kernels as serving_kernels
+
+        parts = []
+        for name, sub in self.model.models.items():
+            if isinstance(sub, FixedEffectModel):
+                parts.append(serving_kernels.fixed_effect_matvec(
+                    shards[sub.feature_shard], sub.model.coefficients.means))
+            else:
+                if prepared is None:
+                    prepared = self._prepared_for(shards, ids)
+                parts.append(serving_kernels.random_effect_block_scores(
+                    sub, prepared.re_datasets[name]))
+        return serving_kernels.sum_margins(n, offset, parts)
+
+    def transform_with_mean(self, shards, ids, offset=None) -> np.ndarray:
+        """Scores through the task's inverse link (probabilities for
+        logistic, rates for Poisson)."""
+        margins = self.transform(shards, ids, offset)
+        return to_numpy(losses_lib.get(self.model.task).mean_fn(
+            torch.as_tensor(margins)))

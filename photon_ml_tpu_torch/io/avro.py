@@ -428,6 +428,49 @@ def write_container(
         flush()
 
 
+def write_scoring_container(
+    path: str,
+    uids,
+    scores,
+    labels,
+    ids: dict,
+    codec: str = "deflate",
+    records_per_block: int = 4096,
+) -> int:
+    """Write ``ScoringResultAvro`` records from columns: ``uids`` (str or
+    None), ``scores`` and ``labels`` (floats; a label may be None) and
+    ``ids`` (column name → per-row values; a None entry is left out of that
+    row's map, the join-miss contract), with the map keys in the iteration
+    order of ``ids``.  The bytes are those of the reference's columnar
+    writer given the same columns as one block.  Returns the rows
+    written."""
+    from photon_ml_tpu_torch.io.schemas import SCORING_RESULT
+
+    n = len(scores)
+    bad = [name for name, col in (("uids", uids), ("labels", labels),
+                                  *((f"ids[{k!r}]", v)
+                                    for k, v in ids.items()))
+           if len(col) != n]
+    if bad:
+        # A misaligned column would silently shift values into other rows.
+        raise ValueError(f"columns {bad} do not match len(scores)={n}")
+    keys = list(ids)
+
+    def records():
+        for i in range(n):
+            yield {
+                "uid": uids[i],
+                "predictionScore": float(scores[i]),
+                "label": None if labels[i] is None else float(labels[i]),
+                "ids": {k: str(ids[k][i]) for k in keys
+                        if ids[k][i] is not None},
+            }
+
+    write_container(path, SCORING_RESULT, records(), codec=codec,
+                    records_per_block=records_per_block)
+    return n
+
+
 def _read_header(f: BinaryIO, path: str) -> tuple[Any, str, bytes]:
     """Parse the container header → (schema, codec, sync marker)."""
     if f.read(4) != MAGIC:
@@ -463,6 +506,14 @@ def iter_blocks(path: str) -> Iterator[tuple[Any, int, bytes]]:
             if f.read(16) != sync:
                 raise ValueError(f"{path}: sync marker mismatch (corrupt file)")
             yield schema, count, payload
+
+
+def iter_container(path: str) -> Iterator[Any]:
+    """Yield records one at a time, holding at most one block in memory."""
+    for schema, count, payload in iter_blocks(path):
+        body = _io.BytesIO(payload)
+        for _ in range(count):
+            yield read_datum(body, schema)
 
 
 def read_schema(path: str) -> Any:

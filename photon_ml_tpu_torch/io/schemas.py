@@ -1,11 +1,11 @@
-"""Avro schemas for models and feature summaries.
+"""Avro schemas for models, scores and feature summaries.
 
 The analogue of the reference's ``photon-avro-schemas`` module:
 ``BayesianLinearModelAvro`` (coefficient means with optional variances) and
 the per-feature summary record.  Field names follow the reference's
 conventions (name/term/value triples, ``(INTERCEPT)`` magic name) so models
-round-trip between the two packages.  The training-example and
-scoring-result schemas arrive with the slices that read and write them.
+round-trip between the two packages.  The GAME training-example schema
+lives beside its reader (``data/game_reader.py``).
 """
 
 BAYESIAN_LINEAR_MODEL = {
@@ -48,6 +48,17 @@ BAYESIAN_LINEAR_MODEL = {
                 },
             ],
         },
+    ],
+}
+
+SCORING_RESULT = {
+    "type": "record",
+    "name": "ScoringResultAvro",
+    "fields": [
+        {"name": "uid", "type": ["null", "string"]},
+        {"name": "predictionScore", "type": "double"},
+        {"name": "label", "type": ["null", "double"]},
+        {"name": "ids", "type": {"type": "map", "values": "string"}},
     ],
 }
 

@@ -122,7 +122,7 @@ class TestAuc:
 class MeanScoreEvaluator(evaluators.Evaluator):
     """A host-only evaluator (no device counterpart)."""
 
-    def _compute(self, scores, labels, weights):
+    def _compute(self, scores, labels, weights, group_ids):
         return float(np.average(scores, weights=weights))
 
 
@@ -159,9 +159,24 @@ class TestSuite:
             EvaluationSuite.from_specs([])
 
     def test_grouped_evaluation_refused(self):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            EvaluationSuite.from_specs(["auc"], group_column="queryId")
-        suite = EvaluationSuite.from_specs(["auc"])
+        """Grouped metrics are host-side: a grouped suite evaluates on the
+        host (as the reference's does) and refuses the device path, as the
+        reference's refuses it."""
+        from photon_ml_tpu.evaluation.suite import EvaluationSuite as RefSuite
+
         s, y, w = _arrays(6)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 2"):
-            suite.evaluate(s, y, w, group_ids=np.zeros(len(s)))
+        groups = np.arange(len(s)) % 37
+        suite = EvaluationSuite.from_specs(["auc", "precision@3"],
+                                           group_column="queryId")
+        ref = RefSuite.from_specs(["auc", "precision@3"],
+                                  group_column="queryId")
+        got = suite.evaluate(s, y, w, group_ids=groups)
+        want = ref.evaluate(s, y, w, group_ids=groups)
+        assert got.keys() == want.keys()
+        for k in got:
+            assert got[k] == pytest.approx(want[k], abs=1e-12)
+        with pytest.raises(ValueError, match="group_column"):
+            suite.evaluate_device(*_t(s, y, w))
+        with pytest.raises(ValueError, match="group_column"):
+            ref.evaluate_device(jnp.asarray(s), jnp.asarray(y),
+                                jnp.asarray(w))

@@ -472,16 +472,6 @@ class TestDeferredBranches:
                         shards, ids, y), "item 3"),
             (lambda: estimator.GameEstimator("logistic", {}, mesh=object(),
                                              device=CPU), "item 6"),
-            (lambda: self._est().fit(shards, ids, y,
-                                     validation=(shards, ids, y)), "item 2"),
-            (lambda: self._est().fit_grid([{}], shards, ids, y,
-                                          grid_checkpointer=object()),
-             "item 2"),
-            (lambda: self._est().fit_grid([{}], shards, ids, y,
-                                          validation=(shards, ids, y)),
-             "item 2"),
-            (lambda: coordinates.Coordinate().make_validation_scorer({}, {}),
-             "item 2"),
         ]
         for call, item in cases:
             with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):

@@ -1,0 +1,591 @@
+"""The port's GAME drivers (training, scoring, feature indexing) against the
+JAX package's, on the CPU (``--device cpu``), on the same GAME Avro files.
+
+These are the reference's own driver flows (``tests/test_game_drivers.py``,
+``tests/test_game_grid.py::TestDriverGrid``,
+``tests/test_checkpoint.py::TestDriverResume``) run through both packages.
+Metrics of whole fits agree within 2e-3 (the fixed effect's float32 L-BFGS
+stops on its value's noise floor; ``test_torch_game.py``), the same grid
+point wins, and a model written by either package scores the same in the
+other.  Inside the port, a killed and resumed run is bitwise equal to the
+uninterrupted one, and the scoring driver's metric equals the training
+driver's validation metric within 1e-6.
+"""
+
+import json
+import os
+import sys
+
+import numpy as np
+import pytest
+
+from photon_ml_tpu.drivers import feature_indexing_driver as ref_fi
+from photon_ml_tpu.drivers import game_scoring_driver as ref_scoring
+from photon_ml_tpu.drivers import game_training_driver as ref_training
+from photon_ml_tpu.io import checkpoint as ref_ckpt
+from photon_ml_tpu.io.game_store import load_game_model as ref_load
+from photon_ml_tpu_torch.data.game_reader import (
+    read_game_avro,
+    write_game_avro,
+)
+from photon_ml_tpu_torch.data.index_map import BinaryIndexMap, IndexMap
+from photon_ml_tpu_torch.drivers import (
+    feature_indexing_driver,
+    game_scoring_driver,
+    game_training_driver,
+)
+from photon_ml_tpu_torch.game.estimator import GameTransformer
+from photon_ml_tpu_torch.io import avro, checkpoint
+from photon_ml_tpu_torch.io.game_store import load_game_model, save_game_model
+from photon_ml_tpu_torch.native import load_game_decoder
+
+sys.path.insert(0, os.path.dirname(__file__))
+from test_game_drivers import _make_game_rows  # noqa: E402
+
+CPU = ("--device", "cpu")
+FIT_TOL = 2e-3
+
+#: The decoder read_game_avro runs on GAME files here.
+DECODER = "native" if load_game_decoder() is not None else "python"
+
+COORDS = [
+    {"name": "fixed", "type": "fixed", "feature_shard": "global",
+     "optimizer": "lbfgs", "max_iters": 50, "reg_type": "l2",
+     "reg_weight": 0.5},
+    {"name": "per_user", "type": "random",
+     "feature_shard": "userFeatures", "entity_key": "userId",
+     "optimizer": "lbfgs", "max_iters": 30, "reg_type": "l2",
+     "reg_weight": 0.5},
+]
+
+
+def _write_config(path, **overrides):
+    config = {"task": "logistic", "iterations": 2, "evaluator": "auc",
+              "coordinates": COORDS, **overrides}
+    with open(path, "w") as f:
+        json.dump(config, f)
+    return str(path)
+
+
+@pytest.fixture(scope="module")
+def game_files(tmp_path_factory):
+    """The reference test module's files: 600 train and 200 validation rows
+    over one population of 20 per-user effects."""
+    root = tmp_path_factory.mktemp("game_drivers")
+    rng = np.random.default_rng(11)
+    user_effect = {f"u{u}": rng.normal(scale=2.0) for u in range(20)}
+    train, val = str(root / "train.avro"), str(root / "val.avro")
+    write_game_avro(train, _make_game_rows(rng, user_effect, 600))
+    write_game_avro(val, _make_game_rows(rng, user_effect, 200,
+                                         uid_start=600))
+    return train, val, _write_config(root / "config.json")
+
+
+@pytest.fixture(scope="module")
+def trained(game_files, tmp_path_factory):
+    """Both packages' training drivers on the same files, with validation."""
+    train, val, config = game_files
+    root = tmp_path_factory.mktemp("trained")
+    args = ["--train-data", train, "--validate-data", val, "--config",
+            config]
+    port = game_training_driver.run(args + ["--output-dir",
+                                            str(root / "port"), *CPU])
+    ref = ref_training.run(args + ["--output-dir", str(root / "ref")])
+    return root, port, ref
+
+
+def _scores(model_dir, data_path, ref=False):
+    """Scores of ``data_path`` under the model saved in ``model_dir``,
+    loaded and scored by the port (or by the reference)."""
+    path = os.path.join(model_dir, "models")
+    if ref:
+        from photon_ml_tpu.game.estimator import (
+            GameTransformer as RefTransformer,
+        )
+
+        model, imaps = ref_load(path)
+        shards, ids, *_ = read_game_avro(data_path, index_maps=imaps)
+        return RefTransformer(model).transform(shards, ids)
+    model, imaps = load_game_model(path, device="cpu")
+    shards, ids, *_ = read_game_avro(data_path, index_maps=imaps)
+    return GameTransformer(model).transform(shards, ids)
+
+
+class TestGameDrivers:
+    def test_train_then_score_roundtrip(self, game_files, trained,
+                                        tmp_path):
+        train, val, _ = game_files
+        root, result, ref = trained
+        assert result["train_metric"] > 0.70
+        assert result["validation_metric"] > 0.65
+        for key in ("train_metric", "validation_metric"):
+            assert result[key] == pytest.approx(ref[key], abs=FIT_TOL)
+        assert set(result) >= {"task", "n_rows", "history", "train_metric",
+                               "per_iteration_validation",
+                               "validation_suite", "validation_metric",
+                               "wall_seconds"}
+        # The port adds its stage times and the decoder of each file.
+        assert set(result) == set(ref) | {"stage_seconds", "decoders"}
+        assert result["decoders"] == {"train": DECODER,
+                                      "validation": DECODER}
+        assert {"read train", "read validation", "fit", "model save",
+                "fixed-effect dataset build", "random-effect bucket build",
+                "validation scorer build", "descent", "train metric",
+                "validation scoring and metrics",
+                "final validation transform and metric"} == \
+            set(result["stage_seconds"])
+        assert len(result["stage_seconds"]["validation scoring and "
+                                           "metrics"]) == \
+            len(result["history"])
+        assert [(h["iteration"], h["coordinate"]) for h in
+                result["history"]] == [(h["iteration"], h["coordinate"])
+                                       for h in ref["history"]]
+        # The random effect helps: the final update beats the first.
+        assert result["history"][-1]["validation_metric"] > \
+            result["history"][0]["validation_metric"]
+        with open(root / "port" / "training_result.json") as f:
+            assert json.load(f)["validation_metric"] == \
+                result["validation_metric"]
+
+        out = str(tmp_path / "score_out")
+        sresult = game_scoring_driver.run([
+            "--data", val, "--model-dir", str(root / "port"),
+            "--output-dir", out, "--evaluator", "auc", *CPU])
+        assert sresult["n_rows"] == 200
+        assert sresult["metric"] == pytest.approx(
+            result["validation_metric"], abs=1e-6)
+        _, scores = avro.read_container(os.path.join(out, "scores.avro"))
+        assert len(scores) == 200
+        # The reference's scoring driver on the port's model writes the
+        # same file.
+        ref_out = str(tmp_path / "ref_score_out")
+        rresult = ref_scoring.run([
+            "--data", val, "--model-dir", str(root / "port"),
+            "--output-dir", ref_out, "--evaluator", "auc"])
+        assert rresult["metric"] == sresult["metric"]
+        assert set(sresult) == set(rresult) | {"stage_seconds", "decoder"}
+        assert sresult["decoder"] == DECODER
+        assert set(sresult["stage_seconds"]) == {"model load", "read",
+                                                 "transform", "metric"}
+        assert open(os.path.join(out, "scores.avro"), "rb").read() == \
+            open(os.path.join(ref_out, "scores.avro"), "rb").read()
+        # And the port's scoring of the reference's model agrees with the
+        # reference's own validation metric.
+        xresult = game_scoring_driver.run([
+            "--data", val, "--model-dir", str(root / "ref"),
+            "--output-dir", str(tmp_path / "x"), "--evaluator", "auc",
+            *CPU])
+        assert xresult["metric"] == pytest.approx(ref["validation_metric"],
+                                                  abs=1e-6)
+
+    def test_scoring_mean_and_device_metrics(self, game_files, trained,
+                                             tmp_path):
+        _, val, _ = game_files
+        root, result, _ = trained
+        common = ["--data", val, "--model-dir", str(root / "port"), *CPU]
+        host = game_scoring_driver.run(common + [
+            "--output-dir", str(tmp_path / "h"), "--evaluator", "auc"])
+        dev = game_scoring_driver.run(common + [
+            "--output-dir", str(tmp_path / "d"), "--evaluator", "auc",
+            "--device-metrics"])
+        assert dev["metric"] == pytest.approx(host["metric"], abs=1e-6)
+        loss = game_scoring_driver.run(common + [
+            "--output-dir", str(tmp_path / "l"), "--evaluator",
+            "logistic_loss", "--device-metrics"])
+        ref_loss = ref_scoring.run([
+            "--data", val, "--model-dir", str(root / "port"),
+            "--output-dir", str(tmp_path / "rl"), "--evaluator",
+            "logistic_loss"])
+        assert loss["metric"] == pytest.approx(ref_loss["metric"], rel=2e-5)
+        game_scoring_driver.run(common + ["--output-dir",
+                                          str(tmp_path / "m"), "--mean"])
+        ref_scoring.run(["--data", val, "--model-dir", str(root / "port"),
+                         "--output-dir", str(tmp_path / "rm"), "--mean"])
+        _, got = avro.read_container(str(tmp_path / "m" / "scores.avro"))
+        _, want = avro.read_container(str(tmp_path / "rm" / "scores.avro"))
+        p = np.array([r["predictionScore"] for r in got])
+        q = np.array([r["predictionScore"] for r in want])
+        assert np.all((p > 0) & (p < 1))
+        np.testing.assert_allclose(p, q, rtol=1e-6, atol=1e-7)
+
+    def test_device_metrics_training(self, game_files, trained, tmp_path):
+        train, val, config = game_files
+        _, host, _ = trained
+        dev = game_training_driver.run([
+            "--train-data", train, "--validate-data", val, "--config",
+            config, "--output-dir", str(tmp_path / "dev"),
+            "--device-metrics", *CPU])
+        assert dev["validation_metric"] == pytest.approx(
+            host["validation_metric"], abs=1e-6)
+        for h, d in zip(host["history"], dev["history"]):
+            assert d["validation_metric"] == pytest.approx(
+                h["validation_metric"], abs=1e-6)
+
+    def test_pipeline_coordinates_is_bitwise_serial(self, game_files,
+                                                    trained, tmp_path):
+        train, val, config = game_files
+        root, result, _ = trained
+        piped = game_training_driver.run([
+            "--train-data", train, "--validate-data", val, "--config",
+            config, "--output-dir", str(tmp_path / "piped"),
+            "--pipeline-coordinates", *CPU])
+        assert piped["validation_metric"] == result["validation_metric"]
+        for rel in ("fixed-effect/fixed/coefficients.avro",
+                    "random-effect/per_user/coefficients.avro"):
+            assert (tmp_path / "piped" / "models" / rel).read_bytes() == \
+                (root / "port" / "models" / rel).read_bytes()
+
+    def test_model_store_roundtrip_preserves_scores(self, game_files,
+                                                    trained, tmp_path):
+        _, val, _ = game_files
+        root, _, _ = trained
+        model, imaps = load_game_model(str(root / "port" / "models"),
+                                       device="cpu")
+        resaved = str(tmp_path / "resaved")
+        save_game_model(model, imaps, resaved)
+        model2, _ = load_game_model(resaved, device="cpu")
+        shards, ids, *_ = read_game_avro(val, index_maps=imaps)
+        s1 = GameTransformer(model).transform(shards, ids)
+        s2 = GameTransformer(model2).transform(shards, ids)
+        np.testing.assert_array_equal(s1, s2)
+        # Each package's model scores alike (within the fit tolerance).
+        np.testing.assert_allclose(
+            _scores(str(root / "port"), val),
+            _scores(str(root / "ref"), val, ref=True),
+            atol=FIT_TOL * 10)
+
+    def test_feature_summaries_match_reference(self, game_files, tmp_path):
+        from photon_ml_tpu_torch.io.summary_store import load_feature_summary
+
+        train, _, _ = game_files
+        cfg = _write_config(tmp_path / "c.json", iterations=1,
+                            feature_summaries=True)
+        args = ["--train-data", train, "--config", cfg]
+        game_training_driver.run(args + ["--output-dir",
+                                         str(tmp_path / "p"), *CPU])
+        ref_training.run(args + ["--output-dir", str(tmp_path / "r")])
+        for shard in ("global", "userFeatures"):
+            rel = os.path.join("feature-summaries", f"{shard}.avro")
+            got = load_feature_summary(str(tmp_path / "p" / rel))
+            want = load_feature_summary(str(tmp_path / "r" / rel))
+            assert len(got) == len(want) > 0
+            for g, w in zip(got, want):
+                assert g.keys() == w.keys()
+                for k in g:
+                    assert g[k] == pytest.approx(w[k], rel=1e-12, abs=1e-12)
+
+    def test_feature_indexing_driver(self, game_files, tmp_path):
+        train, _, _ = game_files
+        for add_intercept in (False, True):
+            flags = ["--binary"] + (["--add-intercept"] if add_intercept
+                                    else [])
+            out, ref_out = str(tmp_path / "p"), str(tmp_path / "r")
+            result = feature_indexing_driver.run(
+                ["--data", train, "--output-dir", out, *flags])
+            ref = ref_fi.run(["--data", train, "--output-dir", ref_out,
+                              *flags])
+            assert result == ref
+            assert result["shards"]["global"] == 3 + add_intercept
+            for shard in result["shards"]:
+                imap = IndexMap.load(os.path.join(out, shard))
+                assert dict(imap) == dict(IndexMap.load(
+                    os.path.join(ref_out, shard)))
+                bmap = BinaryIndexMap(os.path.join(out, shard))
+                assert all(bmap.get_index(k) == v for k, v in imap.items())
+
+
+def test_make_fit_once_matches_reference(game_files):
+    """The tuning entry: one fit per (reg weights, iteration budget),
+    evaluated on the validation data, against the reference's."""
+    train, val, config = game_files
+    with open(config) as f:
+        specs = json.load(f)["coordinates"]
+    data = read_game_avro(train)
+    v = read_game_avro(val, index_maps=data[6])
+    fits = []
+    for mod in (game_training_driver, ref_training):
+        configs = mod.expand_config_grid(specs)[0]
+        fits.append(mod.make_fit_once(
+            "logistic", configs, data[0], data[1], data[2], v[:5],
+            **({"device": "cpu"} if mod is game_training_driver else {})))
+    port, ref = fits
+    assert port.names == ref.names == ["fixed", "per_user"]
+    assert port.larger_is_better and ref.larger_is_better
+    for params, resource in (([0.5, 0.5], 1), ([2.0, 0.1], 2),
+                             ([0.5, 0.5], 1)):
+        m, all_m, _ = port(params, resource)
+        rm, rall, _ = ref(params, resource)
+        assert m == pytest.approx(rm, abs=FIT_TOL)
+        assert all_m.keys() == rall.keys()
+
+
+class TestPartialRetrainingDriver:
+    def test_locked_coordinate_held_at_initial_model(self, game_files,
+                                                     trained, tmp_path):
+        train, val, config = game_files
+        root, _, _ = trained
+        args = ["--train-data", train, "--validate-data", val, "--config",
+                config, "--initial-model", str(root / "port" / "models"),
+                "--locked-coordinates", "per_user"]
+        result = game_training_driver.run(
+            args + ["--output-dir", str(tmp_path / "partial"), *CPU])
+        m1, _ = load_game_model(str(root / "port" / "models"), device="cpu")
+        m2, _ = load_game_model(str(tmp_path / "partial" / "models"),
+                                device="cpu")
+        re1, re2 = m1.models["per_user"], m2.models["per_user"]
+        assert set(re1.coefficients) == set(re2.coefficients)
+        for k, (c1, v1) in re1.coefficients.items():
+            c2, v2 = re2.coefficients[k]
+            np.testing.assert_array_equal(c1, c2)
+            np.testing.assert_array_equal(v1, v2)
+        assert result["validation_metric"] > 0.65
+        assert {h["coordinate"] for h in result["history"]} == {"fixed"}
+        ref = ref_training.run(args + ["--output-dir",
+                                       str(tmp_path / "ref_partial")])
+        assert result["validation_metric"] == pytest.approx(
+            ref["validation_metric"], abs=FIT_TOL)
+
+    def test_locked_without_initial_model_rejected(self, game_files,
+                                                   tmp_path):
+        train, _, config = game_files
+        with pytest.raises(SystemExit, match="initial-model"):
+            game_training_driver.run([
+                "--train-data", train, "--config", config, "--output-dir",
+                str(tmp_path / "x"), "--locked-coordinates", "per_user",
+                *CPU])
+
+
+class TestDriverGrid:
+    def test_driver_reg_weight_grid(self, tmp_path):
+        rng = np.random.default_rng(3)
+        user_effect = {f"u{u}": rng.normal(scale=2.0) for u in range(12)}
+        train, val = str(tmp_path / "train.avro"), str(tmp_path / "val.avro")
+        write_game_avro(train, _make_game_rows(rng, user_effect, 400))
+        write_game_avro(val, _make_game_rows(rng, user_effect, 150,
+                                             uid_start=400))
+        coords = [dict(COORDS[0], max_iters=40, reg_weights=[1e5, 0.5]),
+                  COORDS[1]]
+        del coords[0]["reg_weight"]
+        config = _write_config(tmp_path / "config.json",
+                               evaluators=["auc", "logistic_loss"],
+                               coordinates=coords)
+        args = ["--train-data", train, "--validate-data", val, "--config",
+                config]
+        result = game_training_driver.run(
+            args + ["--output-dir", str(tmp_path / "out"), *CPU])
+        ref = ref_training.run(args + ["--output-dir",
+                                       str(tmp_path / "ref")])
+        assert len(result["grid"]) == 2
+        best = next(g for g in result["grid"] if g["best"])
+        assert best["reg_weights"]["fixed"] == 0.5
+        assert [g["best"] for g in result["grid"]] == \
+            [g["best"] for g in ref["grid"]]
+        for g, rg in zip(result["grid"], ref["grid"]):
+            assert g["metric"] == pytest.approx(rg["metric"], abs=FIT_TOL)
+        assert result["per_iteration_validation"]
+        assert set(result["validation_suite"]) == {"auc", "logistic_loss"}
+        assert all("validation" in h for h in result["history"])
+        assert result["validation_metric"] > 0.6
+        # --resume skips the completed points and selects the same one.
+        resumed = game_training_driver.run(
+            args + ["--output-dir", str(tmp_path / "out"), "--resume", *CPU])
+        assert resumed["grid"] == result["grid"]
+        assert os.path.isdir(tmp_path / "out" / "checkpoints" / "grid" /
+                             "point_1")
+
+
+def _resume_rows(n, seed):
+    """The reference's kill-and-resume data (``tests/test_checkpoint.py``)."""
+    rng = np.random.default_rng(seed)
+    user_effect = {f"u{u}": rng.normal(scale=2.0) for u in range(10)}
+    rows = []
+    for i in range(n):
+        u = f"u{rng.integers(10)}"
+        xg = rng.normal(size=3)
+        margin = 1.5 * xg[0] + user_effect[u]
+        rows.append({
+            "uid": f"r{i}", "offset": None, "weight": None,
+            "response": float(rng.uniform() < 1 / (1 + np.exp(-margin))),
+            "ids": {"userId": u},
+            "features": {
+                "global": [{"name": f"g{j}", "term": "",
+                            "value": float(xg[j])} for j in range(3)],
+                "userFeatures": [{"name": "b", "term": "", "value": 1.0}],
+            },
+        })
+    return rows
+
+
+class TestDriverResume:
+    def _config(self, tmp_path, iters):
+        coords = [dict(COORDS[0], max_iters=30),
+                  dict(COORDS[1], max_iters=20)]
+        return _write_config(tmp_path / f"cfg{iters}.json",
+                             iterations=iters, coordinates=coords)
+
+    def test_game_driver_kill_and_resume(self, tmp_path):
+        train = str(tmp_path / "train.avro")
+        write_game_avro(train, _resume_rows(300, 2))
+        full, res = str(tmp_path / "full"), str(tmp_path / "resumed")
+        game_training_driver.run(["--train-data", train, "--config",
+                                  self._config(tmp_path, 3),
+                                  "--output-dir", full, *CPU])
+        # "Kill" after 1 iteration, then resume to 3 in the same directory.
+        game_training_driver.run(["--train-data", train, "--config",
+                                  self._config(tmp_path, 1),
+                                  "--output-dir", res, *CPU])
+        assert os.path.exists(os.path.join(res, "checkpoints",
+                                           "cd_checkpoint.npz"))
+        result = game_training_driver.run([
+            "--train-data", train, "--config", self._config(tmp_path, 3),
+            "--output-dir", res, "--resume", *CPU])
+        assert [h["iteration"] for h in result["history"]] == \
+            [0, 0, 1, 1, 2, 2]
+        np.testing.assert_array_equal(_scores(full, train),
+                                      _scores(res, train))
+        m_full, _ = load_game_model(os.path.join(full, "models"),
+                                    device="cpu")
+        m_res, _ = load_game_model(os.path.join(res, "models"), device="cpu")
+        np.testing.assert_array_equal(
+            m_full.models["fixed"].model.coefficients.means.numpy(),
+            m_res.models["fixed"].model.coefficients.means.numpy())
+        # The reference resumes from the port's checkpoint too.
+        ref_res = str(tmp_path / "ref_resumed")
+        game_training_driver.run(["--train-data", train, "--config",
+                                  self._config(tmp_path, 1),
+                                  "--output-dir", ref_res, *CPU])
+        ref = ref_training.run(["--train-data", train, "--config",
+                                self._config(tmp_path, 3), "--output-dir",
+                                ref_res, "--resume"])
+        assert [h["iteration"] for h in ref["history"]] == \
+            [0, 0, 1, 1, 2, 2]
+        np.testing.assert_allclose(_scores(ref_res, train, ref=True),
+                                   _scores(full, train), atol=FIT_TOL * 10)
+
+    def test_game_driver_incremental(self, tmp_path):
+        """The reference's incremental-training flow and data: a warm start
+        from a saved model does not regress the train metric."""
+        rng = np.random.default_rng(4)
+        rows = []
+        for i in range(200):
+            xg = rng.normal(size=2)
+            rows.append({
+                "uid": f"r{i}", "weight": None, "offset": None,
+                "response": float(rng.uniform()
+                                  < 1 / (1 + np.exp(-1.2 * xg[0]))),
+                "ids": {"userId": f"u{i % 8}"},
+                "features": {
+                    "global": [{"name": f"g{j}", "term": "",
+                                "value": float(xg[j])} for j in range(2)],
+                    "userFeatures": [{"name": "b", "term": "",
+                                      "value": 1.0}],
+                },
+            })
+        train = str(tmp_path / "t.avro")
+        write_game_avro(train, rows)
+        coords = [dict(COORDS[0], max_iters=20),
+                  dict(COORDS[1], max_iters=15)]
+        cfg = _write_config(tmp_path / "c.json", iterations=1,
+                            coordinates=coords)
+        out1, out2 = str(tmp_path / "m1"), str(tmp_path / "m2")
+        r1 = game_training_driver.run(["--train-data", train, "--config",
+                                       cfg, "--output-dir", out1, *CPU])
+        r2 = game_training_driver.run([
+            "--train-data", train, "--config", cfg, "--output-dir", out2,
+            "--initial-model", os.path.join(out1, "models"), *CPU])
+        assert r2["train_metric"] >= r1["train_metric"] - 1e-6
+        ref = ref_training.run([
+            "--train-data", train, "--config", cfg, "--output-dir",
+            str(tmp_path / "m3"), "--initial-model",
+            os.path.join(out1, "models")])
+        assert r2["train_metric"] == pytest.approx(ref["train_metric"],
+                                                   abs=FIT_TOL)
+
+    def test_resume_without_checkpointing_refused(self, tmp_path):
+        train = str(tmp_path / "t.avro")
+        write_game_avro(train, _resume_rows(50, 5))
+        cfg = _write_config(tmp_path / "c.json", checkpoint=False)
+        with pytest.raises(ValueError, match="requires checkpointing"):
+            game_training_driver.run(["--train-data", train, "--config",
+                                      cfg, "--output-dir",
+                                      str(tmp_path / "o"), "--resume", *CPU])
+
+
+class TestRefusals:
+    """Each flag or config the port does not run yet raises
+    NotImplementedError naming its ROADMAP Queue 1 item."""
+
+    @pytest.mark.parametrize("case,item", [
+        ("data_parallel", 6), ("streamed_fixed", 5), ("ooc_random", 5),
+        ("factored", 3), ("tuning", 8), ("retries", 4),
+        ("stream_scoring", 5), ("stream_knob", 5), ("ooc_knob", 5),
+        ("split_factor", 6), ("solver_options", 6),
+    ])
+    def test_refusal_names_its_item(self, game_files, trained, tmp_path,
+                                    case, item):
+        train, val, config = game_files
+        root, _, _ = trained
+        flags, overrides = [], {}
+        if case == "data_parallel":
+            flags = ["--data-parallel", "auto"]
+        elif case == "retries":
+            flags = ["--max-retries", "1"]
+        elif case == "tuning":
+            overrides = {"tuning": {"mode": "random", "iterations": 2}}
+        elif case == "streamed_fixed":
+            overrides = {"coordinates": [dict(COORDS[0],
+                                              streaming_chunk_rows=64),
+                                         COORDS[1]]}
+        elif case == "ooc_random":
+            overrides = {"coordinates": [COORDS[0], dict(
+                COORDS[1], device_budget_mb=1)]}
+        elif case == "factored":
+            overrides = {"coordinates": [COORDS[0], dict(
+                COORDS[1], type="factored", rank=1)]}
+        elif case == "stream_knob":
+            overrides = {"coordinates": [dict(COORDS[0], chunk_fuse=4),
+                                         COORDS[1]]}
+        elif case == "ooc_knob":
+            overrides = {"coordinates": [COORDS[0], dict(
+                COORDS[1], hot_budget_mb=64)]}
+        elif case == "split_factor":
+            overrides = {"coordinates": [COORDS[0], dict(
+                COORDS[1], split_factor=0.25)]}
+        elif case == "solver_options":
+            overrides = {"coordinates": [dict(
+                COORDS[0], solver_options={"rho": 1.0}), COORDS[1]]}
+        match = f"Queue 1 item {item}"
+        with pytest.raises(NotImplementedError, match=match):
+            if case == "stream_scoring":
+                game_scoring_driver.run([
+                    "--data", val, "--model-dir", str(root / "port"),
+                    "--output-dir", str(tmp_path / "s"),
+                    "--stream-block-rows", "64", *CPU])
+            else:
+                cfg = (_write_config(tmp_path / "c.json", **overrides)
+                       if overrides else config)
+                game_training_driver.run([
+                    "--train-data", train, "--validate-data", val,
+                    "--config", cfg, "--output-dir", str(tmp_path / "o"),
+                    *flags, *CPU])
+
+    def test_reference_defaults_of_unported_keys_are_accepted(self):
+        """A spec that spells out the reference's defaults of the keys the
+        port refuses parses to the reference's grid fingerprint."""
+        specs = [dict(COORDS[0], prefetch_depth=2, chunk_fuse=1,
+                      batch_linesearch=True, stream_compress="off",
+                      stream_hot_budget_mb=0, solver_options={}),
+                 dict(COORDS[1], split_factor=0.5, prefetch_depth=2,
+                      hot_budget_mb=0.0)]
+        port = game_training_driver.expand_config_grid(specs)[0]
+        ref = ref_training.expand_config_grid(specs)[0]
+        assert checkpoint.GameGridCheckpointer.fingerprint(port) == \
+            ref_ckpt.GameGridCheckpointer.fingerprint(ref)
+
+    def test_drivers_default_to_cuda(self):
+        assert game_training_driver.build_arg_parser().parse_args(
+            ["--train-data", "x", "--config", "c", "--output-dir", "o"]
+        ).device == "cuda"
+        assert game_scoring_driver.build_arg_parser().parse_args(
+            ["--data", "x", "--model-dir", "m", "--output-dir", "o"]
+        ).device == "cuda"

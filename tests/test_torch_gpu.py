@@ -675,3 +675,118 @@ def test_grid_loop_restores_onto_the_card(cuda):
     GlmOptimizationProblem("logistic").grid_loop(solve_fn, [10.0, 1.0],
                                                  solved=solved)
     assert received[0].device.type == "cuda"
+
+
+def test_validation_scorers_on_card_match_plain(cuda):
+    """The fixed-effect validation scorer's matvec runs the row kernel on
+    the card and agrees with its plain version (the same scorer on the
+    CPU); the random-effect scorer agrees with the CPU's and repeats
+    bitwise."""
+    import scipy.sparse as sp
+
+    from photon_ml_tpu_torch.game.validation import (
+        FixedEffectValidationScorer,
+        RandomEffectValidationScorer,
+    )
+
+    rows, cols, vals = _matrix(25, 20_000, 512, 8, unit=False)
+    X = sp.csr_matrix((vals, (rows, cols)), shape=(20_000, 512))
+    w = np.random.default_rng(26).normal(size=512).astype(np.float32)
+    _kernels.reset_launches()
+    got = FixedEffectValidationScorer(X, device=cuda).score(
+        torch.as_tensor(w, device=cuda))
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["matvec"] == 1
+    plain = FixedEffectValidationScorer(X, device="cpu").score(
+        torch.as_tensor(w))
+    scale = torch.as_tensor(abs(X) @ np.abs(w))
+    assert bool(((got.cpu() - plain).abs() <= 1e-5 * scale).all())
+
+    ds, _ = _game_dataset(cuda)
+    ds_cpu, _ = _game_dataset("cpu")
+    rng = np.random.default_rng(27)
+    keys = np.array([f"e{i}" for i in rng.integers(0, 900, size=3000)],
+                    dtype=object)
+    Xv = sp.csr_matrix(rng.normal(size=(3000, 5)).astype(np.float32))
+    state = [rng.normal(size=(b.n_entities, b.block_dim)).astype(np.float32)
+             for b in ds.blocks]
+    card = RandomEffectValidationScorer(ds, keys, Xv, device=cuda)
+    host = RandomEffectValidationScorer(ds_cpu, keys, Xv, device="cpu")
+    a = card.score([torch.as_tensor(s, device=cuda) for s in state])
+    b = card.score([torch.as_tensor(s, device=cuda) for s in state])
+    h = host.score([torch.as_tensor(s) for s in state])
+    assert torch.equal(a, b)
+    assert bool(((a.cpu() - h).abs() <= 1e-6 * (1 + h.abs())).all())
+    unseen = np.array([int(k[1:]) >= 800 for k in keys])
+    assert bool((a.cpu()[torch.as_tensor(unseen)] == 0).all())
+
+
+def test_game_drivers_on_card(cuda, tmp_path):
+    """A small training run with validation and a scoring run on the card:
+    the kernels launch in training and in validation scoring, the scoring
+    driver's device AUC equals the training driver's validation AUC, and
+    the card's run agrees with the same run on the CPU."""
+    import json
+
+    from photon_ml_tpu_torch.data.game_reader import write_game_avro
+    from photon_ml_tpu_torch.drivers import (
+        game_scoring_driver,
+        game_training_driver,
+    )
+
+    rng = np.random.default_rng(28)
+    effect = {f"u{u}": rng.normal(scale=2.0) for u in range(50)}
+
+    def rows(n, start):
+        out = []
+        for i in range(start, start + n):
+            u = f"u{rng.integers(55)}"
+            # 6 of 200 global features a row: no column reaches the dense
+            # stripe threshold, so every product streams through the kernel.
+            cols = rng.choice(200, size=6, replace=False)
+            xg = rng.normal(size=6)
+            m = 1.5 * xg[0] * (cols[0] < 100) + effect.get(u, 0.0)
+            out.append({
+                "uid": f"r{i}", "weight": None, "offset": None,
+                "response": float(rng.uniform() < 1 / (1 + np.exp(-m))),
+                "ids": {"userId": u},
+                "features": {
+                    "global": [{"name": f"g{c}", "term": "",
+                                "value": float(v)} for c, v in zip(cols, xg)],
+                    "userFeatures": [{"name": "b", "term": "",
+                                      "value": 1.0}],
+                },
+            })
+        return out
+
+    train, val = str(tmp_path / "t.avro"), str(tmp_path / "v.avro")
+    write_game_avro(train, rows(3000, 0))
+    write_game_avro(val, rows(800, 3000))
+    cfg = str(tmp_path / "c.json")
+    with open(cfg, "w") as f:
+        json.dump({"task": "logistic", "iterations": 2, "evaluator": "auc",
+                   "coordinates": [
+                       {"name": "fixed", "type": "fixed",
+                        "feature_shard": "global", "max_iters": 30,
+                        "reg_type": "l2", "reg_weight": 0.5},
+                       {"name": "per_user", "type": "random",
+                        "feature_shard": "userFeatures",
+                        "entity_key": "userId", "max_iters": 20,
+                        "reg_type": "l2", "reg_weight": 0.5}]}, f)
+    runs = {}
+    for dev in ("cuda", "cpu"):
+        _kernels.reset_launches()
+        runs[dev] = game_training_driver.run([
+            "--train-data", train, "--validate-data", val, "--config", cfg,
+            "--output-dir", str(tmp_path / dev), "--device", dev])
+        if dev == "cuda":
+            torch.cuda.synchronize()
+            launches = dict(_kernels.LAUNCHES)
+    assert launches["matvec"] > 0 and launches["rmatvec"] > 0
+    assert abs(runs["cuda"]["validation_metric"]
+               - runs["cpu"]["validation_metric"]) <= 2e-3
+    score = game_scoring_driver.run([
+        "--data", val, "--model-dir", str(tmp_path / "cuda"),
+        "--output-dir", str(tmp_path / "s"), "--evaluator", "auc",
+        "--device-metrics", "--device", "cuda"])
+    assert abs(score["metric"] - runs["cuda"]["validation_metric"]) <= 1e-6

@@ -59,10 +59,20 @@ def test_import_leaves_jax_out_of_sys_modules():
     "photon_ml_tpu_torch.game.estimator",
     "photon_ml_tpu_torch.evaluation.device",
     "photon_ml_tpu_torch.evaluation.suite",
+    "photon_ml_tpu_torch.evaluation.evaluators",
+    "photon_ml_tpu_torch.native",
+    "photon_ml_tpu_torch.data.game_reader",
+    "photon_ml_tpu_torch.io.game_store",
+    "photon_ml_tpu_torch.game.validation",
+    "photon_ml_tpu_torch.serving.kernels",
+    "photon_ml_tpu_torch.drivers.game_training_driver",
+    "photon_ml_tpu_torch.drivers.game_scoring_driver",
+    "photon_ml_tpu_torch.drivers.feature_indexing_driver",
 ])
 def test_solver_slice_module_imports_alone_without_jax(module):
-    """Each module of the solver and GAME slices, imported alone in a fresh
-    process, leaves jax and the JAX package out of sys.modules."""
+    """Each module of the solver, GAME and GAME-driver slices, imported
+    alone in a fresh process, leaves jax and the JAX package out of
+    sys.modules."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({module!r})\n"
@@ -94,6 +104,19 @@ def test_no_forbidden_import_in_source(path):
         else:
             continue
         assert not any(_forbidden(n) for n in names), (path, node.lineno)
+
+
+def test_native_decoder_source_and_build_stay_in_the_port():
+    """The port compiles its own copy of the GAME decoder into its own
+    build directory, never from or next to the JAX package's sources."""
+    from photon_ml_tpu_torch import native
+
+    assert native._SRC == PKG / "native" / "game_decoder.cpp"
+    assert native._SRC.exists()
+    assert native.BUILD_DIR == PKG / "_build"
+    for path in PKG.rglob("*.py"):
+        assert "photon_ml_tpu/native" not in path.read_text().replace(
+            "``photon_ml_tpu/native/__init__.py``", ""), path
 
 
 def test_default_device_raises_without_cuda(monkeypatch):
