@@ -119,12 +119,47 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    the validation scorers, to count their launches and copy the states
    they score for the per-update check.
 
+8. The batched random-effect fallback (``optim/batched.py``) and the
+   factored random effect (``game/factored.py``) at full width, each
+   config with phase 6's protocol and checks and the fixed effect's L2
+   L-BFGS on the SpMV kernels: 8a ``game_cd_l1``, the ``bench_game_cd``
+   draw with the per-user effect (8 wide) under elastic net α = 0.5, λ = 1
+   (every bucket, the rank-1 one included, batched OWL-QN); 8b
+   ``game_cd_wide_re``, the same draw with the per-user effect over the
+   512-wide ``global`` shard, L2 λ = 1, once with L-BFGS and once with TRON
+   (8 buckets up to D = 461, the five with D > 32 on the fallback; buckets'
+   (E, R, D) and bytes logged); 8c ``game_multi_re_factored``, the
+   ``bench_game_multi_re`` draw with the fixed effect, ``per_user`` (8
+   wide) and ``per_item`` factored over ``global`` (rank 8, 2
+   alternations, projection λ 0.1, λ 1).  Checks, beside phase 6's: every
+   fallback lane its solver marks converged passes its stopping test in
+   float64 (L-BFGS and TRON the relative gradient test, or a decrement test
+   for lanes stopped on the relative decrease; OWL-QN |g_j| ≤ 1.01·λ1 at
+   zeros and the diagonal-Newton decrement ≤ 1e-7·F, with float32
+   rounding allowances), the same buckets stopped where half those lanes
+   are converged fail it, and 64 lanes a bucket re-solved one at a time by
+   the single-problem solvers land on the batched lanes (float64 copies
+   within 1e-9 of ‖w‖ with equal iterations, float32 lanes within 5e-3 of
+   the largest ‖w‖); the factored projection gradient equals a float64
+   host recompute from the sparse rows within 1e-5 of its terms' Σ|·| and
+   repeats bitwise, and no projection step raises the float64 objective
+   in V.  Bodies a bucket, host reads, line-search trials or CG steps an
+   iteration, latent- and projection-step seconds and the L-BFGS
+   iterations over V are logged.  8d: ``game_training_driver`` on phase 7's
+   GAME Avro files with a per-user elastic-net effect, and with a per-user
+   factored effect over ``global`` (rank 8) run through, killed after
+   iteration 1 and ``--resume``d (model files byte-equal), then
+   ``game_scoring_driver`` on its model (AUC = the training driver's and
+   the device AUC of its scores within 1e-6); the drivers'
+   ``stage_seconds`` logged.
+
 Launch counts are zeroed just before each main-path run of phases 3, 3b,
-4, 5, 6 and 7 and read just after; every kernel those paths run must have
-launched.  A kernel record's ``launches`` sums its main-path runs (phases 3
-and 3b for the valued instances, phase 4's three runs for the binary ones,
-phase 6's descents and estimator fits and phase 7's training runs for the
-``.game`` records, phase 7's validation scoring for ``.game_val``).  The second-to-last line is the kernels' JSON record and the
+4, 5, 6, 7 and 8 and read just after; every kernel those paths run must
+have launched.  A kernel record's ``launches`` sums its main-path runs
+(phases 3 and 3b for the valued instances, phase 4's three runs for the
+binary ones, phase 6's descents and estimator fits and phases 7's and 8's
+training runs for the ``.game`` records, phases 7's and 8's validation
+scoring for ``.game_val``).  The second-to-last line is the kernels' JSON record and the
 last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -1407,7 +1442,8 @@ def game_multi_re_data():
 def game_objective(coords, y, scores, states, base, rows=None):
     """The GAME objective in float64 on the device: the logistic losses at
     base + Σ scores (over the rows where the bool mask ``rows`` holds, or
-    all rows), plus each coordinate's ½·λ·‖w‖²."""
+    all rows), plus each coordinate's penalty: ½·λ₂‖w‖² + λ₁‖w‖₁ (a
+    factored coordinate's on its latents u, plus ½·λ_V‖V‖²)."""
     from photon_ml_tpu_torch.ops import losses as losses_lib
 
     total = (base + sum(scores.values())).double()
@@ -1417,11 +1453,17 @@ def game_objective(coords, y, scores, states, base, rows=None):
         st = states[c.name]
         if st is None:
             continue
-        l2 = c.reg_weight * c.problem.config.regularization.l2_weight(1.0) \
-            if hasattr(c, "problem") else c._reg()[1]
-        sq = sum((w.double() ** 2).sum() for w in st) if isinstance(
-            st, list) else (st.double() ** 2).sum()
-        f = f + 0.5 * l2 * sq
+        if hasattr(c, "problem"):
+            l1, l2 = 0.0, c.reg_weight \
+                * c.problem.config.regularization.l2_weight(1.0)
+            ws = [st]
+        else:
+            l1, l2 = c._reg()[:2]
+            ws = st[0] if hasattr(c, "rank") else st
+            if hasattr(c, "rank"):
+                f = f + 0.5 * c._reg()[2] * (st[1].double() ** 2).sum()
+        f = f + sum(0.5 * l2 * (w.double() ** 2).sum()
+                    + l1 * w.double().abs().sum() for w in ws)
     return f
 
 
@@ -1479,6 +1521,11 @@ def re_gradient_check(glog, coord, offsets):
     items = [(b, _gather_block_offsets(offsets, b),
               torch.zeros((b.n_entities, b.block_dim), device=DEVICE))
              for b in coord.dataset.blocks]
+    # The Newton buckets (the fallback's are fallback_checks').
+    items = [it for it in items
+             if solver.program(*it, l1, l2).iterations is None]
+    if not items:
+        return None
     ws, stats = solver.solve_all(items, l1, l2)
     cut = []
     for b, off, w0 in items:
@@ -1499,11 +1546,11 @@ def re_gradient_check(glog, coord, offsets):
                 ratio = max(ratio, float((m / t)[conv].max()))
         return tested, failing, ratio
 
-    n_lanes = sum(b.n_entities for b in coord.dataset.blocks)
+    n_lanes = sum(b.n_entities for b, _, _ in items)
     tested, failing, ratio = worst(ws)
     _, cut_failing, cut_ratio = worst(cut)
-    glog(f"{coord.name}: cold solve at the final offsets marks {tested} of "
-         f"{n_lanes} lanes converged (bodies {stats.bodies}, "
+    glog(f"{coord.name}: cold Newton solve at the final offsets marks "
+         f"{tested} of {n_lanes} lanes converged (bodies {stats.bodies}, "
          f"{stats.host_reads} host reads); float64 gradient test: "
          f"{failing} fail, worst measure/threshold {ratio:.3g}; stopped "
          f"after one Newton body: {cut_failing} of {tested} fail, worst "
@@ -1514,6 +1561,311 @@ def re_gradient_check(glog, coord, offsets):
     check(cut_failing > 0, f"game {coord.name}: the gradient test passes "
           "the solve stopped after one Newton body")
     return stats
+
+
+# Phase 8's float64 stopping tests allow for float32 rounding: a lane's
+# gradient sum by up to GAME_ROUNDING of the absolute sum of its terms (as
+# phase 6's), its value sum by up to GAME_VALUE_ROUNDING of the absolute
+# sum of its terms.  Lane by lane, a float64 copy of GAME_LANE_SAMPLE lanes
+# a bucket follows each lane's single solve within FALLBACK_F64_TOL of ‖w‖;
+# in float32 the lanes part at the noise floor (one ulp decides a trial or
+# the stall test) and land within FALLBACK_F32_TOL of the largest ‖w‖.
+GAME_ROUNDING = 64 * 2.0 ** -24
+GAME_VALUE_ROUNDING = 4 * 2.0 ** -24
+GAME_LANE_SAMPLE = 64
+FALLBACK_F64_TOL = 1e-9
+FALLBACK_F32_TOL = 5e-3
+
+
+def states_equal(a, b):
+    """Bitwise equality of two coordinate states (tensors, or nested
+    lists and tuples of them)."""
+    if isinstance(a, torch.Tensor):
+        return torch.equal(a, b)
+    return len(a) == len(b) and all(states_equal(x, y) for x, y in zip(a, b))
+
+
+def solve_summary(stats):
+    """A lockstep solve's bodies a bucket and host reads, and for each
+    fallback bucket its mean line-search trials or CG steps an iteration
+    (None for a Newton bucket)."""
+    out = dict(bodies=list(stats.bodies), host_reads=stats.host_reads)
+    inner = [None if it is None else round(
+        int(inn.sum()) / max(int(it.sum()), 1), 3)
+        for it, inn in zip(stats.iterations, stats.inner)]
+    if any(v is not None for v in inner):
+        out["inner_per_iteration"] = inner
+    return out
+
+
+def lane_tests(loss, b, off, w, w0, w_prev, l1, l2, tol, owlqn, plateau):
+    """Each lane's stopping test of one fallback bucket at ``w``,
+    recomputed in float64: (passes, measure / threshold).  OWL-QN: the KKT
+    conditions, |g_j| ≤ (1 + KKT_ZERO)·λ1 at the zeros and a
+    diagonal-Newton decrement Σ pg_j²/(2·H_jj) ≤ KKT_DECREMENT·|F| (phase
+    3b's); L-BFGS and TRON: the relative gradient test ‖g‖ ≤
+    tol·max(1, ‖g₀‖), or for a lane that stopped on the relative decrease
+    (``plateau``) that test, |F(w_prev) − F(w)| ≤ tol·1e-2·|F(w_prev)|,
+    with w_prev the iterate before its last step.  g is the smooth part's
+    gradient Σ_r wt·ℓ'(m)·x + λ2·w, H_jj = Σ_r wt·ℓ''(m)·x_j² + λ2."""
+    X, y, wt = b.X.double(), b.labels.double(), b.weights.double()
+    off = off.double()
+
+    def at(w):
+        w = w.double()
+        xw = X * w[:, None, :]
+        m = xw.sum(-1) + off
+        d1, d2 = loss.d1(m, y), loss.d2(m, y)
+        g = ((wt * d1)[:, :, None] * X).sum(1) + l2 * w
+        err = wt * (d1.abs() + y.abs() + d2 * (off.abs() + xw.abs().sum(-1)))
+        g_err = (err[:, :, None] * X.abs()).sum(1) + l2 * w.abs()
+        lv = wt * loss.value(m, y)
+        pen = 0.5 * l2 * (w * w).sum(1) + l1 * w.abs().sum(1)
+        h = ((wt * d2)[:, :, None] * X * X).sum(1) + l2
+        return w, g, g_err, lv.sum(1) + pen, lv.abs().sum(1) + pen, h
+
+    w, g, g_err, F, F_abs, h = at(w)
+    if owlqn:
+        pg = torch.where(w != 0, g + l1 * torch.sign(w),
+                         torch.sign(g) * torch.clamp(g.abs() - l1, min=0.0))
+    else:
+        pg = g
+    dec = (pg * pg / (2 * h.clamp_min(1e-30))).sum(1)
+    dec_ratio = dec / (KKT_DECREMENT * F.abs()
+                       + GAME_VALUE_ROUNDING * F_abs).clamp_min(1e-300)
+    if owlqn:
+        zero = w == 0
+        at_zero = torch.where(zero, (g.abs() - GAME_ROUNDING * g_err)
+                              / (l1 * (1 + KKT_ZERO)), 0.0).amax(1)
+        ratio = torch.maximum(at_zero, dec_ratio)
+        return ratio <= 1, ratio
+    _, g0, _, _, _, _ = at(w0)
+    _, _, _, F_prev, F_prev_abs, _ = at(w_prev)
+    norm = torch.linalg.vector_norm
+    thresh = tol * torch.clamp(norm(g0, dim=1), min=1.0) \
+        + GAME_ROUNDING * norm(g_err, dim=1)
+    decrease = (F_prev - F).abs() / (
+        tol * 1e-2 * F_prev.abs()
+        + GAME_VALUE_ROUNDING * (F_prev_abs + F_abs)).clamp_min(1e-300)
+    ratio = torch.where(plateau, decrease, norm(g, dim=1) / thresh)
+    return ratio <= 1, ratio
+
+
+def fallback_checks(glog, coord, offsets):
+    """A cold solve of ``coord``'s fallback buckets at ``offsets``: every
+    lane marked converged passes its stopping test in float64
+    (:func:`lane_tests`); the same buckets stopped where half those lanes
+    are converged (a planted fault) fail it on the other half; and
+    GAME_LANE_SAMPLE lanes a bucket re-solved one at a time by the
+    single-problem solver land on the batched lanes
+    (float64 copies within FALLBACK_F64_TOL and the same iterations; the
+    float32 lanes within FALLBACK_F32_TOL).  Returns a summary, or None
+    without fallback buckets."""
+    from photon_ml_tpu_torch.game.coordinates import _gather_block_offsets
+
+    solver, (l1, l2) = coord._solver, coord._reg()
+    tol = coord.config.optimizer.tolerance
+    items = []
+    for b in coord.dataset.blocks:
+        it = (b, _gather_block_offsets(offsets, b),
+              torch.zeros((b.n_entities, b.block_dim), device=DEVICE))
+        if solver.program(*it, l1, l2).iterations is not None:
+            items.append(it)
+    if not items:
+        return None
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    progs = [solver.program(*it, l1, l2) for it in items]
+    bodies, reads = solver.lockstep(progs)
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    kind = type(progs[0]).__name__
+    ws = [p.result() for p in progs]
+
+    def worst(w_list, lanes, progs):
+        """(lanes tested, failing, of them on the relative decrease,
+        failing of those, worst measure/threshold)."""
+        tested = failing = plateau = plateau_failing = 0
+        ratio = 0.0
+        for (b, off, w0), w, sel, full, p in zip(items, w_list, lanes,
+                                                 full_progs, progs):
+            plat = full.plateau & sel
+            ok, r = lane_tests(solver.loss, b, off, w, w0, p.w_prev, l1, l2,
+                               tol, solver.use_owlqn, plat)
+            tested += int(sel.sum())
+            plateau += int(plat.sum())
+            failing += int((sel & ~ok).sum())
+            plateau_failing += int((plat & ~ok).sum())
+            if bool(sel.any()):
+                ratio = max(ratio, float(r[sel].max()))
+        return tested, failing, plateau, plateau_failing, ratio
+
+    full_progs = progs
+
+    # The planted fault: each bucket stopped at the first body where its
+    # solver marks half the lanes it ends up converging converged; the
+    # other half, tested there, must fail.
+    cut, cut_lanes = [], []
+    for (b, off, w0), full in zip(items, full_progs):
+        p = solver.program(b, off, w0, l1, l2)
+        goal = int(full.converged.sum()) // 2
+        while int((p.converged & full.converged).sum()) < goal:
+            p.body()
+        cut.append(p)
+        cut_lanes.append(full.converged & ~p.converged)
+    n_lanes = sum(b.n_entities for b, _, _ in items)
+    tested, failing, plateau, plateau_failing, ratio = worst(
+        ws, [p.converged for p in progs], progs)
+    cut_tested, cut_failing, _, _, cut_ratio = worst(
+        [p.result() for p in cut], cut_lanes, cut)
+    its = [int(p.iterations.sum()) for p in progs]
+    inner = [int(p.inner.sum()) for p in progs]
+    shapes = [(b.n_entities, b.rows_per_entity, b.block_dim)
+              for b, _, _ in items]
+    glog(f"{coord.name}: {kind} cold solve of {len(items)} fallback "
+         f"buckets {shapes} "
+         f"at the final offsets: {wall:.3f} s, bodies {bodies}, "
+         f"{reads} host reads, iterations {its}, "
+         f"{'line-search trials' if kind != 'BatchedTRON' else 'CG steps'} "
+         f"{inner}; {tested} of {n_lanes} lanes converged ({plateau} on the "
+         f"relative decrease); float64 stopping tests: {failing} fail "
+         f"({plateau_failing} of them on the relative decrease), worst "
+         f"measure/threshold {ratio:.3g}; stopped where half of them are "
+         f"converged: {cut_failing} of the other {cut_tested} fail, worst "
+         f"{cut_ratio:.3g}")
+    check(tested > 0 and failing == 0,
+          f"game {coord.name}: {failing} converged fallback lanes fail the "
+          f"float64 stopping test (worst {ratio:.3g})")
+    check(cut_failing > 0, f"game {coord.name}: the stopping tests pass "
+          "the fallback solve stopped where half its lanes are converged")
+
+    rng = np.random.default_rng(8)
+    f32_worst = f64_worst = 0.0
+    same_its = n_single = 0
+    pairs = []
+    for k, ((b, off, w0), w) in enumerate(zip(items, ws)):
+        lanes = np.sort(rng.choice(b.n_entities, replace=False,
+                                   size=min(b.n_entities, GAME_LANE_SAMPLE)))
+        errs, norms = [], []
+        for e in lanes.tolist():
+            r = progs[k].single(e, w0[e])
+            errs.append(float(torch.linalg.vector_norm(w[e] - r.w)))
+            norms.append(float(torch.linalg.vector_norm(r.w)))
+            pairs.append((int(progs[k].iterations[e]), r.iterations))
+        f32_worst = max(f32_worst, max(errs) / max(max(norms), 1e-30))
+        # A float64 copy of the sampled lanes: a bucket of its own.
+        idx = torch.as_tensor(lanes, device=DEVICE)
+        sub = dataclasses.replace(
+            b, X=b.X[idx].double(), labels=b.labels[idx].double(),
+            weights=b.weights[idx].double(), col_map=b.col_map[idx],
+            row_index=b.row_index[idx], n_entities=len(lanes))
+        o64, w64 = off[idx].double(), w0[idx].double()
+        (sw,), sst = solver.solve_all([(sub, o64, w64)], l1, l2)
+        p64 = solver.program(sub, o64, w64, l1, l2)
+        for j in range(len(lanes)):
+            r = p64.single(j, w64[j])
+            n_single += 1
+            same_its += int(r.iterations == int(sst.iterations[0][j]))
+            f64_worst = max(f64_worst, float(
+                torch.linalg.vector_norm(sw[j] - r.w)
+                / torch.linalg.vector_norm(r.w).clamp_min(1e-300)))
+    b_its = np.array([p[0] for p in pairs])
+    s_its = np.array([p[1] for p in pairs])
+    glog(f"{coord.name}: lane by lane, {len(pairs)} sampled lanes re-solved "
+         f"by the single-problem solver: float32 within {f32_worst:.3g} of "
+         f"the bucket's largest ‖w‖ (limit {FALLBACK_F32_TOL:g}), "
+         f"iterations batched {b_its.mean():.2f} / single {s_its.mean():.2f} "
+         f"a lane ({int((b_its == s_its).sum())} equal); float64 copies "
+         f"within {f64_worst:.3g} of ‖w‖ (limit {FALLBACK_F64_TOL:g}), "
+         f"iterations equal in {same_its} of {n_single}")
+    check(f32_worst <= FALLBACK_F32_TOL, f"game {coord.name}: float32 lanes "
+          f"{f32_worst:.3g} from their single solves")
+    check(f64_worst <= FALLBACK_F64_TOL and same_its == n_single,
+          f"game {coord.name}: float64 lanes {f64_worst:.3g} from their "
+          f"single solves, iterations equal in {same_its} of {n_single}")
+    return dict(kind=kind, wall_s=wall, bodies=bodies,
+                host_reads=reads, iterations=its, inner=inner,
+                converged=tested, lanes=n_lanes, plateau=plateau,
+                worst_ratio=ratio, cut_failing=cut_failing,
+                lane_f32=f32_worst, lane_f64=f64_worst,
+                lane_iterations=(float(b_its.mean()), float(s_its.mean())))
+
+
+def factored_checks(glog, coord, offsets, y, effects):
+    """The factored coordinate at ``offsets`` from its cold start: the
+    projection gradient (its deterministic column sums) against a float64
+    host recompute from the raw sparse rows, within 1e-5 of the absolute
+    sum of each entry's terms, and bitwise repeatable; then alternations
+    stepped by hand: no projection step raises the float64 objective in V.
+    Logs each step's seconds and L-BFGS iterations over V."""
+    _, keys, Xe, _ = next(e for e in effects if e[0] == coord.name)
+    X64 = Xe.tocsr().astype(np.float64)
+    uniq, inv = np.unique(np.asarray(keys).astype(str), return_inverse=True)
+    slots = [coord.dataset.entity_to_slot[k] for k in uniq]
+    off_h = offsets.double().cpu().numpy()
+    y64 = y.astype(np.float64)
+    _, _, l2v = coord._reg()
+
+    def host(u_list, V):
+        """(f, G, the absolute sum of G's terms) in float64 on the host."""
+        us = [u.double().cpu().numpy() for u in u_list]
+        U = np.stack([us[bi][lane] for bi, lane in slots])[inv]
+        V = V.double().cpu().numpy()
+        m = ((X64 @ V) * U).sum(1) + off_h
+        dm = 1 / (1 + np.exp(-m)) - y64
+        f = float((np.logaddexp(0.0, m) - y64 * m).sum()
+                  + 0.5 * l2v * (V * V).sum())
+        G = X64.T @ (dm[:, None] * U) + l2v * V
+        G_abs = abs(X64).T @ (np.abs(dm)[:, None] * np.abs(U)) \
+            + l2v * np.abs(V)
+        return f, G, G_abs
+
+    offs = coord.block_offsets(offsets)
+    u_list = [torch.zeros((b.n_entities, coord.rank), device=DEVICE)
+              for b in coord.dataset.blocks]
+    V = coord._v0
+    steps = []
+    grad_err = 0.0
+    for _ in range(coord.alternations):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        u_list, stats = coord.latent_step(offs, u_list, V)
+        torch.cuda.synchronize()
+        t1 = time.perf_counter()
+        _, g = coord.projection_value_grad(V.reshape(-1), offs, u_list)
+        _, g2 = coord.projection_value_grad(V.reshape(-1), offs, u_list)
+        check(torch.equal(g, g2), f"game {coord.name}: the projection "
+              "gradient differs between two calls")
+        f0, G, G_abs = host(u_list, V)
+        err = np.abs(g.view(V.shape).double().cpu().numpy() - G) / np.maximum(
+            G_abs, 1e-30)
+        grad_err = max(grad_err, float(err.max()))
+        torch.cuda.synchronize()
+        t2 = time.perf_counter()
+        V_new, res = coord.projection_step(offs, u_list, V)
+        torch.cuda.synchronize()
+        t3 = time.perf_counter()
+        f1 = host(u_list, V_new)[0]
+        steps.append(dict(latent_s=t1 - t0, projection_s=t3 - t2,
+                          projection_iterations=res.iterations,
+                          latent=solve_summary(stats), f_before=f0,
+                          f_after=f1))
+        check(f1 - f0 <= GAME_OBJ_RISE * abs(f0),
+              f"game {coord.name}: a projection step raised the objective "
+              f"in V from {f0:.10g} to {f1:.10g}")
+        V = V_new
+    glog(f"{coord.name}: projection gradient vs a float64 host recompute "
+         f"from the sparse rows: max err {grad_err:.3g} of each entry's "
+         f"Σ|terms| (limit {RTOL:g}), bitwise repeatable; by hand from the "
+         f"cold start: " + "; ".join(
+             f"alternation {i}: latent step {st['latent_s']:.4f} s "
+             f"({st['latent']}), projection step {st['projection_s']:.4f} s, "
+             f"{st['projection_iterations']} L-BFGS iterations over V, "
+             f"objective in V {st['f_before']:.10g} -> {st['f_after']:.10g}"
+             for i, st in enumerate(steps)))
+    check(grad_err <= RTOL, f"game {coord.name}: projection gradient "
+          f"{grad_err:.3g} from the float64 host recompute")
+    return dict(grad_err=grad_err, steps=steps)
 
 
 def host_rescore(model, n, Xg, effects):
@@ -1532,24 +1884,31 @@ def host_rescore(model, n, Xg, effects):
         for i, k in enumerate(uniq):
             cols, vals = re.coefficients[k]
             W[i, cols] = vals
-        Xd = Xe.toarray().astype(np.float64)
-        Wr = W[inv]
-        out[name] = ((Xd * Wr).sum(1), (np.abs(Xd) * np.abs(Wr)).sum(1))
+        # Each stored entry x_rj times its row's entity's w_j.
+        Xc = Xe.tocoo()
+        xw = Xc.data.astype(np.float64) * W[inv[Xc.row], Xc.col]
+        out[name] = (np.bincount(Xc.row, xw, minlength=n),
+                     np.bincount(Xc.row, np.abs(xw), minlength=n))
     return out
 
 
-def run_game_config(glog, label, data_fn, kernels=False):
+def run_game_config(glog, label, data_fn, kernels=False, re_specs=None):
     """One GAME configuration at full width: host builds, (with
     ``kernels``) the SpMV kernels against their plain versions at the fixed
     effect's shape before any descent, the descent's timed runs, and its
-    checks.  Returns (metrics, launches, kernel records or None, built
-    data)."""
+    checks.  ``re_specs`` maps a random effect's name to its ``opt``
+    (default: phase 6's L2 L-BFGS) and, for a factored coordinate, its
+    ``rank``, ``alternations`` and ``projection_reg_weight``.  Returns
+    (metrics, launches, kernel records or None, built data)."""
     import statistics
 
     from photon_ml_tpu_torch.data.dataset import make_glm_data
     from photon_ml_tpu_torch.game.coordinates import (
         FixedEffectCoordinate,
         RandomEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.game.factored import (
+        FactoredRandomEffectCoordinate,
     )
     from photon_ml_tpu_torch.game.data import (
         FixedEffectDataset,
@@ -1602,7 +1961,9 @@ def run_game_config(glog, label, data_fn, kernels=False):
             keys, Xe, y, np.ones(n, np.float32), max_rows_per_entity=cap,
             bucket_growth=GAME_BUCKET_GROWTH, device=DEVICE)
         torch.cuda.synchronize()
-        shapes = [(b.n_entities, b.rows_per_entity) for b in ds.blocks]
+        shapes = [(b.n_entities, b.rows_per_entity, b.block_dim)
+                  for b in ds.blocks]
+        nbytes = sum(b.X.numel() * 4 for b in ds.blocks)
         prows = torch.cat([b.row_index.reshape(-1) for b in
                            ds.passive_blocks if b is not None]
                           or [torch.zeros(0, dtype=torch.int32,
@@ -1613,11 +1974,21 @@ def run_game_config(glog, label, data_fn, kernels=False):
               "passive rows")
         glog(f"{label}: {name}: build_random_effect_dataset "
              f"{time.perf_counter() - t0:.3f} s (host build), "
-             f"{ds.n_entities} entities in {len(ds.blocks)} buckets (E, R) "
-             f"{shapes}, padding ratio {ds.padding_ratio:.3f}, "
-             f"{passive_rows[name].numel()} passive rows")
-        coords.append(RandomEffectCoordinate(
-            name, ds, "logistic", opt, reg_weight=1.0, entity_key=name))
+             f"{ds.n_entities} entities in {len(ds.blocks)} buckets (E, R, D) "
+             f"{shapes}, {nbytes / 1e6:.1f} MB of blocks, padding ratio "
+             f"{ds.padding_ratio:.3f}, {passive_rows[name].numel()} passive "
+             f"rows")
+        spec = (re_specs or {}).get(name, {})
+        if "rank" in spec:
+            coords.append(FactoredRandomEffectCoordinate(
+                name, ds, "logistic", spec["opt"], rank=spec["rank"],
+                reg_weight=1.0,
+                projection_reg_weight=spec["projection_reg_weight"],
+                alternations=spec["alternations"], entity_key=name))
+        else:
+            coords.append(RandomEffectCoordinate(
+                name, ds, "logistic", spec.get("opt", opt), reg_weight=1.0,
+                entity_key=name))
     cd = CoordinateDescent(coords)
     base = torch.zeros(n, device=DEVICE)
     y_dev = torch.as_tensor(y, device=DEVICE)
@@ -1644,10 +2015,18 @@ def run_game_config(glog, label, data_fn, kernels=False):
 
     def monitor(it, cname, scores, states):
         entry = objectives(scores, states)
-        stats = getattr(res_by[cname], "last_solve", None)
+        c = res_by[cname]
+        stats = getattr(c, "last_solve", None)
         if stats is not None:
-            entry.update(bodies=list(stats.bodies),
-                         host_reads=stats.host_reads)
+            entry.update(solve_summary(stats))
+        rec = getattr(c, "last_train", None)
+        if rec is not None:
+            entry.update(
+                latent=[solve_summary(st) for st in rec["latent"]],
+                latent_s=list(rec["latent_s"]),
+                projection_s=list(rec["projection_s"]),
+                projection_iterations=[r.iterations
+                                       for r in rec["projection"]])
         return entry
 
     def timed(n_it):
@@ -1701,8 +2080,16 @@ def run_game_config(glog, label, data_fn, kernels=False):
              + (f" (its active rows: {h[key]:.10g})" if key != "objective"
                 else "")
              + f", host wall {h['wall_seconds']:.4f} s"
-             + (f", Newton bodies a bucket {h['bodies']}, {h['host_reads']} "
-                f"host reads" if "bodies" in h else ""))
+             + (f", bodies a bucket {h['bodies']}, {h['host_reads']} host "
+                f"reads" if "bodies" in h else "")
+             + (f", line-search trials or CG steps an iteration a bucket "
+                f"{h['inner_per_iteration']}" if h.get("inner_per_iteration")
+                else "")
+             + (f", latent steps {h['latent']}, latent-step s "
+                f"{[round(t, 4) for t in h['latent_s']]}, projection-step s "
+                f"{[round(t, 4) for t in h['projection_s']]}, L-BFGS "
+                f"iterations over V {h['projection_iterations']}"
+                if "latent" in h else ""))
         prev = h
     glog(f"{label}: objective {start['objective']:.10g} -> "
          f"{monitored.history[-1]['objective']:.10g} over "
@@ -1732,9 +2119,7 @@ def run_game_config(glog, label, data_fn, kernels=False):
     # A second run repeats every state and score bitwise.
     (a, _), (b, _) = runs[0], runs[1]
     for name in a.states:
-        sa, sb = a.states[name], b.states[name]
-        same = (torch.equal(sa, sb) if isinstance(sa, torch.Tensor)
-                else all(torch.equal(u, v) for u, v in zip(sa, sb)))
+        same = states_equal(a.states[name], b.states[name])
         check(same and torch.equal(a.scores[name], b.scores[name]),
               f"game {label}: {name}'s state or scores differ between runs")
     glog(f"{label}: a repeated cd.run is bitwise equal (states and scores)")
@@ -1760,15 +2145,26 @@ def run_game_config(glog, label, data_fn, kernels=False):
                   f"{name} was not scored")
             glog(f"{label}: all {rows.numel()} passive rows of {name} scored")
 
-    # Converged lanes against the float64 gradient test, and the fault.
+    # Converged lanes against the float64 stopping tests, and the faults.
     total = base + sum(last.scores.values())
+    checks = {}
     for c in coords[1:]:
-        re_gradient_check(glog, c, total - last.scores[c.name])
+        offsets = total - last.scores[c.name]
+        if isinstance(c, FactoredRandomEffectCoordinate):
+            checks[c.name] = factored_checks(glog, c, offsets, y, effects)
+            continue
+        re_gradient_check(glog, c, offsets)
+        checks[c.name] = fallback_checks(glog, c, offsets)
     metrics = dict(iters_per_s=1 / med, spread=spread,
                    s_per_iter=per_iter, coordinate_s=walls,
-                   buckets={c.name: [(b.n_entities, b.rows_per_entity)
+                   buckets={c.name: [(b.n_entities, b.rows_per_entity,
+                                      b.block_dim)
                                      for b in c.dataset.blocks]
-                            for c in coords[1:]})
+                            for c in coords[1:]},
+                   updates=[{k: v for k, v in h.items()
+                             if k not in ("validation",)}
+                            for h in monitored.history],
+                   checks=checks)
     return metrics, launches, kern, (n, Xg, y, effects)
 
 
@@ -2026,10 +2422,11 @@ def validation_rescore(coord, state, v_shards, v_ids):
     return (X * W).sum(1)
 
 
-def phase_game_drivers(smi):
-    """Phase 7: the GAME drivers at ``bench_game_cd``'s width.  Returns
+def phase_game_drivers(smi, td):
+    """Phase 7: the GAME drivers at ``bench_game_cd``'s width, its GAME Avro
+    files written into ``td`` (phase 8 reads them again).  Returns
     (validation-shape kernel records, training launches, validation-scoring
-    matvec launches, metrics)."""
+    matvec launches, metrics, (train path, validation path))."""
     from photon_ml_tpu_torch.data.game_reader import read_game_avro
     from photon_ml_tpu_torch.data.index_map import IndexMap
     from photon_ml_tpu_torch.drivers import (
@@ -2050,227 +2447,436 @@ def phase_game_drivers(smi):
     lib = load_game_decoder()
     check(lib is not None, "the native GAME decoder did not build")
     glog(f"native GAME decoder: {lib._name}")
-    td = tempfile.mkdtemp(prefix="photon_game_drivers_")
     metrics = {}
-    try:
-        train, val, unseen = write_game_driver_files(td, glog)
-        cfg3 = game_driver_config(os.path.join(td, "cfg3.json"),
-                                  GAME_DRIVER_ITERS)
-        cfg1 = game_driver_config(os.path.join(td, "cfg1.json"), 1)
-        grid = game_driver_config(os.path.join(td, "grid.json"),
-                                  GAME_DRIVER_ITERS, GAME_GRID_RE_WEIGHTS)
-        out = {k: os.path.join(td, k) for k in ("full", "resumed", "grid")}
-        train_launches = {"matvec": 0, "rmatvec": 0}
-        decoders = []
-        with ScorerRecorder() as rec:
-            def training(label, argv, record=False):
-                rec.record = record
-                torch.cuda.synchronize()
-                _kernels.reset_launches()
-                rec.val_matvec = 0
-                t0 = time.perf_counter()
-                res = game_training_driver.run(argv + ["--device", DEVICE])
-                torch.cuda.synchronize()
-                wall = time.perf_counter() - t0
-                rec.record = False
-                launches = dict(_kernels.LAUNCHES)
-                check(launches["matvec"] > rec.val_matvec > 0
-                      and launches["rmatvec"] > 0,
-                      f"{label}: the SpMV kernels did not launch in training "
-                      "and in validation scoring")
-                for op in train_launches:
-                    train_launches[op] += launches[op] - (
-                        rec.val_matvec if op == "matvec" else 0)
-                decoders.extend(res["decoders"].values())
-                stages = res["stage_seconds"]
-                n_it = len({h["iteration"] for h in res["history"]})
-                val_ms = [1e3 * t for t in
-                          stages["validation scoring and metrics"]]
-                glog(f"{label}: driver wall {wall:.2f} s (its own "
-                     f"{res['wall_seconds']:.2f} s); {len(res['history'])} "
-                     f"updates; validation AUC {res.get('validation_metric')};"
-                     f" SpMV launches: matvec {launches['matvec']} (of them "
-                     f"{rec.val_matvec} validation scoring), rmatvec "
-                     f"{launches['rmatvec']}; decoders {res['decoders']}")
-                glog(f"{label}: driver stages (host s): "
-                     f"{stage_summary(stages)}; validation scoring and "
-                     f"metrics {np.mean(val_ms):.2f} ms an update")
-                metrics[label] = {"wall_s": wall,
-                                  "descent_s": stages["descent"],
-                                  "val_ms_per_update": float(np.mean(val_ms)),
-                                  "val_matvec": rec.val_matvec,
-                                  "launches": launches, "stages": stages}
-                return res, n_it, stages["descent"][-1]
-
-            common = ["--train-data", train, "--validate-data", val]
-            full, n_it, descent_s = training(
-                "train", common + ["--config", cfg3, "--output-dir",
-                                   out["full"]], record=True)
-            recorded = list(rec.recorded)
-            metrics["train"]["iters_per_s"] = n_it / descent_s
-            glog(f"train: {n_it} GAME iterations in {descent_s:.3f} s of "
-                 f"descent = {n_it / descent_s:.3f} GAME iterations/s inside "
-                 "the driver (with per-update validation)")
-            training("kill after iteration 1",
-                     common + ["--config", cfg1, "--output-dir",
-                               out["resumed"]])
-            resumed, _, _ = training(
-                "resume to 3", common + ["--config", cfg3, "--output-dir",
-                                         out["resumed"], "--resume"])
-            # The grid computes its metrics on the card (--device-metrics):
-            # its descents against run 1's, whose train and validation
-            # metrics are host numpy.
-            grid_res, _, _ = training(
-                "grid", common + ["--config", grid, "--output-dir",
-                                  out["grid"], "--device-metrics"])
-        grid_descents = metrics["grid"]["descent_s"]
-        metrics["grid"]["iters_per_s"] = [GAME_DRIVER_ITERS / t
-                                          for t in grid_descents]
-        glog(f"grid (device metrics): {GAME_DRIVER_ITERS} GAME "
-             f"iterations a point in {grid_descents} s of descent = "
-             f"{metrics['grid']['iters_per_s']} GAME iterations/s")
-
-        scoring = {}
-        for label, flags in (("host", []), ("device", ["--device-metrics"])):
-            _kernels.reset_launches()
-            t0 = time.perf_counter()
-            scoring[label] = game_scoring_driver.run([
-                "--data", val, "--model-dir", out["full"],
-                "--output-dir", os.path.join(td, f"score_{label}"),
-                "--evaluator", "auc", "--device", DEVICE, *flags])
+    train, val, unseen = write_game_driver_files(td, glog)
+    cfg3 = game_driver_config(os.path.join(td, "cfg3.json"),
+                              GAME_DRIVER_ITERS)
+    cfg1 = game_driver_config(os.path.join(td, "cfg1.json"), 1)
+    grid = game_driver_config(os.path.join(td, "grid.json"),
+                              GAME_DRIVER_ITERS, GAME_GRID_RE_WEIGHTS)
+    out = {k: os.path.join(td, k) for k in ("full", "resumed", "grid")}
+    train_launches = {"matvec": 0, "rmatvec": 0}
+    decoders = []
+    with ScorerRecorder() as rec:
+        def training(label, argv, record=False):
+            rec.record = record
             torch.cuda.synchronize()
-            decoders.append(scoring[label]["decoder"])
-            glog(f"scoring ({label} metric): wall "
-                 f"{time.perf_counter() - t0:.2f} s (its own "
-                 f"{scoring[label]['wall_seconds']:.2f} s), AUC "
-                 f"{scoring[label]['metric']!r}; driver stages (host s): "
-                 f"{stage_summary(scoring[label]['stage_seconds'])}")
-            metrics[f"scoring {label}"] = scoring[label]["stage_seconds"]
+            _kernels.reset_launches()
+            rec.val_matvec = 0
+            t0 = time.perf_counter()
+            res = game_training_driver.run(argv + ["--device", DEVICE])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            rec.record = False
+            launches = dict(_kernels.LAUNCHES)
+            check(launches["matvec"] > rec.val_matvec > 0
+                  and launches["rmatvec"] > 0,
+                  f"{label}: the SpMV kernels did not launch in training "
+                  "and in validation scoring")
+            for op in train_launches:
+                train_launches[op] += launches[op] - (
+                    rec.val_matvec if op == "matvec" else 0)
+            decoders.extend(res["decoders"].values())
+            stages = res["stage_seconds"]
+            n_it = len({h["iteration"] for h in res["history"]})
+            val_ms = [1e3 * t for t in
+                      stages["validation scoring and metrics"]]
+            glog(f"{label}: driver wall {wall:.2f} s (its own "
+                 f"{res['wall_seconds']:.2f} s); {len(res['history'])} "
+                 f"updates; validation AUC {res.get('validation_metric')};"
+                 f" SpMV launches: matvec {launches['matvec']} (of them "
+                 f"{rec.val_matvec} validation scoring), rmatvec "
+                 f"{launches['rmatvec']}; decoders {res['decoders']}")
+            glog(f"{label}: driver stages (host s): "
+                 f"{stage_summary(stages)}; validation scoring and "
+                 f"metrics {np.mean(val_ms):.2f} ms an update")
+            metrics[label] = {"wall_s": wall,
+                              "descent_s": stages["descent"],
+                              "val_ms_per_update": float(np.mean(val_ms)),
+                              "val_matvec": rec.val_matvec,
+                              "launches": launches, "stages": stages}
+            return res, n_it, stages["descent"][-1]
+
+        common = ["--train-data", train, "--validate-data", val]
+        full, n_it, descent_s = training(
+            "train", common + ["--config", cfg3, "--output-dir",
+                               out["full"]], record=True)
+        recorded = list(rec.recorded)
+        metrics["train"]["iters_per_s"] = n_it / descent_s
+        glog(f"train: {n_it} GAME iterations in {descent_s:.3f} s of "
+             f"descent = {n_it / descent_s:.3f} GAME iterations/s inside "
+             "the driver (with per-update validation)")
+        training("kill after iteration 1",
+                 common + ["--config", cfg1, "--output-dir",
+                           out["resumed"]])
+        resumed, _, _ = training(
+            "resume to 3", common + ["--config", cfg3, "--output-dir",
+                                     out["resumed"], "--resume"])
+        # The grid computes its metrics on the card (--device-metrics):
+        # its descents against run 1's, whose train and validation
+        # metrics are host numpy.
+        grid_res, _, _ = training(
+            "grid", common + ["--config", grid, "--output-dir",
+                              out["grid"], "--device-metrics"])
+    grid_descents = metrics["grid"]["descent_s"]
+    metrics["grid"]["iters_per_s"] = [GAME_DRIVER_ITERS / t
+                                      for t in grid_descents]
+    glog(f"grid (device metrics): {GAME_DRIVER_ITERS} GAME "
+         f"iterations a point in {grid_descents} s of descent = "
+         f"{metrics['grid']['iters_per_s']} GAME iterations/s")
+
+    scoring = {}
+    for label, flags in (("host", []), ("device", ["--device-metrics"])):
+        _kernels.reset_launches()
         t0 = time.perf_counter()
-        fi = feature_indexing_driver.run([
-            "--data", train, "--output-dir", os.path.join(td, "maps")])
-        glog(f"feature indexing: {fi} in {time.perf_counter() - t0:.2f} s")
-        glog(f"GAME decoders of the drivers' reads: {decoders}")
-        check(decoders and set(decoders) == {"native"},
-              f"a GAME file was not decoded natively: {decoders}")
+        scoring[label] = game_scoring_driver.run([
+            "--data", val, "--model-dir", out["full"],
+            "--output-dir", os.path.join(td, f"score_{label}"),
+            "--evaluator", "auc", "--device", DEVICE, *flags])
+        torch.cuda.synchronize()
+        decoders.append(scoring[label]["decoder"])
+        glog(f"scoring ({label} metric): wall "
+             f"{time.perf_counter() - t0:.2f} s (its own "
+             f"{scoring[label]['wall_seconds']:.2f} s), AUC "
+             f"{scoring[label]['metric']!r}; driver stages (host s): "
+             f"{stage_summary(scoring[label]['stage_seconds'])}")
+        metrics[f"scoring {label}"] = scoring[label]["stage_seconds"]
+    t0 = time.perf_counter()
+    fi = feature_indexing_driver.run([
+        "--data", train, "--output-dir", os.path.join(td, "maps")])
+    glog(f"feature indexing: {fi} in {time.perf_counter() - t0:.2f} s")
+    glog(f"GAME decoders of the drivers' reads: {decoders}")
+    check(decoders and set(decoders) == {"native"},
+          f"a GAME file was not decoded natively: {decoders}")
 
-        # The scoring driver's scores against a float64 host re-score of
-        # the saved model, loaded back with the port's load_game_model.
-        t0 = time.perf_counter()
-        model, imaps = load_game_model(os.path.join(out["full"], "models"),
-                                       device="cpu")
-        glog(f"load_game_model: {time.perf_counter() - t0:.2f} s")
-        v_shards, v_ids, v_y, v_w, v_off, v_uids, _ = read_game_avro(
-            val, index_maps=imaps)
-        _, recs = avro.read_container(os.path.join(td, "score_host",
-                                                   "scores.avro"))
-        got = np.array([r["predictionScore"] for r in recs])
-        check([r["uid"] for r in recs] == list(v_uids),
-              "scores.avro rows are not the validation rows in order")
-        w = model["fixed"].model.coefficients.means.numpy().astype(
-            np.float64)
-        Xg = v_shards["global"].astype(np.float64)
-        host, scale = Xg @ w, abs(Xg) @ np.abs(w)
-        re = model["per_user"]
-        Xu = v_shards["userFeatures"].toarray().astype(np.float64)
-        W = np.zeros_like(Xu)
-        keys = v_ids["userId"]
-        for i, k in enumerate(keys):
-            if k in re.coefficients:
-                W[i, re.coefficients[k][0]] = re.coefficients[k][1]
-        host = host + (Xu * W).sum(1) + v_off
-        scale = scale + (np.abs(Xu) * np.abs(W)).sum(1)
-        err = float((np.abs(got - host) / np.maximum(scale, 1e-30)).max())
-        n_unseen = sum(k in unseen for k in keys)
-        check(n_unseen > 0 and not any(k in re.coefficients for k in unseen),
-              "the model holds coefficients for users the training rows "
-              "never hold")
-        check(err <= RTOL, f"scoring driver vs float64 host re-score: "
-              f"{err:.3g} of Σ|x·w|")
-        glog(f"scoring driver vs float64 host re-score of the saved model: "
-             f"max err {err:.3g} of Σ|x·w| over {len(got)} rows "
-             f"({n_unseen} rows of unseen users, random effect 0)")
+    # The scoring driver's scores against a float64 host re-score of
+    # the saved model, loaded back with the port's load_game_model.
+    t0 = time.perf_counter()
+    model, imaps = load_game_model(os.path.join(out["full"], "models"),
+                                   device="cpu")
+    glog(f"load_game_model: {time.perf_counter() - t0:.2f} s")
+    v_shards, v_ids, v_y, v_w, v_off, v_uids, _ = read_game_avro(
+        val, index_maps=imaps)
+    _, recs = avro.read_container(os.path.join(td, "score_host",
+                                               "scores.avro"))
+    got = np.array([r["predictionScore"] for r in recs])
+    check([r["uid"] for r in recs] == list(v_uids),
+          "scores.avro rows are not the validation rows in order")
+    w = model["fixed"].model.coefficients.means.numpy().astype(
+        np.float64)
+    Xg = v_shards["global"].astype(np.float64)
+    host, scale = Xg @ w, abs(Xg) @ np.abs(w)
+    re = model["per_user"]
+    Xu = v_shards["userFeatures"].toarray().astype(np.float64)
+    W = np.zeros_like(Xu)
+    keys = v_ids["userId"]
+    for i, k in enumerate(keys):
+        if k in re.coefficients:
+            W[i, re.coefficients[k][0]] = re.coefficients[k][1]
+    host = host + (Xu * W).sum(1) + v_off
+    scale = scale + (np.abs(Xu) * np.abs(W)).sum(1)
+    err = float((np.abs(got - host) / np.maximum(scale, 1e-30)).max())
+    n_unseen = sum(k in unseen for k in keys)
+    check(n_unseen > 0 and not any(k in re.coefficients for k in unseen),
+          "the model holds coefficients for users the training rows "
+          "never hold")
+    check(err <= RTOL, f"scoring driver vs float64 host re-score: "
+          f"{err:.3g} of Σ|x·w|")
+    glog(f"scoring driver vs float64 host re-score of the saved model: "
+         f"max err {err:.3g} of Σ|x·w| over {len(got)} rows "
+         f"({n_unseen} rows of unseen users, random effect 0)")
 
-        check(abs(scoring["host"]["metric"] - full["validation_metric"])
-              <= 1e-6, "the scoring driver's AUC differs from the training "
-              "driver's validation_metric")
-        check(abs(scoring["device"]["metric"] - scoring["host"]["metric"])
-              <= 1e-6, "--device-metrics AUC differs from the host AUC")
-        glog(f"AUC: training driver {full['validation_metric']!r}, scoring "
-             f"driver {scoring['host']['metric']!r}, device metric "
-             f"{scoring['device']['metric']!r}")
+    check(abs(scoring["host"]["metric"] - full["validation_metric"])
+          <= 1e-6, "the scoring driver's AUC differs from the training "
+          "driver's validation_metric")
+    check(abs(scoring["device"]["metric"] - scoring["host"]["metric"])
+          <= 1e-6, "--device-metrics AUC differs from the host AUC")
+    glog(f"AUC: training driver {full['validation_metric']!r}, scoring "
+         f"driver {scoring['host']['metric']!r}, device metric "
+         f"{scoring['device']['metric']!r}")
 
-        # Every per-update validation metric against a float64 host
-        # re-score of that update's states (one recorded scorer call an
-        # update in a fresh run).
-        hist = full["history"]
-        check(len(recorded) == len(hist), f"recorded {len(recorded)} scorer "
-              f"calls for {len(hist)} updates")
-        suite = EvaluationSuite.from_specs(["auc", "logistic_loss"])
-        parts, worst = {}, 0.0
-        for h, (coord, state) in zip(hist, recorded):
-            check(h["coordinate"] == coord.name, "scorer calls out of order")
-            parts[coord.name] = validation_rescore(coord, state, v_shards,
-                                                   v_ids)
-            want = suite.evaluate(v_off + sum(parts.values()), v_y, v_w)
-            for k, v in want.items():
-                d = abs(h["validation"][k] - v)
-                worst = max(worst, d)
-                check(d <= 1e-6, f"update {h['iteration']} {h['coordinate']}"
-                      f": validation {k} {h['validation'][k]!r} vs host "
-                      f"re-score {v!r}")
-        glog(f"per-update validation metrics vs float64 host re-scores of "
-             f"each update's states: max |diff| {worst:.3g} over "
-             f"{len(hist)} updates; AUC by update "
-             f"{[round(h['validation_metric'], 6) for h in hist]}")
-        check(hist[-1]["validation_metric"] > hist[0]["validation_metric"],
-              "the random effect does not raise the validation AUC over the "
-              "fixed effect alone")
+    # Every per-update validation metric against a float64 host
+    # re-score of that update's states (one recorded scorer call an
+    # update in a fresh run).
+    hist = full["history"]
+    check(len(recorded) == len(hist), f"recorded {len(recorded)} scorer "
+          f"calls for {len(hist)} updates")
+    suite = EvaluationSuite.from_specs(["auc", "logistic_loss"])
+    parts, worst = {}, 0.0
+    for h, (coord, state) in zip(hist, recorded):
+        check(h["coordinate"] == coord.name, "scorer calls out of order")
+        parts[coord.name] = validation_rescore(coord, state, v_shards,
+                                               v_ids)
+        want = suite.evaluate(v_off + sum(parts.values()), v_y, v_w)
+        for k, v in want.items():
+            d = abs(h["validation"][k] - v)
+            worst = max(worst, d)
+            check(d <= 1e-6, f"update {h['iteration']} {h['coordinate']}"
+                  f": validation {k} {h['validation'][k]!r} vs host "
+                  f"re-score {v!r}")
+    glog(f"per-update validation metrics vs float64 host re-scores of "
+         f"each update's states: max |diff| {worst:.3g} over "
+         f"{len(hist)} updates; AUC by update "
+         f"{[round(h['validation_metric'], 6) for h in hist]}")
+    check(hist[-1]["validation_metric"] > hist[0]["validation_metric"],
+          "the random effect does not raise the validation AUC over the "
+          "fixed effect alone")
 
-        # Kill and resume: the same model files, byte for byte.
-        for rel in ("fixed-effect/fixed/coefficients.avro",
-                    "random-effect/per_user/coefficients.avro"):
-            a, b = (open(os.path.join(out[k], "models", rel), "rb").read()
-                    for k in ("full", "resumed"))
-            check(a == b, f"the resumed model's {rel} differs from the "
-                  "uninterrupted run's")
-        check([h["iteration"] for h in resumed["history"]] ==
-              [h["iteration"] for h in hist], "the resumed history differs")
-        glog("killed after iteration 1 and resumed to 3: the saved model "
-             "files equal the uninterrupted run's byte for byte")
+    # Kill and resume: the same model files, byte for byte.
+    for rel in ("fixed-effect/fixed/coefficients.avro",
+                "random-effect/per_user/coefficients.avro"):
+        a, b = (open(os.path.join(out[k], "models", rel), "rb").read()
+                for k in ("full", "resumed"))
+        check(a == b, f"the resumed model's {rel} differs from the "
+              "uninterrupted run's")
+    check([h["iteration"] for h in resumed["history"]] ==
+          [h["iteration"] for h in hist], "the resumed history differs")
+    glog("killed after iteration 1 and resumed to 3: the saved model "
+         "files equal the uninterrupted run's byte for byte")
 
-        # The grid selects the point with the better validation metric.
-        pts = grid_res["grid"]
-        best = max(pts, key=lambda g: g["metric"])
-        check(len(pts) == 2 and pts[0]["metric"] != pts[1]["metric"]
-              and best["best"] and sum(g["best"] for g in pts) == 1,
-              f"the grid's selection is not its best validation AUC: {pts}")
-        glog(f"grid: {[(g['reg_weights']['per_user'], g['metric']) for g in pts]}"
-             f"; selected per_user reg_weight "
-             f"{best['reg_weights']['per_user']}")
-        check(fi["n_rows"] == full["n_rows"] and fi["shards"] == {
-            "global": GAME_FIXED_FEATURES, "userFeatures": GAME_RE_DIM},
-            f"feature indexing: {fi}")
-        check(dict(IndexMap.load(os.path.join(td, "maps", "global"))) ==
-              dict(imaps["global"]), "feature indexing's global map differs "
-              "from the training driver's")
+    # The grid selects the point with the better validation metric.
+    pts = grid_res["grid"]
+    best = max(pts, key=lambda g: g["metric"])
+    check(len(pts) == 2 and pts[0]["metric"] != pts[1]["metric"]
+          and best["best"] and sum(g["best"] for g in pts) == 1,
+          f"the grid's selection is not its best validation AUC: {pts}")
+    glog(f"grid: {[(g['reg_weights']['per_user'], g['metric']) for g in pts]}"
+         f"; selected per_user reg_weight "
+         f"{best['reg_weights']['per_user']}")
+    check(fi["n_rows"] == full["n_rows"] and fi["shards"] == {
+        "global": GAME_FIXED_FEATURES, "userFeatures": GAME_RE_DIM},
+        f"feature indexing: {fi}")
+    check(dict(IndexMap.load(os.path.join(td, "maps", "global"))) ==
+          dict(imaps["global"]), "feature indexing's global map differs "
+          "from the training driver's")
 
-        # The row kernel at the validation matrix's shape, against its
-        # plain version (phase 2's checks).
-        log("phase 7: the SpMV kernels against their plain versions at the "
-            "validation matrix's shape")
-        M = from_scipy_csr_cuda(v_shards["global"], device=DEVICE)
-        kern = kernel_vs_plain("game_val", M,
-                               torch.Generator(device=DEVICE).manual_seed(7))
-        val_launches = sum(metrics[k]["val_matvec"] for k in (
-            "train", "kill after iteration 1", "resume to 3", "grid"))
-        glog(f"main-path launches: training matvec "
-             f"{train_launches['matvec']}, rmatvec "
-             f"{train_launches['rmatvec']}; validation scoring matvec "
-             f"{val_launches}")
-        return kern, train_launches, val_launches, metrics
-    finally:
-        shutil.rmtree(td, ignore_errors=True)
+    # The row kernel at the validation matrix's shape, against its
+    # plain version (phase 2's checks).
+    log("phase 7: the SpMV kernels against their plain versions at the "
+        "validation matrix's shape")
+    M = from_scipy_csr_cuda(v_shards["global"], device=DEVICE)
+    kern = kernel_vs_plain("game_val", M,
+                           torch.Generator(device=DEVICE).manual_seed(7))
+    val_launches = sum(metrics[k]["val_matvec"] for k in (
+        "train", "kill after iteration 1", "resume to 3", "grid"))
+    glog(f"main-path launches: training matvec "
+         f"{train_launches['matvec']}, rmatvec "
+         f"{train_launches['rmatvec']}; validation scoring matvec "
+         f"{val_launches}")
+    return kern, train_launches, val_launches, metrics, (train, val)
+
+
+# -- phase 8: the batched random-effect fallback and the factored effect ---
+
+
+def game_cd_wide_data():
+    """The ``bench_game_cd`` draw with the per-user random effect over the
+    512-wide ``global`` shard (8 values a row): buckets up to D = 461."""
+    n, Xg, y, effects = game_cd_data()
+    name, users, _, cap = effects[0]
+    return n, Xg, y, [(name, users, Xg, cap)]
+
+
+def game_multi_re_factored_data():
+    """The ``bench_game_multi_re`` draw: the fixed effect, ``per_user`` (8
+    wide, as phase 6) and ``per_item`` over the 512-wide ``global`` shard
+    (factored: the item shard is 8 wide, and rank 8 would factor
+    nothing)."""
+    n, Xg, y, effects = game_multi_re_data()
+    user, item = effects[0], effects[1]
+    return n, Xg, y, [user, (item[0], item[1], Xg, item[3])]
+
+
+def game_re_opt(optimizer="LBFGS", reg="l2"):
+    """Phase 6's random-effect solver settings (10 iterations at 1e-6)
+    with another optimizer or regularization (elastic net at α = 0.5)."""
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        OptimizerConfig,
+        OptimizerType,
+    )
+    from photon_ml_tpu_torch.optim.regularization import (
+        RegularizationContext,
+    )
+
+    return GlmOptimizationConfig(
+        optimizer=OptimizerConfig(optimizer=OptimizerType[optimizer],
+                                  max_iters=10, tolerance=1e-6),
+        regularization=(RegularizationContext.elastic_net(0.5)
+                        if reg == "elastic_net"
+                        else RegularizationContext.l2()))
+
+
+def fallback_driver_config(path, iterations, per_user):
+    """A driver config: phase 7's fixed effect and ``per_user`` as given."""
+    fixed = {"name": "fixed", "type": "fixed", "feature_shard": "global",
+             "optimizer": "lbfgs", "max_iters": 10, "tolerance": 1e-6,
+             "reg_type": "l2", "reg_weight": 1.0}
+    with open(path, "w") as f:
+        json.dump({"task": "logistic", "iterations": iterations,
+                   "evaluators": ["auc", "logistic_loss"],
+                   "coordinates": [fixed, dict(
+                       {"name": "per_user", "entity_key": "userId",
+                        "max_iters": 10, "tolerance": 1e-6,
+                        "bucket_growth": GAME_BUCKET_GROWTH,
+                        "reg_weight": 1.0}, **per_user)]}, f)
+    return path
+
+
+def phase_fallback_drivers(glog, td, train, val):
+    """Phase 8d: ``game_training_driver`` on phase 7's GAME Avro files with
+    (i) a per-user elastic-net random effect (the batched OWL-QN) and (ii) a
+    per-user factored random effect over ``global`` (rank 8), run through
+    and killed after iteration 1 and ``--resume``d; then
+    ``game_scoring_driver`` on (ii)'s model.  Returns (training launches,
+    validation-scoring matvec launches, metrics)."""
+    from photon_ml_tpu_torch.data.game_reader import read_game_avro
+    from photon_ml_tpu_torch.drivers import (
+        game_scoring_driver,
+        game_training_driver,
+    )
+    from photon_ml_tpu_torch.evaluation.device import device_auc
+    from photon_ml_tpu_torch.io import avro
+    from photon_ml_tpu_torch.ops import _kernels
+
+    en = {"type": "random", "feature_shard": "userFeatures",
+          "optimizer": "lbfgs", "reg_type": "elastic_net",
+          "elastic_net_alpha": 0.5}
+    fact = {"type": "factored_random", "feature_shard": "global",
+            "optimizer": "lbfgs", "reg_type": "l2", "rank": 8,
+            "alternations": 2, "projection_reg_weight": 0.1}
+    launches = {"matvec": 0, "rmatvec": 0}
+    val_launches = 0
+    metrics = {}
+    common = ["--train-data", train, "--validate-data", val,
+              "--device", DEVICE]
+    with ScorerRecorder() as rec:
+        def training(label, cfg, out, flags=()):
+            nonlocal val_launches
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            rec.val_matvec = 0
+            t0 = time.perf_counter()
+            res = game_training_driver.run(
+                common + ["--config", cfg, "--output-dir", out, *flags])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ls = dict(_kernels.LAUNCHES)
+            check(ls["matvec"] > rec.val_matvec > 0 and ls["rmatvec"] > 0,
+                  f"{label}: the SpMV kernels did not launch in training and "
+                  "in validation scoring")
+            launches["matvec"] += ls["matvec"] - rec.val_matvec
+            launches["rmatvec"] += ls["rmatvec"]
+            val_launches += rec.val_matvec
+            stages = res["stage_seconds"]
+            n_it = len({h["iteration"] for h in res["history"]})
+            glog(f"{label}: driver wall {wall:.2f} s; {n_it} GAME iterations "
+                 f"in {stages['descent'][-1]:.3f} s of descent = "
+                 f"{n_it / stages['descent'][-1]:.3f} GAME iterations/s (with "
+                 f"per-update validation and the host train metric); "
+                 f"validation AUC {res.get('validation_metric')}; SpMV "
+                 f"launches {ls['matvec']} / {ls['rmatvec']} (validation "
+                 f"scoring {rec.val_matvec}); driver stages (host s): "
+                 f"{stage_summary(stages)}")
+            metrics[label] = {"wall_s": wall, "stages": stages,
+                              "iters_per_s": n_it / stages["descent"][-1],
+                              "launches": ls}
+            return res
+
+        cfg_en = fallback_driver_config(os.path.join(td, "en.json"),
+                                        GAME_DRIVER_ITERS, en)
+        res_en = training("elastic net", cfg_en, os.path.join(td, "en"))
+        check(res_en["history"][-1]["validation_metric"]
+              > res_en["history"][0]["validation_metric"],
+              "the elastic-net random effect does not raise the validation "
+              "AUC over the fixed effect alone")
+        out = {k: os.path.join(td, f"fact_{k}") for k in ("full", "resumed")}
+        cfg2 = fallback_driver_config(os.path.join(td, "fact2.json"), 2, fact)
+        cfg1 = fallback_driver_config(os.path.join(td, "fact1.json"), 1, fact)
+        full = training("factored", cfg2, out["full"])
+        training("factored, kill after iteration 1", cfg1, out["resumed"])
+        resumed = training("factored, resume to 2", cfg2, out["resumed"],
+                           ["--resume"])
+    for rel in ("fixed-effect/fixed/coefficients.avro",
+                "random-effect/per_user/coefficients.avro"):
+        a, b = (open(os.path.join(out[k], "models", rel), "rb").read()
+                for k in ("full", "resumed"))
+        check(a == b, f"the resumed factored model's {rel} differs from the "
+              "uninterrupted run's")
+    check([h["iteration"] for h in resumed["history"]]
+          == [h["iteration"] for h in full["history"]],
+          "the resumed factored history differs")
+    glog("factored: killed after iteration 1 and resumed to 2: the saved "
+         "model files equal the uninterrupted run's byte for byte")
+    # One scoring run (a model load costs tens of seconds at this width);
+    # the device AUC of the scores it wrote stands in for a second run with
+    # --device-metrics.
+    t0 = time.perf_counter()
+    score_dir = os.path.join(td, "fact_score")
+    scoring = game_scoring_driver.run([
+        "--data", val, "--model-dir", out["full"], "--output-dir",
+        score_dir, "--evaluator", "auc", "--device", DEVICE])
+    glog(f"factored scoring: wall {time.perf_counter() - t0:.2f} s, AUC "
+         f"{scoring['metric']!r}; driver stages (host s): "
+         f"{stage_summary(scoring['stage_seconds'])}")
+    metrics["factored scoring"] = scoring["stage_seconds"]
+    _, recs = avro.read_container(os.path.join(score_dir, "scores.avro"))
+    _, _, v_y, v_w, _, v_uids, _ = read_game_avro(val)
+    check([r["uid"] for r in recs] == list(v_uids),
+          "factored scores.avro rows are not the validation rows in order")
+    dev_auc = float(device_auc(
+        torch.tensor([r["predictionScore"] for r in recs], device=DEVICE),
+        torch.as_tensor(v_y, device=DEVICE),
+        None if v_w is None else torch.as_tensor(v_w, device=DEVICE)))
+    check(abs(scoring["metric"] - full["validation_metric"]) <= 1e-6
+          and abs(dev_auc - scoring["metric"]) <= 1e-6,
+          f"factored: scoring driver AUC {scoring['metric']}, device "
+          f"{dev_auc}, training driver {full['validation_metric']}")
+    glog(f"factored AUC: training driver {full['validation_metric']!r}, "
+         f"scoring driver {scoring['metric']!r}, device AUC of its scores "
+         f"{dev_auc!r}")
+    return launches, val_launches, metrics
+
+
+def phase_game_fallback(smi, td, train, val):
+    """Phase 8: the batched random-effect fallback and the factored random
+    effect at full width (8a ``game_cd_l1``, 8b ``game_cd_wide_re`` with
+    L-BFGS and TRON, 8c ``game_multi_re_factored``) and through the drivers
+    (8d).  Returns (training launches, validation-scoring matvec launches,
+    metrics)."""
+    def glog(msg):
+        log(f"game fallback [{smi}] {msg}")
+
+    metrics = {}
+    launches = {"matvec": 0, "rmatvec": 0}
+    runs = (
+        ("game_cd_l1", game_cd_data,
+         {"per_user": {"opt": game_re_opt(reg="elastic_net")}}),
+        ("game_cd_wide_re.lbfgs", game_cd_wide_data,
+         {"per_user": {"opt": game_re_opt("LBFGS")}}),
+        ("game_cd_wide_re.tron", game_cd_wide_data,
+         {"per_user": {"opt": game_re_opt("TRON")}}),
+        ("game_multi_re_factored", game_multi_re_factored_data,
+         {"per_item": {"opt": game_re_opt(), "rank": 8, "alternations": 2,
+                       "projection_reg_weight": 0.1}}),
+    )
+    for label, data_fn, specs in runs:
+        log(f"phase 8: {label}")
+        m, ls, _, _ = run_game_config(glog, label, data_fn, re_specs=specs)
+        metrics[label] = m
+        for op in launches:
+            launches[op] += ls[op]
+        torch.cuda.empty_cache()
+    log("phase 8d: the drivers")
+    d_launches, d_val, metrics["drivers"] = phase_fallback_drivers(
+        glog, td, train, val)
+    for op in launches:
+        launches[op] += d_launches[op]
+    glog("GAME iterations/s: " + ", ".join(
+        f"{k} {metrics[k]['iters_per_s']:.4f}" for k, *_ in runs)
+        + f"; main-path SpMV launches {json.dumps(launches)}, validation "
+        f"scoring matvec {d_val}")
+    return launches, d_val, metrics
 
 
 def main() -> int:
@@ -2304,11 +2910,22 @@ def main() -> int:
     log("phase 6: GAME coordinate descent")
     kern_game, game_launches, game_metrics = phase_game(smi)
     torch.cuda.empty_cache()
-    log("phase 7: GAME drivers")
-    kern_val, drv_train, drv_val, drv_metrics = phase_game_drivers(smi)
-    # The .game records count phase 6's and phase 7's training launches.
-    game_launches = {op: game_launches[op] + drv_train[op]
+    td = tempfile.mkdtemp(prefix="photon_game_drivers_")
+    try:
+        log("phase 7: GAME drivers")
+        kern_val, drv_train, drv_val, drv_metrics, (train, val) = \
+            phase_game_drivers(smi, td)
+        torch.cuda.empty_cache()
+        log("phase 8: GAME fallback and factored random effects")
+        fb_train, fb_val, fb_metrics = phase_game_fallback(smi, td, train,
+                                                           val)
+    finally:
+        shutil.rmtree(td, ignore_errors=True)
+    # The .game records count phase 6's, 7's and 8's training launches;
+    # .game_val phase 7's and 8's validation scoring.
+    game_launches = {op: game_launches[op] + drv_train[op] + fb_train[op]
                      for op in ("matvec", "rmatvec")}
+    drv_val += fb_val
 
     log("not on the main path (no caller in the GLM slice), checked in "
         "phase 2: " + json.dumps({
@@ -2377,7 +2994,8 @@ def main() -> int:
     log(f"metrics: {json.dumps(lib_metrics)}; solvers: "
         f"{json.dumps({k: r['wall_s'] for k, r in sol_records.items()})}; "
         f"GAME: {json.dumps(game_metrics)}; GAME drivers: "
-        f"{json.dumps(drv_metrics)}; "
+        f"{json.dumps(drv_metrics)}; GAME fallback and factored: "
+        f"{json.dumps(fb_metrics)}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -48,15 +48,19 @@ def normalization_from_numpy(factors, shifts,
 def game_states_from_numpy(states: dict, device=None) -> dict:
     """Coordinate-descent states as the port's tensors: a fixed effect's
     ``w`` array becomes one float32 tensor, a random effect's list of
-    per-bucket ``(E, D)`` arrays a list of them; ``None`` stays ``None``.
-    Both packages can then warm-start from the same point."""
+    per-bucket ``(E, D)`` arrays a list of them, and a factored random
+    effect's ``(list of (E, rank), (n_features, rank))`` a tuple of such a
+    list and one tensor; ``None`` stays ``None``.  Both packages can then
+    warm-start from the same point."""
     dev = resolve_device(device)
 
     def one(st):
         if st is None:
             return None
-        if isinstance(st, (list, tuple)):
-            return [_f32(a, dev) for a in st]
+        if isinstance(st, tuple):
+            return tuple(one(a) for a in st)
+        if isinstance(st, list):
+            return [one(a) for a in st]
         return _f32(st, dev)
 
     return {name: one(st) for name, st in states.items()}

@@ -36,10 +36,13 @@ ROADMAP item (PyTorch/CUDA port, Queue 1): ``--data-parallel auto`` (item
 6), streamed or out-of-core coordinates and a value other than the
 reference's default of their knobs (``prefetch_depth``, ``chunk_fuse``,
 ``batch_linesearch``, ``stream_compress``, ``stream_hot_budget_mb``,
-``hot_budget_mb``: item 5), a random effect's ``split_factor`` and a
-coordinate's ``solver_options`` (item 6), factored coordinates (item 3,
-refused by the estimator), tuning mode (item 8) and ``--max-retries``
-above 0 (item 4).  Telemetry, the ops plane and the compile cache are
+``hot_budget_mb``, a factored coordinate's ``device_budget_mb``: item 5),
+a random effect's ``split_factor`` and a coordinate's ``solver_options``
+(item 6), tuning mode (item 8) and ``--max-retries`` above 0 (item 4).
+Random effects may be plain (``"type": "random"``) or factored
+(``"factored_random"``/``"factored"`` with ``rank``, ``alternations`` and
+``projection_reg_weight``), under any regularization and optimizer
+(``elastic_net`` with ``elastic_net_alpha``, ``owlqn``, ``tron``).  Telemetry, the ops plane and the compile cache are
 left out, as in the port's GLM driver.
 
 Usage:

@@ -5,13 +5,18 @@
   coordinates; on CUDA its products run the hand-written SpMV kernels
   (``csrc/spmv.cu``) of the kernel-backed matrix.
 - ``RandomEffectCoordinate``: one GLM fit per entity.  Each size bucket
-  ``(E, R, D)`` solves as one batched tensor program over its entity lanes:
+  ``(E, R, D)`` solves as one batched tensor program over its entity lanes.
+  Smooth objectives take a Newton fast path where the bucket has one:
   rank-1 Newton (R == 1), scalar Newton (D == 1) or damped Newton with an
-  unrolled-CG Hessian solve (D ≤ 32), each with per-lane ``done`` masks in
-  place of the reference's ``while_loop`` over a ``vmap``.  The buckets
-  advance in lockstep, one Newton body each, with ONE host read a body for
-  the whole coordinate update (which buckets still have live lanes); a
-  body whose lanes are all done is never run.
+  unrolled-CG Hessian solve (D ≤ 32).  Every other bucket (any L1
+  component, the OWL-QN optimizer, or D > 32 with R > 1) runs the batched
+  L-BFGS, OWL-QN or TRON of ``optim/batched.py``, the counterpart of the
+  reference's ``vmap`` of its solvers.  Each program keeps per-lane
+  ``done`` masks in place of the reference's ``while_loop`` over a
+  ``vmap``.  The buckets advance in lockstep, one body each (a Newton step,
+  a line-search trial, a CG step), with ONE host read a body for the whole
+  coordinate update (which buckets still have live lanes); a body whose
+  lanes are all done is never run.
 
 The per-entity products are written as multiply-plus-sum over the R or D
 axis, never as a matmul, so they cannot run in TF32 whatever the caller's
@@ -42,6 +47,14 @@ from photon_ml_tpu_torch.game.data import (
 from photon_ml_tpu_torch.game.model import FixedEffectModel, RandomEffectModel
 from photon_ml_tpu_torch.models.glm import Coefficients, GeneralizedLinearModel
 from photon_ml_tpu_torch.ops import losses as losses_lib
+from photon_ml_tpu_torch.optim.batched import (
+    BatchedLBFGS,
+    BatchedOWLQN,
+    BatchedTRON,
+    LaneGlm,
+)
+from photon_ml_tpu_torch.optim.batched import coldot as _coldot
+from photon_ml_tpu_torch.optim.batched import rowdot as _rowdot
 from photon_ml_tpu_torch.optim.problem import (
     GlmOptimizationConfig,
     GlmOptimizationProblem,
@@ -57,9 +70,6 @@ def not_ported(what: str, item: int, name: str) -> NotImplementedError:
         f"{what} is not ported to photon_ml_tpu_torch yet (ROADMAP.md, "
         f"PyTorch/CUDA port, Queue 1 item {item}: {name})"
     )
-
-
-_FALLBACK = (1, "the batched L-BFGS/OWL-QN/TRON random-effect fallback")
 
 
 class Coordinate:
@@ -164,17 +174,22 @@ class FixedEffectCoordinate(Coordinate):
 # -- batched per-entity solvers ----------------------------------------------
 
 
-def _rowdot(X: Tensor, w: Tensor) -> Tensor:
-    """(E, R, D)·(E, D) → (E, R): Σ_d X[e, r, d]·w[e, d]."""
-    return (X * w[:, None, :]).sum(-1)
+class _NewtonProgram:
+    """A Newton bucket program: ``done`` marks the lanes that passed the
+    relative gradient test (its ``converged``); the outer-iteration and
+    inner counters of the fallback programs do not apply."""
+
+    iterations = inner = None
+
+    def pending(self) -> Tensor:
+        return ~self.done.all()
+
+    @property
+    def converged(self) -> Tensor:
+        return self.done
 
 
-def _coldot(u: Tensor, X: Tensor) -> Tensor:
-    """(E, R)·(E, R, D) → (E, D): Σ_r u[e, r]·X[e, r, d]."""
-    return (u[:, :, None] * X).sum(1)
-
-
-class _Rank1Newton:
+class _Rank1Newton(_NewtonProgram):
     """Single-row entities (R == 1): stationarity ℓ'(m)·x + λw = 0 forces
     w ∝ x, so the per-entity GLM collapses to a 1-D problem in α (w = α·x):
     up to 30 damped Newton steps with a per-lane relative-gradient exit."""
@@ -202,9 +217,6 @@ class _Rank1Newton:
         return m, self.s * (self.wt * self.loss.d1(m, self.y)
                             + self.l2 * alpha)
 
-    def pending(self) -> Tensor:
-        return ~self.done.all()
-
     def body(self) -> None:
         m, g1 = self._grad(self.alpha)
         self.done = self.done | (g1.abs() <= self.gtol)
@@ -218,7 +230,7 @@ class _Rank1Newton:
         return self.alpha[:, None] * self.X
 
 
-class _Dim1Newton:
+class _Dim1Newton(_NewtonProgram):
     """Single-feature entities (D == 1, a per-entity bias): a 1-D problem
     in w whatever the row count, solved by damped scalar Newton with the
     rank-1 path's exit and cap."""
@@ -242,9 +254,6 @@ class _Dim1Newton:
         m = w[:, None] * self.X + self.off
         return m, (self.wt * self.loss.d1(m, self.y) * self.X).sum(1) \
             + self.l2 * w
-
-    def pending(self) -> Tensor:
-        return ~self.done.all()
 
     def body(self) -> None:
         m, g = self._grad(self.w)
@@ -281,7 +290,7 @@ def spd_solve_cg(H: Tensor, g: Tensor, n_steps: int) -> Tensor:
     return x
 
 
-class _NewtonBlock:
+class _NewtonBlock(_NewtonProgram):
     """Batched damped Newton for smooth objectives on small-D blocks: an
     exact (E, D, D) Hessian solved by D unrolled CG steps, each step's
     margin change damped to 20, lanes frozen once their gradient passes the
@@ -306,9 +315,6 @@ class _NewtonBlock:
         g = _coldot(self.wt * self.loss.d1(m, self.y), self.X) + self.l2 * w
         return m, g
 
-    def pending(self) -> Tensor:
-        return ~self.done.all()
-
     def body(self) -> None:
         X = self.X
         m, g = self._grad(self.w)
@@ -332,13 +338,17 @@ class _NewtonBlock:
 
 @dataclasses.dataclass
 class SolveStats:
-    """What one batched solve did: Newton bodies a bucket, host reads in
-    all (one a lockstep body, plus the first test), and each bucket's
-    per-lane convergence flags."""
+    """What one lockstep solve did: bodies a bucket, host reads in all (one
+    a lockstep body, plus the last test), and each bucket's per-lane
+    ``converged`` flags.  For the fallback buckets also each lane's outer
+    ``iterations`` and its ``inner`` line-search trials (L-BFGS, OWL-QN) or
+    CG steps (TRON); None for the Newton buckets."""
 
     bodies: list
     host_reads: int
     converged: list
+    iterations: list
+    inner: list
 
 
 class BlockSolver:
@@ -346,10 +356,12 @@ class BlockSolver:
     the reference's ``_make_block_solver`` (without its program cache: the
     port compiles nothing).
 
-    Dispatch per bucket, as the reference's: R == 1 → rank-1 Newton,
-    D == 1 → scalar Newton, D ≤ 32 → batched Newton, for smooth objectives.
-    Any L1 component, an OWL-QN optimizer, or D > 32 with R > 1 needs the
-    batched L-BFGS/OWL-QN/TRON fallback, which is not ported yet."""
+    Dispatch per bucket, as the reference's: for smooth objectives R == 1 →
+    rank-1 Newton, D == 1 → scalar Newton, D ≤ 32 → batched Newton.  Every
+    other bucket runs the configured solver batched over its lanes
+    (``optim/batched.py``) with history ``min(history, D)``: OWL-QN for any
+    L1 component or the OWL-QN optimizer (every bucket, R == 1 included),
+    TRON when the optimizer or the registry solver is TRON, else L-BFGS."""
 
     def __init__(self, task: str, config: GlmOptimizationConfig):
         self.loss = losses_lib.get(task)
@@ -363,33 +375,35 @@ class BlockSolver:
                 opt, l1_frac=config.regularization.l1_weight(1.0)
             )
             self.use_owlqn = defn.name == "owlqn" or has_l1
+            self.use_tron = defn.name == "tron"
         else:
             self.use_owlqn = opt.optimizer is OptimizerType.OWLQN or has_l1
-
-    def check(self, block: EntityBlock) -> None:
-        """Raise NotImplementedError when ``block`` needs the fallback."""
-        if self.use_owlqn:
-            raise not_ported(
-                "batched OWL-QN (random-effect blocks with an L1 component "
-                "or the OWL-QN optimizer)", *_FALLBACK)
-        if block.rows_per_entity != 1 and block.block_dim > 32:
-            raise not_ported(
-                f"batched L-BFGS/TRON (a random-effect bucket of "
-                f"{block.block_dim} > 32 local features)", *_FALLBACK)
+            self.use_tron = opt.optimizer is OptimizerType.TRON
 
     def program(self, block: EntityBlock, offsets_block: Tensor, w0: Tensor,
                 l1: float, l2: float):
         """One bucket's solve as a program: ``pending()`` (a device bool),
-        ``body()`` (one Newton step on every live lane), ``result()`` and
-        per-lane ``done``; ``cap`` bounds its bodies."""
-        self.check(block)
+        ``body()`` (one step on every live lane), ``result()`` and per-lane
+        ``converged``; ``cap`` bounds its bodies."""
         opt = self.config.optimizer
-        args = (self.loss, opt.tolerance, block, offsets_block, w0, l2)
-        if block.rows_per_entity == 1:
-            return _Rank1Newton(*args)
-        if block.block_dim == 1:
-            return _Dim1Newton(*args)
-        return _NewtonBlock(*args, opt.max_iters)
+        if not self.use_owlqn:
+            args = (self.loss, opt.tolerance, block, offsets_block, w0, l2)
+            if block.rows_per_entity == 1:
+                return _Rank1Newton(*args)
+            if block.block_dim == 1:
+                return _Dim1Newton(*args)
+            if block.block_dim <= 32:
+                return _NewtonBlock(*args, opt.max_iters)
+        obj = LaneGlm(self.loss, block.X, block.labels, block.weights,
+                      offsets_block, l2)
+        # History beyond the local problem dimension buys nothing.
+        history = min(opt.history, block.block_dim)
+        if self.use_owlqn:
+            return BatchedOWLQN(obj, w0, l1, opt.max_iters, opt.tolerance,
+                                history)
+        if self.use_tron:
+            return BatchedTRON(obj, w0, opt.max_iters, opt.tolerance)
+        return BatchedLBFGS(obj, w0, opt.max_iters, opt.tolerance, history)
 
     def solve(self, block: EntityBlock, offsets_block: Tensor, w0: Tensor,
               l1: float, l2: float) -> Tensor:
@@ -397,13 +411,11 @@ class BlockSolver:
         ws, _ = self.solve_all([(block, offsets_block, w0)], l1, l2)
         return ws[0]
 
-    def solve_all(self, items, l1: float, l2: float):
-        """Every bucket of ``items`` = [(block, offsets_block, w0)] in
-        lockstep: before each body, ONE host read of which buckets still
-        have live lanes (``i < cap`` and not every lane done), so a bucket
-        runs exactly the bodies the reference's ``while_loop`` would.
-        Returns (coefficients a bucket, :class:`SolveStats`)."""
-        progs = [self.program(b, off, w0, l1, l2) for b, off, w0 in items]
+    @staticmethod
+    def lockstep(progs) -> tuple[list, int]:
+        """Run ``progs`` to their ends, one body each a round, with ONE host
+        read a round of which still have live lanes.  Returns (bodies a
+        program, host reads)."""
         bodies = [0] * len(progs)
         live = [k for k, p in enumerate(progs) if p.cap > 0]
         reads = 0
@@ -415,9 +427,21 @@ class BlockSolver:
                 progs[k].body()
                 bodies[k] += 1
             live = [k for k in live if bodies[k] < progs[k].cap]
+        return bodies, reads
+
+    def solve_all(self, items, l1: float, l2: float):
+        """Every bucket of ``items`` = [(block, offsets_block, w0)] in
+        lockstep: before each body, ONE host read of which buckets still
+        have live lanes (``i < cap`` and some lane not done), so a bucket
+        runs exactly the bodies the reference's ``while_loop`` would.
+        Returns (coefficients a bucket, :class:`SolveStats`)."""
+        progs = [self.program(b, off, w0, l1, l2) for b, off, w0 in items]
+        bodies, reads = self.lockstep(progs)
         return ([p.result() for p in progs],
                 SolveStats(bodies=bodies, host_reads=reads,
-                           converged=[p.done for p in progs]))
+                           converged=[p.converged for p in progs],
+                           iterations=[p.iterations for p in progs],
+                           inner=[p.inner for p in progs]))
 
 
 def pack_entity_tables(cmap: np.ndarray, w: np.ndarray, var=None):
@@ -486,8 +510,6 @@ class RandomEffectCoordinate(Coordinate):
         self.feature_shard = feature_shard
         self.entity_key = entity_key or name
         self._solver = BlockSolver(task, config)
-        for block in dataset.blocks:
-            self._solver.check(block)
         self.last_solve: Optional[SolveStats] = None
 
     @property

@@ -14,9 +14,11 @@ arrays: ``shards`` maps feature-shard name → scipy CSR, ``ids`` maps
 id-column name → per-row entity keys.
 
 Every dataset lives on one device (CUDA unless the caller passes
-``device="cpu"``).  What the reference runs beyond that — streaming and
-out-of-core coordinates, factored random effects and a device mesh —
-raises ``NotImplementedError`` naming the ROADMAP item that brings it.
+``device="cpu"``).  Random effects are plain (``RandomEffectCoordinate``)
+or factored (``game/factored.py``, w_e = V u_e); both share one built
+dataset.  What the reference runs beyond that — streaming and out-of-core
+coordinates and a device mesh — raises ``NotImplementedError`` naming the
+ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -42,6 +44,7 @@ from photon_ml_tpu_torch.game.data import (
     build_random_effect_dataset,
 )
 from photon_ml_tpu_torch.game.descent import CoordinateDescent
+from photon_ml_tpu_torch.game.factored import FactoredRandomEffectCoordinate
 from photon_ml_tpu_torch.game.model import (
     FixedEffectModel,
     GameModel,
@@ -89,8 +92,10 @@ class RandomEffectCoordinateConfig:
 
 @dataclasses.dataclass(frozen=True)
 class FactoredRandomEffectCoordinateConfig:
-    """Reference: ``FactoredRandomEffectCoordinateConfiguration`` (w_e =
-    V u_e).  Accepted for the config's shape; fitting one raises."""
+    """Reference: ``FactoredRandomEffectCoordinateConfiguration``: random
+    effects constrained to a shared rank-``rank`` projection (w_e = V u_e,
+    see ``game/factored.py``).  The dataset is a plain random effect's, so
+    grid points share built datasets with it."""
 
     feature_shard: str
     entity_key: str
@@ -205,10 +210,6 @@ class GameEstimator:
         cache = {} if dataset_cache is None else dataset_cache
         coordinates = []
         for name, cfg in coordinate_configs.items():
-            if isinstance(cfg, FactoredRandomEffectCoordinateConfig):
-                raise not_ported(
-                    f"coordinate {name!r}: a factored random effect", 3,
-                    "GAME factored random effect")
             if getattr(cfg, "streaming_chunk_rows", 0) > 0 or getattr(
                     cfg, "device_budget_bytes", 0) > 0:
                 raise not_ported(
@@ -249,6 +250,16 @@ class GameEstimator:
                         device=self.device,
                     )
                 cache[key] = dataset
+            if isinstance(cfg, FactoredRandomEffectCoordinateConfig):
+                coordinates.append(FactoredRandomEffectCoordinate(
+                    name, dataset, self.task, cfg.optimization,
+                    rank=cfg.rank, reg_weight=cfg.reg_weight,
+                    projection_reg_weight=cfg.projection_reg_weight,
+                    alternations=cfg.alternations,
+                    feature_shard=cfg.feature_shard,
+                    entity_key=cfg.entity_key,
+                ))
+                continue
             coordinates.append(RandomEffectCoordinate(
                 name, dataset, self.task, cfg.optimization, cfg.reg_weight,
                 feature_shard=cfg.feature_shard, entity_key=cfg.entity_key,
@@ -318,8 +329,10 @@ class GameEstimator:
         fixed effects take the coefficient vector directly; random effects
         materialize each bucket's (E, D) local-space matrix from the
         entity→sparse-coefficient table.  Coordinates absent from the model
-        start from zero (state None).  The datasets must come from data read
-        with the model's index maps (width mismatches are caught)."""
+        start from zero (state None), and so do factored coordinates: the
+        saved model holds only the materialized w_e = V u_e, from which the
+        factorization is not recoverable.  The datasets must come from data
+        read with the model's index maps (width mismatches are caught)."""
         states: dict = {}
         for c in coordinates:
             sub = model.models.get(c.name)
@@ -340,6 +353,8 @@ class GameEstimator:
                     )
                 states[c.name] = torch.as_tensor(w, device=self.device)
             elif isinstance(sub, RandomEffectModel):
+                if isinstance(c, FactoredRandomEffectCoordinate):
+                    continue
                 if sub.n_features != c.dataset.n_features:
                     raise ValueError(
                         f"initial model coordinate {c.name!r} has "
@@ -539,6 +554,19 @@ class GameEstimator:
             self.initial_states_from_model(coordinates, initial_model)
             if initial_model is not None else None
         )
+        unlockable = [
+            n_ for n_ in locked
+            if initial_states is None or initial_states.get(n_) is None
+        ]
+        if unlockable:
+            # A factored coordinate's saved sub-model holds materialized w_e
+            # only, so its (u, V) state cannot be rebuilt from it.
+            raise ValueError(
+                f"coordinates {unlockable} cannot be locked: their prior "
+                "state is not reconstructible from the initial model "
+                "(factored coordinates save materialized coefficients "
+                "only)"
+            )
         cd = CoordinateDescent(coordinates, pipeline=self.pipeline)
         with self._stage("descent"):
             result = cd.run(

@@ -23,6 +23,8 @@ data) pair and reused across a config grid whose points share the dataset:
   bitwise.  Entities unseen in training (and columns outside a training
   entity's active subspace) gather from a zero slot, so they score 0, as
   the reference scores unseen entities and features.
+- ``FactoredValidationScorer``: a factored coordinate's state materialized
+  into per-bucket coefficients, then scored as a plain random effect.
 """
 
 from __future__ import annotations
@@ -156,3 +158,20 @@ class RandomEffectValidationScorer:
             s = _rowdot(vb.X, coefs) + 0.0
             out.index_put_((vb.row_index.reshape(-1).long(),), s.reshape(-1))
         return out[:self.n_rows]
+
+
+class FactoredValidationScorer:
+    """A factored coordinate's ``(u_list, V)`` state scored by the plain
+    random-effect scorer: the state is materialized into per-bucket
+    ``w_e = V u_e`` first, so both kinds score validation rows alike."""
+
+    def __init__(self, coord, inner: RandomEffectValidationScorer):
+        self._coord = coord
+        self._inner = inner
+
+    @property
+    def n_rows(self) -> int:
+        return self._inner.n_rows
+
+    def score(self, state) -> Tensor:
+        return self._inner.score(self._coord.materialize(state))

@@ -466,16 +466,35 @@ class TestDeferredBranches:
                 "user": estimator.RandomEffectCoordinateConfig(
                     "user", "userId", cfg, device_budget_bytes=1 << 20)},
                 device=CPU).fit(shards, ids, y), "item 5"),
-            (lambda: estimator.GameEstimator("logistic", {
-                "user": estimator.FactoredRandomEffectCoordinateConfig(
-                    "user", "userId", rank=2)}, device=CPU).fit(
-                        shards, ids, y), "item 3"),
             (lambda: estimator.GameEstimator("logistic", {}, mesh=object(),
                                              device=CPU), "item 6"),
         ]
         for call, item in cases:
             with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
                 call()
+
+
+def test_factored_coordinate_fits_as_the_reference():
+    """The factored random effect the port once refused, on the same data:
+    ``GameEstimator.fit`` matches the reference's."""
+    shards, ids, y = _game_problem(15)
+    cfg, rcfg = _cfgs()
+    kw = dict(rank=2, reg_weight=1.0)
+    model, hist = estimator.GameEstimator("logistic", {
+        "user": estimator.FactoredRandomEffectCoordinateConfig(
+            "user", "userId", optimization=cfg, **kw)}, device=CPU).fit(
+                shards, ids, y)
+    rmodel, rhist = ref_est.GameEstimator("logistic", {
+        "user": ref_est.FactoredRandomEffectCoordinateConfig(
+            "user", "userId", optimization=rcfg, **kw)}).fit(shards, ids, y)
+    assert hist[0]["train_metric"] == pytest.approx(
+        rhist[0]["train_metric"], abs=AUC_TOL)
+    table, rtable = model["user"].coefficients, rmodel["user"].coefficients
+    assert set(table) == set(rtable)
+    scale = max(float(np.abs(v).max()) for _, v in rtable.values())
+    for k, (cols, vals) in table.items():
+        np.testing.assert_array_equal(cols, rtable[k][0])
+        assert np.abs(vals - rtable[k][1]).max() <= TOL * scale
 
 
 def test_game_states_from_numpy():

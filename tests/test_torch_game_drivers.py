@@ -511,13 +511,177 @@ class TestDriverResume:
                                       str(tmp_path / "o"), "--resume", *CPU])
 
 
+def _train_both(game_files, tmp_path, coordinates, iterations=2):
+    """Both packages' training drivers on ``coordinates``; returns
+    (config path, port result, port dir, reference result, ref dir)."""
+    train, val, _ = game_files
+    cfg = _write_config(tmp_path / "cfg.json", coordinates=coordinates,
+                        iterations=iterations)
+    args = ["--train-data", train, "--validate-data", val, "--config", cfg]
+    port_dir, ref_dir = str(tmp_path / "port"), str(tmp_path / "ref")
+    port = game_training_driver.run(args + ["--output-dir", port_dir, *CPU])
+    ref = ref_training.run(args + ["--output-dir", ref_dir])
+    for key in ("train_metric", "validation_metric"):
+        assert port[key] == pytest.approx(ref[key], abs=FIT_TOL)
+    return cfg, port, port_dir, ref, ref_dir
+
+
+def _tables_close(port_dir, ref_dir, name="per_user", tol=FIT_TOL):
+    model, _ = load_game_model(os.path.join(port_dir, "models"),
+                               device="cpu")
+    rmodel, _ = ref_load(os.path.join(ref_dir, "models"))
+    table = model.models[name].coefficients
+    rtable = rmodel.models[name].coefficients
+    assert set(table) == set(rtable)
+    scale = max(float(np.abs(v).max()) for _, v in rtable.values())
+    for k, (_, vals) in table.items():
+        assert np.abs(vals - rtable[k][1]).max() <= tol * scale
+
+
+FACTORED = dict(COORDS[1], type="factored_random", rank=1, alternations=2,
+                max_iters=30, reg_weight=0.5)
+
+
+class TestFactoredDriver:
+    """The reference's ``TestFactoredDriver`` flows through both
+    packages."""
+
+    def test_factored_coordinate_end_to_end(self, game_files, tmp_path):
+        _, val, _ = game_files
+        _, port, port_dir, ref, ref_dir = _train_both(
+            game_files, tmp_path, [COORDS[0], FACTORED])
+        # userFeatures is one bias column: rank 1 is full rank.
+        assert port["validation_metric"] > 0.65
+        assert os.path.isdir(os.path.join(port_dir, "models",
+                                          "random-effect"))
+        _tables_close(port_dir, ref_dir)
+        sresult = game_scoring_driver.run([
+            "--data", val, "--model-dir", port_dir, "--output-dir",
+            str(tmp_path / "score"), "--evaluator", "auc", *CPU])
+        assert sresult["metric"] == pytest.approx(port["validation_metric"],
+                                                  abs=1e-6)
+
+    def test_factored_spec_trains_as_the_reference(self, game_files,
+                                                   tmp_path):
+        """The spec the driver once refused (``"type": "factored"``,
+        rank 1, the plain coordinate's other keys), on the same files."""
+        _, port, port_dir, _, ref_dir = _train_both(
+            game_files, tmp_path, [COORDS[0], dict(COORDS[1],
+                                                   type="factored", rank=1)])
+        assert port["validation_metric"] > 0.6
+        _tables_close(port_dir, ref_dir)
+
+    def test_factored_resume_reproduces_run(self, game_files, tmp_path):
+        """The nested (u_list, V) state survives the checkpoint: a killed
+        and resumed run writes the uninterrupted run's model files."""
+        train, val, _ = game_files
+        coords = [COORDS[0], dict(FACTORED, alternations=1, max_iters=20)]
+        runs = {}
+        for label, iters in (("full", 2), ("resumed", 1), ("resumed", 2)):
+            cfg = _write_config(tmp_path / f"c{iters}.json",
+                                coordinates=coords, iterations=iters)
+            out = str(tmp_path / label)
+            runs[label] = game_training_driver.run(
+                ["--train-data", train, "--validate-data", val, "--config",
+                 cfg, "--output-dir", out, *CPU]
+                + (["--resume"] if label == "resumed" and iters == 2
+                   else []))
+        assert runs["resumed"]["validation_metric"] == \
+            runs["full"]["validation_metric"]
+        for rel in ("fixed-effect/fixed/coefficients.avro",
+                    "random-effect/per_user/coefficients.avro"):
+            a, b = (open(os.path.join(str(tmp_path / k), "models", rel),
+                         "rb").read() for k in ("full", "resumed"))
+            assert a == b
+
+    def test_factored_initial_model_starts_cold_not_crash(self, game_files,
+                                                          tmp_path):
+        train, val, _ = game_files
+        coords = [COORDS[0], dict(FACTORED, alternations=1, max_iters=20)]
+        cfg = _write_config(tmp_path / "c.json", coordinates=coords)
+        args = ["--train-data", train, "--validate-data", val, "--config",
+                cfg]
+        first = str(tmp_path / "first")
+        game_training_driver.run(args + ["--output-dir", first, *CPU])
+        second = game_training_driver.run(args + [
+            "--output-dir", str(tmp_path / "second"), "--initial-model",
+            os.path.join(first, "models"), *CPU])
+        rfirst = str(tmp_path / "rfirst")
+        ref_training.run(args + ["--output-dir", rfirst])
+        rsecond = ref_training.run(args + [
+            "--output-dir", str(tmp_path / "rsecond"), "--initial-model",
+            os.path.join(rfirst, "models")])
+        assert second["validation_metric"] > 0.6
+        assert second["validation_metric"] == pytest.approx(
+            rsecond["validation_metric"], abs=FIT_TOL)
+
+
+@pytest.mark.parametrize("spec", [
+    dict(reg_type="elastic_net", elastic_net_alpha=0.5, reg_weight=0.5),
+    dict(optimizer="owlqn", reg_type="l2"),
+    dict(optimizer="tron", reg_type="l2"),
+], ids=["elastic_net", "owlqn", "tron"])
+def test_per_user_fallback_routes_match_reference(game_files, tmp_path,
+                                                  spec):
+    """A per-user random effect that runs the batched fallback (elastic
+    net and the OWL-QN optimizer: OWL-QN on every bucket; TRON: on wide
+    buckets only, so here the Newton routes)."""
+    _, port, port_dir, _, ref_dir = _train_both(
+        game_files, tmp_path, [COORDS[0], dict(COORDS[1], **spec)])
+    assert port["validation_metric"] > 0.6
+    _tables_close(port_dir, ref_dir)
+
+
+@pytest.mark.parametrize("optimizer", ["lbfgs", "tron"])
+def test_wide_per_user_effect_matches_reference(tmp_path, optimizer):
+    """A per-user effect over a 48-wide shard (8 values a row): buckets of
+    D > 32 on the batched L-BFGS or TRON, through both training drivers
+    and the port's scoring driver."""
+    rng = np.random.default_rng(12)
+    rows = []
+    for i in range(480):
+        cols = rng.choice(48, size=8, replace=False)
+        xg = rng.normal(size=3)
+        rows.append({
+            "uid": f"r{i}", "response": float(rng.uniform() < 1 / (
+                1 + np.exp(-1.5 * xg[0]))), "weight": None, "offset": None,
+            "ids": {"userId": f"u{rng.integers(10)}"},
+            "features": {
+                "global": [{"name": f"g{j}", "term": "", "value": float(v)}
+                           for j, v in enumerate(xg)],
+                "wide": [{"name": f"w{c}", "term": "",
+                          "value": float(rng.normal())} for c in cols]}})
+    train = str(tmp_path / "wide.avro")
+    write_game_avro(train, rows)
+    spec = dict(COORDS[1], feature_shard="wide", optimizer=optimizer,
+                reg_weight=1.0)
+    cfg = _write_config(tmp_path / "c.json", coordinates=[COORDS[0], spec])
+    args = ["--train-data", train, "--validate-data", train, "--config",
+            cfg]
+    port_dir, ref_dir = str(tmp_path / "port"), str(tmp_path / "ref")
+    port = game_training_driver.run(args + ["--output-dir", port_dir, *CPU])
+    ref = ref_training.run(args + ["--output-dir", ref_dir])
+    assert port["validation_metric"] == pytest.approx(
+        ref["validation_metric"], abs=FIT_TOL)
+    _tables_close(port_dir, ref_dir)
+    model, _ = load_game_model(os.path.join(port_dir, "models"),
+                               device="cpu")
+    assert max(len(c) for c, _ in
+               model.models["per_user"].coefficients.values()) > 32
+    sresult = game_scoring_driver.run([
+        "--data", train, "--model-dir", port_dir, "--output-dir",
+        str(tmp_path / "s"), "--evaluator", "auc", *CPU])
+    assert sresult["metric"] == pytest.approx(port["validation_metric"],
+                                              abs=1e-6)
+
+
 class TestRefusals:
     """Each flag or config the port does not run yet raises
     NotImplementedError naming its ROADMAP Queue 1 item."""
 
     @pytest.mark.parametrize("case,item", [
         ("data_parallel", 6), ("streamed_fixed", 5), ("ooc_random", 5),
-        ("factored", 3), ("tuning", 8), ("retries", 4),
+        ("tuning", 8), ("retries", 4),
         ("stream_scoring", 5), ("stream_knob", 5), ("ooc_knob", 5),
         ("split_factor", 6), ("solver_options", 6),
     ])
@@ -539,9 +703,6 @@ class TestRefusals:
         elif case == "ooc_random":
             overrides = {"coordinates": [COORDS[0], dict(
                 COORDS[1], device_budget_mb=1)]}
-        elif case == "factored":
-            overrides = {"coordinates": [COORDS[0], dict(
-                COORDS[1], type="factored", rank=1)]}
         elif case == "stream_knob":
             overrides = {"coordinates": [dict(COORDS[0], chunk_fuse=4),
                                          COORDS[1]]}

@@ -10,6 +10,8 @@ two solvers to that).  Inside the port, the lockstep solve of several
 buckets is bitwise the solve of each bucket alone.
 """
 
+import dataclasses
+
 import numpy as np
 import pytest
 import scipy.sparse as sp
@@ -336,32 +338,80 @@ class TestCoordinate:
         assert all(torch.equal(x, y) for x, y in zip(a, b))
 
 
-class TestRefusals:
+class TestFallbackBuckets:
+    """The buckets the port once refused (an L1 component, the OWL-QN
+    optimizer, D > 32 with R > 1) now run the batched fallback and match
+    the reference on the same inputs, each bucket solved by both packages
+    in float64 (blocks, offsets and warm starts cast) within 1e-9;
+    ``test_torch_game_fallback.py`` holds more."""
+
+    @staticmethod
+    def _solve_buckets(ds, ref, cfgs, l1, l2):
+        """Each bucket's (port, reference) float64 solution and whether
+        the port ran a fallback program."""
+        rng = np.random.default_rng(0)
+        solver = coordinates.BlockSolver("logistic", cfgs[0])
+        rsolver = ref_coords._make_block_solver("logistic", cfgs[1])
+        out = []
+        for block, rblock in zip(ds.blocks, ref.blocks):
+            block = dataclasses.replace(
+                block, X=block.X.double(), labels=block.labels.double(),
+                weights=block.weights.double())
+            rblock = dataclasses.replace(
+                rblock, X=rblock.X.astype(jnp.float64),
+                labels=rblock.labels.astype(jnp.float64),
+                weights=rblock.weights.astype(jnp.float64))
+            off = 0.3 * rng.normal(size=(block.n_entities,
+                                         block.rows_per_entity))
+            w0 = np.zeros((block.n_entities, block.block_dim))
+            args = (block, torch.as_tensor(off), torch.as_tensor(w0), l1, l2)
+            fallback = solver.program(*args).iterations is not None
+            got = solver.solve(*args).numpy()
+            want = np.asarray(rsolver(rblock, jnp.asarray(off),
+                                      jnp.asarray(w0), jnp.asarray(l1),
+                                      jnp.asarray(l2)))
+            out.append((got, want, fallback))
+        return out
+
     @pytest.mark.parametrize("reg,optimizer,solver", [
         ("l1", "LBFGS", None), ("elastic_net", "LBFGS", None),
         ("l2", "OWLQN", None), ("l2", "LBFGS", "owlqn")])
-    def test_owlqn_blocks_refused(self, reg, optimizer, solver):
-        _, ds, _, _ = _bucket_problem(1, "logistic", n_ent=10)
-        port_cfg = GlmOptimizationConfig(
-            optimizer=OptimizerConfig(optimizer=OptimizerType[optimizer],
-                                      solver=solver),
-            regularization=(RegularizationContext.elastic_net(0.5)
-                            if reg == "elastic_net"
-                            else getattr(RegularizationContext, reg)()))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 1"):
-            coordinates.RandomEffectCoordinate("re", ds, "logistic",
-                                               port_cfg, reg_weight=1.0)
+    def test_owlqn_blocks_match_reference(self, reg, optimizer, solver):
+        _, ds, ref, _ = _bucket_problem(1, "logistic", n_ent=10)
 
-    def test_wide_blocks_refused_but_wide_single_rows_solve(self):
+        def cfg(ctx, opt, kind, reg_ns):
+            return ctx(
+                optimizer=opt(optimizer=kind[optimizer], solver=solver),
+                regularization=(reg_ns.elastic_net(0.5)
+                                if reg == "elastic_net"
+                                else getattr(reg_ns, reg)()))
+
+        cfgs = (cfg(GlmOptimizationConfig, OptimizerConfig, OptimizerType,
+                    RegularizationContext),
+                cfg(RefConfig, RefOpt, RefOptType, RefReg))
+        l1 = cfgs[0].regularization.l1_weight(1.0)
+        l2 = cfgs[0].regularization.l2_weight(1.0)
+        results = self._solve_buckets(ds, ref, cfgs, l1, l2)
+        # Every bucket, R = 1 included, ran OWL-QN.
+        assert all(fb for _, _, fb in results)
+        assert any(b.rows_per_entity == 1 for b in ds.blocks)
+        for got, want, _ in results:
+            _close(got, want, rtol=1e-9)
+
+    def test_wide_blocks_match_reference_and_wide_single_rows_solve(self):
         rng = np.random.default_rng(0)
         keys = np.array(["a"] * 3 + ["b"], dtype=object)
         X = sp.csr_matrix(rng.normal(size=(4, 40)).astype(np.float32))
-        ds = data.build_random_effect_dataset(
-            keys, X, np.zeros(4, np.float32), np.ones(4, np.float32),
-            device=CPU)
-        with pytest.raises(NotImplementedError, match="40 > 32"):
-            coordinates.RandomEffectCoordinate("re", ds, "logistic",
-                                               _configs()[0])
+        y = (rng.uniform(size=4) < 0.5).astype(np.float32)
+        ds, ref = _both(keys, X, y)
+        results = self._solve_buckets(ds, ref, _configs(max_iters=30), 0.0,
+                                      1.0)
+        # The R = 3, D = 40 bucket ran batched L-BFGS, the single row the
+        # rank-1 Newton path.
+        assert [fb for _, _, fb in results] == [
+            b.rows_per_entity > 1 for b in ds.blocks]
+        for got, want, fb in results:
+            _close(got, want, rtol=1e-9 if fb else 1e-5)
         single = data.build_random_effect_dataset(
             keys[3:], X[3:], np.zeros(1, np.float32), np.ones(1, np.float32),
             device=CPU)
@@ -369,6 +419,8 @@ class TestRefusals:
             "re", single, "logistic", _configs()[0], reg_weight=1.0)
         assert coord.train(torch.zeros(1))[0].shape == (1, 40)
 
+
+class TestRefusals:
     @pytest.mark.parametrize("name", ["admm", "block_cd"])
     def test_host_kind_solvers_refused(self, name):
         from photon_ml_tpu_torch.data.dataset import make_glm_data

@@ -790,3 +790,141 @@ def test_game_drivers_on_card(cuda, tmp_path):
         "--output-dir", str(tmp_path / "s"), "--evaluator", "auc",
         "--device-metrics", "--device", "cuda"])
     assert abs(score["metric"] - runs["cuda"]["validation_metric"]) <= 1e-6
+
+
+# -- the batched random-effect fallback and the factored random effect -------
+
+
+def _wide_dataset(device, d=64, n_ent=300, dtype=torch.float32):
+    """A random effect over ``d`` sparse features: several D > 32 buckets
+    of R > 1 (the batched fallback's buckets), and narrow rank-1 ones."""
+    import scipy.sparse as sp
+
+    from photon_ml_tpu_torch.game.data import build_random_effect_dataset
+
+    rng = np.random.default_rng(25)
+    sizes = np.minimum(rng.zipf(1.6, n_ent), 60)
+    n = int(sizes.sum())
+    keys = np.repeat(np.array([f"e{i}" for i in range(n_ent)], dtype=object),
+                     sizes)[rng.permutation(n)]
+    X = sp.csr_matrix(rng.normal(size=(n, d)).astype(np.float32)
+                      * (rng.uniform(size=(n, d)) < 0.2))
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    off = (0.3 * rng.normal(size=n)).astype(np.float32)
+    ds = build_random_effect_dataset(keys, X, y, np.ones(n, np.float32),
+                                     bucket_growth=4.0, device=device,
+                                     dtype=dtype)
+    return ds, torch.as_tensor(off, device=device, dtype=dtype)
+
+
+def _fallback_solver(kind):
+    from photon_ml_tpu_torch.game.coordinates import BlockSolver
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        OptimizerConfig,
+        OptimizerType,
+    )
+    from photon_ml_tpu_torch.optim.regularization import RegularizationContext
+
+    reg = (RegularizationContext.elastic_net(0.5) if kind == "owlqn"
+           else RegularizationContext.l2())
+    opt = OptimizerType.TRON if kind == "tron" else OptimizerType.LBFGS
+    cfg = GlmOptimizationConfig(
+        optimizer=OptimizerConfig(optimizer=opt, max_iters=10,
+                                  tolerance=1e-6),
+        regularization=reg)
+    return BlockSolver("logistic", cfg), reg.l1_weight(1.0), \
+        reg.l2_weight(1.0)
+
+
+@pytest.mark.parametrize("kind", ["lbfgs", "owlqn", "tron"])
+def test_batched_solvers_on_card_follow_each_lanes_single_solve(cuda, kind):
+    """Every fallback bucket on the card in float64, each lane re-solved
+    alone by the port's single-problem solver: the same iterations and the
+    same coefficients within 1e-9 of ‖w‖ (each lane follows its own
+    trajectory).  In float32 the lanes part at the noise floor (one ulp
+    decides a trial or the stall test) and land within 5e-3 of the largest
+    ‖w‖ of the lanes tested in the bucket."""
+    from photon_ml_tpu_torch.game.coordinates import _gather_block_offsets
+
+    solver, l1, l2 = _fallback_solver(kind)
+    tested = 0
+    for dtype, tol in ((torch.float64, 1e-9), (torch.float32, 5e-3)):
+        ds, off = _wide_dataset(cuda, dtype=dtype)
+        for b in ds.blocks:
+            w0 = torch.zeros(b.n_entities, b.block_dim, dtype=dtype,
+                             device=cuda)
+            ob = _gather_block_offsets(off, b)
+            prog = solver.program(b, ob, w0, l1, l2)
+            if prog.iterations is None:
+                continue
+            ws, stats = solver.solve_all([(b, ob, w0)], l1, l2)
+            its = stats.iterations[0].cpu().numpy()
+            errs, norms = [], []
+            for e in range(min(b.n_entities, 64)):
+                res = prog.single(e, w0[e])
+                norms.append(float(torch.linalg.vector_norm(res.w)))
+                errs.append(float(torch.linalg.vector_norm(ws[0][e]
+                                                           - res.w)))
+                if dtype == torch.float64:
+                    assert res.iterations == its[e]
+                    assert errs[-1] <= tol * max(norms[-1], 1e-30)
+                tested += 1
+            assert max(errs) <= tol * max(max(norms), 1e-30), (
+                b.X.shape, max(errs), max(norms))
+    assert tested >= 128
+
+
+def test_fallback_lockstep_on_card_repeats_bitwise(cuda):
+    from photon_ml_tpu_torch.game.coordinates import _gather_block_offsets
+
+    ds, off = _wide_dataset(cuda)
+    for kind in ("lbfgs", "owlqn", "tron"):
+        solver, l1, l2 = _fallback_solver(kind)
+        items = [(b, _gather_block_offsets(off, b),
+                  torch.zeros(b.n_entities, b.block_dim, device=cuda))
+                 for b in ds.blocks]
+        a, sa = solver.solve_all(items, l1, l2)
+        b, sb = solver.solve_all(items, l1, l2)
+        assert all(torch.equal(x, y) for x, y in zip(a, b))
+        assert sa.bodies == sb.bodies
+        assert max(sa.bodies) <= sa.host_reads <= max(sa.bodies) + 1
+
+
+def test_factored_projection_gradient_on_card_repeats_bitwise(cuda):
+    """The projection gradient's deterministic column sums: bitwise equal
+    across calls and within 1e-5 of the float64 CPU computation."""
+    from photon_ml_tpu_torch.game.factored import (
+        FactoredRandomEffectCoordinate,
+    )
+
+    def coord(device, dtype):
+        ds, off = _wide_dataset(device, dtype=dtype)
+        cfg = _fallback_solver("lbfgs")[0].config
+        return FactoredRandomEffectCoordinate("f", ds, "logistic", cfg,
+                                              rank=8, reg_weight=1.0,
+                                              projection_reg_weight=0.1), off
+
+    c, off = coord(cuda, torch.float32)
+    c64, off64 = coord("cpu", torch.float64)
+    rng = np.random.default_rng(26)
+    u_np = [rng.normal(size=(b.n_entities, 8)) for b in c.dataset.blocks]
+    V_np = rng.normal(size=(c.dataset.n_features, 8)) * 0.3
+    args = (torch.as_tensor(V_np.reshape(-1), dtype=torch.float32,
+                            device=cuda), c.block_offsets(off),
+            [torch.as_tensor(u, dtype=torch.float32, device=cuda)
+             for u in u_np])
+    val, g = c.projection_value_grad(*args)
+    for _ in range(3):
+        val2, g2 = c.projection_value_grad(*args)
+        assert torch.equal(g, g2) and torch.equal(val, val2)
+    val64, g64 = c64.projection_value_grad(
+        torch.as_tensor(V_np.reshape(-1)), c64.block_offsets(off64),
+        [torch.as_tensor(u) for u in u_np])
+    err = float((g.double().cpu() - g64).abs().max())
+    assert err <= 1e-5 * float(g64.abs().max()), err
+    assert abs(float(val) - float(val64)) <= 1e-5 * abs(float(val64))
+    state = c.train(off)
+    again = c.train(off)
+    assert torch.equal(state[1], again[1])
+    assert all(torch.equal(u, v) for u, v in zip(state[0], again[0]))
