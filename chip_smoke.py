@@ -78,7 +78,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    (seed 3: per-user, per-item and per-context effects, the contexts capped
    at 256 active rows so passive rows exist).  Host build times, buckets and
    their (E, R), one warm iteration, one monitored run, then the median of
-   5 timed runs of 3 iterations as GAME iterations/s, each coordinate's
+   3 timed runs of 3 iterations as GAME iterations/s, each coordinate's
    wall, Newton bodies and host reads an update.  Checks: the float64 GAME
    objective never rises between updates beyond 2^-22 of its value; a second
    run repeats every state and score bitwise; the scores equal a float64
@@ -153,14 +153,50 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    the device AUC of its scores within 1e-6); the drivers'
    ``stage_seconds`` logged.
 
+9. Out-of-core GLM training (``data/streaming.py``, ``data/prefetch.py``,
+   ``optim/streaming.py``) at full width.  9a and 9b run right after 3b on
+   phase 3's matrix (``bench_streaming``'s draw: 2^20 x 8192, 32 normal
+   values a row, seed 0, logistic).  9a: the store as 4 kernel-layout
+   chunks (and a memmap copy); one value+grad pass against phase 3's
+   resident objective (rtol 1e-5 of Σ|terms|); bitwise: depth 1 = depth 2,
+   fuse 2 = fuse 1, each row of a 3-candidate batch = its single
+   evaluation, the memmap store = the RAM store; the Kahan value within
+   1e-6 of a float64 host sum; timed passes at depths 1 and 2 (rows/s
+   beside the resident pass, H2D GB/s over the copy stream's CUDA events,
+   pack / h2d / consume ms and stalls a pass) and the SpMV launches of one
+   pass under CUDA events; the 16-chunk oversubscribed leg with the
+   lossless wire and a hot cache at 0.7 of the wire store, bitwise equal
+   to the raw stream on three passes, and its timed passes; fp16 and int8
+   decodes of one chunk on the card within the reference's per-slot
+   bounds.  9b: phase 3's L2 L-BFGS grid streamed (each λ's objective
+   within 1e-5 of phase 3's), phase 3b's elastic-net OWL-QN grid streamed
+   (3b's KKT checks and refused half-runs), L-BFGS at λ = 1 one trial a
+   pass and batched (the same iterations, bitwise the same w, no more
+   passes) and TRON at λ = 1 within 1e-5 of it.  9c, after phase 8: the
+   GLM driver's ``--stream-chunk-rows 32768 --stream-storage-dir`` on
+   phase 4's files (L2 with ``--training-report``, elastic-net OWL-QN:
+   each selects the resident run's λ, every saved model's AUC = a host
+   re-score within 1e-6; the report carries every λ), ``--initial-model``
+   from phase 4's L2 model (fewer iterations than cold, within 1e-5 of
+   it), ``--max-retries 1`` with one ``UNAVAILABLE`` failure injected into
+   the second λ's solve (model files byte-equal to the uninterrupted
+   run's), and the GAME training driver with ``--max-retries 1`` and one
+   failure after its first CD iteration on phase 7's files (model files
+   byte-equal to phase 7's uninterrupted run).  The failures are injected
+   by patching from this script, never from the program.
+
+Phase 7's GAME Avro files are written by a spawned process that starts
+after phase 1 and runs beside phases 2-6; phase 7 waits for it.
+
 Launch counts are zeroed just before each main-path run of phases 3, 3b,
-4, 5, 6, 7 and 8 and read just after; every kernel those paths run must
+4, 5, 6, 7, 8 and 9 and read just after; every kernel those paths run must
 have launched.  A kernel record's ``launches`` sums its main-path runs
-(phases 3 and 3b for the valued instances, phase 4's three runs for the
-binary ones, phase 6's descents and estimator fits and phases 7's and 8's
-training runs for the ``.game`` records, phases 7's and 8's validation
-scoring for ``.game_val``).  The second-to-last line is the kernels' JSON record and the
-last line ``{"ok": true, "device": {...}}``.
+(phases 3, 3b, 9a and 9b for the valued instances, phase 4's three runs
+and 9c's GLM driver runs for the binary ones, phase 6's descents and
+estimator fits and phases 7's, 8's and 9c's training runs for the
+``.game`` records, phases 7's and 8's validation scoring for
+``.game_val``).  The second-to-last line is the kernels' JSON record and
+the last line ``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -229,17 +265,25 @@ GAME_BUCKET_GROWTH = 4.0
 GAME_CONTEXTS = 200
 GAME_CONTEXT_CAP = 256
 GAME_TIMED_ITERS = 3
-GAME_TIMED_RUNS = 5
+GAME_TIMED_RUNS = 3
 # Phase 7: the GAME drivers at bench_game_cd's width, with a validation
 # file of GAME_VAL_ROWS rows (GAME_VAL_UNSEEN of them from unseen users).
 GAME_VAL_ROWS = 80_000
 GAME_VAL_UNSEEN = 0.02
+GAME_UNSEEN_USERS = 2000
 GAME_DRIVER_ITERS = 3
 GAME_GRID_RE_WEIGHTS = (1.0, 1e4)
 # The GAME objective (float64) may rise between updates by at most this
 # fraction of its value: the float32 value sum that the fixed effect's line
 # search decides on rounds at ~6e-8 of it.
 GAME_OBJ_RISE = 2.0 ** -22
+# Phase 9: the streamed store's chunks, the oversubscribed leg's chunks and
+# its hot cache's share of the wire store (bench.py:79-80), timed passes.
+STREAM_CHUNKS = 4
+STREAM_OVERSUB_CHUNKS = 16
+STREAM_HOT_FRACTION = 0.7
+STREAM_TIMED_PASSES = 5
+STREAM_DRIVER_CHUNK_ROWS = 32768
 
 
 def check(ok: bool, what: str) -> None:
@@ -671,9 +715,9 @@ def phase_library(bench):
     t0 = time.perf_counter()
     data = make_glm_data(X, y, device=DEVICE)
     torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
     log(f"library: make_glm_data {N_ROWS} x {N_FEATURES} in "
-        f"{time.perf_counter() - t0:.1f} s "
-        f"({type(data.features).__name__})")
+        f"{build_s:.1f} s ({type(data.features).__name__})")
     problem = GlmOptimizationProblem(
         "logistic",
         GlmOptimizationConfig(
@@ -740,9 +784,11 @@ def phase_library(bench):
     ms = median_ms(lambda: obj.value_and_grad(w, data, best), n=20)
     log(f"library: value+grad pass {ms:.4f} ms = "
         f"{N_ROWS / (ms / 1e3):.4g} rows/s")
+    values = {lam: float(res.values[res.iterations]) for lam, _, res in grid}
     return launches, dict(rows_per_s=N_ROWS / (ms / 1e3),
-                          grid_wall_s=wall, iterations=iters), (
-        data, plain_data, abs_F)
+                          grid_wall_s=wall, iterations=iters,
+                          build_s=build_s, grid_values=values), (
+        data, plain_data, abs_F, X)
 
 
 def objective_vs_plain(obj, w, data, plain_data, l2, abs_F):
@@ -771,6 +817,32 @@ def pseudo_gradient_host(w, g, l1):
     w, g = (t.double().cpu().numpy() for t in (w, g))
     return np.where(w != 0, g + l1 * np.sign(w),
                     np.sign(g) * np.maximum(np.abs(g) - l1, 0.0))
+
+
+def kkt_residuals(res, obj, d, l1, l2):
+    """(max |g_j|/λ1 over the zeros, max |g_j + λ1·sign(w_j)|/λ1 over the
+    support, Σ_j pg_j²/(2·H_jj) / |F|) at res.w: pg is the pseudo-gradient
+    and H_jj = Σ_i x_ij²·ℓ''_i + l2 the smooth part's diagonal curvature,
+    so the last is the objective decrease that a diagonal Newton step on
+    the residual would buy, relative to F."""
+    f, g = obj.value_and_grad(res.w, d, l2)
+    hdiag = d.features.sq_rmatvec(obj.d2_weights(res.w, d)) + l2
+    f_all = float(f) + l1 * float(res.w.double().abs().sum())
+    w, g = res.w.double().cpu().numpy(), g.double().cpu().numpy()
+    hdiag = hdiag.double().cpu().numpy()
+    pg = pseudo_gradient_host(res.w, torch.as_tensor(g), l1)
+    zero = w == 0
+    at_zero = float((np.abs(g[zero]) / l1).max(initial=0.0))
+    support = float((np.abs(g[~zero] + l1 * np.sign(w[~zero])) / l1)
+                    .max(initial=0.0))
+    dec = float((pg * pg / (2 * np.maximum(hdiag, 1e-30))).sum()
+                / abs(f_all))
+    return at_zero, support, dec
+
+
+def kkt_holds(residuals):
+    at_zero, _, dec = residuals
+    return at_zero <= 1 + KKT_ZERO and dec <= KKT_DECREMENT
 
 
 def solver_labels(margins, seed=5):
@@ -872,30 +944,6 @@ def phase_solvers(data, plain_data, abs_F, margins, kern):
         return dict(evals=evals,
                     evals_per_iter=(evals - n_solves) / max(iterations, 1),
                     hvps=0, wall_s=wall, kernel_s=k_ms / 1e3)
-
-    def kkt_residuals(res, obj, d, l1, l2):
-        """(max |g_j|/λ1 over the zeros, max |g_j + λ1·sign(w_j)|/λ1 over
-        the support, Σ_j pg_j²/(2·H_jj) / |F|) at res.w: pg is the
-        pseudo-gradient and H_jj = Σ_i x_ij²·ℓ''_i + l2 the smooth part's
-        diagonal curvature, so the last is the objective decrease that a
-        diagonal Newton step on the residual would buy, relative to F."""
-        f, g = obj.value_and_grad(res.w, d, l2)
-        hdiag = d.features.sq_rmatvec(obj.d2_weights(res.w, d)) + l2
-        f_all = float(f) + l1 * float(res.w.double().abs().sum())
-        w, g = res.w.double().cpu().numpy(), g.double().cpu().numpy()
-        hdiag = hdiag.double().cpu().numpy()
-        pg = pseudo_gradient_host(res.w, torch.as_tensor(g), l1)
-        zero = w == 0
-        at_zero = float((np.abs(g[zero]) / l1).max(initial=0.0))
-        support = float((np.abs(g[~zero] + l1 * np.sign(w[~zero])) / l1)
-                        .max(initial=0.0))
-        dec = float((pg * pg / (2 * np.maximum(hdiag, 1e-30))).sum()
-                    / abs(f_all))
-        return at_zero, support, dec
-
-    def kkt_holds(residuals):
-        at_zero, _, dec = residuals
-        return at_zero <= 1 + KKT_ZERO and dec <= KKT_DECREMENT
 
     def kkt(name, res, half, obj, d, l1, l2):
         """OWL-QN's KKT conditions at res.w (the zeros against λ1, the
@@ -1086,34 +1134,35 @@ def write_libsvm_binary(path, rows, cols, n, y):
             f.write(f"{'+1' if y[i] > 0 else '-1'} {feats}\n")
 
 
-def phase_driver():
-    """Phase 4: the driver on binary LIBSVM data (L2 L-BFGS, elastic-net
-    OWL-QN and L2 TRON), each saved model re-scored on the host.  Returns
-    the launches summed over the runs."""
+def phase_driver(td):
+    """Phase 4: the driver on binary LIBSVM data written into ``td`` (L2
+    L-BFGS, elastic-net OWL-QN and L2 TRON), each saved model re-scored on
+    the host.  Returns the launches summed over the runs, the (train,
+    validation) paths and each run's (output dir, result) by label."""
     rng = np.random.default_rng(3)
     n = DRIVER_TRAIN_ROWS + DRIVER_VAL_ROWS
     rows, cols = binary_rows(rng, n, N_FEATURES, NNZ_PER_ROW)
     w_true = rng.normal(size=N_FEATURES) * (rng.uniform(size=N_FEATURES) < 0.3)
     margins = np.bincount(rows, weights=w_true[cols], minlength=n) - 0.5
     y = (rng.uniform(size=n) < 1 / (1 + np.exp(-margins))).astype(np.float32)
-    with tempfile.TemporaryDirectory() as td:
-        train, val = os.path.join(td, "train.libsvm"), os.path.join(
-            td, "val.libsvm")
-        t0 = time.perf_counter()
-        split = np.searchsorted(rows, DRIVER_TRAIN_ROWS)
-        write_libsvm_binary(train, rows[:split], cols[:split],
-                            DRIVER_TRAIN_ROWS, y)
-        write_libsvm_binary(val, rows[split:] - DRIVER_TRAIN_ROWS,
-                            cols[split:], DRIVER_VAL_ROWS,
-                            y[DRIVER_TRAIN_ROWS:])
-        log(f"driver: wrote {DRIVER_TRAIN_ROWS} + {DRIVER_VAL_ROWS} LIBSVM "
-            f"rows in {time.perf_counter() - t0:.1f} s")
-        total = {}
-        for label, flags in DRIVER_RUNS:
-            launches = driver_run(label, flags, td, train, val)
-            for k, n in launches.items():
-                total[k] = total.get(k, 0) + n
-    return total
+    train, val = os.path.join(td, "train.libsvm"), os.path.join(
+        td, "val.libsvm")
+    t0 = time.perf_counter()
+    split = np.searchsorted(rows, DRIVER_TRAIN_ROWS)
+    write_libsvm_binary(train, rows[:split], cols[:split],
+                        DRIVER_TRAIN_ROWS, y)
+    write_libsvm_binary(val, rows[split:] - DRIVER_TRAIN_ROWS,
+                        cols[split:], DRIVER_VAL_ROWS,
+                        y[DRIVER_TRAIN_ROWS:])
+    log(f"driver: wrote {DRIVER_TRAIN_ROWS} + {DRIVER_VAL_ROWS} LIBSVM "
+        f"rows in {time.perf_counter() - t0:.1f} s")
+    total = {}
+    runs = {}
+    for label, flags in DRIVER_RUNS:
+        launches, runs[label] = driver_run(label, flags, td, train, val)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+    return total, (train, val), runs
 
 
 def driver_run(label, flags, td, train, val):
@@ -1161,7 +1210,7 @@ def driver_run(label, flags, td, train, val):
           f"driver {label}: AUC {drv_auc} vs host {host_auc}")
     for op in ("matvec_unit", "rmatvec_unit", "sq_rmatvec_unit"):
         check(launches[op] > 0, f"driver {label}: {op} never launched")
-    return launches
+    return launches, (out, result)
 
 
 def run_main_path(label, mod, kernels):
@@ -2260,7 +2309,7 @@ def write_game_driver_files(td, glog):
     sizes = np.minimum(np.random.default_rng(1).zipf(1.8, GAME_ENTITIES),
                        GAME_ROW_CAP)
     rng = np.random.default_rng(7)
-    n_unseen_users = 2000
+    n_unseen_users = GAME_UNSEEN_USERS
     w_fixed = rng.normal(scale=0.5, size=GAME_FIXED_FEATURES)
     b_user = rng.normal(scale=0.5, size=(GAME_ENTITIES + n_unseen_users,
                                          GAME_RE_DIM))
@@ -2317,6 +2366,26 @@ def write_game_driver_files(td, glog):
              f"writer), {os.path.getsize(paths[name]) / 1e6:.1f} MB")
     unseen = set(user_keys[GAME_ENTITIES:].tolist())
     return paths["train"], paths["validate"], unseen
+
+
+def _write_game_files_worker(td):
+    """The GAME Avro files of phase 7, written in a spawned process (see
+    :func:`start_game_files`); its log lines go to the shared stdout."""
+    write_game_driver_files(
+        td, lambda msg: print(f"game drivers [file writer] {msg}",
+                              flush=True))
+
+
+def start_game_files(td):
+    """Start writing phase 7's GAME Avro files into ``td`` in a spawned
+    process: the pure-Python Avro writer takes ~100 s of host time that
+    phases 2-6 hide, on cores they leave idle.  Phase 7 joins it."""
+    import multiprocessing
+
+    proc = multiprocessing.get_context("spawn").Process(
+        target=_write_game_files_worker, args=(td,), name="game-files")
+    proc.start()
+    return proc
 
 
 def game_driver_config(path, iterations, re_weights=None):
@@ -2422,9 +2491,10 @@ def validation_rescore(coord, state, v_shards, v_ids):
     return (X * W).sum(1)
 
 
-def phase_game_drivers(smi, td):
-    """Phase 7: the GAME drivers at ``bench_game_cd``'s width, its GAME Avro
-    files written into ``td`` (phase 8 reads them again).  Returns
+def phase_game_drivers(smi, td, writer):
+    """Phase 7: the GAME drivers at ``bench_game_cd``'s width, on the GAME
+    Avro files that ``writer`` (:func:`start_game_files`) writes into ``td``
+    (phase 8 reads them again).  Returns
     (validation-shape kernel records, training launches, validation-scoring
     matvec launches, metrics, (train path, validation path))."""
     from photon_ml_tpu_torch.data.game_reader import read_game_avro
@@ -2448,7 +2518,14 @@ def phase_game_drivers(smi, td):
     check(lib is not None, "the native GAME decoder did not build")
     glog(f"native GAME decoder: {lib._name}")
     metrics = {}
-    train, val, unseen = write_game_driver_files(td, glog)
+    t0 = time.perf_counter()
+    writer.join()
+    check(writer.exitcode == 0,
+          f"the GAME file writer exited with {writer.exitcode}")
+    glog(f"waited {time.perf_counter() - t0:.1f} s for the GAME file writer")
+    train, val = (os.path.join(td, f"{n}.avro") for n in ("train",
+                                                          "validate"))
+    unseen = {f"v{i}" for i in range(GAME_UNSEEN_USERS)}
     cfg3 = game_driver_config(os.path.join(td, "cfg3.json"),
                               GAME_DRIVER_ITERS)
     cfg1 = game_driver_config(os.path.join(td, "cfg1.json"), 1)
@@ -2879,6 +2956,720 @@ def phase_game_fallback(smi, td, train, val):
     return launches, d_val, metrics
 
 
+# -- phase 9: out-of-core GLM training -----------------------------------
+
+
+class SpmvTimer:
+    """Within the block, every ``spmv_rows``/``spmv_cols`` call the kernel
+    matrix makes runs between two CUDA events on the current stream;
+    :meth:`ms` sums the launches' device time."""
+
+    def __enter__(self):
+        from photon_ml_tpu_torch.ops import sparse_cuda
+
+        self.events = []
+        self.saved = {name: getattr(sparse_cuda, name)
+                      for name in ("spmv_rows", "spmv_cols")}
+
+        def timed(fn):
+            def run(*a, **kw):
+                start = torch.cuda.Event(enable_timing=True)
+                end = torch.cuda.Event(enable_timing=True)
+                start.record()
+                out = fn(*a, **kw)
+                end.record()
+                self.events.append((start, end))
+                return out
+            return run
+
+        for name, fn in self.saved.items():
+            setattr(sparse_cuda, name, timed(fn))
+        return self
+
+    def __exit__(self, *exc):
+        from photon_ml_tpu_torch.ops import sparse_cuda
+
+        for name, fn in self.saved.items():
+            setattr(sparse_cuda, name, fn)
+        return False
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+class ChunkStepTimer:
+    """Within the block, every ``GlmObjective.raw_value_and_grad`` call (a
+    streamed value pass's work on one chunk, after the compute stream has
+    waited for the chunk's copy) runs between two CUDA events on the
+    current stream; :meth:`ms` sums the steps' spans, an upper bound of the
+    time the card computes in a pass (a span also holds the gaps between
+    its launches)."""
+
+    def __enter__(self):
+        from photon_ml_tpu_torch.optim.objective import GlmObjective
+
+        self.events = []
+        self.saved = GlmObjective.raw_value_and_grad
+        saved, events = self.saved, self.events
+
+        def timed(obj, *a, **kw):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record()
+            out = saved(obj, *a, **kw)
+            end.record()
+            events.append((start, end))
+            return out
+
+        GlmObjective.raw_value_and_grad = timed
+        return self
+
+    def __exit__(self, *exc):
+        from photon_ml_tpu_torch.optim.objective import GlmObjective
+
+        GlmObjective.raw_value_and_grad = self.saved
+        return False
+
+    def ms(self):
+        torch.cuda.synchronize()
+        return sum(a.elapsed_time(b) for a, b in self.events)
+
+
+def streamed_vs_resident(obj, w, data, abs_F, l2, v_s, g_s):
+    """(value error relative to Σ|weight·ℓ| + ½·l2·‖w‖², largest gradient
+    error relative to its Σ|x·u| + l2·|w|) of a streamed (value, grad)
+    against the resident objective at ``w``."""
+    v_r, g_r = obj.value_and_grad(w, data, l2)
+    m = obj.margins(w, data)
+    vscale = (data.weights * obj.loss.value(m, data.labels)).abs().sum() + (
+        0.5 * l2 * torch.dot(w, w))
+    u = (data.weights * obj.loss.d1(m, data.labels)).abs()
+    gscale = abs_F.rmatvec(u) + l2 * w.abs()
+    return (abs(float(v_s) - float(v_r)) / float(vscale),
+            float(((g_s - g_r).abs() / gscale.clamp_min(1e-30)).max()))
+
+
+def bitwise(a, b):
+    return all(torch.equal(x, z) for x, z in zip(a, b))
+
+
+def decode_bounds_hold(codec, bufs, mode):
+    """Chunk ``bufs`` decoded on the card from ``codec``'s wire against its
+    raw leaves: integer and {0,1} leaves exact; float leaves within
+    rtol 1e-3 / atol 1e-4 (fp16) or maxabs/127 + 1e-7 of the leaf (int8).
+    Returns the largest error relative to its bound."""
+    wire = [torch.as_tensor(a, device=DEVICE) for a in codec.encode(bufs)]
+    raw = [torch.as_tensor(np.asarray(a), device=DEVICE) for a in bufs]
+    got = codec.unpack_device(wire)
+    ref = codec.staging.unpack_device(raw)
+    worst = 0.0
+    for name, r in ref.items():
+        g = got[name]
+        check(g.dtype == r.dtype and g.shape == r.shape,
+              f"{mode} decode of {name}: {g.dtype}{tuple(g.shape)}")
+        if r.numel() == 0:
+            continue
+        exact = (not r.is_floating_point()
+                 or bool(((r == 0) | (r == 1)).all()))
+        if exact:
+            check(torch.equal(g, r), f"{mode} decode of {name} not exact")
+            continue
+        r64, g64 = r.double(), g.double()
+        if mode == "fp16":
+            bound = 1e-3 * r64.abs() + 1e-4
+        else:
+            bound = torch.full_like(r64, float(r64.abs().max()) / 127 + 1e-7)
+        worst = max(worst, float(((g64 - r64).abs() / bound).max()))
+    return worst
+
+
+def phase_streaming(smi, bench, data, abs_F, X, lib_metrics):
+    """Phases 9a and 9b: the streamed objective and solvers at full width
+    over phase 3's matrix (2^20 x 8192, 32 normal values a row, seed 0,
+    logistic), built into kernel-layout chunk stores.  Returns (valued
+    main-path launches, metrics, the 4-chunk store)."""
+    from photon_ml_tpu_torch.data.staging import plan_compression
+    from photon_ml_tpu_torch.data.streaming import make_streaming_glm_data
+    from photon_ml_tpu_torch.ops import _kernels, losses
+    from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig
+    from photon_ml_tpu_torch.optim.objective import GlmObjective
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        GlmOptimizationProblem,
+        OptimizerConfig,
+        OptimizerType,
+    )
+    from photon_ml_tpu_torch.optim.regularization import (
+        RegularizationContext,
+    )
+    from photon_ml_tpu_torch.optim.lbfgs import lbfgs_solve
+    from photon_ml_tpu_torch.optim.streaming import (
+        StreamingObjective,
+        streaming_run_grid,
+    )
+
+    def slog(msg):
+        log(f"streaming [{smi}] {msg}")
+
+    t_phase = time.perf_counter()
+    y = bench[3]
+    total = {op: 0 for op in OPS}
+    metrics = {}
+
+    def build(label, n_chunks, **kw):
+        t0 = time.perf_counter()
+        st = make_streaming_glm_data(X, y, chunk_rows=N_ROWS // n_chunks,
+                                     device=DEVICE, **kw)
+        secs = time.perf_counter() - t0
+        check(st.kind == "kernel" and st.n_chunks == n_chunks,
+              f"streaming {label}: {st.n_chunks} {st.kind} chunks")
+        slog(f"{label}: {st.n_chunks} chunks x {st.chunk_rows} rows, "
+             f"{st.nbytes() / 1e9:.4f} GB of host buffers, built in "
+             f"{secs:.2f} s (phase 3's resident build {lib_metrics['build_s']:.2f} "
+             f"s); row groups {sorted({c.meta['row_group'] for c in st.chunks})}"
+             f", column groups {sorted({c.meta['col_group'] for c in st.chunks})}")
+        return st, secs
+
+    def main_path(label, fn, sobjs):
+        """One main-path run under zeroed launch counters."""
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        passes0 = [o.transfer_stats.passes for o in sobjs]
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {op: _kernels.LAUNCHES[op] for op in OPS}
+        for op in OPS:
+            total[op] += launches[op]
+        passes = sum(o.transfer_stats.passes - p
+                     for o, p in zip(sobjs, passes0))
+        check(launches["matvec"] > 0 and launches["rmatvec"] > 0,
+              f"streaming {label}: matvec/rmatvec never launched")
+        slog(f"{label}: wall {wall:.3f} s, {passes} passes, launches "
+             f"{json.dumps({k: v for k, v in launches.items() if v})} "
+             f"({launches['matvec'] / max(passes, 1):.2f} spmv_rows and "
+             f"{launches['rmatvec'] / max(passes, 1):.2f} spmv_cols "
+             "launches a pass)")
+        return out, wall, passes
+
+    # -- 9a: the streamed objective ----------------------------------------
+    store, build_s = build("store", STREAM_CHUNKS)
+    metrics["build_s"] = build_s
+    obj = GlmObjective(losses.get("logistic"))
+    gen = torch.Generator(device=DEVICE).manual_seed(17)
+    w = torch.randn(N_FEATURES, device=DEVICE, generator=gen) * 0.05
+    l2 = 1.0
+    s2 = StreamingObjective(obj, store, prefetch_depth=2)
+    vg2, _, _ = main_path("9a value+grad (depth 2)",
+                          lambda: s2.value_and_grad(w, l2), [s2])
+    val_err, grad_err = streamed_vs_resident(obj, w, data, abs_F, l2, *vg2)
+    check(val_err <= RTOL and grad_err <= RTOL,
+          f"streaming: value {val_err:.3g} / gradient {grad_err:.3g} "
+          "against the resident objective")
+    slog(f"9a against phase 3's resident objective: value rel err "
+         f"{val_err:.3g}, gradient err {grad_err:.3g} of Σ|x·u| (rtol "
+         f"{RTOL:g})")
+    s1 = StreamingObjective(obj, store, prefetch_depth=1)
+    vg1, _, _ = main_path("9a value+grad (depth 1)",
+                          lambda: s1.value_and_grad(w, l2), [s1])
+    check(bitwise(vg1, vg2), "streaming: depth 1 != depth 2 bitwise")
+    sf = StreamingObjective(obj, store, chunk_fuse=2)
+    vgf, _, _ = main_path("9a value+grad (fuse 2)",
+                          lambda: sf.value_and_grad(w, l2), [sf])
+    check(bitwise(vgf, vg2), "streaming: fuse 2 != fuse 1 bitwise")
+    ws = torch.stack([w, 0.5 * w, w + 0.01 * torch.randn(
+        N_FEATURES, device=DEVICE, generator=gen)])
+    vb, gb = main_path("9a value+grad batch (3 candidates)",
+                       lambda: s2.value_and_grad_batch(ws, l2), [s2])[0]
+    for i in range(3):
+        vi, gi = s2.value_and_grad(ws[i], l2)
+        check(torch.equal(vb[i], vi) and torch.equal(gb[i], gi),
+              f"streaming: batched row {i} != its single evaluation")
+    slog("9a bitwise: depth 1 = depth 2, fuse 2 = fuse 1, each batched "
+         "row = its single evaluation")
+    disk_dir = tempfile.mkdtemp(prefix="photon_stream_store_")
+    try:
+        disk, _ = build("disk store (memmaps)", STREAM_CHUNKS,
+                        storage_dir=disk_dir)
+        sd = StreamingObjective(obj, disk)
+        vgd, _, _ = main_path("9a value+grad (disk store)",
+                              lambda: sd.value_and_grad(w, l2), [sd])
+        check(bitwise(vgd, vg2), "streaming: disk store != RAM store")
+        slog(f"9a disk store = RAM store bitwise; disk pass pack "
+             f"{sd.transfer_stats.pack_seconds:.3f} s")
+        del sd, disk
+    finally:
+        shutil.rmtree(disk_dir, ignore_errors=True)
+    # Kahan and float32 accumulation against a float64 host value.
+    X64 = X.astype(np.float64)
+    w64 = w.double().cpu().numpy()
+    m64 = X64 @ w64
+    v64 = float(np.sum(np.logaddexp(0.0, m64) - y.astype(np.float64) * m64)
+                + 0.5 * l2 * w64 @ w64)
+    del X64, m64
+    sk = StreamingObjective(obj, store, accumulate="kahan")
+    vk = main_path("9a value+grad (kahan)",
+                   lambda: sk.value_and_grad(w, l2), [sk])[0][0]
+    err_k = abs(float(vk) - v64) / abs(v64)
+    err_f = abs(float(vg2[0]) - v64) / abs(v64)
+    check(err_k <= 1e-6, f"streaming: kahan value {err_k:.3g} from f64")
+    slog(f"9a value against a float64 host sum: kahan {err_k:.3g}, f32 "
+         f"{err_f:.3g} relative (bound 1e-6)")
+
+    # Rates: the streamed pass beside the resident one, per-stage wall.
+    def timed_passes(sobj, label):
+        sobj.transfer_stats.reset()
+        times = []
+
+        def run():
+            for _ in range(STREAM_TIMED_PASSES):
+                torch.cuda.synchronize()
+                t0 = time.perf_counter()
+                sobj.value_and_grad(w, l2)
+                torch.cuda.synchronize()
+                times.append(time.perf_counter() - t0)
+
+        main_path(label, run, [sobj])
+        st = sobj.transfer_stats
+        n = st.passes
+        pass_s = sorted(times)[len(times) // 2]
+        rec = dict(pass_ms=1e3 * pass_s, rows_per_s=N_ROWS / pass_s,
+                   h2d_gbps=st.gbps,
+                   chunk_bytes=st.bytes / max(st.chunks, 1),
+                   pack_ms=1e3 * st.pack_seconds / n,
+                   h2d_ms=1e3 * st.h2d_seconds / n,
+                   h2d_device_ms=1e3 * st.h2d_device_seconds / n,
+                   consume_ms=1e3 * st.consume_seconds / n,
+                   consumer_stalls=st.consumer_stalls / n,
+                   consumer_stall_ms=1e3 * st.consumer_stall_seconds / n,
+                   producer_stalls=st.producer_stalls / n,
+                   producer_stall_ms=1e3 * st.producer_stall_seconds / n,
+                   pack_stalls=st.pack_stalls / n,
+                   pack_stall_ms=1e3 * st.pack_stall_seconds / n)
+        slog(f"{label}: median pass {rec['pass_ms']:.2f} ms = "
+             f"{rec['rows_per_s']:.4g} rows/s ({rec['rows_per_s'] / lib_metrics['rows_per_s']:.4f} "
+             f"of the resident {lib_metrics['rows_per_s']:.4g}); H2D "
+             f"{rec['h2d_gbps']:.2f} GB/s over CUDA events, "
+             f"{rec['chunk_bytes'] / 1e6:.1f} MB a transfer; per pass: pack "
+             f"{rec['pack_ms']:.2f} ms, h2d {rec['h2d_ms']:.2f} ms (copy "
+             f"{rec['h2d_device_ms']:.2f} ms), consume "
+             f"{rec['consume_ms']:.2f} ms, consumer stalls "
+             f"{rec['consumer_stalls']:.2f} ({rec['consumer_stall_ms']:.2f} "
+             f"ms), producer stalls {rec['producer_stalls']:.2f} "
+             f"({rec['producer_stall_ms']:.2f} ms), pack waits for a pinned "
+             f"slot {rec['pack_stalls']:.2f} ({rec['pack_stall_ms']:.2f} ms)")
+        return rec
+
+    for depth in (1, 2):
+        so = s1 if depth == 1 else s2
+        metrics[f"depth{depth}"] = timed_passes(
+            so, f"9a timed passes (depth {depth})")
+    with SpmvTimer() as timer, ChunkStepTimer() as steps:
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        s2.value_and_grad(w, l2)
+        torch.cuda.synchronize()
+        pass_ms = 1e3 * (time.perf_counter() - t0)
+    spmv_ms = timer.ms()
+    step_ms = steps.ms()
+    metrics["spmv_ms_per_pass"] = spmv_ms
+    metrics["spmv_share"] = spmv_ms / pass_ms
+    metrics["chunk_steps_ms_per_pass"] = step_ms
+    metrics["compute_share"] = step_ms / pass_ms
+    slog(f"9a SpMV launches of one depth-2 pass under CUDA events: "
+         f"{len(timer.events)} launches, {spmv_ms:.3f} ms of a "
+         f"{pass_ms:.2f} ms pass ({100 * spmv_ms / pass_ms:.1f} %); the "
+         f"{len(steps.events)} chunk steps' spans on the compute stream "
+         f"{step_ms:.3f} ms ({100 * step_ms / pass_ms:.1f} % busy at most, "
+         f"compute stream idle {100 * (1 - step_ms / pass_ms):.1f} % at "
+         "least)")
+
+    # The oversubscribed leg: 16 chunks, lossless wire, hot cache at 0.7 of
+    # the wire store, bitwise equal to the raw stream.
+    store16, _ = build("oversubscribed store", STREAM_OVERSUB_CHUNKS)
+    t0 = time.perf_counter()
+    wire_total = sum(plan_compression(st, [b], "lossless").wire_nbytes
+                     for st, b in zip(store16.staging, store16.staged))
+    raw16 = StreamingObjective(obj, store16)
+    ta = StreamingObjective(obj, store16, compress="lossless",
+                            hot_budget_bytes=int(STREAM_HOT_FRACTION
+                                                 * wire_total))
+    slog(f"9a oversubscribed: lossless codecs planned and encoded in "
+         f"{time.perf_counter() - t0:.2f} s; wire {wire_total / 1e9:.4f} GB "
+         f"(ratio {ta.compression_ratio:.4f}), hot budget "
+         f"{ta.hot_budget_bytes / 1e9:.4f} GB")
+    for k in range(3):
+        vr, _, _ = main_path(f"9a oversubscribed raw pass {k + 1}",
+                             lambda: raw16.value_and_grad(w, l2), [raw16])
+        ta_chunks = ta.transfer_stats.chunks
+        ta_bytes = ta.transfer_stats.bytes
+        vt, wall, _ = main_path(
+            f"9a oversubscribed lossless+hot pass {k + 1}",
+            lambda: ta.value_and_grad(w, l2), [ta])
+        check(bitwise(vr, vt), f"streaming: lossless+hot pass {k + 1} != "
+              "the raw stream bitwise")
+        slog(f"9a oversubscribed pass {k + 1}: {ta.transfer_stats.chunks - ta_chunks} "
+             f"transfers, {(ta.transfer_stats.bytes - ta_bytes) / 1e6:.1f} MB "
+             f"on the wire, cache hits {ta._hot_cache.hits}, resident "
+             f"{ta._hot_cache.resident_bytes / 1e6:.1f} MB; bitwise equal to "
+             f"the raw stream")
+    check(ta._hot_cache.hits > 0, "streaming: the hot cache never hit")
+    metrics["compression_ratio"] = ta.compression_ratio
+    metrics["oversub_raw"] = timed_passes(raw16, "9a oversubscribed raw")
+    metrics["oversub_hot"] = timed_passes(ta, "9a oversubscribed "
+                                              "lossless+hot")
+    del ta, raw16
+    for mode in ("fp16", "int8"):
+        codec = plan_compression(store16.staging[0], [store16.staged[0]],
+                                 mode)
+        worst = decode_bounds_hold(codec, store16.staged[0], mode)
+        check(worst <= 1.0, f"streaming: {mode} decode {worst:.3g} x its "
+              "bound")
+        slog(f"9a {mode}: chunk 0 decoded on the card within {worst:.3f} of "
+             f"its bound (kinds {codec.kinds}, ratio {codec.ratio:.3f})")
+    del store16
+
+    # -- 9b: streamed solvers ----------------------------------------------
+    def problem(reg, optimizer=OptimizerType.LBFGS, tol=1e-7, max_iters=30,
+                accumulate="f32", variances=False):
+        return GlmOptimizationProblem("logistic", GlmOptimizationConfig(
+            optimizer=OptimizerConfig(optimizer=optimizer,
+                                      max_iters=max_iters, tolerance=tol),
+            regularization=reg, compute_variances=variances),
+            accumulate=accumulate)
+
+    # L2 L-BFGS over phase 3's grid and config, against its objectives.
+    p3 = problem(RegularizationContext.l2(), variances=True)
+    so3 = StreamingObjective(p3.objective, store)
+    grid, wall, passes = main_path(
+        "9b L-BFGS L2 grid", lambda: streaming_run_grid(
+            p3, so3, list(GRID)), [so3])
+    for lam, model, res in grid:
+        value = float(res.values[res.iterations])
+        gap = abs(value - lib_metrics["grid_values"][lam]) / abs(value)
+        check(gap <= 1e-5, f"streaming λ={lam}: objective {value} vs "
+              f"resident {lib_metrics['grid_values'][lam]} ({gap:.3g})")
+        var = model.coefficients.variances
+        check(bool(torch.isfinite(var).all() and (var > 0).all()),
+              f"streaming λ={lam}: variances")
+        slog(f"9b L-BFGS λ={lam:g}: {res.iterations} iterations, converged "
+             f"{res.converged}, objective {value:.9g} vs resident "
+             f"{lib_metrics['grid_values'][lam]:.9g} (gap {gap:.3g})")
+    metrics["lbfgs_grid"] = dict(wall_s=wall, passes=passes, iterations=[
+        res.iterations for _, _, res in grid])
+
+    # Elastic-net OWL-QN over phase 3b's α and λs, its KKT conditions.
+    alpha = 0.5
+    obj0 = problem(RegularizationContext.l2(), accumulate="f64").objective
+    _, g0 = obj0.value_and_grad(torch.zeros(N_FEATURES, device=DEVICE), data)
+    lam_max = float(torch.quantile(g0.abs(), 0.5)) / alpha
+    en_grid = [lam_max, lam_max / 10, lam_max / 100]
+    en = problem(RegularizationContext.elastic_net(alpha),
+                 tol=OWLQN_TOL, max_iters=200, accumulate="f64")
+    soe = StreamingObjective(en.objective, store)
+    out, wall, passes = main_path(
+        "9b OWL-QN elastic-net grid", lambda: streaming_run_grid(
+            en, soe, en_grid), [soe])
+    w_prev = None
+    en_recs = []
+    for lam, _, res in out:
+        l1 = float(np.float32(alpha) * np.float32(lam))
+        l2e = float(np.float32(1 - alpha) * np.float32(lam))
+        half_p = problem(RegularizationContext.elastic_net(alpha),
+                         tol=OWLQN_TOL, max_iters=res.iterations // 2,
+                         accumulate="f64")
+        half = streaming_run_grid(half_p, soe, [lam], w0=w_prev)[0][2]
+        full = kkt_residuals(res, en.objective, data, l1, l2e)
+        cut = kkt_residuals(half, en.objective, data, l1, l2e)
+        zeros = int((res.w == 0).sum())
+        slog(f"9b OWL-QN λ={lam:.6g}: {res.iterations} iterations, "
+             f"converged {res.converged}, {zeros} zeros; KKT |g|/λ1 at zeros "
+             f"{full[0]:.6g} (<= {1 + KKT_ZERO:g}), decrement {full[2]:.3g} "
+             f"(<= {KKT_DECREMENT:g}); stopped after {half.iterations}: "
+             f"{cut[0]:.6g}, {cut[2]:.3g}")
+        check(res.converged and kkt_holds(full),
+              f"streaming OWL-QN λ={lam}: KKT {full}")
+        check(not kkt_holds(cut),
+              f"streaming OWL-QN λ={lam}: the half solve passes the KKT "
+              "check")
+        en_recs.append(dict(lam=lam, iterations=res.iterations,
+                            zeros=zeros))
+        w_prev = res.w
+    check(en_recs[0]["zeros"] >= N_FEATURES // 10,
+          "streaming OWL-QN: the largest λ zeroes too few coefficients")
+    metrics["owlqn_grid"] = dict(wall_s=wall, passes=passes, grid=en_recs)
+
+    # L-BFGS at λ = 1, one trial a pass and batched: the same iterations
+    # and bitwise the same w in no more passes; TRON lands on its value.
+    lb = problem(RegularizationContext.l2(), tol=SOLVE_TOL, max_iters=300,
+                 accumulate="f64")
+    sol = StreamingObjective(lb.objective, store)
+    cfg = LBFGSConfig(max_iters=300, tolerance=SOLVE_TOL)
+    w0 = torch.zeros(N_FEATURES, device=DEVICE)
+    seq, wall_seq, passes_seq = main_path(
+        "9b L-BFGS λ=1, one trial a pass", lambda: lbfgs_solve(
+            lambda v: sol.value_and_grad(v, 1.0), w0, cfg), [sol])
+    bat, wall_bat, passes_bat = main_path(
+        "9b L-BFGS λ=1, batched line search", lambda: lbfgs_solve(
+            lambda v: sol.value_and_grad(v, 1.0), w0, cfg,
+            value_and_grad_batch=lambda ws: sol.value_and_grad_batch(
+                ws, 1.0)), [sol])
+    check(bat.iterations == seq.iterations and torch.equal(bat.w, seq.w),
+          f"streaming: batched line search {bat.iterations} iterations vs "
+          f"{seq.iterations}, w bitwise {torch.equal(bat.w, seq.w)}")
+    check(passes_bat <= passes_seq,
+          f"streaming: batched {passes_bat} passes > {passes_seq}")
+    slog(f"9b batched line search: {seq.iterations} iterations both, w "
+         f"bitwise equal; passes a solve {passes_seq} -> {passes_bat} "
+         f"({passes_seq / max(seq.iterations, 1):.2f} -> "
+         f"{passes_bat / max(bat.iterations, 1):.2f} an iteration); wall "
+         f"{wall_seq:.2f} -> {wall_bat:.2f} s")
+    tp = problem(RegularizationContext.l2(), OptimizerType.TRON,
+                 tol=SOLVE_TOL, max_iters=100, accumulate="f64")
+    sot = StreamingObjective(tp.objective, store)
+    tron, wall_t, passes_t = main_path(
+        "9b TRON λ=1", lambda: streaming_run_grid(
+            tp, sot, [1.0])[0][2], [sot])
+    gap = abs(float(tron.value) - float(bat.value)) / abs(float(bat.value))
+    check(tron.converged and gap <= 1e-5,
+          f"streaming TRON: objective gap {gap:.3g} to L-BFGS, converged "
+          f"{tron.converged}")
+    slog(f"9b TRON λ=1: {tron.iterations} iterations, converged, "
+         f"{passes_t} passes ({passes_t - tron.iterations - 1} HVP passes, "
+         f"{(passes_t - tron.iterations - 1) / max(tron.iterations, 1):.2f} "
+         f"an iteration), objective gap to L-BFGS {gap:.3g}")
+    metrics["batched"] = dict(iterations=seq.iterations, passes_seq=passes_seq,
+                              passes_bat=passes_bat, wall_seq_s=wall_seq,
+                              wall_bat_s=wall_bat)
+    metrics["tron"] = dict(iterations=tron.iterations, passes=passes_t,
+                           wall_s=wall_t, gap=gap)
+    slog(f"phase 9a-9b: {time.perf_counter() - t_phase:.1f} s wall; "
+         f"launches {json.dumps(total)}")
+    return total, metrics
+
+
+def _solves_from_log(out):
+    """Per-λ (final objective, iterations) from the GLM driver's log."""
+    with open(os.path.join(out, "photon.log")) as f:
+        return {float(m.group(1)): (float(m.group(2)), int(m.group(3)))
+                for m in re.finditer(
+                    r"lambda=([0-9.e+-]+): value=(\S+) iters=(\d+)",
+                    f.read())}
+
+
+def _files(root, prefix=""):
+    """Every file under ``root`` whose name starts with ``prefix``, by
+    relative path, as bytes."""
+    out = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            if name.startswith(prefix):
+                path = os.path.join(dirpath, name)
+                with open(path, "rb") as f:
+                    out[os.path.relpath(path, root)] = f.read()
+    return out
+
+
+def phase_stream_drivers(smi, files, drv_runs, game_td, game_files):
+    """Phase 9c: the GLM driver's streamed route on phase 4's LIBSVM files
+    (4 chunks of 32,768 rows from a disk store), its --initial-model,
+    --training-report and --max-retries, and the GAME training driver's
+    --max-retries on phase 7's files.  Returns (binary launches, GAME-shape
+    launches, metrics)."""
+    from photon_ml_tpu_torch.data.index_map import IndexMap
+    from photon_ml_tpu_torch.data.libsvm import read_libsvm
+    from photon_ml_tpu_torch.drivers import glm_driver, game_training_driver
+    from photon_ml_tpu_torch.evaluation.evaluators import (
+        AreaUnderROCCurveEvaluator,
+    )
+    from photon_ml_tpu_torch.game import descent
+    from photon_ml_tpu_torch.io.model_store import load_glm_model
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.optim import lbfgs as port_lbfgs
+
+    def slog(msg):
+        log(f"stream drivers [{smi}] {msg}")
+
+    t_phase = time.perf_counter()
+    train, val = files
+    td = os.path.dirname(train)
+    X_val, y_val = read_libsvm(val, n_features=N_FEATURES,
+                               add_intercept=True, drop_out_of_range=True)
+    total = {}
+    metrics = {}
+
+    def run(label, flags, grid="0.1,1,10"):
+        out = os.path.join(td, "stream_" + label.replace(" ", "_"))
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        res = glm_driver.run([
+            "--train-data", train, "--validate-data", val,
+            "--output-dir", out, "--task", "logistic", *flags,
+            "--reg-weights", grid, "--max-iters", "50",
+            "--n-features", str(N_FEATURES), "--device", DEVICE,
+            "--stream-chunk-rows", str(STREAM_DRIVER_CHUNK_ROWS),
+            "--stream-storage-dir", os.path.join(out, "store")])
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = dict(_kernels.LAUNCHES)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        st = res["streaming"]
+        passes = st["transfer"]["passes"]
+        check(st["chunks"] == DRIVER_TRAIN_ROWS // STREAM_DRIVER_CHUNK_ROWS
+              and st["disk"] and st["layout"] == "kernel",
+              f"stream driver {label}: store {st}")
+        check(launches["matvec_unit"] > 0 and launches["rmatvec_unit"] > 0,
+              f"stream driver {label}: the SpMV kernels never launched")
+        slog(f"{label}: {wall:.2f} s end to end (store built in "
+             f"{st['build_seconds']:.2f} s), selected λ="
+             f"{res['best_lambda']:g}, AUCs {res['metrics']}; {passes} "
+             f"passes, launches "
+             f"{json.dumps({k: v for k, v in launches.items() if v})} "
+             f"({launches['matvec_unit'] / max(passes, 1):.2f} spmv_rows and "
+             f"{launches['rmatvec_unit'] / max(passes, 1):.2f} spmv_cols a "
+             f"pass); H2D {st['transfer']['gbps']:.2f} GB/s")
+        metrics[label] = dict(wall_s=wall, passes=passes,
+                              build_s=st["build_seconds"])
+        return res, out
+
+    def rescored(res, out):
+        imap = IndexMap.load(out)
+        for lam, auc in res["metrics"].items():
+            model, _ = load_glm_model(
+                os.path.join(out, f"model_lambda_{float(lam):g}.avro"),
+                index_map=imap, device=DEVICE)
+            w = model.coefficients.means.cpu().numpy().astype(np.float64)
+            host = AreaUnderROCCurveEvaluator().evaluate(X_val @ w, y_val)
+            check(abs(auc - host) <= 1e-6,
+                  f"stream driver: λ={lam} AUC {auc} vs host {host}")
+
+    # The streamed L2 and elastic-net runs select the resident runs' λ;
+    # every saved model's AUC equals a host re-score.
+    l2, l2_out = run("l2", ["--reg-type", "l2", "--output-mode", "all",
+                            "--training-report"])
+    en, en_out = run("elastic_net", ["--reg-type", "elastic_net",
+                                     "--optimizer", "owlqn",
+                                     "--output-mode", "all"])
+    for label, res, out in (("l2", l2, l2_out), ("elastic_net", en, en_out)):
+        resident = drv_runs[label][1]
+        check(res["best_lambda"] == resident["best_lambda"],
+              f"stream driver {label}: λ {res['best_lambda']} vs the "
+              f"resident run's {resident['best_lambda']}")
+        rescored(res, out)
+        slog(f"{label}: selects the resident run's λ={res['best_lambda']:g}"
+             f" (resident AUCs {resident['metrics']}); every saved model's "
+             "AUC = its host re-score within 1e-6")
+    rep = json.load(open(os.path.join(l2_out, "report.json")))
+    for kind in ("convergence", "metric", "calibration",
+                 "feature_importance"):
+        lams = sorted(s_["lambda"] for s_ in rep["sections"]
+                      if s_["kind"] == kind)
+        check(lams == [0.1, 1.0, 10.0], f"training report {kind}: {lams}")
+    check(os.path.getsize(os.path.join(l2_out, "report.html")) > 0,
+          "training report: no report.html")
+    slog("--training-report: report.json and report.html carry every λ")
+
+    # --initial-model: phase 4's L2 model warm-starts its own λ.
+    best = drv_runs["l2"][1]["best_lambda"]
+    init = os.path.join(drv_runs["l2"][0], f"model_lambda_{best:g}.avro")
+    _, cold_out = run("cold", ["--reg-type", "l2"], grid=f"{best:g}")
+    _, warm_out = run("initial_model", ["--reg-type", "l2",
+                                        "--initial-model", init],
+                      grid=f"{best:g}")
+    (f_c, it_c), (f_w, it_w) = (_solves_from_log(o)[best]
+                                for o in (cold_out, warm_out))
+    gap = abs(f_w - f_c) / abs(f_c)
+    check(it_w < it_c and gap <= 1e-5,
+          f"--initial-model: {it_w} iterations vs cold {it_c}, objective "
+          f"gap {gap:.3g}")
+    slog(f"--initial-model λ={best:g}: {it_w} iterations vs cold {it_c}, "
+         f"objective {f_w:.9g} vs {f_c:.9g} (gap {gap:.3g})")
+    metrics["initial_model"] = dict(iterations=it_w, cold_iterations=it_c,
+                                    gap=gap)
+
+    # --max-retries: one transport-style failure injected into the second
+    # λ's solve; the retried run's models equal the uninterrupted run's.
+    orig = port_lbfgs.lbfgs_solve
+    calls = []
+
+    def flaky(*a, **kw):
+        calls.append(1)
+        if len(calls) == 2:
+            raise RuntimeError("UNAVAILABLE: injected transport drop")
+        return orig(*a, **kw)
+
+    port_lbfgs.lbfgs_solve = flaky
+    try:
+        retried, retry_out = run("retried", [
+            "--reg-type", "l2", "--output-mode", "all", "--max-retries", "1",
+            "--retry-backoff", "0"])
+    finally:
+        port_lbfgs.lbfgs_solve = orig
+    with open(os.path.join(retry_out, "training_result.json")) as f:
+        saved = json.load(f)
+    check(saved.get("retry", {}).get("retries") == 1 and len(calls) == 4,
+          f"--max-retries: retry record {saved.get('retry')}, "
+          f"{len(calls)} solves")
+    check(_files(retry_out, "model_lambda_") == _files(l2_out,
+                                                       "model_lambda_"),
+          "--max-retries: the retried run's model files differ from the "
+          "uninterrupted run's")
+    slog(f"--max-retries: {saved['retry']['failures'][0]['message']!r} "
+         f"retried once (the first λ restored from its checkpoint, "
+         f"{len(calls) - 2} solves after the failure); model files "
+         "byte-equal to the uninterrupted run's")
+
+    # The GAME training driver: one failure in its second CD iteration.
+    gtrain, gval = game_files
+    orig_run = descent.CoordinateDescent.run
+    cd_calls = []
+
+    def flaky_cd(self, base_offsets, n_iterations=1, checkpointer=None,
+                 **kw):
+        cd_calls.append(1)
+        if len(cd_calls) == 1:
+            orig_run(self, base_offsets, n_iterations=1,
+                     checkpointer=checkpointer, **kw)
+            raise RuntimeError("UNAVAILABLE: injected transport drop")
+        return orig_run(self, base_offsets, n_iterations=n_iterations,
+                        checkpointer=checkpointer, **kw)
+
+    descent.CoordinateDescent.run = flaky_cd
+    gout = os.path.join(game_td, "retried")
+    try:
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        gres = game_training_driver.run([
+            "--train-data", gtrain, "--validate-data", gval, "--config",
+            os.path.join(game_td, "cfg3.json"), "--output-dir", gout,
+            "--max-retries", "1", "--retry-backoff", "0",
+            "--device", DEVICE])
+        torch.cuda.synchronize()
+        gwall = time.perf_counter() - t0
+        game_launches = {op: _kernels.LAUNCHES[op]
+                         for op in ("matvec", "rmatvec")}
+    finally:
+        descent.CoordinateDescent.run = orig_run
+    check(gres.get("retry", {}).get("retries") == 1 and len(cd_calls) == 2,
+          f"GAME --max-retries: retry record {gres.get('retry')}")
+    check(_files(os.path.join(gout, "models"))
+          == _files(os.path.join(game_td, "full", "models")),
+          "GAME --max-retries: model files differ from phase 7's "
+          "uninterrupted run")
+    slog(f"GAME training driver --max-retries: one failure after iteration "
+         f"1, resumed from the CD checkpoint; {gwall:.2f} s; model files "
+         f"byte-equal to phase 7's uninterrupted run; launches "
+         f"{json.dumps(game_launches)}")
+    metrics["game_retry_wall_s"] = gwall
+    slog(f"phase 9c: {time.perf_counter() - t_phase:.1f} s wall")
+    return total, game_launches, metrics
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -2889,20 +3680,51 @@ def main() -> int:
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
 
+    td = tempfile.mkdtemp(prefix="photon_game_drivers_")
+    writer = start_game_files(td)
+    try:
+        return _main_from_phase2(smi, t_start, td, writer)
+    finally:
+        if writer.is_alive():
+            writer.terminate()
+        writer.join()
+        shutil.rmtree(td, ignore_errors=True)
+
+
+def _main_from_phase2(smi, t_start, td, writer):
     bench = bench_triples()
     log("phase 2: kernel against plain version")
     kern = phase_kernels(bench)
     log("phase 3: library boundary")
-    lib_launches, lib_metrics, (data, plain_data, abs_F) = phase_library(bench)
+    lib_launches, lib_metrics, (data, plain_data, abs_F, X) = \
+        phase_library(bench)
     log("phase 3b: solvers")
     sol_launches, sol_records = phase_solvers(data, plain_data, abs_F,
                                               bench[4], kern)
-    # The valued kernels' main-path launches: phase 3's and phase 3b's.
-    val_launches = {op: lib_launches[op] + sol_launches[op] for op in OPS}
-    del bench, data, plain_data, abs_F
+    del plain_data
     torch.cuda.empty_cache()
+    log("phase 9a-9b: out-of-core objective and solvers (run here, on "
+        "phase 3's matrix)")
+    stream_launches, stream_metrics = phase_streaming(
+        smi, bench, data, abs_F, X, lib_metrics)
+    # The valued kernels' main-path launches: phases 3, 3b, 9a and 9b.
+    val_launches = {op: lib_launches[op] + sol_launches[op]
+                    + stream_launches[op] for op in OPS}
+    del bench, data, abs_F, X
+    torch.cuda.empty_cache()
+    drv_td = tempfile.mkdtemp(prefix="photon_glm_driver_")
+    try:
+        return _main_from_phase4(smi, t_start, kern, lib_metrics,
+                                 sol_records, stream_metrics, val_launches,
+                                 drv_td, td, writer)
+    finally:
+        shutil.rmtree(drv_td, ignore_errors=True)
+
+
+def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
+                      stream_metrics, val_launches, drv_td, td, writer):
     log("phase 4: driver")
-    drv_launches = phase_driver()
+    drv_launches, drv_files, drv_runs = phase_driver(drv_td)
     torch.cuda.empty_cache()
     log("phase 5: experiments")
     exp, abl_launches = phase_experiments()
@@ -2910,21 +3732,25 @@ def main() -> int:
     log("phase 6: GAME coordinate descent")
     kern_game, game_launches, game_metrics = phase_game(smi)
     torch.cuda.empty_cache()
-    td = tempfile.mkdtemp(prefix="photon_game_drivers_")
-    try:
-        log("phase 7: GAME drivers")
-        kern_val, drv_train, drv_val, drv_metrics, (train, val) = \
-            phase_game_drivers(smi, td)
-        torch.cuda.empty_cache()
-        log("phase 8: GAME fallback and factored random effects")
-        fb_train, fb_val, fb_metrics = phase_game_fallback(smi, td, train,
-                                                           val)
-    finally:
-        shutil.rmtree(td, ignore_errors=True)
-    # The .game records count phase 6's, 7's and 8's training launches;
-    # .game_val phase 7's and 8's validation scoring.
+    log("phase 7: GAME drivers")
+    kern_val, drv_train, drv_val, drv_metrics, (train, val) = \
+        phase_game_drivers(smi, td, writer)
+    torch.cuda.empty_cache()
+    log("phase 8: GAME fallback and factored random effects")
+    fb_train, fb_val, fb_metrics = phase_game_fallback(smi, td, train, val)
+    torch.cuda.empty_cache()
+    log("phase 9c: the drivers' streamed route, initial models, reports "
+        "and retries")
+    sd_launches, sd_game, sd_metrics = phase_stream_drivers(
+        smi, drv_files, drv_runs, td, (train, val))
+    stream_metrics["drivers"] = sd_metrics
+    # The binary records count phase 4's and 9c's GLM driver launches.
+    drv_launches = {k: drv_launches.get(k, 0) + sd_launches.get(k, 0)
+                    for k in set(drv_launches) | set(sd_launches)}
+    # The .game records count phase 6's, 7's, 8's and 9c's training
+    # launches; .game_val phase 7's and 8's validation scoring.
     game_launches = {op: game_launches[op] + drv_train[op] + fb_train[op]
-                     for op in ("matvec", "rmatvec")}
+                     + sd_game[op] for op in ("matvec", "rmatvec")}
     drv_val += fb_val
 
     log("not on the main path (no caller in the GLM slice), checked in "
@@ -2995,7 +3821,8 @@ def main() -> int:
         f"{json.dumps({k: r['wall_s'] for k, r in sol_records.items()})}; "
         f"GAME: {json.dumps(game_metrics)}; GAME drivers: "
         f"{json.dumps(drv_metrics)}; GAME fallback and factored: "
-        f"{json.dumps(fb_metrics)}; "
+        f"{json.dumps(fb_metrics)}; out-of-core: "
+        f"{json.dumps(stream_metrics)}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -1,0 +1,451 @@
+"""Bounded-depth background prefetch for host→device chunk streams (port of
+``photon_ml_tpu/data/prefetch.py``).
+
+A three-stage software pipeline, as in the reference:
+
+    pack thread:      get_item(k) ──bounded hand-off queue──►
+    transfer thread:  put(item) → [wait for the copy to complete] ──►
+    caller thread:    queue → consume(k, dev) → release permit
+
+Pack and transfer are separate threads, so chunk k+1's host copy runs
+while chunk k's bytes cross the link.  A hand-off queue of ``depth`` items
+bounds how far the packer runs ahead, and a semaphore of ``depth`` permits
+bounds the device items that are live (transferred, not yet consumed):
+``depth=2`` is the double buffer, ``depth=1`` serialises transfer and
+compute (the measurement baseline).
+
+On the card, :class:`HostToDevice` supplies the three stages:
+
+- ``pack`` (pack thread) copies an item's numpy arrays into one of a ring
+  of ``depth`` pinned host slots, one pinned buffer per dtype sized to the
+  largest item (pinning every chunk every pass would cost more than the
+  copy, and memmap leaves cannot be pinned).  These are a few large
+  ``np.copyto`` calls, which release the interpreter lock.  A slot is
+  reused only after the event of its last copy has completed;
+- ``put`` (transfer thread) issues one ``copy_(non_blocking=True)`` per
+  dtype on a dedicated copy stream, between two timing events; the
+  transfer thread then waits for the end event (so ``depth`` bounds the
+  bytes in flight and the time is the copy's own), and frees the slot;
+- ``ready`` (caller thread) makes the compute stream wait on that event
+  and records the buffers as used by the compute stream
+  (``record_stream``), so the caching allocator cannot hand their memory
+  to a later chunk's copy while kernels still read it.
+
+On the CPU the same pipeline runs with a plain host copy as its transfer.
+
+Every transfer is timed to completion, and :class:`TransferStats`
+attributes wall time to the stages as the reference defines them
+(``pack_seconds``, ``dispatch_seconds`` ⊂ ``h2d_seconds``,
+``consume_seconds``, the two stall counters), plus a third stall counter
+for the pack's wait on a free pinned slot, which ``pack_seconds`` leaves
+out so that it is the host copy alone; on the card
+``h2d_device_seconds`` is the copies' time between their CUDA events on
+the copy stream, and :attr:`TransferStats.gbps` is measured against it.
+"""
+
+from __future__ import annotations
+
+import dataclasses
+import queue
+import sys
+import threading
+import time
+from typing import Callable, Optional
+
+import numpy as np
+import torch
+
+from photon_ml_tpu_torch.data.staging import torch_dtype
+
+#: how long the caller waits for the background threads after a pass (a
+#: healthy pipeline joins in microseconds; this bounds a wedged thread).
+JOIN_TIMEOUT_SECONDS = 30.0
+
+_POLL_SECONDS = 0.05
+
+
+@dataclasses.dataclass
+class TransferStats:
+    """Cumulative host→device transfer observability for one stream,
+    aggregated across passes (``reset()`` between measurement windows)."""
+
+    chunks: int = 0  # transfers completed
+    bytes: int = 0  # wire bytes moved (what crossed the link)
+    logical_bytes: int = 0  # decoded bytes those transfers stand for
+    pack_seconds: float = 0.0  # summed get_item wall less slot waits
+    pack_stalls: int = 0  # pack waited for a free pinned slot
+    pack_stall_seconds: float = 0.0
+    dispatch_seconds: float = 0.0  # summed put() call wall (⊂ h2d_seconds)
+    h2d_seconds: float = 0.0  # summed transfer wall, dispatch to completion
+    h2d_device_seconds: float = 0.0  # summed copy time between CUDA events
+    consume_seconds: float = 0.0  # summed consume() wall (compute stage)
+    producer_stalls: int = 0  # transfer waited for a free permit
+    producer_stall_seconds: float = 0.0
+    consumer_stalls: int = 0  # compute waited for a transfer
+    consumer_stall_seconds: float = 0.0
+    passes: int = 0  # completed pipeline runs
+    max_live: int = 0  # high-water of concurrently live device items
+    max_live_bytes: int = 0  # high-water of live device bytes
+
+    @property
+    def gbps(self) -> float:
+        """Achieved host→device rate in GB/s of wire bytes: over the CUDA
+        events' copy time on the card, over the transfer wall elsewhere."""
+        secs = self.h2d_device_seconds or self.h2d_seconds
+        return self.bytes / secs / 1e9 if secs else 0.0
+
+    @property
+    def compression_ratio(self) -> float:
+        """logical/wire bytes over everything recorded (1.0 = raw)."""
+        return self.logical_bytes / self.bytes if self.bytes else 1.0
+
+    @property
+    def stage_seconds(self) -> float:
+        """Summed wall across the three stages; above a pass's wall time,
+        the stages overlapped (dispatch is inside h2d, not counted
+        twice)."""
+        return self.pack_seconds + self.h2d_seconds + self.consume_seconds
+
+    def snapshot(self) -> dict:
+        d = dataclasses.asdict(self)
+        d["gbps"] = self.gbps
+        d["stage_seconds"] = self.stage_seconds
+        d["compression_ratio"] = self.compression_ratio
+        return d
+
+    def reset(self) -> None:
+        for f in dataclasses.fields(self):
+            setattr(self, f.name, f.default)
+
+
+class _Packed:
+    """One item in a pinned slot: per dtype the slot's pinned buffer and
+    the elements used, per array its (dtype, offset, shape), and the
+    seconds the pack waited for the slot."""
+
+    __slots__ = ("slot", "totals", "index", "nbytes", "stall_seconds")
+
+    def __init__(self, slot, totals, index, nbytes, stall_seconds):
+        self.slot = slot
+        self.totals = totals
+        self.index = index
+        self.nbytes = nbytes
+        self.stall_seconds = stall_seconds
+
+
+class _InFlight:
+    """An item whose copies were issued on the copy stream; ``wait()``
+    blocks until they completed, frees the pinned slot and returns the
+    copies' time between their events."""
+
+    __slots__ = ("tensors", "bases", "event", "_start", "_ring", "_slot")
+
+    def __init__(self, tensors, bases, start, event, ring, slot):
+        self.tensors = tensors
+        self.bases = bases
+        self._start = start
+        self.event = event
+        self._ring = ring
+        self._slot = slot
+
+    def wait(self) -> float:
+        self.event.synchronize()
+        self._ring._release(self._slot)
+        return self._start.elapsed_time(self.event) / 1e3
+
+
+class HostToDevice:
+    """The pack / put / ready stages of a chunk stream to ``device``.
+
+    An item is a sequence of numpy arrays; the consumer receives torch
+    tensors of the same shapes and dtypes, views into one device buffer per
+    dtype (on the CPU, host copies).  The ring of ``depth`` pinned slots
+    and the copy stream live as long as this object, across passes.  Call
+    :meth:`begin_pass` before each pass with the pass's abort flag."""
+
+    def __init__(self, device: torch.device, depth: int):
+        self.device = torch.device(device)
+        self.depth = int(depth)
+        self.cuda = self.device.type == "cuda"
+        self._slots = [dict() for _ in range(self.depth)]  # dtype → pinned
+        self._free = [threading.Semaphore(1) for _ in range(self.depth)]
+        self._next = 0
+        self._abort: Optional[threading.Event] = None
+        self.copy_stream = (torch.cuda.Stream(device=self.device)
+                            if self.cuda else None)
+
+    def begin_pass(self, abort: threading.Event) -> None:
+        """Reset the ring: nothing of an earlier pass (a pass that failed
+        midway included) may still read a slot."""
+        if self.cuda:
+            self.copy_stream.synchronize()
+        self._free = [threading.Semaphore(1) for _ in range(self.depth)]
+        self._next = 0
+        self._abort = abort
+
+    def _release(self, slot: int) -> None:
+        self._free[slot].release()
+
+    def _acquire(self, slot: int) -> Optional[float]:
+        """Take ``slot``: the seconds waited for it (0.0 when it was free),
+        or None when the pass aborted meanwhile."""
+        if self._free[slot].acquire(blocking=False):
+            return 0.0
+        t0 = time.perf_counter()
+        while not self._free[slot].acquire(timeout=_POLL_SECONDS):
+            if self._abort is not None and self._abort.is_set():
+                return None
+        return time.perf_counter() - t0
+
+    # -- pack thread ---------------------------------------------------------
+    def pack(self, arrays):
+        """Copy an item's arrays into the next pinned slot (on the card),
+        or hand them on as they are (CPU)."""
+        if not self.cuda:
+            return list(arrays)
+        slot = self._next
+        self._next = (slot + 1) % self.depth
+        stall = self._acquire(slot)
+        if stall is None:
+            raise RuntimeError("prefetch pipeline aborted while packing")
+        totals: dict = {}
+        index = []
+        nbytes = 0
+        for a in arrays:
+            dt = np.dtype(a.dtype)
+            off = totals.get(dt, 0)
+            index.append((dt, off, tuple(a.shape)))
+            totals[dt] = off + int(a.size)
+            nbytes += int(a.nbytes)
+        bufs = self._slots[slot]
+        for dt, n in totals.items():
+            have = bufs.get(dt)
+            if have is None or have.numel() < n:
+                bufs[dt] = torch.empty(max(n, 1), dtype=torch_dtype(dt),
+                                       pin_memory=True)
+        for a, (dt, off, _) in zip(arrays, index):
+            np.copyto(bufs[dt].numpy()[off:off + a.size], a.reshape(-1),
+                      casting="no")
+        return _Packed(slot, totals, index, nbytes, stall)
+
+    # -- transfer thread -----------------------------------------------------
+    def put(self, packed):
+        """Issue the item's copies (one per dtype) on the copy stream; on
+        the CPU, copy the arrays into torch tensors."""
+        if not self.cuda:
+            return [torch.from_numpy(np.array(a)) for a in packed]
+        bufs = self._slots[packed.slot]
+        with torch.cuda.device(self.device), \
+                torch.cuda.stream(self.copy_stream):
+            start = torch.cuda.Event(enable_timing=True)
+            end = torch.cuda.Event(enable_timing=True)
+            start.record(self.copy_stream)
+            bases = {}
+            for dt, n in packed.totals.items():
+                dev = torch.empty(n, dtype=torch_dtype(dt),
+                                  device=self.device)
+                dev.copy_(bufs[dt][:n], non_blocking=True)
+                bases[dt] = dev
+            end.record(self.copy_stream)
+        tensors = [bases[dt][off:off + int(np.prod(shape, dtype=np.int64))]
+                   .view(shape) for dt, off, shape in packed.index]
+        return _InFlight(tensors, list(bases.values()), start, end, self,
+                         packed.slot)
+
+    # -- caller thread -------------------------------------------------------
+    def ready(self, item) -> list:
+        """The item's device tensors, safe to use on the current stream."""
+        if not self.cuda:
+            return item
+        stream = torch.cuda.current_stream(self.device)
+        stream.wait_event(item.event)
+        for base in item.bases:
+            base.record_stream(stream)
+        return item.tensors
+
+
+def item_nbytes(item) -> int:
+    """Host bytes of a packed item (what its transfer moves)."""
+    if isinstance(item, _Packed):
+        return item.nbytes
+    return int(sum(getattr(a, "nbytes", 0) for a in item))
+
+
+class _ProducerFailure:
+    __slots__ = ("exc",)
+
+    def __init__(self, exc: BaseException):
+        self.exc = exc
+
+
+def run_prefetched(
+    n_items: int,
+    get_item: Callable[[int], object],
+    put: Callable[[object], object],
+    consume: Callable[[int, object], None],
+    depth: int = 2,
+    stats: TransferStats | None = None,
+    logical_nbytes: Callable[[int], int] | None = None,
+    abort: threading.Event | None = None,
+) -> int:
+    """Stream ``n_items`` through the bounded-depth three-stage pipeline.
+
+    ``get_item(k)`` runs on the pack thread, ``put(item)`` on the transfer
+    thread, ``consume(k, dev)`` on the caller's thread, strictly in order.
+    When ``put`` returns an object with a ``wait()`` method, the transfer
+    thread calls it to wait for the copy to complete and adds what it
+    returns (device seconds) to ``stats.h2d_device_seconds``; when
+    ``get_item`` returns one with a ``stall_seconds`` attribute (the wait
+    for a pinned slot), that wait counts as a pack stall, not as pack
+    time.  Returns this
+    run's high-water of live device items (≤ ``depth``).
+
+    Pack or transfer exceptions re-raise on the caller's thread at the
+    failed item's position; a consumer exception sets ``abort`` (a fresh
+    event unless the caller passes the one its stages poll), which winds
+    both threads down.  ``logical_nbytes(k)``: the decoded bytes item ``k``
+    stands for, when the items are compressed wire buffers."""
+    if depth < 1:
+        raise ValueError(f"prefetch depth must be >= 1, got {depth}")
+    if stats is None:
+        stats = TransferStats()
+    if n_items == 0:
+        stats.passes += 1
+        return 0
+
+    handoff: queue.Queue = queue.Queue(maxsize=depth)
+    q: queue.Queue = queue.Queue()
+    permits = threading.Semaphore(depth)
+    if abort is None:
+        abort = threading.Event()
+    live_lock = threading.Lock()
+    live = [0, 0]  # items, bytes
+    run_max = [0, 0]
+
+    def _bump(delta: int, nbytes: int) -> None:
+        with live_lock:
+            live[0] += delta
+            live[1] += nbytes
+            run_max[0] = max(run_max[0], live[0])
+            run_max[1] = max(run_max[1], live[1])
+
+    def _handoff_put(item) -> bool:
+        while not abort.is_set():
+            try:
+                handoff.put(item, timeout=_POLL_SECONDS)
+                return True
+            except queue.Full:
+                pass
+        return False
+
+    def _packer() -> None:
+        try:
+            for k in range(n_items):
+                if abort.is_set():
+                    return
+                t0 = time.perf_counter()
+                host = get_item(k)
+                stall = getattr(host, "stall_seconds", 0.0)
+                stats.pack_seconds += time.perf_counter() - t0 - stall
+                if stall:
+                    stats.pack_stalls += 1
+                    stats.pack_stall_seconds += stall
+                nbytes = item_nbytes(host)
+                lb = logical_nbytes(k) if logical_nbytes else nbytes
+                if not _handoff_put((k, host, nbytes, lb)):
+                    return
+                del host
+        except BaseException as exc:  # surfaced on the caller's thread
+            # In order: the failure rides the hand-off queue behind the
+            # items that packed, so the consumer sees 0..k-1, then it.
+            _handoff_put(_ProducerFailure(exc))
+
+    def _transfer() -> None:
+        try:
+            for _ in range(n_items):
+                item = None
+                while not abort.is_set():
+                    try:
+                        item = handoff.get(timeout=_POLL_SECONDS)
+                        break
+                    except queue.Empty:
+                        pass
+                if item is None:
+                    return
+                if isinstance(item, _ProducerFailure):
+                    q.put(item)
+                    return
+                k, host, nbytes, lb = item
+                if not permits.acquire(blocking=False):
+                    t0 = time.perf_counter()
+                    while not permits.acquire(timeout=_POLL_SECONDS):
+                        if abort.is_set():
+                            return
+                    stats.producer_stalls += 1
+                    stats.producer_stall_seconds += time.perf_counter() - t0
+                if abort.is_set():
+                    return
+                t0 = time.perf_counter()
+                dev = put(host)
+                stats.dispatch_seconds += time.perf_counter() - t0
+                wait = getattr(dev, "wait", None)
+                if wait is not None:
+                    stats.h2d_device_seconds += wait()
+                stats.h2d_seconds += time.perf_counter() - t0
+                stats.bytes += nbytes
+                stats.logical_bytes += lb
+                stats.chunks += 1
+                _bump(+1, nbytes)
+                q.put((k, dev, nbytes))
+                del dev, host, item
+        except BaseException as exc:  # surfaced on the caller's thread
+            q.put(_ProducerFailure(exc))
+
+    packer = threading.Thread(target=_packer, name="h2d-pack", daemon=True)
+    transfer = threading.Thread(target=_transfer, name="h2d-prefetch",
+                                daemon=True)
+    packer.start()
+    transfer.start()
+    try:
+        for _ in range(n_items):
+            if q.empty():
+                t0 = time.perf_counter()
+                item = q.get()
+                stats.consumer_stalls += 1
+                stats.consumer_stall_seconds += time.perf_counter() - t0
+            else:
+                item = q.get()
+            if isinstance(item, _ProducerFailure):
+                raise item.exc
+            k, dev, nbytes = item
+            t0 = time.perf_counter()
+            consume(k, dev)
+            stats.consume_seconds += time.perf_counter() - t0
+            # Drop the device reference before releasing the permit: the
+            # permit accounting bounds live device memory.
+            del dev, item
+            _bump(-1, -nbytes)
+            permits.release()
+    except BaseException:
+        abort.set()
+        raise
+    finally:
+        packer.join(timeout=JOIN_TIMEOUT_SECONDS)
+        transfer.join(timeout=JOIN_TIMEOUT_SECONDS)
+        leaked = [t.name for t in (packer, transfer) if t.is_alive()]
+        if leaked and sys.exc_info()[0] is None:
+            raise RuntimeError(
+                f"prefetch pipeline thread(s) {leaked} still alive after "
+                f"join(timeout={JOIN_TIMEOUT_SECONDS}s): a blocking call "
+                "(get_item/put/transfer wait) never returned; the pass's "
+                "results cannot be trusted to be complete"
+            )
+        while True:  # drop any queued device references
+            try:
+                q.get_nowait()
+            except queue.Empty:
+                break
+    stats.passes += 1
+    stats.max_live = max(stats.max_live, run_max[0])
+    stats.max_live_bytes = max(stats.max_live_bytes, run_max[1])
+    return run_max[0]

@@ -38,7 +38,10 @@ reference's default of their knobs (``prefetch_depth``, ``chunk_fuse``,
 ``batch_linesearch``, ``stream_compress``, ``stream_hot_budget_mb``,
 ``hot_budget_mb``, a factored coordinate's ``device_budget_mb``: item 5),
 a random effect's ``split_factor`` and a coordinate's ``solver_options``
-(item 6), tuning mode (item 8) and ``--max-retries`` above 0 (item 4).
+(item 6) and tuning mode (item 8).  ``--max-retries`` re-enters the fit
+after a transient failure (``utils/watchdog.py``), resuming from the CD
+checkpoint (or, for a config grid, from the grid checkpoint), so a retry
+repeats no finished iteration or grid point.
 Random effects may be plain (``"type": "random"``) or factored
 (``"factored_random"``/``"factored"`` with ``rank``, ``alternations`` and
 ``projection_reg_weight``), under any regularization and optimizer
@@ -92,6 +95,11 @@ from photon_ml_tpu_torch.optim.regularization import (
 )
 from photon_ml_tpu_torch.utils.logging import PhotonLogger
 from photon_ml_tpu_torch.utils.timer import Timer
+from photon_ml_tpu_torch.utils.watchdog import (
+    RetryPolicy,
+    RetryStats,
+    run_with_retries,
+)
 
 
 def expand_config_grid(coordinate_specs: Sequence[dict]) -> list[dict]:
@@ -323,8 +331,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--max-retries",
         type=int,
         default=0,
-        help="automatic re-entry after transient failures (not ported yet; "
-        "0 disables)",
+        help="re-enter the fit after a transient failure (a dropped "
+        "transport, a preemption) up to this many times, resuming from the "
+        "CD or grid checkpoint; 0 disables",
+    )
+    p.add_argument(
+        "--retry-backoff",
+        type=float,
+        default=5.0,
+        help="initial seconds between retries (x2 per attempt, capped at "
+        "300 s)",
     )
     p.add_argument(
         "--device",
@@ -363,9 +379,6 @@ def _run_impl(args, logger) -> dict:
     device = resolve_device(args.device)
     if args.data_parallel == "auto":
         raise not_ported("--data-parallel auto", 6, "multi-device")
-    if args.max_retries > 0:
-        raise not_ported("--max-retries", 4,
-                         "the rest of the drivers, with utils/watchdog.py")
 
     with open(args.config) as f:
         config = json.load(f)
@@ -473,12 +486,21 @@ def _run_impl(args, logger) -> dict:
         logger=logger, device_metrics=args.device_metrics,
         pipeline=args.pipeline_coordinates, device=device,
     )
+    # A retry re-enters the fit, which resumes from the checkpoint: the CD
+    # loop reloads it on entry, and the grid skips its finished points.
+    retry_policy = RetryPolicy(max_retries=args.max_retries,
+                               backoff_seconds=args.retry_backoff)
+    retry_stats = RetryStats()
     fit_timer = Timer().start()
     if len(config_grid) > 1:
-        model, grid_results = estimator.fit_grid(
-            config_grid, shards, ids, response, weight=weight, offset=offset,
-            validation=val_tuple, suite=suite, initial_model=initial_model,
-            grid_checkpointer=grid_checkpointer,
+        model, grid_results = run_with_retries(
+            lambda attempt: estimator.fit_grid(
+                config_grid, shards, ids, response, weight=weight,
+                offset=offset, validation=val_tuple, suite=suite,
+                initial_model=initial_model,
+                grid_checkpointer=grid_checkpointer,
+            ),
+            retry_policy, logger, stats=retry_stats,
         )
         best = next(r for r in grid_results if r["best"])
         history = best["history"]
@@ -497,10 +519,14 @@ def _run_impl(args, logger) -> dict:
                     len(grid_results), best["grid_index"],
                     best["selected_by"], best["metric"])
     else:
-        model, history = estimator.fit(
-            shards, ids, response, weight=weight, offset=offset,
-            validation=val_tuple, suite=suite, initial_model=initial_model,
-            checkpointer=checkpointer, locked_coordinates=locked,
+        model, history = run_with_retries(
+            lambda attempt: estimator.fit(
+                shards, ids, response, weight=weight, offset=offset,
+                validation=val_tuple, suite=suite,
+                initial_model=initial_model, checkpointer=checkpointer,
+                locked_coordinates=locked,
+            ),
+            retry_policy, logger, stats=retry_stats,
         )
     stages["fit"] = fit_timer.stop()
     logger.info("fit %.3fs (%d coordinate updates)", stages["fit"],
@@ -527,6 +553,8 @@ def _run_impl(args, logger) -> dict:
     save_game_model(model, index_maps,
                     os.path.join(args.output_dir, "models"))
     stages["model save"] = save_timer.stop()
+    if retry_stats.retries or retry_stats.failures:
+        result["retry"] = retry_stats.snapshot()
     result["stage_seconds"] = {**stages, **estimator.stage_seconds}
     result["decoders"] = {k: v["decoder"] for k, v in decoders.items()}
     result["wall_seconds"] = timer.stop()

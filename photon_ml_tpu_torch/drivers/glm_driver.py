@@ -12,11 +12,19 @@ through the hand-written CUDA SpMV kernel.
 
 The flags cover the four losses with L1, L2 and elastic-net regularization,
 the resident solvers of the registry (L-BFGS, OWL-QN, TRON, SPG) with
-``--optimizer``/``--solver``, box constraints (``--coefficient-bounds``)
-and λ-grid checkpoint/resume (``--resume``).  Streaming, data-parallel
-training, the host-kind solvers and their ``--solver-option``/
-``--solver-shards``, initial models, telemetry and the ops plane, retries,
-the training report and the compile cache are later slices (ROADMAP.md).
+``--optimizer``/``--solver``, box constraints (``--coefficient-bounds``),
+λ-grid checkpoint/resume (``--resume``), warm starts from a saved model
+(``--initial-model``), automatic retries of transient failures from the
+checkpoint (``--max-retries``, ``--retry-backoff``; ``utils/watchdog.py``),
+the diagnostics report (``--training-report``), and out-of-core training
+(``--stream-chunk-rows`` and the other ``--stream-*`` flags): the training
+rows stay on the host as a chunk store (``data/streaming.py``) and every
+objective evaluation streams them through the card
+(``optim/streaming.py``), with validation scored on the host.
+``--data-parallel auto`` and the host-kind solvers with their
+``--solver-option``/``--solver-shards`` come with multi-device training
+(ROADMAP Queue 1 item 6); telemetry, the ops plane and the compile cache
+with item 8.
 
 Usage:
     python -m photon_ml_tpu_torch.drivers.glm_driver \\
@@ -43,14 +51,14 @@ from photon_ml_tpu_torch.data.normalization import (
     NormalizationType,
     build_normalization,
 )
-from photon_ml_tpu_torch.data.stats import summarize
+from photon_ml_tpu_torch.data.stats import summarize, summarize_host
 from photon_ml_tpu_torch.device import resolve_device, to_numpy
 from photon_ml_tpu_torch.evaluation.evaluators import (
     default_evaluator_for_task,
     get_evaluator,
 )
 from photon_ml_tpu_torch.io.checkpoint import GridCheckpointer
-from photon_ml_tpu_torch.io.model_store import save_glm_model
+from photon_ml_tpu_torch.io.model_store import load_glm_model, save_glm_model
 from photon_ml_tpu_torch.io.summary_store import save_feature_summary
 from photon_ml_tpu_torch.optim.problem import (
     GlmOptimizationConfig,
@@ -65,6 +73,11 @@ from photon_ml_tpu_torch.optim.regularization import (
 from photon_ml_tpu_torch.utils.logging import PhotonLogger
 from photon_ml_tpu_torch.utils.timer import Timer
 from photon_ml_tpu_torch.utils.tracker import OptimizationStatesTracker
+from photon_ml_tpu_torch.utils.watchdog import (
+    RetryPolicy,
+    RetryStats,
+    run_with_retries,
+)
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -128,6 +141,94 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "(skips already-solved weights, keeps the warm-start chain)",
     )
     p.add_argument(
+        "--initial-model",
+        help="saved model Avro to warm-start the grid from (the reference's "
+        "incremental training)",
+    )
+    p.add_argument(
+        "--data-parallel",
+        choices=["off", "auto"],
+        default="off",
+        help="auto: shard rows over every visible card (not ported yet)",
+    )
+    p.add_argument(
+        "--training-report",
+        action="store_true",
+        help="write report.json + report.html to the output dir: per-λ "
+        "convergence traces, bootstrap CIs on the validation metric, "
+        "Hosmer-Lemeshow calibration (logistic) and |coef|·std feature "
+        "importance",
+    )
+    p.add_argument(
+        "--max-retries",
+        type=int,
+        default=0,
+        help="re-enter training after a transient failure (a dropped "
+        "transport, a preemption) up to this many times, resuming from the "
+        "λ-grid checkpoint; 0 disables",
+    )
+    p.add_argument(
+        "--retry-backoff",
+        type=float,
+        default=5.0,
+        help="initial seconds between retries (x2 per attempt, capped at "
+        "300 s)",
+    )
+    p.add_argument(
+        "--stream-chunk-rows",
+        type=int,
+        default=0,
+        help="out-of-core training: keep the training rows on the host as "
+        "chunks of this many rows and stream them through the card on every "
+        "objective evaluation; 0 = device-resident.  L-BFGS, OWL-QN "
+        "(L1/elastic net) and smooth TRON all stream",
+    )
+    p.add_argument(
+        "--stream-storage-dir",
+        help="with --stream-chunk-rows: spill the chunk store to .npy files "
+        "in this (empty) directory and train from memmaps",
+    )
+    p.add_argument(
+        "--stream-prefetch-depth",
+        type=int,
+        default=2,
+        help="with --stream-chunk-rows: chunks in flight (pinned slots, "
+        "device items and the compute window each); 1 serialises transfer "
+        "and compute",
+    )
+    p.add_argument(
+        "--stream-chunk-fuse",
+        type=int,
+        default=1,
+        help="with --stream-chunk-rows: move this many chunks in one "
+        "transfer and run them in one consumer step; 1 disables",
+    )
+    p.add_argument(
+        "--stream-batch-linesearch",
+        choices=["on", "off"],
+        default="on",
+        help="with --stream-chunk-rows: evaluate a bracket of line-search "
+        "candidates in one streamed pass (the same trials, about half the "
+        "passes); off streams one trial a pass",
+    )
+    p.add_argument(
+        "--stream-compress",
+        choices=["off", "lossless", "fp16", "int8"],
+        default="off",
+        help="with --stream-chunk-rows: move chunks as encoded wire buffers "
+        "decoded on the card; lossless keeps every solve bitwise, fp16/int8 "
+        "add bounded quantization error",
+    )
+    p.add_argument(
+        "--stream-hot-budget-mb",
+        type=float,
+        default=0.0,
+        help="with --stream-chunk-rows: keep up to this many MB of "
+        "transferred chunks resident on the card across passes, chosen each "
+        "pass by their contribution to the objective; bitwise neutral; 0 "
+        "disables",
+    )
+    p.add_argument(
         "--precise-accumulation",
         action="store_true",
         help="accumulate the objective VALUE in float64 (gradient sums "
@@ -148,9 +249,32 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         return _run_impl(args, logger)
 
 
+def _check_stream_flags(args) -> bool:
+    """The reference's guards on the ``--stream-*`` flags, before any
+    ingest; returns whether the run streams."""
+    if args.data_parallel == "auto":
+        from photon_ml_tpu_torch.game.coordinates import not_ported
+
+        raise not_ported("--data-parallel auto", 6, "multi-device")
+    if args.stream_storage_dir and args.stream_chunk_rows <= 0:
+        # Ignoring the flag would train fully resident on exactly the
+        # oversized dataset the flag exists for.
+        raise ValueError(
+            "--stream-storage-dir requires --stream-chunk-rows > 0")
+    for flag, value in (("--stream-prefetch-depth",
+                         args.stream_prefetch_depth),
+                        ("--stream-chunk-fuse", args.stream_chunk_fuse)):
+        if value < 1:
+            raise ValueError(f"{flag} must be >= 1, got {value}")
+    if args.stream_hot_budget_mb < 0:
+        raise ValueError("--stream-hot-budget-mb must be >= 0")
+    return args.stream_chunk_rows > 0
+
+
 def _run_impl(args, logger) -> dict:
     timer = Timer().start()
     device = resolve_device(args.device)
+    streaming = _check_stream_flags(args)
 
     # Stage 1: read ---------------------------------------------------------
     X_train, y_train = libsvm.read_libsvm(
@@ -167,8 +291,13 @@ def _run_impl(args, logger) -> dict:
     index_map = IndexMap.build(names, add_intercept=args.intercept)
 
     # Stage 2: summarize + normalization ------------------------------------
-    train_data = make_glm_data(X_train, y_train, device=device)
-    summary = summarize(train_data)
+    if streaming:
+        # The streamed run never puts the whole matrix on the card.
+        train_data = None
+        summary = summarize_host(X_train)
+    else:
+        train_data = make_glm_data(X_train, y_train, device=device)
+        summary = summarize(train_data)
     norm_type = NormalizationType(args.normalization)
     normalization = (
         None
@@ -229,7 +358,8 @@ def _run_impl(args, logger) -> dict:
     # incompatibly constrained coefficients.
     bounds = bounds_fp = None
     if args.coefficient_bounds:
-        lower, upper = _read_bounds(args, index_map, d, normalization)
+        lower, upper = _read_bounds(args, index_map, d, normalization,
+                                    streaming)
         logger.info("box constraints on %d of %d coefficients",
                     int((np.isfinite(lower) | np.isfinite(upper)).sum()), d)
         bounds = (torch.as_tensor(lower, device=device),
@@ -257,15 +387,91 @@ def _run_impl(args, logger) -> dict:
     if solved:
         logger.info("resuming: %d of %d grid points already solved",
                     len(solved), len(reg_weights))
-    solved_acc = dict(solved)
 
-    def on_solved(lam, w):
-        solved_acc[lam] = to_numpy(w)
-        ckpt.save(solved_acc, extra_meta={"bounds_fingerprint": bounds_fp})
+    # Incremental training: a saved model (original feature space) seeds
+    # the warm-start chain in the solver's scaled-coefficient space.
+    w0 = None
+    if args.initial_model:
+        glm0, _ = load_glm_model(args.initial_model, index_map,
+                                 device=device)
+        w0 = glm0.coefficients.means.to(torch.float32)
+        if normalization is not None:
+            w0 = normalization.original_to_model(w0)
+        logger.info("warm-starting from %s", args.initial_model)
 
-    grid = problem.run_grid(train_data, reg_weights, l1_mask=l1_mask,
-                            solved=solved, on_solved=on_solved,
-                            bounds=bounds)
+    sobj = None
+    streaming_out = None
+    if streaming:
+        from photon_ml_tpu_torch.data.streaming import make_streaming_glm_data
+        from photon_ml_tpu_torch.optim.streaming import (
+            StreamingObjective,
+            ensure_streamable,
+        )
+
+        # Refuse an unstreamable config BEFORE the (possibly long) ingest.
+        ensure_streamable(problem.config)
+        build = Timer().start()
+        stream = make_streaming_glm_data(
+            X_train, y_train, chunk_rows=args.stream_chunk_rows,
+            storage_dir=args.stream_storage_dir, device=device,
+        )
+        sobj = StreamingObjective(
+            problem.objective, stream,
+            prefetch_depth=args.stream_prefetch_depth,
+            chunk_fuse=args.stream_chunk_fuse,
+            compress=args.stream_compress,
+            hot_budget_bytes=int(args.stream_hot_budget_mb * 1e6),
+        )
+        streaming_out = {
+            "chunks": stream.n_chunks, "chunk_rows": stream.chunk_rows,
+            "layout": stream.kind, "host_bytes": stream.nbytes(),
+            "disk": args.stream_storage_dir is not None,
+            "compression_ratio": sobj.compression_ratio,
+            "build_seconds": build.stop(),
+        }
+        logger.info(
+            "streaming: %d chunks x %d rows (%s layout, %.1f MB %s), built "
+            "in %.2fs", stream.n_chunks, stream.chunk_rows, stream.kind,
+            stream.nbytes() / 1e6, "on disk" if args.stream_storage_dir
+            else "in RAM", streaming_out["build_seconds"],
+        )
+
+    def train(attempt: int):
+        """One training attempt over the λ grid.  Re-entered by the
+        watchdog after a transient failure: checkpointed λs are reloaded so
+        finished work is never repeated, and resident data is re-placed."""
+        solved_now = dict(solved)
+        if attempt:
+            solved_now.update(ckpt.load())
+            logger.info("retry %d: %d grid points restored from checkpoints",
+                        attempt, len(solved_now))
+        solved_acc = dict(solved_now)
+
+        def on_solved(lam, w):
+            solved_acc[lam] = to_numpy(w)
+            ckpt.save(solved_acc, extra_meta={"bounds_fingerprint": bounds_fp})
+
+        if streaming:
+            from photon_ml_tpu_torch.optim.streaming import streaming_run_grid
+
+            return streaming_run_grid(
+                problem, sobj, reg_weights, w0=w0, solved=solved_now,
+                on_solved=on_solved, l1_mask=l1_mask,
+                batch_linesearch=args.stream_batch_linesearch == "on",
+            )
+        data = train_data if attempt == 0 else make_glm_data(
+            X_train, y_train, device=device)
+        return problem.run_grid(data, reg_weights, w0=w0, l1_mask=l1_mask,
+                                solved=solved_now, on_solved=on_solved,
+                                bounds=bounds)
+
+    retry_stats = RetryStats()
+    grid = run_with_retries(
+        train,
+        RetryPolicy(max_retries=args.max_retries,
+                    backoff_seconds=args.retry_backoff),
+        logger, stats=retry_stats,
+    )
     grid_walls = problem.grid_wall_seconds
     for lam, _, res in grid:
         tracker = OptimizationStatesTracker.from_solve_result(
@@ -294,22 +500,61 @@ def _run_impl(args, logger) -> dict:
             # Features unseen at training time contribute nothing.
             drop_out_of_range=True,
         )
-        val_data = make_glm_data(X_val, y_val, device=device)
     else:
-        y_val = y_train
-        val_data = train_data
-    val_weights = to_numpy(val_data.weights)
+        X_val, y_val = X_train, y_train
+    # A streamed run scores on the host (a scipy mat-vec): validation never
+    # needs the whole matrix on the card.
+    val_data = None
+    if not streaming:
+        val_data = (make_glm_data(X_val, y_val, device=device)
+                    if args.validate_data else train_data)
+
+    report = None
+    if args.training_report:
+        from photon_ml_tpu_torch.diagnostics import (
+            TrainingReport,
+            bootstrap_metric_ci,
+            feature_importance,
+            hosmer_lemeshow,
+        )
+
+        report = TrainingReport(task=problem.task)
+        report_std = np.sqrt(np.maximum(to_numpy(summary.variance), 0.0))
 
     metrics = {}
     best = None
     best_metric = None
-    for lam, model, _ in grid:
-        scores = to_numpy(model.compute_score(val_data))
+    for lam, model, res in grid:
+        if streaming:
+            scores = np.asarray(
+                X_val @ to_numpy(model.coefficients.means).astype(np.float32)
+            ).ravel()
+            val_weights = None
+        else:
+            scores = to_numpy(model.compute_score(val_data))
+            val_weights = to_numpy(val_data.weights)
         m = evaluator.evaluate(scores, y_val, val_weights)
         metrics[lam] = m
         logger.info("lambda=%g: %s=%.6f", lam, type(evaluator).__name__, m)
         if best_metric is None or evaluator.better_than(m, best_metric):
             best_metric, best = m, (lam, model)
+        if report is not None:
+            if res is not None:
+                report.add_convergence(lam, to_numpy(res.values),
+                                       to_numpy(res.grad_norms))
+            report.add_metric(
+                type(evaluator).__name__, lam,
+                bootstrap_metric_ci(
+                    lambda s, l: evaluator.evaluate(s, l, None),
+                    scores, np.asarray(y_val)),
+            )
+            if problem.task == "logistic":
+                report.add_calibration(
+                    lam, hosmer_lemeshow(scores, np.asarray(y_val)))
+            report.add_importance(lam, feature_importance(
+                to_numpy(model.coefficients.means), feature_std=report_std,
+                name_fn=index_map.index_to_name,
+            ))
 
     # Stage 5: write --------------------------------------------------------
     if best is None:
@@ -333,6 +578,15 @@ def _run_impl(args, logger) -> dict:
             str(lam): w for lam, w in sorted(grid_walls.items())
         },
     }
+    if retry_stats.retries or retry_stats.failures:
+        result["retry"] = retry_stats.snapshot()
+    if streaming_out is not None:
+        streaming_out["transfer"] = sobj.transfer_stats.snapshot()
+        result["streaming"] = streaming_out
+    if report is not None:
+        jpath, hpath = report.save(args.output_dir)
+        result["report"] = {"json": jpath, "html": hpath}
+        logger.info("training report: %s", hpath)
     with open(os.path.join(args.output_dir, "training_result.json"), "w") as f:
         json.dump(result, f, indent=2)
     logger.info(
@@ -343,7 +597,7 @@ def _run_impl(args, logger) -> dict:
     return result
 
 
-def _read_bounds(args, index_map, d, normalization):
+def _read_bounds(args, index_map, d, normalization, streaming):
     """The ``--coefficient-bounds`` JSON map as (lower, upper) float32
     arrays of width ``d`` (unlisted features ±inf), with the reference
     driver's checks."""
@@ -351,6 +605,9 @@ def _read_bounds(args, index_map, d, normalization):
     # where a per-feature box does not map back to the user's box.
     if normalization is not None:
         raise SystemExit("--coefficient-bounds requires --normalization none")
+    if streaming:
+        raise SystemExit(
+            "--coefficient-bounds is single-device resident-data only")
     if args.compute_variances:
         # The diag-inverse-Hessian variance assumes an interior optimum.
         raise SystemExit(

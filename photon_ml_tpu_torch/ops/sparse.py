@@ -110,6 +110,19 @@ class SparseMatrix:
         self.col_order = torch.argsort(self.col_ids, stable=True)
         self.col_offsets = _offsets(self.col_ids[self.col_order], self.n_cols)
 
+    @classmethod
+    def from_parts(cls, row_ids, col_ids, values, n_rows, n_cols,
+                   row_offsets, col_order, col_offsets) -> "SparseMatrix":
+        """A matrix whose derived orders were computed already (a streamed
+        chunk carries them, as :func:`coo_parts` builds them on the host),
+        so nothing is re-sorted when the chunk reaches its device."""
+        m = cls.__new__(cls)
+        m.row_ids, m.col_ids, m.values = row_ids, col_ids, values
+        m.n_rows, m.n_cols = int(n_rows), int(n_cols)
+        m.row_offsets, m.col_order = row_offsets, col_order
+        m.col_offsets = col_offsets
+        return m
+
     @property
     def shape(self) -> tuple[int, int]:
         return (self.n_rows, self.n_cols)
@@ -243,6 +256,23 @@ def pad_coo_triples(
         cols = np.concatenate([cols, np.zeros(pad, np.int32)])
         vals = np.concatenate([vals, np.zeros(pad, vals.dtype)])
     return rows, cols, vals
+
+
+def coo_parts(rows, cols, vals, n_rows: int, n_cols: int) -> dict:
+    """Host arrays of :class:`SparseMatrix` over canonical (row-sorted)
+    triples, with its derived orders computed as ``__post_init__`` computes
+    them (a stable column sort, the two segment-offset vectors)."""
+    rows = np.asarray(rows, np.int64)
+    cols = np.asarray(cols, np.int64)
+    order = np.argsort(cols, kind="stable")
+    return {
+        "row_ids": rows,
+        "col_ids": cols,
+        "values": np.asarray(vals, np.float32),
+        "row_offsets": np.searchsorted(rows, np.arange(n_rows + 1)),
+        "col_order": order.astype(np.int64),
+        "col_offsets": np.searchsorted(cols[order], np.arange(n_cols + 1)),
+    }
 
 
 def from_coo(

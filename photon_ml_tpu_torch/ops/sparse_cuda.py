@@ -130,7 +130,7 @@ class CudaSparseMatrix:
     dense_col_ids: Tensor  # (kc,) int64
     dense_rows: Tensor     # (kr, n_cols) f32
     dense_row_ids: Tensor  # (kr,) int64
-    host_coo: HostCoo
+    host_coo: Optional[HostCoo]  # None: a streamed chunk (no cold paths)
     n_rows: int
     n_cols: int
     b_blockptr: Tensor     # (n_cols, n_rb + 1) int64 — row_block_table
@@ -145,7 +145,7 @@ class CudaSparseMatrix:
     @property
     def nnz(self) -> int:
         """The canonical entry budget (``pad_nnz`` when one was given)."""
-        return self.host_coo.nnz
+        return self._coo().nnz
 
     @property
     def device(self) -> torch.device:
@@ -200,14 +200,23 @@ class CudaSparseMatrix:
         return self._cols_side(u, "sq_rmatvec", square=True)
 
     # -- cold paths: host-side over the canonical triples ------------------
+    def _coo(self) -> HostCoo:
+        if self.host_coo is None:
+            raise RuntimeError(
+                "this matrix was built without its canonical triples (a "
+                "streamed chunk): its cold paths (nnz, col_nnz, col_min_max, "
+                "to_dense) need build_cuda_layout(..., keep_coo=True)"
+            )
+        return self.host_coo
+
     def col_nnz(self, row_mask=None) -> Tensor:
-        return self.host_coo.col_nnz(row_mask)
+        return self._coo().col_nnz(row_mask)
 
     def col_min_max(self, row_mask=None):
-        return self.host_coo.col_min_max(row_mask)
+        return self._coo().col_min_max(row_mask)
 
     def to_dense(self) -> DenseMatrix:
-        return self.host_coo.to_dense()
+        return self._coo().to_dense()
 
 
 def _extract_dense(counts, threshold, max_stripes, long_axis, budget_bytes):
@@ -253,36 +262,76 @@ def row_block_table(b_indptr: np.ndarray, b_idx: np.ndarray, n_rows: int,
         n_cols, n_rb + 1).astype(np.int64)
 
 
-def build_cuda_matrix(
+#: the tensors of :class:`CudaSparseMatrix`, as :class:`CudaLayout` names
+#: its host arrays.
+LAYOUT_FIELDS = ("f_indptr", "f_idx", "f_val", "b_indptr", "b_idx", "b_val",
+                 "dense_cols", "dense_col_ids", "dense_rows", "dense_row_ids",
+                 "b_blockptr")
+
+
+@dataclasses.dataclass
+class CudaLayout:
+    """The host-side form of :class:`CudaSparseMatrix`: the same arrays as
+    numpy (``arrays``, keyed by :data:`LAYOUT_FIELDS`) plus the metadata.
+    The out-of-core store keeps chunks in this form until a pass moves
+    them; :meth:`to_device` and :meth:`matrix` build the device matrix.
+    ``coo`` holds the canonical triples for the cold paths, or None when
+    the caller dropped them (a streamed chunk never needs them)."""
+
+    arrays: dict
+    n_rows: int
+    n_cols: int
+    row_group: int
+    col_group: int
+    unit_vals: bool
+    coo: Optional[tuple] = None  # (rows, cols, vals) canonical triples
+
+    def matrix(self, tensors: dict, device=None) -> CudaSparseMatrix:
+        """The device matrix over ``tensors`` (this layout's arrays, already
+        on a device, e.g. views into a chunk's transferred buffers)."""
+        dev = tensors["f_indptr"].device if device is None else device
+        host_coo = (None if self.coo is None
+                    else HostCoo(*self.coo, self.n_rows, self.n_cols, dev))
+        return CudaSparseMatrix(
+            **{f: tensors[f] for f in LAYOUT_FIELDS}, host_coo=host_coo,
+            n_rows=self.n_rows, n_cols=self.n_cols,
+            row_group=self.row_group, col_group=self.col_group,
+            unit_vals=self.unit_vals,
+        )
+
+    def to_device(self, device=None) -> CudaSparseMatrix:
+        dev = resolve_device(device)
+        return self.matrix({f: torch.as_tensor(a, device=dev)
+                            for f, a in self.arrays.items()}, dev)
+
+
+def build_cuda_layout(
     rows: np.ndarray,
     cols: np.ndarray,
     vals: np.ndarray,
     n_rows: int,
     n_cols: int,
     pad_nnz: Optional[int] = None,
-    dtype=torch.float32,
     dense_frac: float = 1.0 / 32.0,
     max_dense: int = 64,
     dense_budget_bytes: int = 512 << 20,
     unit_values: bool | str = "auto",
-    device=None,
-) -> CudaSparseMatrix:
-    """Build the CSR/CSC layout from host COO triples.
+    keep_coo: bool = True,
+) -> CudaLayout:
+    """Build the CSR/CSC layout from host COO triples, on the host.
 
-    Canonicalize on the host (sum duplicates, sort, pad/validate the nnz
-    budget), drop zero-valued entries (padding included: ``nnz`` still
-    reports the budget), extract dense stripes, then lay the rest out as
-    CSR and CSC, with the CSC's row-block table and the kernels' lanes a
-    segment (from the mean streamed row and sub-range lengths).  ``unit_values="auto"`` drops the value stream when every
-    streamed value is 1.0; ``True`` forces it (and refuses non-unit
-    values), ``False`` keeps the valued layout."""
-    if dtype != torch.float32:
-        raise ValueError(f"the CUDA SpMV kernel is float32-only, got {dtype}")
-    dev = resolve_device(device)
+    Canonicalize (sum duplicates, sort, pad/validate the nnz budget), drop
+    zero-valued entries (padding included: ``nnz`` still reports the
+    budget), extract dense stripes, then lay the rest out as CSR and CSC,
+    with the CSC's row-block table and the kernels' lanes a segment (from
+    the mean streamed row and sub-range lengths).  ``unit_values="auto"``
+    drops the value stream when every streamed value is 1.0; ``True``
+    forces it (and refuses non-unit values), ``False`` keeps the valued
+    layout.  ``keep_coo=False`` drops the canonical triples (no cold
+    paths)."""
     r_all, c_all, v_all = canonicalize_coo(rows, cols, vals, n_rows, n_cols,
                                            pad_nnz)
     v_all = v_all.astype(np.float32)
-    host_coo = HostCoo(r_all, c_all, v_all, int(n_rows), int(n_cols), dev)
     # Zero-valued entries contribute nothing; dropping them keeps explicit
     # zeros (and nnz padding) out of the segments, so a non-finite vector
     # entry reaches only the outputs that really store its index.
@@ -328,23 +377,51 @@ def build_cuda_matrix(
     b_val = v[order]
     b_blockptr = row_block_table(b_indptr, b_idx, n_rows)
 
-    def t(a, dt=None):
-        return torch.as_tensor(np.ascontiguousarray(a, dt), device=dev)
+    def a(x, dt=None):
+        return np.ascontiguousarray(x, dt)
 
     empty = np.zeros(0, np.float32)
-    return CudaSparseMatrix(
-        f_indptr=t(f_indptr), f_idx=t(c, np.int32),
-        f_val=t(empty if unit else v, np.float32),
-        b_indptr=t(b_indptr), b_idx=t(b_idx, np.int32),
-        b_val=t(empty if unit else b_val, np.float32),
-        dense_cols=t(dense_cols), dense_col_ids=t(dense_col_ids, np.int64),
-        dense_rows=t(dense_rows), dense_row_ids=t(dense_row_ids, np.int64),
-        host_coo=host_coo,
-        n_rows=int(n_rows), n_cols=int(n_cols),
-        b_blockptr=t(b_blockptr), row_group=row_group(r.size, n_rows),
-        col_group=col_group(np.diff(b_blockptr, axis=1)),
-        unit_vals=unit,
+    arrays = dict(
+        f_indptr=a(f_indptr), f_idx=a(c, np.int32),
+        f_val=a(empty if unit else v, np.float32),
+        b_indptr=a(b_indptr), b_idx=a(b_idx, np.int32),
+        b_val=a(empty if unit else b_val, np.float32),
+        dense_cols=a(dense_cols), dense_col_ids=a(dense_col_ids, np.int64),
+        dense_rows=a(dense_rows), dense_row_ids=a(dense_row_ids, np.int64),
+        b_blockptr=a(b_blockptr),
     )
+    return CudaLayout(
+        arrays=arrays, n_rows=int(n_rows), n_cols=int(n_cols),
+        row_group=row_group(r.size, n_rows),
+        col_group=col_group(np.diff(b_blockptr, axis=1)),
+        unit_vals=unit, coo=(r_all, c_all, v_all) if keep_coo else None,
+    )
+
+
+def build_cuda_matrix(
+    rows: np.ndarray,
+    cols: np.ndarray,
+    vals: np.ndarray,
+    n_rows: int,
+    n_cols: int,
+    pad_nnz: Optional[int] = None,
+    dtype=torch.float32,
+    dense_frac: float = 1.0 / 32.0,
+    max_dense: int = 64,
+    dense_budget_bytes: int = 512 << 20,
+    unit_values: bool | str = "auto",
+    device=None,
+) -> CudaSparseMatrix:
+    """:func:`build_cuda_layout` on the host, then its arrays on
+    ``device`` (CUDA by default)."""
+    if dtype != torch.float32:
+        raise ValueError(f"the CUDA SpMV kernel is float32-only, got {dtype}")
+    dev = resolve_device(device)
+    return build_cuda_layout(
+        rows, cols, vals, n_rows, n_cols, pad_nnz=pad_nnz,
+        dense_frac=dense_frac, max_dense=max_dense,
+        dense_budget_bytes=dense_budget_bytes, unit_values=unit_values,
+    ).to_device(dev)
 
 
 def from_scipy_csr_cuda(csr, pad_nnz: Optional[int] = None,

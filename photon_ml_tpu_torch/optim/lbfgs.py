@@ -27,6 +27,7 @@ import torch
 from photon_ml_tpu_torch.optim.linesearch import (
     LineSearchConfig,
     ValueAndGrad,
+    ValueAndGradBatch,
     host_scalars,
     np_dtype,
     wolfe_line_search,
@@ -121,8 +122,13 @@ def lbfgs_solve(
     value_and_grad: ValueAndGrad,
     w0: Tensor,
     config: LBFGSConfig = LBFGSConfig(),
+    value_and_grad_batch: Optional[ValueAndGradBatch] = None,
 ) -> SolveResult:
-    """Minimize ``value_and_grad`` from ``w0`` by L-BFGS."""
+    """Minimize ``value_and_grad`` from ``w0`` by L-BFGS.
+
+    ``value_and_grad_batch`` evaluates a bracket of line-search trials a
+    call (``linesearch.wolfe_line_search``): the same trajectory in fewer
+    calls, for objectives where a call is a pass over a chunk store."""
     m = config.history
     d = w0.shape[0]
     wt = np_dtype(w0)
@@ -165,6 +171,7 @@ def lbfgs_solve(
         ls = wolfe_line_search(
             value_and_grad, w, value_h, dg, direction,
             initial_step=init_step, config=config.line_search,
+            value_and_grad_batch=value_and_grad_batch,
         )
         update_history(hist, ls.w - w, ls.grad - grad)
 

@@ -11,12 +11,21 @@ together).  The bracket arithmetic runs in numpy scalars of the
 coefficient dtype, and the value tests in the objective's dtype, exactly as
 the reference's traced arithmetic does, so both packages take the same
 decisions on the same numbers.
+
+When one evaluation is a whole pass over an out-of-core store
+(``optim/streaming.py``), ``value_and_grad_batch`` lets a pass evaluate the
+current trial together with its two possible successors: the next trial
+after an Armijo success and after an Armijo failure are both known from the
+bracket before the trial's result is, so a pass resolves two levels of the
+search.  Every candidate is built by the same expression as a single trial
+and a batched row is bitwise its single evaluation, so the trials, the
+accepted step and ``n_evals`` are those of the one-trial-per-pass search.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple
+from typing import Callable, NamedTuple, Optional
 
 import numpy as np
 import torch
@@ -25,6 +34,8 @@ Tensor = torch.Tensor
 
 # f(w) -> (value, grad): the only thing the line search needs.
 ValueAndGrad = Callable[[Tensor], tuple[Tensor, Tensor]]
+# (K, d) candidates -> ((K,), (K, d)), row i bitwise f(ws[i]).
+ValueAndGradBatch = Callable[[Tensor], tuple[Tensor, Tensor]]
 
 
 def np_dtype(t: Tensor):
@@ -68,24 +79,56 @@ def wolfe_line_search(
     direction: Tensor,
     initial_step=1.0,
     config: LineSearchConfig = LineSearchConfig(),
+    value_and_grad_batch: Optional[ValueAndGradBatch] = None,
 ) -> LineSearchResult:
     """Find t satisfying the weak Wolfe conditions along ``direction``.
 
     ``f0_host`` is f(w0) and ``dg0_host`` the directional derivative
     ⟨direction, ∇f(w0)⟩, both as host numpy scalars.  Always returns the
     last evaluated point; ``success`` reports whether the Wolfe conditions
-    held there."""
+    held there.  ``value_and_grad_batch`` evaluates each trial with its
+    successors in one call (see the module docstring)."""
     wt = np_dtype(w0)
     c1, c2 = wt(config.c1), wt(config.c2)
     min_step, max_step = wt(config.min_step), wt(config.max_step)
 
-    def evaluate(t):
-        w = w0 + float(t) * direction
-        value, grad = value_and_grad(w)
-        v_h, dg_h, gn_h = host_scalars(
+    def next_step(t, lo, hi):
+        t_next = wt(2.0) * lo if np.isinf(hi) else wt(0.5) * (lo + hi)
+        return wt(min(max(t_next, min_step), max_step))
+
+    def trial_point(t):
+        return w0 + float(t) * direction
+
+    def scalars(value, grad):
+        return host_scalars(
             value, torch.dot(direction, grad), torch.linalg.vector_norm(grad)
         )
-        return w, value, grad, v_h, dg_h, gn_h
+
+    cache: dict = {}  # step → evaluated trial (batched search)
+
+    def evaluate(t, lo, hi):
+        if value_and_grad_batch is None:
+            w = trial_point(t)
+            value, grad = value_and_grad(w)
+            return (w, value, grad, *scalars(value, grad))
+        if t not in cache:
+            # An Armijo success moves lo up to t, a failure hi down to t.
+            steps = [t]
+            for lo2, hi2 in ((max(lo, t), hi), (lo, min(hi, t))):
+                tn = next_step(t, lo2, hi2)
+                if tn not in steps and tn not in cache:
+                    steps.append(tn)
+            ws = [trial_point(tc) for tc in steps]
+            values, grads = value_and_grad_batch(torch.stack(ws))
+            grads = [g.clone() for g in grads]
+            hs = host_scalars(*values, *(torch.dot(direction, g)
+                                         for g in grads),
+                              *(torch.linalg.vector_norm(g) for g in grads))
+            n = len(steps)
+            for i, tc in enumerate(steps):
+                cache[tc] = (ws[i], values[i], grads[i], hs[i], hs[n + i],
+                             hs[2 * n + i])
+        return cache[t]
 
     def armijo_ok(t, v_h):
         return bool(v_h <= f0_host + c1 * t * dg0_host)
@@ -94,8 +137,8 @@ def wolfe_line_search(
         return bool(dg_h >= c2 * dg0_host)
 
     t = wt(initial_step)
-    w, value, grad, v_h, dg_h, gn_h = evaluate(t)
     lo, hi = wt(0.0), wt(np.inf)
+    w, value, grad, v_h, dg_h, gn_h = evaluate(t, lo, hi)
     n_evals = 1
     done = False
     while not done and n_evals < config.max_evals:
@@ -106,13 +149,12 @@ def wolfe_line_search(
             lo = max(lo, t)
         else:
             hi = min(hi, t)
-        t_next = wt(2.0) * lo if np.isinf(hi) else wt(0.5) * (lo + hi)
-        t_next = wt(min(max(t_next, min_step), max_step))
+        t_next = next_step(t, lo, hi)
         # Degenerate bracket → stop where we are.
         done = done or bool(t_next == t) or bool(hi - lo < min_step)
         if not done:
             t = t_next
-            w, value, grad, v_h, dg_h, gn_h = evaluate(t)
+            w, value, grad, v_h, dg_h, gn_h = evaluate(t, lo, hi)
             n_evals += 1
 
     success = armijo_ok(t, v_h) and curvature_ok(dg_h)

@@ -21,6 +21,14 @@ pseudo-gradient norm together) and once for the curvature-pair test.  Every
 comparison is the reference's, on the same dtypes, so a NaN or inf takes
 the branch ``jnp.where`` takes.  ``l1_mask`` exempts coordinates (the
 intercept) from the penalty.
+
+``value_and_grad_batch`` evaluates a ladder of backtracking trials
+``t, tβ, tβ², tβ³`` in one call (the ladder is fixed before any of its
+values are known, each step built by the same multiplication the
+one-trial loop does), for objectives where a call is a pass over an
+out-of-core chunk store (``optim/streaming.py``).  Each candidate goes
+through the same expressions as a single trial and a batched row is
+bitwise its single evaluation, so the search visits the same trials.
 """
 
 from __future__ import annotations
@@ -39,11 +47,15 @@ from photon_ml_tpu_torch.optim.lbfgs import (
 )
 from photon_ml_tpu_torch.optim.linesearch import (
     ValueAndGrad,
+    ValueAndGradBatch,
     host_scalars,
     np_dtype,
 )
 
 Tensor = torch.Tensor
+
+#: backtracking trials a batched evaluation carries.
+OWLQN_TRIAL_BATCH = 4
 
 
 @dataclasses.dataclass(frozen=True)
@@ -75,6 +87,7 @@ def owlqn_solve(
     l1_weight,
     config: OWLQNConfig = OWLQNConfig(),
     l1_mask: Optional[Tensor] = None,
+    value_and_grad_batch: Optional[ValueAndGradBatch] = None,
 ) -> SolveResult:
     """Minimize ``f(w) + l1_weight·Σ_i mask_i·|w_i|``.
 
@@ -141,15 +154,38 @@ def owlqn_solve(
         else:
             t = wt(1.0)
 
-        def trial(t):
+        def trial_point(t):
             w_t = w + float(t) * direction
             # Clamp coordinates that crossed out of the chosen orthant.
-            w_t = torch.where(w_t * xi >= 0, w_t, torch.zeros_like(w_t))
-            smooth, g_t = value_and_grad(w_t)
-            f_t = full_value(w_t, smooth)
-            f_h, dg_proj, pgn = host_scalars(
-                f_t, torch.dot(pg, w_t - w), pg_norm_of(w_t, g_t))
-            return w_t, f_t, g_t, f_h, dg_proj, pgn
+            return torch.where(w_t * xi >= 0, w_t, torch.zeros_like(w_t))
+
+        cache: dict = {}  # step → evaluated trial (batched search)
+
+        def trial(t):
+            if value_and_grad_batch is None:
+                w_t = trial_point(t)
+                smooth, g_t = value_and_grad(w_t)
+                f_t = full_value(w_t, smooth)
+                f_h, dg_proj, pgn = host_scalars(
+                    f_t, torch.dot(pg, w_t - w), pg_norm_of(w_t, g_t))
+                return w_t, f_t, g_t, f_h, dg_proj, pgn
+            if t not in cache:
+                steps = [t]
+                while len(steps) < OWLQN_TRIAL_BATCH:
+                    steps.append(steps[-1] * backtrack)
+                steps = [tc for tc in steps if tc not in cache]
+                w_ts = [trial_point(tc) for tc in steps]
+                smooths, grads = value_and_grad_batch(torch.stack(w_ts))
+                grads = [g.clone() for g in grads]
+                f_ts = [full_value(w_t, sm) for w_t, sm in zip(w_ts, smooths)]
+                hs = host_scalars(
+                    *f_ts, *(torch.dot(pg, w_t - w) for w_t in w_ts),
+                    *(pg_norm_of(w_t, g) for w_t, g in zip(w_ts, grads)))
+                n = len(steps)
+                for i, tc in enumerate(steps):
+                    cache[tc] = (w_ts[i], f_ts[i], grads[i], hs[i],
+                                 hs[n + i], hs[2 * n + i])
+            return cache[t]
 
         # Armijo on the PROJECTED step <pg, w_t - w>, non-strict: a fully
         # clamped trial (w_t == w, dg_proj == 0) keeps backtracking.  A NaN

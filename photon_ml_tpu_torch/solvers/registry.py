@@ -7,6 +7,8 @@ any L1 component → OWL-QN, else the configured optimizer).
 
 Every registered solver is resident: one solve over device tensors
 (L-BFGS, OWL-QN, TRON, SPG), called through its ``resident`` callable.
+The out-of-core grid (``optim/streaming.py``) calls the same callables
+with an objective whose every evaluation is one pass over a chunk store.
 The reference's host-kind solvers (consensus-ADMM, distributed block CD)
 drive a sharded step program from a host loop, which the port has not got
 yet: ``get("admm")`` and ``get("block_cd")`` raise ``NotImplementedError``
@@ -46,6 +48,9 @@ class ResidentSolve(NamedTuple):
     opt: Any  # OptimizerConfig
     l1_mask: Optional[Tensor] = None
     bounds: Optional[tuple] = None
+    # (K, d) → ((K,), (K, d)): the line searches' batched trials (L-BFGS,
+    # OWL-QN), for objectives where one evaluation is a streamed pass.
+    value_and_grad_batch: Optional[Callable] = None
 
 
 @dataclasses.dataclass(frozen=True)
@@ -158,6 +163,7 @@ def _lbfgs_resident(ctx: ResidentSolve):
             tolerance=opt.tolerance,
             history=opt.history,
         ),
+        value_and_grad_batch=ctx.value_and_grad_batch,
     )
 
 
@@ -175,6 +181,7 @@ def _owlqn_resident(ctx: ResidentSolve):
             history=opt.history,
         ),
         l1_mask=ctx.l1_mask,
+        value_and_grad_batch=ctx.value_and_grad_batch,
     )
 
 

@@ -681,7 +681,7 @@ class TestRefusals:
 
     @pytest.mark.parametrize("case,item", [
         ("data_parallel", 6), ("streamed_fixed", 5), ("ooc_random", 5),
-        ("tuning", 8), ("retries", 4),
+        ("tuning", 8),
         ("stream_scoring", 5), ("stream_knob", 5), ("ooc_knob", 5),
         ("split_factor", 6), ("solver_options", 6),
     ])
@@ -692,8 +692,6 @@ class TestRefusals:
         flags, overrides = [], {}
         if case == "data_parallel":
             flags = ["--data-parallel", "auto"]
-        elif case == "retries":
-            flags = ["--max-retries", "1"]
         elif case == "tuning":
             overrides = {"tuning": {"mode": "random", "iterations": 2}}
         elif case == "streamed_fixed":
@@ -750,3 +748,124 @@ class TestRefusals:
         assert game_scoring_driver.build_arg_parser().parse_args(
             ["--data", "x", "--model-dir", "m", "--output-dir", "o"]
         ).device == "cuda"
+
+
+def _model_files(out):
+    """Every file of a saved GameModel directory, by relative path."""
+    root = os.path.join(out, "models")
+    files = {}
+    for dirpath, _, names in os.walk(root):
+        for name in names:
+            path = os.path.join(dirpath, name)
+            files[os.path.relpath(path, root)] = open(path, "rb").read()
+    return files
+
+
+class TestRetries:
+    """``--max-retries``: a transport-style failure re-enters the fit,
+    which resumes from the CD checkpoint (or skips the finished grid
+    points), through both packages' training drivers."""
+
+    def test_cd_crash_resumes_per_iteration(self, tmp_path, monkeypatch):
+        from photon_ml_tpu.game import descent as ref_descent
+        from photon_ml_tpu_torch.game import descent as port_descent
+
+        train = str(tmp_path / "train.avro")
+        write_game_avro(train, _resume_rows(300, 3))
+        coords = [dict(COORDS[0], max_iters=20),
+                  dict(COORDS[1], max_iters=15)]
+        cfg = _write_config(tmp_path / "c.json", iterations=3,
+                            coordinates=coords)
+        args = ["--train-data", train, "--config", cfg]
+        ok = str(tmp_path / "ok")
+        game_training_driver.run(args + ["--output-dir", ok, *CPU])
+
+        def flaky(module, state):
+            orig = module.CoordinateDescent.run
+
+            def run(self, base_offsets, n_iterations=1, checkpointer=None,
+                    **kw):
+                state["calls"] += 1
+                if state["calls"] == 1:
+                    # Finish (and checkpoint) one iteration, then die as a
+                    # dropped transport would.
+                    orig(self, base_offsets, n_iterations=1,
+                         checkpointer=checkpointer, **kw)
+                    raise RuntimeError("UNAVAILABLE: injected transport "
+                                       "drop")
+                saved = checkpointer.load()
+                state["resumed_from"] = saved["iteration"]
+                return orig(self, base_offsets, n_iterations=n_iterations,
+                            checkpointer=checkpointer, **kw)
+
+            monkeypatch.setattr(module.CoordinateDescent, "run", run)
+
+        states = []
+        for module, driver, extra in (
+                (port_descent, game_training_driver, CPU),
+                (ref_descent, ref_training, ())):
+            state = {"calls": 0, "resumed_from": None}
+            flaky(module, state)
+            out = str(tmp_path / f"retried_{len(states)}")
+            result = driver.run(args + ["--output-dir", out,
+                                        "--max-retries", "1",
+                                        "--retry-backoff", "0", *extra])
+            states.append(state)
+            assert result["retry"]["retries"] == 1
+            assert [h["iteration"] for h in result["history"]][-1] == 2
+        assert states == [{"calls": 2, "resumed_from": 0}] * 2
+        assert _model_files(str(tmp_path / "retried_0")) == _model_files(ok)
+
+    def test_grid_crash_resumes_at_point_boundary(self, game_files,
+                                                  tmp_path, monkeypatch):
+        """A failure between grid points: the retry skips the finished
+        point (its checkpointed model) and fits only the rest."""
+        from photon_ml_tpu_torch.game import estimator as est_mod
+
+        train, val, _ = game_files
+        cfg = _write_config(
+            tmp_path / "grid.json", iterations=1,
+            coordinates=[dict(COORDS[0], reg_weights=[0.1, 1.0, 10.0],
+                              max_iters=10), dict(COORDS[1], max_iters=10)])
+        orig = est_mod.GameEstimator.fit_coordinates
+        fits = []
+
+        def flaky(self, *a, **kw):
+            out = orig(self, *a, **kw)
+            fits.append(len(fits))
+            if len(fits) == 2:
+                raise RuntimeError("UNAVAILABLE: device lost (injected)")
+            return out
+
+        monkeypatch.setattr(est_mod.GameEstimator, "fit_coordinates", flaky)
+        result = game_training_driver.run([
+            "--train-data", train, "--validate-data", val, "--config", cfg,
+            "--output-dir", str(tmp_path / "out"), "--max-retries", "1",
+            "--retry-backoff", "0", *CPU])
+        # Attempt 1 fits point 0 (checkpointed) and point 1 (killed before
+        # its checkpoint); attempt 2 skips point 0 and fits 1 and 2.
+        assert len(fits) == 4
+        assert len(result["grid"]) == 3
+        assert sum(g["best"] for g in result["grid"]) == 1
+        assert all(g["metric"] is not None for g in result["grid"])
+        assert result["retry"]["failures"][0]["matched"] == "UNAVAILABLE"
+
+    def test_non_transient_failure_not_retried(self, game_files, tmp_path,
+                                               monkeypatch):
+        from photon_ml_tpu_torch.game import descent as port_descent
+
+        train, _, config = game_files
+        calls = []
+
+        def broken(self, *a, **kw):
+            calls.append(1)
+            raise RuntimeError("CUDA error: an illegal memory access was "
+                               "encountered")
+
+        monkeypatch.setattr(port_descent.CoordinateDescent, "run", broken)
+        with pytest.raises(RuntimeError, match="illegal memory access"):
+            game_training_driver.run([
+                "--train-data", train, "--config", config, "--output-dir",
+                str(tmp_path / "o"), "--max-retries", "3",
+                "--retry-backoff", "0", *CPU])
+        assert calls == [1]

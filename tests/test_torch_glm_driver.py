@@ -365,3 +365,274 @@ def test_driver_refuses_unported_and_unknown_solvers(a1a_shaped, tmp_path,
     with pytest.raises(SystemExit, match=error):
         glm_driver.run(_argv(train, val, str(tmp_path / "out"),
                              "--solver", solver, "--device", "cpu"))
+
+
+# -- out-of-core training, warm starts, reports and retries --------------
+
+
+def _solves(out):
+    """Per-λ (final objective, iterations) from the driver's log."""
+    import re
+
+    with open(os.path.join(out, "photon.log")) as f:
+        return {float(m.group(1)): (float(m.group(2)), int(m.group(3)))
+                for m in re.finditer(
+                    r"lambda=([0-9.e+-]+): value=(\S+) iters=(\d+)",
+                    f.read())}
+
+
+def _model_bytes(out):
+    return {name: open(os.path.join(out, name), "rb").read()
+            for name in sorted(os.listdir(out))
+            if name.startswith("model_lambda_")}
+
+
+STREAM = ("--stream-chunk-rows", "128")
+#: Solves that stop at the float32 noise floor in another summation order
+#: (streamed chunks, a warm start) may swap a validation pair or two: two
+#: of the validation file's 9,900 positive-negative pairs.
+AUC_PAIRS_TOL = 2.1e-4
+
+
+@pytest.mark.parametrize("flags", [
+    (), ("--reg-type", "l1", "--optimizer", "owlqn"),
+    ("--solver", "tron"),
+], ids=["l2", "l1", "tron"])
+def test_streamed_driver_matches_resident_and_reference(a1a_shaped,
+                                                        tmp_path, flags):
+    """The streamed route (4 chunks of 128 rows from a disk store, host
+    validation scoring) selects what the port's resident run and the
+    reference's streamed run select, with coefficients within 1e-3 of
+    max|w| (the OWL-QN route stops at 1e-3,
+    see ``_both``), AUCs within :data:`AUC_PAIRS_TOL`.  The value sums in
+    float64 (``--precise-accumulation``): the port's streamed route runs
+    the resident solvers, whose decisions are the reference's resident
+    float32 arithmetic, while the reference's streamed solvers decide in
+    host floats, so with float32 values the two streamed runs part where a
+    solve stops on a one-ulp decrease."""
+    train, val = a1a_shaped
+    argv = [
+        "--train-data", train, "--validate-data", val, "--task", "logistic",
+        "--reg-type", "l2", "--reg-weights", "0.1,1.0,10.0",
+        "--n-features", str(D), *flags,
+        "--tolerance", "1e-3" if "l1" in flags else "1e-5",
+        "--precise-accumulation",
+    ]
+    store = str(tmp_path / "store")
+    runs = {
+        "streamed": glm_driver.run(argv + [
+            "--output-dir", str(tmp_path / "s"), *STREAM,
+            "--stream-storage-dir", store, "--device", "cpu"]),
+        "resident": glm_driver.run(argv + [
+            "--output-dir", str(tmp_path / "r"), "--device", "cpu"]),
+        "reference": jax_driver.run(argv + [
+            "--output-dir", str(tmp_path / "j"), *STREAM]),
+    }
+    ours = runs["streamed"]
+    assert ours["streaming"]["chunks"] == 4 and ours["streaming"]["disk"]
+    assert ours["streaming"]["layout"] == "coo"
+    assert ours["streaming"]["transfer"]["chunks"] > 0
+    for other in ("resident", "reference"):
+        assert runs[other]["best_lambda"] == ours["best_lambda"]
+        for lam, auc in ours["metrics"].items():
+            assert abs(auc - runs[other]["metrics"][lam]) <= \
+                AUC_PAIRS_TOL, (other, lam)
+    name = f"model_lambda_{ours['best_lambda']:g}.avro"
+    w = model_store.load_glm_model(str(tmp_path / "s" / name),
+                                   device="cpu")[0].coefficients.means
+    for sub, loader in (("r", lambda p: model_store.load_glm_model(
+            p, device="cpu")[0].coefficients.means.numpy()),
+                        ("j", lambda p: np.asarray(jax_store.load_glm_model(
+                            p)[0].coefficients.means))):
+        other = loader(str(tmp_path / sub / name))
+        assert np.abs(w.numpy() - other).max() <= 1e-3 * np.abs(other).max()
+
+
+def test_streamed_driver_kill_and_resume_bitwise(a1a_shaped, tmp_path,
+                                                 monkeypatch):
+    """A streamed grid killed after its first λ resumes with ``--resume``
+    to model files byte-equal to the uninterrupted streamed run's."""
+    from photon_ml_tpu_torch.optim import streaming as port_streaming
+
+    train, val = a1a_shaped
+    full, res = str(tmp_path / "full"), str(tmp_path / "resumed")
+    glm_driver.run(_argv(train, val, full, *STREAM, "--device", "cpu",
+                         "--output-mode", "all"))
+    orig = port_streaming.streaming_run_grid
+
+    def killed(*a, on_solved=None, **kw):
+        def die(lam, w):
+            on_solved(lam, w)
+            raise KeyboardInterrupt("killed after the first λ")
+
+        return orig(*a, on_solved=die, **kw)
+
+    monkeypatch.setattr(port_streaming, "streaming_run_grid", killed)
+    with pytest.raises(KeyboardInterrupt):
+        glm_driver.run(_argv(train, val, res, *STREAM, "--device", "cpu",
+                             "--output-mode", "all"))
+    monkeypatch.undo()
+    result = glm_driver.run(_argv(train, val, res, *STREAM, "--device",
+                                  "cpu", "--output-mode", "all", "--resume"))
+    assert "resuming: 1 of 3" in open(os.path.join(res, "photon.log")).read()
+    assert _model_bytes(res) == _model_bytes(full)
+    assert result["metrics"] == json.load(open(os.path.join(
+        full, "training_result.json")))["metrics"]
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["resident",
+                                                       "streamed"])
+def test_mid_grid_transient_crash_resumes(a1a_shaped, tmp_path, monkeypatch,
+                                          stream):
+    """A transport-style failure after the first λ checkpointed: with
+    ``--max-retries`` the driver re-enters training from the checkpoint
+    without re-solving that λ, and its models are byte-equal to an
+    uninterrupted run's; the reference's driver recovers the same way."""
+    from photon_ml_tpu.optim.problem import (
+        GlmOptimizationProblem as RefProblem,
+    )
+    from photon_ml_tpu_torch.optim import streaming as port_streaming
+    from photon_ml_tpu_torch.optim.problem import GlmOptimizationProblem
+
+    train, val = a1a_shaped
+    extra = (*STREAM,) if stream else ()
+    ok = str(tmp_path / "ok")
+    glm_driver.run(_argv(train, val, ok, *extra, "--device", "cpu"))
+
+    def flaky(orig, state):
+        def run(*a, **kw):
+            state["attempts"] += 1
+            if state["attempts"] == 1:
+                inner = kw["on_solved"]
+
+                def dying(lam, w):
+                    inner(lam, w)  # persist the checkpoint first
+                    state["solved_before_crash"].append(lam)
+                    raise RuntimeError(
+                        "UNAVAILABLE: injected transport drop")
+
+                kw["on_solved"] = dying
+            return orig(*a, **kw)
+        return run
+
+    state = {"attempts": 0, "solved_before_crash": []}
+    if stream:
+        monkeypatch.setattr(port_streaming, "streaming_run_grid",
+                            flaky(port_streaming.streaming_run_grid, state))
+    else:
+        monkeypatch.setattr(GlmOptimizationProblem, "run_grid",
+                            flaky(GlmOptimizationProblem.run_grid, state))
+    out = str(tmp_path / "recovered")
+    result = glm_driver.run(_argv(train, val, out, *extra, "--device", "cpu",
+                                  "--max-retries", "1",
+                                  "--retry-backoff", "0"))
+    monkeypatch.undo()
+    assert state == {"attempts": 2, "solved_before_crash": [10.0]}
+    assert result["retry"]["retries"] == 1
+    assert result["retry"]["failures"][0]["matched"] == "UNAVAILABLE"
+    assert _model_bytes(out) == _model_bytes(ok)
+    assert "restored from checkpoint" in open(
+        os.path.join(out, "photon.log")).read()
+    if not stream:
+        # The reference's driver, crashed the same way, recovers to the
+        # same selection.
+        rstate = {"attempts": 0, "solved_before_crash": []}
+        monkeypatch.setattr(RefProblem, "run_grid",
+                            flaky(RefProblem.run_grid, rstate))
+        ref = jax_driver.run(_argv(train, val, str(tmp_path / "ref"),
+                                   "--max-retries", "1",
+                                   "--retry-backoff", "0"))
+        assert rstate == state
+        assert ref["best_lambda"] == result["best_lambda"]
+        assert ref["retry"]["retries"] == result["retry"]["retries"]
+
+
+def test_non_transient_failure_is_not_retried(a1a_shaped, tmp_path,
+                                              monkeypatch):
+    from photon_ml_tpu_torch.optim.problem import GlmOptimizationProblem
+
+    train, val = a1a_shaped
+    calls = []
+
+    def broken(self, *a, **k):
+        calls.append(1)
+        raise ValueError("genuinely broken config")
+
+    monkeypatch.setattr(GlmOptimizationProblem, "run_grid", broken)
+    with pytest.raises(ValueError, match="genuinely broken"):
+        glm_driver.run(_argv(train, val, str(tmp_path / "o"), "--device",
+                             "cpu", "--max-retries", "5",
+                             "--retry-backoff", "0"))
+    assert calls == [1]
+
+
+@pytest.mark.parametrize("stream", [False, True], ids=["resident",
+                                                       "streamed"])
+def test_initial_model_warm_starts_the_grid(a1a_shaped, tmp_path, stream):
+    """``--initial-model`` seeds the first λ from a saved model (in the
+    original feature space, mapped into the solver's standardized space):
+    fewer iterations than cold, the same optimum (objective rtol 1e-6,
+    coefficients within 1e-3 of max|w|: both solves stop at the float32
+    noise floor), and the reference's warm-started run's metrics within
+    :data:`AUC_PAIRS_TOL`."""
+    train, val = a1a_shaped
+    extra = (*STREAM,) if stream else ()
+    flags = ("--output-mode", "all", "--normalization", "standardization")
+    cold = str(tmp_path / "cold")
+    res_cold = glm_driver.run(_argv(train, val, cold, *extra, *flags,
+                                    "--device", "cpu"))
+    init = ("--initial-model", os.path.join(cold, "model_lambda_10.avro"))
+    warm = str(tmp_path / "warm")
+    res = glm_driver.run(_argv(train, val, warm, *extra, *flags, *init,
+                               "--device", "cpu"))
+    ref = jax_driver.run(_argv(train, val, str(tmp_path / "ref"), *extra,
+                               *flags, *init))
+    (f_warm, it_warm), (f_cold, it_cold) = (_solves(out)[10.0]
+                                            for out in (warm, cold))
+    assert it_warm < it_cold
+    assert f_warm == pytest.approx(f_cold, rel=1e-6)
+    for lam, auc in res["metrics"].items():
+        assert abs(auc - ref["metrics"][lam]) <= AUC_PAIRS_TOL
+        assert abs(auc - res_cold["metrics"][lam]) <= AUC_PAIRS_TOL
+    w_w, w_c = (model_store.load_glm_model(os.path.join(
+        out, "model_lambda_10.avro"), device="cpu")[0].coefficients.means
+        for out in (warm, cold))
+    assert (w_w - w_c).abs().max() <= 1e-3 * w_c.abs().max()
+
+
+def test_streamed_training_report_carries_every_lambda(a1a_shaped,
+                                                       tmp_path):
+    train, val = a1a_shaped
+    out = str(tmp_path / "out")
+    result = glm_driver.run(_argv(train, val, out, *STREAM, "--device",
+                                  "cpu", "--training-report"))
+    rep = json.load(open(os.path.join(out, "report.json")))
+    for kind in ("convergence", "metric", "calibration",
+                 "feature_importance"):
+        assert sorted(s["lambda"] for s in rep["sections"]
+                      if s["kind"] == kind) == [0.1, 1.0, 10.0]
+    assert os.path.exists(os.path.join(out, "report.html"))
+    assert result["report"]["html"].endswith("report.html")
+
+
+@pytest.mark.parametrize("case,error", [
+    ("storage-without-chunks", "requires --stream-chunk-rows"),
+    ("bounds", "single-device resident-data only"),
+    ("data-parallel", "Queue 1 item 6"),
+    ("prefetch-depth", "--stream-prefetch-depth must be >= 1"),
+])
+def test_stream_flag_guards(a1a_shaped, tmp_path, case, error):
+    train, val = a1a_shaped
+    flags = {
+        "storage-without-chunks": ("--stream-storage-dir",
+                                   str(tmp_path / "s")),
+        "bounds": (*STREAM, "--coefficient-bounds",
+                   _bounds_file(tmp_path, {"f0": [-1, 1]})),
+        "data-parallel": ("--data-parallel", "auto"),
+        "prefetch-depth": (*STREAM, "--stream-prefetch-depth", "0"),
+    }[case]
+    exc = {"bounds": SystemExit,
+           "data-parallel": NotImplementedError}.get(case, ValueError)
+    with pytest.raises(exc, match=error):
+        glm_driver.run(_argv(train, val, str(tmp_path / "out"), *flags,
+                             "--device", "cpu"))

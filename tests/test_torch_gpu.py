@@ -928,3 +928,72 @@ def test_factored_projection_gradient_on_card_repeats_bitwise(cuda):
     again = c.train(off)
     assert torch.equal(state[1], again[1])
     assert all(torch.equal(u, v) for u, v in zip(state[0], again[0]))
+
+
+def _stream_problem(seed, n, d, k):
+    """n rows of about k normal values over d columns, logistic labels."""
+    import scipy.sparse as sp
+
+    rows, cols, vals = _matrix(seed, n, d, k, unit=False)
+    X = sp.csr_matrix((vals, (rows, cols)), shape=(n, d))
+    rng = np.random.default_rng(seed + 1)
+    m = np.asarray(X @ (rng.normal(size=d) * 0.3)).ravel()
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-m))).astype(np.float32)
+    return X, y
+
+
+def test_streamed_pass_on_card_matches_resident(cuda):
+    """A streamed value+grad pass over kernel-layout chunks (pinned slots,
+    the copy stream, one event a chunk) equals the resident kernel pass
+    within 1e-5 of the largest gradient entry, launches both SpMV kernels
+    per chunk, and depth 1 equals depth 2 bitwise."""
+    from photon_ml_tpu_torch.data.dataset import make_glm_data
+    from photon_ml_tpu_torch.data.streaming import make_streaming_glm_data
+    from photon_ml_tpu_torch.optim.objective import GlmObjective
+    from photon_ml_tpu_torch.optim.streaming import StreamingObjective
+    from photon_ml_tpu_torch.ops import losses
+
+    X, y = _stream_problem(31, 1 << 16, 4096, 32)
+    stream = make_streaming_glm_data(X, y, chunk_rows=1 << 14, device=cuda)
+    assert stream.kind == "kernel" and stream.n_chunks == 4
+    w = torch.randn(4096, device=cuda,
+                    generator=torch.Generator(cuda).manual_seed(3)) * 0.1
+    obj = GlmObjective(losses.get("logistic"))
+    v_r, g_r = obj.value_and_grad(w, make_glm_data(X, y, device=cuda), 0.5)
+    _kernels.reset_launches()
+    s1 = StreamingObjective(obj, stream, prefetch_depth=1)
+    v1, g1 = s1.value_and_grad(w, 0.5)
+    torch.cuda.synchronize()
+    assert _kernels.LAUNCHES["matvec"] == _kernels.LAUNCHES["rmatvec"] == 4
+    assert abs(float(v1) - float(v_r)) <= 1e-5 * abs(float(v_r))
+    assert float((g1 - g_r).abs().max()) <= 1e-5 * float(g_r.abs().max())
+    v2, g2 = StreamingObjective(obj, stream, prefetch_depth=2
+                                ).value_and_grad(w, 0.5)
+    assert torch.equal(v1, v2) and torch.equal(g1, g2)
+    assert s1.transfer_stats.h2d_device_seconds > 0.0
+
+
+def test_cross_stream_stress_depth3_bitwise_depth1(cuda):
+    """Many small chunks at depth 3 (copies on the copy stream racing the
+    kernels on the compute stream, the allocator recycling chunk buffers):
+    every pass kind bitwise equal to depth 1, five passes in a row, with
+    the lossless codec and the hot cache too."""
+    from photon_ml_tpu_torch.data.streaming import make_streaming_glm_data
+    from photon_ml_tpu_torch.optim.streaming import StreamingObjective
+
+    X, y = _stream_problem(37, 1 << 15, 2048, 16)
+    stream = make_streaming_glm_data(X, y, chunk_rows=512, device=cuda)
+    assert stream.n_chunks == 64
+    gen = torch.Generator(cuda).manual_seed(5)
+    w = torch.randn(2048, device=cuda, generator=gen) * 0.1
+    v = torch.randn(2048, device=cuda, generator=gen)
+    ref = StreamingObjective("logistic", stream, prefetch_depth=1)
+    want = (ref.value_and_grad(w, 0.5), ref.hvp(w, v, 0.5), ref.scores(w))
+    for kw in ({}, {"compress": "lossless", "hot_budget_bytes": 1 << 22}):
+        fast = StreamingObjective("logistic", stream, prefetch_depth=3, **kw)
+        for _ in range(5):
+            vg = fast.value_and_grad(w, 0.5)
+            assert torch.equal(vg[0], want[0][0])
+            assert torch.equal(vg[1], want[0][1])
+        assert torch.equal(fast.hvp(w, v, 0.5), want[1])
+        np.testing.assert_array_equal(fast.scores(w), want[2])

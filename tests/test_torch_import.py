@@ -68,11 +68,19 @@ def test_import_leaves_jax_out_of_sys_modules():
     "photon_ml_tpu_torch.drivers.game_training_driver",
     "photon_ml_tpu_torch.drivers.game_scoring_driver",
     "photon_ml_tpu_torch.drivers.feature_indexing_driver",
+    "photon_ml_tpu_torch.utils.watchdog",
+    "photon_ml_tpu_torch.diagnostics",
+    "photon_ml_tpu_torch.diagnostics.report",
+    "photon_ml_tpu_torch.data.staging",
+    "photon_ml_tpu_torch.data.prefetch",
+    "photon_ml_tpu_torch.data.streaming",
+    "photon_ml_tpu_torch.optim.streaming",
+    "photon_ml_tpu_torch.drivers.glm_driver",
 ])
 def test_solver_slice_module_imports_alone_without_jax(module):
-    """Each module of the solver, GAME and GAME-driver slices, imported
-    alone in a fresh process, leaves jax and the JAX package out of
-    sys.modules."""
+    """Each module of the solver, GAME, GAME-driver and out-of-core slices,
+    imported alone in a fresh process, leaves jax and the JAX package out
+    of sys.modules."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({module!r})\n"
