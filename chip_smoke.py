@@ -78,7 +78,7 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    (seed 3: per-user, per-item and per-context effects, the contexts capped
    at 256 active rows so passive rows exist).  Host build times, buckets and
    their (E, R), one warm iteration, one monitored run, then the median of
-   3 timed runs of 3 iterations as GAME iterations/s, each coordinate's
+   2 timed runs of 3 iterations as GAME iterations/s, each coordinate's
    wall, Newton bodies and host reads an update.  Checks: the float64 GAME
    objective never rises between updates beyond 2^-22 of its value; a second
    run repeats every state and score bitwise; the scores equal a float64
@@ -185,17 +185,56 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    byte-equal to phase 7's uninterrupted run).  The failures are injected
    by patching from this script, never from the program.
 
+10. GAME out of core (``game/ooc_random.py``, ``game/ooc_factored.py``,
+   ``game/streaming.py``) at full width, after 9c.  10a: on
+   ``bench_game_multi_re``'s draw, per-user, per-item and per-context
+   (passive rows) effects each out of core at an eighth of its host
+   blocks' bytes (at least 8 pass groups and an entity-axis split each):
+   bitwise in one plan (a repeat, depth 1 = depth 2, prestaged, a memmap
+   dataset, a hot cache at half the static bytes over three updates with
+   hits from the second), at most ``prefetch_depth`` groups live, and the
+   resident coordinate within 1e-5 (coefficients) and 1e-4 (scores).  10d:
+   the whole descent on that draw with the fixed effect streamed in chunks
+   of 2^17 rows (L-BFGS, batched line search) and the three effects out of
+   core: a warm iteration, 3 timed iterations (GAME iterations/s beside
+   phase 6's resident number), the pipelined schedule bitwise the same, the
+   float64 objective never rising beyond 2^-22, the final objective within
+   1e-5 of the resident descent's, the scores equal to a float64 host
+   re-score; then OWL-QN (elastic net), L-BFGS and TRON updates of the
+   streamed fixed effect in float32, as the estimator builds it: each
+   float64 objective within 1e-5 of the same solver's on the resident
+   problem, TRON within 1e-5 of L-BFGS (9b's gap), 9b's KKT residuals
+   logged.  10b: phase 8b's wide per-user
+   effect (884 MB) at a quarter of its bytes: the device bytes out of core
+   (the update's peak above its baseline) at most half the resident
+   coordinate's (its dataset plus its update's peak), coefficients within
+   5e-3 of the largest ||w||.  10c: phase 8c's factored ``per_item`` at a
+   quarter of its bytes: no more device bytes held between passes than V
+   and its gradient, the update's device bytes at most half the resident
+   coordinate's (as 10b), bitwise repeat, the projection gradient against a
+   float64 host recompute within 1e-5, no projection step raising the
+   objective in V, coefficients and scores within 1e-4 (of the largest
+   |w|, |score|) of the resident factored coordinate.  10e: the GAME
+   training driver on phase 7's files with ``streaming_chunk_rows: 131072``
+   and ``device_budget_mb`` at an eighth of the per-user blocks (3
+   iterations, per-update validation; killed after 1 and resumed: model
+   files byte-equal; the float64 objective of its model within 1e-5 of
+   phase 7's resident run's), and ``game_scoring_driver
+   --stream-block-rows 65536`` on the validation (2 blocks) and training
+   (10 blocks) files: scores equal to the whole-file runs', the same AUC,
+   and the per-block device logistic loss within 1e-6 of the host one.
+
 Phase 7's GAME Avro files are written by a spawned process that starts
 after phase 1 and runs beside phases 2-6; phase 7 waits for it.
 
 Launch counts are zeroed just before each main-path run of phases 3, 3b,
-4, 5, 6, 7, 8 and 9 and read just after; every kernel those paths run must
-have launched.  A kernel record's ``launches`` sums its main-path runs
+4, 5, 6, 7, 8, 9 and 10 and read just after; every kernel those paths run
+must have launched.  A kernel record's ``launches`` sums its main-path runs
 (phases 3, 3b, 9a and 9b for the valued instances, phase 4's three runs
 and 9c's GLM driver runs for the binary ones, phase 6's descents and
-estimator fits and phases 7's, 8's and 9c's training runs for the
-``.game`` records, phases 7's and 8's validation scoring for
-``.game_val``).  The second-to-last line is the kernels' JSON record and
+estimator fits, phases 7's, 8's and 9c's training runs and phase 10's
+descents, streamed solves and training runs for the ``.game`` records,
+phases 7's, 8's and 10e's validation scoring for ``.game_val``).  The second-to-last line is the kernels' JSON record and
 the last line ``{"ok": true, "device": {...}}``.
 """
 
@@ -265,7 +304,7 @@ GAME_BUCKET_GROWTH = 4.0
 GAME_CONTEXTS = 200
 GAME_CONTEXT_CAP = 256
 GAME_TIMED_ITERS = 3
-GAME_TIMED_RUNS = 3
+GAME_TIMED_RUNS = 2
 # Phase 7: the GAME drivers at bench_game_cd's width, with a validation
 # file of GAME_VAL_ROWS rows (GAME_VAL_UNSEEN of them from unseen users).
 GAME_VAL_ROWS = 80_000
@@ -1502,17 +1541,18 @@ def game_objective(coords, y, scores, states, base, rows=None):
         st = states[c.name]
         if st is None:
             continue
-        if hasattr(c, "problem"):
-            l1, l2 = 0.0, c.reg_weight \
-                * c.problem.config.regularization.l2_weight(1.0)
+        if torch.is_tensor(st):  # a fixed effect's w (resident or streamed)
+            cfg = c.problem.config if hasattr(c, "problem") else c.config
+            l1, l2 = 0.0, c.reg_weight * cfg.regularization.l2_weight(1.0)
             ws = [st]
         else:
             l1, l2 = c._reg()[:2]
             ws = st[0] if hasattr(c, "rank") else st
             if hasattr(c, "rank"):
                 f = f + 0.5 * c._reg()[2] * (st[1].double() ** 2).sum()
-        f = f + sum(0.5 * l2 * (w.double() ** 2).sum()
-                    + l1 * w.double().abs().sum() for w in ws)
+        ws = [torch.as_tensor(w, device=total.device).double() for w in ws]
+        f = f + sum(0.5 * l2 * (w ** 2).sum() + l1 * w.abs().sum()
+                    for w in ws)
     return f
 
 
@@ -1627,10 +1667,12 @@ FALLBACK_F32_TOL = 5e-3
 
 
 def states_equal(a, b):
-    """Bitwise equality of two coordinate states (tensors, or nested
-    lists and tuples of them)."""
+    """Bitwise equality of two coordinate states (tensors, host arrays, or
+    nested lists and tuples of them)."""
     if isinstance(a, torch.Tensor):
         return torch.equal(a, b)
+    if isinstance(a, np.ndarray):
+        return np.array_equal(a, b)
     return len(a) == len(b) and all(states_equal(x, y) for x, y in zip(a, b))
 
 
@@ -2446,8 +2488,13 @@ class ScorerRecorder:
                                          else [s.clone() for s in state]))
                 return out
 
+        from photon_ml_tpu_torch.game.streaming import (
+            StreamingFixedEffectCoordinate,
+        )
+
         for cls in (coordinates.FixedEffectCoordinate,
-                    coordinates.RandomEffectCoordinate):
+                    coordinates.RandomEffectCoordinate,
+                    StreamingFixedEffectCoordinate):
             inner = cls.make_validation_scorer
 
             def make(coord, shards, ids, _inner=inner):
@@ -3670,6 +3717,933 @@ def phase_stream_drivers(smi, files, drv_runs, game_td, game_files):
     return total, game_launches, metrics
 
 
+# -- phase 10: GAME out of core ---------------------------------------------
+
+#: 10a and 10d: each random effect's device budget is this fraction of its
+#: host blocks' bytes; 10b and 10c: the wide effects'.
+OOC_BUDGET_DIV = 8
+OOC_WIDE_BUDGET_DIV = 4
+#: tests/test_ooc_random.py's coefficient and score tolerances.
+OOC_COEF_TOL = 1e-5
+OOC_SCORE_TOL = 1e-4
+OOC_MEMORY_RATIO = 0.5
+OOC_FACTORED_TOL = 1e-4
+OOC_OBJ_TOL = 1e-5
+OOC_CHUNK_ROWS = 1 << 17
+OOC_SCORE_BLOCK_ROWS = 65536
+
+
+def host_block_bytes(ds):
+    """Bytes of a random-effect dataset's blocks, active and passive."""
+    blocks = list(ds.blocks) + [b for b in ds.passive_blocks if b is not None]
+    return int(sum(int(a.nbytes) for b in blocks for a in b.leaves()))
+
+
+def ooc_offsets(n, seed):
+    """Seeded per-row offsets on the card (the other coordinates' scores a
+    single coordinate trains against)."""
+    rng = np.random.default_rng(seed)
+    return torch.as_tensor(0.5 * rng.normal(size=n).astype(np.float32),
+                           device=DEVICE)
+
+
+def transfer_summary(snap):
+    """One log line of a ``TransferStats.snapshot()``."""
+    p = max(snap["passes"], 1)
+    return (f"{snap['passes']} passes, {snap['chunks']} group transfers, "
+            f"{snap['bytes'] / 1e6:.1f} MB; a pass: pack "
+            f"{1e3 * snap['pack_seconds'] / p:.2f} ms, h2d "
+            f"{1e3 * snap['h2d_seconds'] / p:.2f} ms (copy stream "
+            f"{1e3 * snap['h2d_device_seconds'] / p:.2f} ms, "
+            f"{snap['gbps']:.2f} GB/s), consume "
+            f"{1e3 * snap['consume_seconds'] / p:.2f} ms; stalls: pack "
+            f"{snap['pack_stalls']}, producer {snap['producer_stalls']}, "
+            f"consumer {snap['consumer_stalls']}; live groups <= "
+            f"{snap['max_live']}")
+
+
+def device_peak(fn):
+    """(fn's result, its peak device bytes above the bytes allocated when
+    it started, its wall seconds)."""
+    torch.cuda.synchronize()
+    torch.cuda.empty_cache()
+    base = torch.cuda.memory_allocated()
+    torch.cuda.reset_peak_memory_stats()
+    t0 = time.perf_counter()
+    out = fn()
+    torch.cuda.synchronize()
+    return out, torch.cuda.max_memory_allocated() - base, \
+        time.perf_counter() - t0
+
+
+def ooc_updates(coord, offsets, updates=1, prestage=False):
+    """``updates`` chained train + score updates of an out-of-core
+    coordinate (warm-started from the last).  Each: (state, scores,
+    train s, score s, last_solve, hot-cache hits)."""
+    out, state = [], None
+    for _ in range(updates):
+        if prestage:
+            coord.prestage(state)
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        state = coord.train(offsets, warm_state=state)
+        torch.cuda.synchronize()
+        check(1 <= coord.live_groups_high_water <= coord.prefetch_depth,
+              f"ooc {coord.name}: {coord.live_groups_high_water} groups "
+              f"live in a train pass, depth {coord.prefetch_depth}")
+        t1 = time.perf_counter()
+        scores = coord.score(state)
+        torch.cuda.synchronize()
+        check(1 <= coord.live_groups_high_water <= coord.prefetch_depth,
+              f"ooc {coord.name}: {coord.live_groups_high_water} groups "
+              f"live in a score pass")
+        cache = coord.hot_cache
+        out.append((state, scores, t1 - t0, time.perf_counter() - t1,
+                    dict(coord.last_solve),
+                    None if cache is None else cache.hits))
+    return out
+
+
+def ooc_bitwise(label, a, b):
+    """Every update's state and scores of two runs bitwise equal."""
+    check(len(a) == len(b), f"ooc {label}: {len(a)} vs {len(b)} updates")
+    for i, (x, y) in enumerate(zip(a, b)):
+        check(states_equal(x[0], y[0]) and torch.equal(x[1], y[1]),
+              f"ooc {label}: update {i} is not bitwise equal")
+
+
+def ooc_random_effect(glog, name, keys, Xe, cap, y, offsets, opt, tmp):
+    """10a for one random effect: the host dataset, its plan at an eighth
+    of its bytes, the in-plan bitwise checks (repeat, depth 1 = depth 2,
+    prestaged, memmap, a hot cache at half the static bytes over three
+    updates), and the resident coordinate within 1e-5 / 1e-4.  Returns
+    (host dataset, resident dataset, metrics)."""
+    from photon_ml_tpu_torch.data.streaming import (
+        spill_random_effect_dataset,
+    )
+    from photon_ml_tpu_torch.game.coordinates import RandomEffectCoordinate
+    from photon_ml_tpu_torch.game.data import build_random_effect_dataset
+    from photon_ml_tpu_torch.game.ooc_random import (
+        OutOfCoreRandomEffectCoordinate,
+    )
+
+    n = len(y)
+    t0 = time.perf_counter()
+    host = build_random_effect_dataset(
+        keys, Xe, y, np.ones(n, np.float32), max_rows_per_entity=cap,
+        bucket_growth=GAME_BUCKET_GROWTH, device=False)
+    build_s = time.perf_counter() - t0
+    nbytes = host_block_bytes(host)
+    budget = nbytes // OOC_BUDGET_DIV
+
+    def make(ds=host, budget=budget, **kw):
+        return OutOfCoreRandomEffectCoordinate(
+            name, ds, "logistic", opt, reg_weight=1.0, entity_key=name,
+            device_budget_bytes=budget, device=DEVICE, **kw)
+
+    c = make()
+    plan = c.pass_plan
+    n_slices = sum(map(len, plan))
+    check(len(plan) >= 8 and any(s.lane_lo > 0 for g in plan for s in g),
+          f"ooc {name}: {len(plan)} groups and no entity-axis split at "
+          f"budget {budget}")
+    glog(f"10a {name}: host build {build_s:.3f} s, {len(host.blocks)} "
+         f"buckets, {nbytes / 1e6:.2f} MB of host blocks, budget "
+         f"{budget} B (1/{OOC_BUDGET_DIV}): {len(plan)} pass groups, "
+         f"{n_slices} slices")
+    first = ooc_updates(c, offsets)
+    _, _, train_s, score_s, solve, _ = first[0]
+    glog(f"10a {name}: first update train {train_s:.4f} s, score "
+         f"{score_s:.4f} s; lockstep bodies a group {solve['bodies']}, "
+         f"{solve['host_reads']} host reads; {transfer_summary(c.transfer_stats.snapshot())}")
+    three = ooc_updates(c, offsets, 3)
+    ooc_bitwise(f"{name} repeat", first, three[:1])
+    d1 = make(budget=budget // 2, prefetch_depth=1)
+    check(d1.pass_plan == plan, f"ooc {name}: the depth-1 plan differs")
+    ooc_bitwise(f"{name} depth 1 = depth 2", first, ooc_updates(d1, offsets))
+    ooc_bitwise(f"{name} prestaged", first,
+                ooc_updates(c, offsets, prestage=True))
+    spilled = spill_random_effect_dataset(host, os.path.join(tmp, name))
+    check(isinstance(spilled.blocks[0].X, np.memmap),
+          f"ooc {name}: the spilled dataset is not memmapped")
+    ooc_bitwise(f"{name} memmap = RAM", first,
+                ooc_updates(make(ds=spilled), offsets))
+    static = sum(c._group_static_bytes(k, g) for g in plan
+                 for k in ("train", "score"))
+    hot = make(hot_budget_bytes=static // 2)
+    hot_runs = ooc_updates(hot, offsets, 3)
+    ooc_bitwise(f"{name} hot cache = uncached", three, hot_runs)
+    hits = [r[5] for r in hot_runs]
+    check(hits[0] == 0 and hits[-1] > 0,
+          f"ooc {name}: hot-cache hits by update {hits}")
+    glog(f"10a {name}: bitwise in one plan: repeat, depth 1 = depth 2, "
+         f"prestaged, memmap = RAM, hot cache at {static // 2} B (half the "
+         f"static {static} B) over 3 updates = uncached (hits by update "
+         f"{hits}, {hot.hot_cache.resident_bytes} B resident); hot updates "
+         f"train {[round(r[2], 4) for r in hot_runs]} s vs uncached "
+         f"{[round(r[2], 4) for r in three]} s")
+
+    t0 = time.perf_counter()
+    res_ds = build_random_effect_dataset(
+        keys, Xe, y, np.ones(n, np.float32), max_rows_per_entity=cap,
+        bucket_growth=GAME_BUCKET_GROWTH, device=DEVICE)
+    res = RandomEffectCoordinate(name, res_ds, "logistic", opt,
+                                 reg_weight=1.0, entity_key=name)
+    torch.cuda.synchronize()
+    t1 = time.perf_counter()
+    st_r = res.train(offsets)
+    torch.cuda.synchronize()
+    t2 = time.perf_counter()
+    sc_r = res.score(st_r)
+    torch.cuda.synchronize()
+    res_train_s = t2 - t1
+    coef_err = max(float(np.abs(a - b.cpu().numpy()).max())
+                   for a, b in zip(first[0][0], st_r))
+    score_err = float((first[0][1] - sc_r).abs().max())
+    check(coef_err <= OOC_COEF_TOL and score_err <= OOC_SCORE_TOL,
+          f"ooc {name}: against the resident coordinate coefficients "
+          f"{coef_err:.3g} (limit {OOC_COEF_TOL:g}), scores {score_err:.3g}"
+          f" (limit {OOC_SCORE_TOL:g})")
+    glog(f"10a {name}: vs the resident coordinate (device build "
+         f"{t1 - t0:.3f} s, train {res_train_s:.4f} s, "
+         f"{res.last_solve.host_reads} host reads, bodies a bucket "
+         f"{res.last_solve.bodies}): coefficients max |diff| "
+         f"{coef_err:.3g} (limit {OOC_COEF_TOL:g}), scores {score_err:.3g} "
+         f"(limit {OOC_SCORE_TOL:g})")
+    metrics = dict(groups=len(plan), slices=n_slices, budget=budget,
+                   host_bytes=nbytes, train_s=train_s, score_s=score_s,
+                   bodies=solve["bodies"], host_reads=solve["host_reads"],
+                   resident_train_s=res_train_s,
+                   resident_host_reads=res.last_solve.host_reads,
+                   transfer=c.transfer_stats.snapshot(), coef_err=coef_err,
+                   score_err=score_err, hot_hits=hits)
+    return host, res_ds, metrics
+
+
+def ooc_wide_memory(glog, tmp):
+    """10b: the wide per-user effect (phase 8b's, 884 MB of blocks) out of
+    core at a quarter of its bytes: the device bytes it needs against the
+    resident coordinate's, and its coefficients against them."""
+    from photon_ml_tpu_torch.game.coordinates import RandomEffectCoordinate
+    from photon_ml_tpu_torch.game.data import build_random_effect_dataset
+    from photon_ml_tpu_torch.game.ooc_random import (
+        OutOfCoreRandomEffectCoordinate,
+    )
+
+    n, _, y, effects = game_cd_wide_data()
+    name, keys, Xe, cap = effects[0]
+    opt = game_re_opt("LBFGS")
+    offsets = ooc_offsets(n, 101)
+    t0 = time.perf_counter()
+    host = build_random_effect_dataset(
+        keys, Xe, y, np.ones(n, np.float32), max_rows_per_entity=cap,
+        bucket_growth=GAME_BUCKET_GROWTH, device=False)
+    build_s = time.perf_counter() - t0
+    nbytes = host_block_bytes(host)
+    c = OutOfCoreRandomEffectCoordinate(
+        name, host, "logistic", opt, reg_weight=1.0, entity_key=name,
+        device_budget_bytes=nbytes // OOC_WIDE_BUDGET_DIV, device=DEVICE)
+
+    (st_o, sc_o), ooc_bytes, ooc_s = device_peak(
+        lambda: (lambda st: (st, c.score(st)))(c.train(offsets)))
+    res_ds = build_random_effect_dataset(
+        keys, Xe, y, np.ones(n, np.float32), max_rows_per_entity=cap,
+        bucket_growth=GAME_BUCKET_GROWTH, device=DEVICE)
+    ds_bytes = int(sum(a.numel() * a.element_size() for b in res_ds.blocks
+                       for a in b.leaves()))
+    res = RandomEffectCoordinate(name, res_ds, "logistic", opt,
+                                 reg_weight=1.0, entity_key=name)
+    (st_r, sc_r), res_peak, res_s = device_peak(
+        lambda: (lambda st: (st, res.score(st)))(res.train(offsets)))
+    res_bytes = ds_bytes + res_peak
+    ratio = ooc_bytes / res_bytes
+    scale = max(float(torch.linalg.vector_norm(w, dim=1).max())
+                for w in st_r)
+    err = max(float(np.abs(a - b.cpu().numpy()).max())
+              for a, b in zip(st_o, st_r))
+    glog(f"10b {name}: {len(host.blocks)} buckets (E, R, D) "
+         f"{[(b.n_entities, b.rows_per_entity, b.block_dim) for b in host.blocks]}"
+         f", {nbytes / 1e6:.1f} MB host blocks (build {build_s:.2f} s); "
+         f"budget 1/{OOC_WIDE_BUDGET_DIV}: {len(c.pass_plan)} groups, "
+         f"{sum(map(len, c.pass_plan))} slices. Device bytes: out of core "
+         f"{ooc_bytes / 1e6:.1f} MB (the update's peak above its baseline), "
+         f"resident {res_bytes / 1e6:.1f} MB (dataset {ds_bytes / 1e6:.1f} "
+         f"MB + the update's peak {res_peak / 1e6:.1f} MB), ratio "
+         f"{ratio:.4f} (limit {OOC_MEMORY_RATIO}); wall (train + score) "
+         f"{ooc_s:.3f} s out of core, {res_s:.3f} s resident; bodies a "
+         f"group {c.last_solve['bodies']}, {c.last_solve['host_reads']} host"
+         f" reads vs resident bodies {res.last_solve.bodies}, "
+         f"{res.last_solve.host_reads} reads; coefficients max |diff| "
+         f"{err:.3g} = {err / scale:.3g} of the largest ||w|| "
+         f"(limit {FALLBACK_F32_TOL:g}); {transfer_summary(c.transfer_stats.snapshot())}")
+    check(ratio <= OOC_MEMORY_RATIO,
+          f"ooc 10b: out-of-core device bytes {ooc_bytes} > "
+          f"{OOC_MEMORY_RATIO} x resident {res_bytes}")
+    check(err <= FALLBACK_F32_TOL * scale,
+          f"ooc 10b: coefficients {err:.3g} from the resident coordinate")
+    return dict(ooc_bytes=ooc_bytes, resident_bytes=res_bytes, ratio=ratio,
+                dataset_bytes=ds_bytes, ooc_s=ooc_s, resident_s=res_s,
+                groups=len(c.pass_plan), coef_err_rel=err / scale,
+                bodies=c.last_solve["bodies"],
+                transfer=c.transfer_stats.snapshot())
+
+
+def ooc_factored(glog):
+    """10c: phase 8c's factored ``per_item`` (over ``global``, rank 8, two
+    alternations, projection λ 0.1) out of core at a quarter of its bytes:
+    the device bytes it holds between passes (no more than V and its
+    gradient) and its update's peak against the resident coordinate's (as
+    10b); its alternations stepped again by hand from the cold start (the
+    projection gradient against a float64 host recompute and bitwise
+    repeatable, no projection step raising the objective in V, the end
+    state and scores bitwise train's); coefficients and scores against the
+    resident factored coordinate."""
+    from photon_ml_tpu_torch.game.data import build_random_effect_dataset
+    from photon_ml_tpu_torch.game.factored import (
+        FactoredRandomEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.game.ooc_factored import (
+        OutOfCoreFactoredRandomEffectCoordinate,
+    )
+
+    n, _, y, effects = game_multi_re_factored_data()
+    name, keys, Xe, cap = effects[1]
+    opt = game_re_opt()
+    kw = dict(rank=8, reg_weight=1.0, projection_reg_weight=0.1,
+              alternations=2, entity_key=name)
+    offsets = ooc_offsets(n, 103)
+    t0 = time.perf_counter()
+    host = build_random_effect_dataset(
+        keys, Xe, y, np.ones(n, np.float32), max_rows_per_entity=cap,
+        bucket_growth=GAME_BUCKET_GROWTH, device=False)
+    build_s = time.perf_counter() - t0
+    nbytes = host_block_bytes(host)
+    budget = nbytes // OOC_WIDE_BUDGET_DIV
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    c = OutOfCoreFactoredRandomEffectCoordinate(
+        name, host, "logistic", opt, device_budget_bytes=budget,
+        device=DEVICE, **kw)
+    torch.cuda.synchronize()
+    # What the coordinate keeps on the card between passes: V₀ only, not
+    # anything that grows with the dataset.
+    held = torch.cuda.memory_allocated() - before
+    check(held <= c._budget_overhead_bytes(),
+          f"ooc 10c: the coordinate holds {held} device bytes between "
+          f"passes, over its {c._budget_overhead_bytes()}-byte whole-pass "
+          "overhead")
+
+    def train_score(coord):
+        t0 = time.perf_counter()
+        state = coord.train(offsets)
+        torch.cuda.synchronize()
+        return state, time.perf_counter() - t0, coord.score(state)
+
+    (st, train_s, sc), ooc_bytes, _ = device_peak(lambda: train_score(c))
+    rec = c.last_train
+    tables = [sum(a.nbytes for sl in g for a in (
+        c._grad_tables[sl][0], *c._grad_tables[sl][1],
+        c._grad_tables[sl][2])) for g in c.pass_plan]
+    group_budget = (budget - c._budget_overhead_bytes()) // c.prefetch_depth
+    glog(f"10c {name}: {len(host.blocks)} buckets, {nbytes / 1e6:.1f} MB "
+         f"host blocks (build {build_s:.2f} s), budget 1/"
+         f"{OOC_WIDE_BUDGET_DIV} = {budget / 1e6:.1f} MB: "
+         f"{len(c.pass_plan)} groups of up to {group_budget / 1e6:.1f} MB "
+         f"planned, the projection step's gather tables up to "
+         f"{max(tables) / 1e6:.1f} MB a group ({sum(tables) / 1e6:.1f} MB "
+         f"in all, on the host); device bytes held between passes {held}; "
+         f"train + score peak {ooc_bytes / 1e6:.1f} MB above its baseline "
+         f"= {ooc_bytes / budget:.3f} of the budget; train "
+         f"{train_s:.3f} s (latent steps {[round(t, 3) for t in rec['latent_s']]}"
+         f" s, projection steps {[round(t, 3) for t in rec['projection_s']]} "
+         f"s, L-BFGS iterations over V "
+         f"{[r.iterations for r in rec['projection']]}); "
+         f"{transfer_summary(c.transfer_stats.snapshot())}")
+
+    # By hand from the cold start, phase 8's checks; the steps are train's
+    # own, so their end state repeats train's bitwise.
+    X64 = Xe.tocsr().astype(np.float64)
+    uniq, inv = np.unique(np.asarray(keys).astype(str), return_inverse=True)
+    slots = [host.entity_to_slot[k] for k in uniq]
+    off_h = offsets.double().cpu().numpy()
+    y64 = y.astype(np.float64)
+    l2v = c._reg3()[2]
+
+    def host_f(u_list, V):
+        U = np.stack([u_list[bi][lane] for bi, lane in slots])[inv]
+        U = U.astype(np.float64)
+        V = V.double().cpu().numpy()
+        m = ((X64 @ V) * U).sum(1) + off_h
+        dm = 1 / (1 + np.exp(-m)) - y64
+        f = float((np.logaddexp(0.0, m) - y64 * m).sum()
+                  + 0.5 * l2v * (V * V).sum())
+        G = X64.T @ (dm[:, None] * U) + l2v * V
+        G_abs = abs(X64).T @ (np.abs(dm)[:, None] * np.abs(U)) \
+            + l2v * np.abs(V)
+        return f, G, G_abs
+
+    padded = c._padded_offsets(offsets)
+    u_list = [np.zeros((b.n_entities, c.rank), np.float32)
+              for b in host.blocks]
+    V = c._v0
+    grad_err, steps = 0.0, []
+    for _ in range(c.alternations):
+        c.latent_step(padded, u_list, V)
+        _, g = c.projection_value_grad(V.reshape(-1), padded, u_list)
+        _, g2 = c.projection_value_grad(V.reshape(-1), padded, u_list)
+        check(torch.equal(g, g2), "ooc 10c: the projection gradient "
+              "differs between two passes")
+        f0, G, G_abs = host_f(u_list, V)
+        err = np.abs(g.view(V.shape).double().cpu().numpy() - G) \
+            / np.maximum(G_abs, 1e-30)
+        grad_err = max(grad_err, float(err.max()))
+        V_new, res_v = c.projection_step(padded, u_list, V)
+        f1 = host_f(u_list, V_new)[0]
+        check(f1 - f0 <= GAME_OBJ_RISE * abs(f0),
+              f"ooc 10c: a projection step raised the objective in V from "
+              f"{f0:.10g} to {f1:.10g}")
+        steps.append((f0, f1, res_v.iterations))
+        V = V_new
+    check(grad_err <= RTOL, f"ooc 10c: projection gradient {grad_err:.3g} "
+          "from the float64 host recompute")
+    check(states_equal(u_list, st[0]) and torch.equal(V, st[1])
+          and torch.equal(c.score((u_list, V)), sc),
+          "ooc 10c: a repeated train is not bitwise equal")
+
+    torch.cuda.synchronize()
+    before = torch.cuda.memory_allocated()
+    res_ds = build_random_effect_dataset(
+        keys, Xe, y, np.ones(n, np.float32), max_rows_per_entity=cap,
+        bucket_growth=GAME_BUCKET_GROWTH, device=DEVICE)
+    res = FactoredRandomEffectCoordinate(name, res_ds, "logistic", opt, **kw)
+    torch.cuda.synchronize()
+    res_held = torch.cuda.memory_allocated() - before
+    (st_r, res_s, sc_r), res_peak, _ = device_peak(lambda: train_score(res))
+    res_bytes = res_held + res_peak
+    ratio = ooc_bytes / res_bytes
+    glog(f"10c {name}: device bytes out of core {ooc_bytes / 1e6:.1f} MB, "
+         f"resident {res_bytes / 1e6:.1f} MB (dataset and gather tables "
+         f"{res_held / 1e6:.1f} MB + the update's peak "
+         f"{res_peak / 1e6:.1f} MB), ratio {ratio:.4f} (limit "
+         f"{OOC_MEMORY_RATIO})")
+    check(ratio <= OOC_MEMORY_RATIO,
+          f"ooc 10c: out-of-core device bytes {ooc_bytes} > "
+          f"{OOC_MEMORY_RATIO} x resident {res_bytes}")
+    w_o, w_r = c.materialize(st), [w.cpu().numpy()
+                                   for w in res.materialize(st_r)]
+    w_scale = max(float(np.abs(w).max()) for w in w_r)
+    w_err = max(float(np.abs(a - b).max()) for a, b in zip(w_o, w_r))
+    s_scale = float(sc_r.abs().max())
+    s_err = float((sc - sc_r).abs().max())
+    glog(f"10c {name}: projection gradient vs float64 host recompute "
+         f"{grad_err:.3g} of Σ|terms| (limit {RTOL:g}), bitwise repeatable;"
+         f" the steps by hand repeat train's state and scores bitwise;"
+         f" objective in V by alternation "
+         f"{[(round(a, 4), round(b, 4), i) for a, b, i in steps]}; vs the "
+         f"resident factored coordinate (train {res_s:.3f} s): coefficients "
+         f"{w_err:.3g} = {w_err / w_scale:.3g} of the largest |w|, scores "
+         f"{s_err:.3g} = {s_err / s_scale:.3g} of the largest |score| "
+         f"(limit {OOC_FACTORED_TOL:g})")
+    check(w_err <= OOC_FACTORED_TOL * w_scale
+          and s_err <= OOC_FACTORED_TOL * s_scale,
+          f"ooc 10c: against the resident factored coordinate coefficients "
+          f"{w_err / w_scale:.3g}, scores {s_err / s_scale:.3g}")
+    return dict(groups=len(c.pass_plan), train_s=train_s, resident_s=res_s,
+                ooc_bytes=ooc_bytes, resident_bytes=res_bytes, ratio=ratio,
+                held_bytes=held, budget=budget, grad_err=grad_err, coef_err_rel=w_err / w_scale,
+                score_err_rel=s_err / s_scale,
+                projection_iterations=[r.iterations
+                                       for r in rec["projection"]])
+
+
+def ooc_descent(glog, built, hosts, residents, resident_iters_per_s):
+    """10d: the whole descent out of core on the 10a draw (the fixed effect
+    streamed in chunks of 2^17 rows, the three random effects at an eighth
+    of their bytes): a warm iteration, a timed run of 3, the pipelined
+    schedule bitwise the same, the objective never rising, the final
+    objective against the resident descent's and the scores against a
+    float64 host re-score; then OWL-QN, L-BFGS and TRON updates of the
+    streamed fixed effect against the resident problem's.  Returns (SpMV
+    launches, metrics)."""
+    import dataclasses as dc
+
+    from photon_ml_tpu_torch.data.dataset import make_glm_data
+    from photon_ml_tpu_torch.data.streaming import make_streaming_glm_data
+    from photon_ml_tpu_torch.game.coordinates import (
+        FixedEffectCoordinate,
+        RandomEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.game.data import FixedEffectDataset
+    from photon_ml_tpu_torch.game.descent import CoordinateDescent
+    from photon_ml_tpu_torch.game.model import GameModel
+    from photon_ml_tpu_torch.game.ooc_random import (
+        OutOfCoreRandomEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.game.streaming import (
+        StreamingFixedEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.ops import _kernels, losses
+    from photon_ml_tpu_torch.optim.objective import GlmObjective
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        GlmOptimizationProblem,
+        OptimizerConfig,
+        OptimizerType,
+    )
+    from photon_ml_tpu_torch.optim.regularization import (
+        RegularizationContext,
+    )
+
+    n, Xg, y, effects = built
+    opt = game_re_opt()
+    t0 = time.perf_counter()
+    store = make_streaming_glm_data(Xg, y, chunk_rows=OOC_CHUNK_ROWS,
+                                    device=DEVICE)
+    store_s = time.perf_counter() - t0
+    check(store.kind == "kernel" and store.n_chunks == -(-n // OOC_CHUNK_ROWS),
+          f"ooc 10d: the chunk store is {store.kind}, {store.n_chunks} chunks")
+    fe_data = make_glm_data(Xg, y, device=DEVICE)
+    ooc = [StreamingFixedEffectCoordinate("fixed", store, "logistic", opt,
+                                          reg_weight=1.0)]
+    res = [FixedEffectCoordinate("fixed", FixedEffectDataset(
+        data=fe_data, n_global_rows=n), "logistic", opt, reg_weight=1.0)]
+    for name, _, _, _ in effects:
+        ooc.append(OutOfCoreRandomEffectCoordinate(
+            name, hosts[name], "logistic", opt, reg_weight=1.0,
+            entity_key=name, device=DEVICE,
+            device_budget_bytes=host_block_bytes(hosts[name])
+            // OOC_BUDGET_DIV))
+        res.append(RandomEffectCoordinate(name, residents[name], "logistic",
+                                          opt, reg_weight=1.0,
+                                          entity_key=name))
+    base = torch.zeros(n, device=DEVICE)
+    y_dev = torch.as_tensor(y, device=DEVICE)
+    capped = next(c for c in res[1:] if any(
+        b is not None for b in c.dataset.passive_blocks))
+    rows = torch.zeros(n + 1, dtype=torch.bool, device=DEVICE)
+    for b in capped.dataset.blocks:
+        rows[b.row_index.reshape(-1).long()] = True
+    active = rows[:n]
+
+    def monitor(it, cname, scores, states):
+        return {"objective": game_objective(ooc, y_dev, scores, states,
+                                            base),
+                "objective_active": game_objective(ooc, y_dev, scores,
+                                                   states, base, active)}
+
+    def timed(coords, n_it, **kw):
+        torch.cuda.synchronize()
+        t0 = time.perf_counter()
+        r = CoordinateDescent(coords, pipeline=kw.pop("pipeline", False)
+                              ).run(base, n_iterations=n_it, **kw)
+        torch.cuda.synchronize()
+        return r, time.perf_counter() - t0
+
+    torch.cuda.synchronize()
+    _kernels.reset_launches()
+    _, warm_s = timed(ooc, 1)
+    for c in ooc:
+        c.transfer_stats.reset()
+    run, run_s = timed(ooc, GAME_TIMED_ITERS)
+    stats = {c.name: c.transfer_stats.snapshot() for c in ooc}
+    piped, piped_s = timed(ooc, GAME_TIMED_ITERS, pipeline=True,
+                           eval_fn=monitor)
+    launches = dict(_kernels.LAUNCHES)
+    check(launches["matvec"] > 0 and launches["rmatvec"] > 0,
+          "ooc 10d: the fixed effect's SpMV kernels never launched")
+    ips = GAME_TIMED_ITERS / run_s
+    for name in run.states:
+        check(states_equal(run.states[name], piped.states[name])
+              and torch.equal(run.scores[name], piped.scores[name]),
+              f"ooc 10d: pipeline=True differs from pipeline=False in "
+              f"{name}")
+    start = {"objective": float(game_objective(
+        ooc, y_dev, {c.name: torch.zeros_like(base) for c in ooc},
+        {c.name: None for c in ooc}, base))}
+    start["objective_active"] = float(game_objective(
+        ooc, y_dev, {c.name: torch.zeros_like(base) for c in ooc},
+        {c.name: None for c in ooc}, base, active))
+    prev, worst = start, -float("inf")
+    for h in piped.history:
+        key = ("objective_active" if h["coordinate"] == capped.name
+               else "objective")
+        rise = h[key] - prev[key]
+        worst = max(worst, rise / abs(prev[key]))
+        check(rise <= GAME_OBJ_RISE * abs(prev[key]),
+              f"ooc 10d: {h['coordinate']}'s update raised its objective by "
+              f"{rise:.6g}")
+        prev = h
+    resident, res_s = timed(res, GAME_TIMED_ITERS)
+    f_ooc = float(game_objective(ooc, y_dev, run.scores, run.states, base))
+    f_res = float(game_objective(res, y_dev, resident.scores,
+                                 resident.states, base))
+    gap = abs(f_ooc - f_res) / abs(f_res)
+    check(gap <= OOC_OBJ_TOL, f"ooc 10d: final objective {f_ooc!r} vs the "
+          f"resident descent's {f_res!r} ({gap:.3g})")
+    model = GameModel(models={c.name: c.finalize(run.states[c.name])
+                              for c in ooc}, task="logistic")
+    host = host_rescore(model, n, Xg, effects)
+    for name, (h, scale) in host.items():
+        dev = run.scores[name].double().cpu().numpy()
+        err = float((np.abs(dev - h) / np.maximum(scale, 1e-30)).max())
+        check(err <= RTOL, f"ooc 10d: {name} scores vs the host re-score "
+              f"{err:.3g} of Σ|x·w|")
+    glog(f"10d: chunk store {store.n_chunks} chunks of {OOC_CHUNK_ROWS} rows"
+         f" (host build {store_s:.2f} s); warm iteration {warm_s:.3f} s; "
+         f"{GAME_TIMED_ITERS} iterations in {run_s:.3f} s = {ips:.4f} GAME "
+         f"iterations/s out of core vs {resident_iters_per_s:.4f} resident "
+         f"(phase 6, this run) = {ips / resident_iters_per_s:.4f}; the "
+         f"resident descent here {GAME_TIMED_ITERS / res_s:.4f}; pipelined "
+         f"{piped_s:.3f} s with its objective monitor, bitwise equal; "
+         f"largest relative objective change across an update {worst:.3g}; "
+         f"final objective {f_ooc!r} vs resident {f_res!r} (gap {gap:.3g}, "
+         f"limit {OOC_OBJ_TOL:g}); scores = float64 host re-score within "
+         f"{RTOL:g} of Σ|x·w|; SpMV launches {json.dumps(launches)}")
+    for name, snap in stats.items():
+        glog(f"10d {name} over the timed run: {transfer_summary(snap)}")
+
+    # OWL-QN (elastic net) and TRON updates of the streamed fixed effect at
+    # the run's final offsets, in float32 as the estimator builds it: each
+    # against the same solver on the resident problem (the SpMV kernels
+    # over the whole matrix) and TRON against L-BFGS (9b's gap), by their
+    # float64 objectives.  Both float32 solves stop on their value's noise
+    # floor, so 9b's KKT residuals are logged, not held.
+    total = base + sum(run.scores.values())
+    offsets = total - run.scores["fixed"]
+    data = dc.replace(fe_data, offsets=offsets)
+    obj64 = GlmObjective(losses.get("logistic"), accumulate="f64")
+    w_zero = torch.zeros(GAME_FIXED_FEATURES, device=DEVICE)
+    f_zero, g0 = obj64.value_and_grad(w_zero, data)
+    # λ at the last point of 9b's grid (the median |∂f/∂w_j| at 0, over
+    # α, over 100).
+    alpha = 0.5
+    lam = float(torch.quantile(g0.abs(), 0.5)) / alpha / 100
+    l1 = float(np.float32(alpha) * np.float32(lam))
+    l2e = float(np.float32(1 - alpha) * np.float32(lam))
+
+    def f64(w, l1, l2):
+        f, _ = obj64.value_and_grad(w, data, l2)
+        return float(f) + l1 * float(w.double().abs().sum())
+
+    def solve(reg, optimizer, tol, iters, reg_weight, l1, l2):
+        cfg = GlmOptimizationConfig(
+            optimizer=OptimizerConfig(optimizer=OptimizerType[optimizer],
+                                      max_iters=iters, tolerance=tol),
+            regularization=reg)
+        coord = StreamingFixedEffectCoordinate(
+            "fixed", store, "logistic", cfg, reg_weight=reg_weight)
+        # Main-path launches: the streamed solve's; the resident problem
+        # it is compared with launches outside the count.
+        _kernels.reset_launches()
+        coord.train(offsets)
+        for op in solver_launches:
+            solver_launches[op] += _kernels.LAUNCHES[op]
+        res = GlmOptimizationProblem("logistic", cfg).solve_single_device(
+            data, reg_weight, w_zero)
+        r = coord.last_solve
+        out = dict(iterations=(r.iterations, res.iterations),
+                   converged=(r.converged, res.converged),
+                   objective=(f64(r.w, l1, l2), f64(res.w, l1, l2)))
+        gap = abs(out["objective"][0] - out["objective"][1]) \
+            / abs(out["objective"][1])
+        check(gap <= OOC_OBJ_TOL,
+              f"ooc 10d: the streamed {optimizer} objective "
+              f"{out['objective'][0]!r} vs the resident problem's "
+              f"{out['objective'][1]!r} ({gap:.3g})")
+        return r, res, dict(out, gap=gap)
+
+    solver_launches = {"matvec": 0, "rmatvec": 0}
+    r_en, res_en, m_en = solve(RegularizationContext.elastic_net(alpha),
+                               "OWLQN", OWLQN_TOL, 200, lam, l1, l2e)
+    kkt = (kkt_residuals(r_en, obj64, data, l1, l2e),
+           kkt_residuals(res_en, obj64, data, l1, l2e))
+    _, _, m_lb = solve(RegularizationContext.l2(), "LBFGS", SOLVE_TOL,
+                          300, 1.0, 0.0, 1.0)
+    _, _, m_tr = solve(RegularizationContext.l2(), "TRON", SOLVE_TOL,
+                          100, 1.0, 0.0, 1.0)
+    gap_t = abs(m_tr["objective"][0] - m_lb["objective"][0]) \
+        / abs(m_lb["objective"][0])
+    check(gap_t <= 1e-5, f"ooc 10d: streamed GAME TRON float64 objective "
+          f"{gap_t:.3g} from L-BFGS's")
+    check(min(solver_launches.values()) > 0,
+          f"ooc 10d: the streamed solves launched {solver_launches}")
+    f0 = float(f_zero)
+    glog(f"10d streamed fixed effect (float32) at the run's offsets, float64"
+         f" objective at w = 0 {f0!r} (+ penalties): OWL-QN λ={lam:.6g} "
+         f"streamed / resident {m_en['iterations']} iterations, converged "
+         f"{m_en['converged']}, objective {m_en['objective']} (gap "
+         f"{m_en['gap']:.3g}, limit {OOC_OBJ_TOL:g}), {int((r_en.w == 0).sum())}"
+         f" / {int((res_en.w == 0).sum())} zeros, 9b's KKT residuals (|g|/λ1"
+         f" at zeros, at the support, decrement) {kkt[0]} / {kkt[1]} (9b "
+         f"holds <= {1 + KKT_ZERO:g} and <= {KKT_DECREMENT:g}); L-BFGS "
+         f"{m_lb['iterations']} iterations, objective {m_lb['objective']}; "
+         f"TRON {m_tr['iterations']} iterations, converged "
+         f"{m_tr['converged']}, objective {m_tr['objective']}, gap to "
+         f"L-BFGS {gap_t:.3g} (limit 1e-5); streamed SpMV launches "
+         f"{json.dumps(solver_launches)}")
+    total_launches = {op: launches[op] + solver_launches[op]
+                      for op in ("matvec", "rmatvec")}
+    return total_launches, dict(
+        iters_per_s=ips, resident_iters_per_s=resident_iters_per_s,
+        ratio=ips / resident_iters_per_s, warm_s=warm_s, run_s=run_s,
+        objective_gap=gap, transfer=stats, owlqn=m_en, owlqn_kkt=kkt,
+        lbfgs=m_lb, tron=m_tr, tron_gap=gap_t,
+        updates=[{k: v for k, v in h.items()}
+                                 for h in run.history])
+
+
+class _Killed(Exception):
+    """The failure 10e injects into a training run after iteration 1."""
+
+
+def ooc_driver_config(path, iterations, budget_mb):
+    """Phase 7's driver config with the fixed effect streamed in chunks of
+    2^17 rows and ``per_user`` out of core at ``budget_mb``."""
+    game_driver_config(path, iterations)
+    with open(path) as f:
+        cfg = json.load(f)
+    cfg["coordinates"][0]["streaming_chunk_rows"] = OOC_CHUNK_ROWS
+    cfg["coordinates"][1]["device_budget_mb"] = budget_mb
+    with open(path, "w") as f:
+        json.dump(cfg, f)
+    return path
+
+
+def driver_objective(model_dir, shards, ids, y, w, off):
+    """The GAME objective of a saved model on the training rows, in float64
+    on the host: logistic losses plus ½·‖w‖² of every coefficient (phase
+    7's coordinates all have λ = 1)."""
+    from photon_ml_tpu_torch.io.game_store import load_game_model
+
+    model, _ = load_game_model(os.path.join(model_dir, "models"),
+                               device="cpu")
+    wf = model["fixed"].model.coefficients.means.numpy().astype(np.float64)
+    m = shards["global"].astype(np.float64) @ wf + off
+    re = model["per_user"]
+    Xu = shards["userFeatures"].toarray().astype(np.float64)
+    uniq, inv = np.unique(np.asarray(ids["userId"]).astype(str),
+                          return_inverse=True)
+    W = np.zeros((len(uniq), Xu.shape[1]))
+    pen = float(wf @ wf)
+    for i, k in enumerate(uniq):
+        if k in re.coefficients:
+            cols, vals = re.coefficients[k]
+            W[i, cols] = vals
+            pen += float(np.dot(vals.astype(np.float64), vals))
+    m = m + (Xu * W[inv]).sum(1)
+    y64 = y.astype(np.float64)
+    return float((w * (np.logaddexp(0.0, m) - y64 * m)).sum() + 0.5 * pen)
+
+
+def ooc_drivers(glog, td, train, val):
+    """10e: the training driver with the fixed effect streamed (2^17-row
+    chunks) and ``per_user`` at an eighth of its blocks, 3 iterations with
+    per-update validation, killed after iteration 1 and resumed; its model
+    against phase 7's resident run; the scoring driver's
+    ``--stream-block-rows 65536`` on the validation and training files
+    against its whole-file runs.  Returns (training SpMV launches,
+    validation-scoring matvec launches, metrics)."""
+    from photon_ml_tpu_torch.data.game_reader import read_game_avro
+    from photon_ml_tpu_torch.drivers import (
+        game_scoring_driver,
+        game_training_driver,
+    )
+    from photon_ml_tpu_torch.evaluation.evaluators import get_evaluator
+    from photon_ml_tpu_torch.game.data import build_random_effect_dataset
+    from photon_ml_tpu_torch.io import avro
+    from photon_ml_tpu_torch.io.checkpoint import (
+        CoordinateDescentCheckpointer,
+    )
+    from photon_ml_tpu_torch.io.game_store import load_game_model
+    from photon_ml_tpu_torch.ops import _kernels
+
+    _, imaps = load_game_model(os.path.join(td, "full", "models"),
+                               device="cpu")
+    shards, ids, y, w, off, _, _ = read_game_avro(train, index_maps=imaps)
+    host = build_random_effect_dataset(
+        ids["userId"], shards["userFeatures"], y, w,
+        bucket_growth=GAME_BUCKET_GROWTH, device=False)
+    budget_mb = host_block_bytes(host) / OOC_BUDGET_DIV / 2**20
+    del host
+    cfg3 = ooc_driver_config(os.path.join(td, "ooc3.json"),
+                             GAME_DRIVER_ITERS, budget_mb)
+    out = {k: os.path.join(td, f"ooc_{k}") for k in ("full", "resumed")}
+    common = ["--train-data", train, "--validate-data", val]
+    metrics, launches = {}, {"matvec": 0, "rmatvec": 0}
+    with ScorerRecorder() as rec:
+        def training(label, argv):
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            rec.val_matvec = 0
+            t0 = time.perf_counter()
+            res = game_training_driver.run(argv + ["--device", DEVICE])
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+            ls = dict(_kernels.LAUNCHES)
+            check(ls["matvec"] > rec.val_matvec > 0 and ls["rmatvec"] > 0,
+                  f"ooc 10e {label}: the SpMV kernels did not launch in "
+                  "training and in validation scoring")
+            launches["matvec"] += ls["matvec"] - rec.val_matvec
+            launches["rmatvec"] += ls["rmatvec"]
+            metrics[label] = dict(wall_s=wall, stages=res["stage_seconds"],
+                                  val_matvec=rec.val_matvec)
+            glog(f"10e {label}: driver wall {wall:.2f} s, validation AUC "
+                 f"{res.get('validation_metric')!r}; stages (host s): "
+                 f"{stage_summary(res['stage_seconds'])}")
+            return res
+
+        full = training("train", common + ["--config", cfg3, "--output-dir",
+                                           out["full"]])
+        # Killed for real: the run stops right after iteration 1's
+        # checkpoint is written (patched from this script).
+        real_save = CoordinateDescentCheckpointer.save
+
+        def save_then_die(self, it, *a, **k):
+            real_save(self, it, *a, **k)
+            if it == 0:
+                raise _Killed("killed after iteration 1")
+
+        CoordinateDescentCheckpointer.save = save_then_die
+        try:
+            training("kill after iteration 1", common + [
+                "--config", cfg3, "--output-dir", out["resumed"]])
+            check(False, "ooc 10e: the killed run was not killed")
+        except _Killed:
+            glog("10e: the run was killed after iteration 1's checkpoint")
+        finally:
+            CoordinateDescentCheckpointer.save = real_save
+        training("resume to 3", common + [
+            "--config", cfg3, "--output-dir", out["resumed"], "--resume"])
+    val_launches = sum(m["val_matvec"] for m in metrics.values())
+    for rel in ("fixed-effect/fixed/coefficients.avro",
+                "random-effect/per_user/coefficients.avro"):
+        a, b = (open(os.path.join(out[k], "models", rel), "rb").read()
+                for k in ("full", "resumed"))
+        check(a == b, f"ooc 10e: the resumed model's {rel} differs from "
+              "the uninterrupted run's")
+    f_ooc = driver_objective(out["full"], shards, ids, y, w, off)
+    f_res = driver_objective(os.path.join(td, "full"), shards, ids, y, w,
+                             off)
+    gap = abs(f_ooc - f_res) / abs(f_res)
+    check(gap <= OOC_OBJ_TOL, f"ooc 10e: the driver's objective {f_ooc!r} "
+          f"vs phase 7's resident run {f_res!r} ({gap:.3g})")
+    glog(f"10e: per_user budget {budget_mb:.3f} MB (1/{OOC_BUDGET_DIV} of "
+         f"its blocks); killed after iteration 1 and resumed: model files "
+         f"byte-equal; float64 objective of the saved model {f_ooc!r} vs "
+         f"phase 7's resident {f_res!r} (gap {gap:.3g}, limit "
+         f"{OOC_OBJ_TOL:g})")
+
+    def score(label, data, *flags):
+        t0 = time.perf_counter()
+        res = game_scoring_driver.run([
+            "--data", data, "--model-dir", out["full"], "--output-dir",
+            os.path.join(td, f"ooc_score_{label}"), "--device", DEVICE,
+            *flags])
+        torch.cuda.synchronize()
+        glog(f"10e scoring {label}: wall {time.perf_counter() - t0:.2f} s, "
+             f"{res['n_rows']} rows"
+             + (f" in {res['blocks']} blocks" if "blocks" in res else "")
+             + f", metric {res.get('metric')!r}; stages (host s): "
+             f"{stage_summary(res['stage_seconds'])}")
+        metrics[f"scoring {label}"] = res["stage_seconds"]
+        return res
+
+    stream = ["--stream-block-rows", str(OOC_SCORE_BLOCK_ROWS)]
+    for label, data in (("validation", val), ("train", train)):
+        whole = score(f"{label} whole", data, "--evaluator", "auc")
+        part = score(f"{label} streamed", data, "--evaluator", "auc",
+                     *stream)
+        # Container blocks of 4096 rows: a block flushes at every 65,536.
+        blocks = -(-whole["n_rows"] // OOC_SCORE_BLOCK_ROWS)
+        check(part["blocks"] == blocks, f"ooc 10e: {label} streamed in "
+              f"{part['blocks']} blocks, expected {blocks}")
+        paths = [os.path.join(td, f"ooc_score_{label} {k}", "scores.avro")
+                 for k in ("whole", "streamed")]
+        same = open(paths[0], "rb").read() == open(paths[1], "rb").read()
+        diff = 0.0
+        if not same:
+            got = [np.array([r["predictionScore"] for r in
+                             avro.read_container(p)[1]]) for p in paths]
+            diff = float(np.abs(got[0] - got[1]).max())
+        check(same or diff <= 1e-6, f"ooc 10e: {label} streamed scores "
+              f"differ from the whole-file run's by {diff:.3g}")
+        check(part["metric"] == whole["metric"],
+              f"ooc 10e: {label} streamed AUC {part['metric']!r} vs "
+              f"{whole['metric']!r}")
+        glog(f"10e {label}: streamed scores file "
+             + ("byte-equal to" if same else f"within {diff:.3g} of")
+             + f" the whole-file run's; AUC {part['metric']!r} equal")
+    # The host logistic loss of the whole-file validation scores, against
+    # the streamed run's per-block device partials.
+    _, recs = avro.read_container(os.path.join(
+        td, "ooc_score_validation whole", "scores.avro"))
+    v_y, v_w = read_game_avro(val, index_maps=imaps)[2:4]
+    host_ll = get_evaluator("logistic_loss").evaluate(
+        np.array([r["predictionScore"] for r in recs], np.float32), v_y,
+        v_w)
+    dev_ll = score("validation logloss device", val, "--evaluator",
+                   "logistic_loss", "--device-metrics", *stream)["metric"]
+    d = abs(dev_ll - host_ll)
+    check(d <= 1e-6, f"ooc 10e: the per-block device logistic loss "
+          f"{dev_ll!r} vs the host {host_ll!r}")
+    glog(f"10e: --device-metrics logistic loss from per-block partials "
+         f"{dev_ll!r} vs host {host_ll!r} (|diff| {d:.3g}, limit 1e-6)")
+    metrics.update(objective_gap=gap, budget_mb=budget_mb,
+                   validation_auc=full.get("validation_metric"))
+    return launches, val_launches, metrics
+
+
+def phase_game_ooc(smi, td, files, resident_iters_per_s):
+    """Phase 10: GAME out of core at full width (10a coordinates, 10d the
+    whole descent, 10b memory, 10c factored, 10e the drivers).  Returns
+    (``.game`` SpMV launches, validation-scoring matvec launches,
+    metrics)."""
+    def glog(msg):
+        log(f"game ooc [{smi}] {msg}")
+
+    t_phase = time.perf_counter()
+    tmp = tempfile.mkdtemp(prefix="ooc_spill_", dir=td)
+    built = game_multi_re_data()
+    n, _, y, effects = built
+    opt = game_re_opt()
+    offsets = ooc_offsets(n, 100)
+    hosts, residents, metrics = {}, {}, {"10a": {}}
+    log("phase 10a: out-of-core random effects on game_multi_re's draw")
+    for name, keys, Xe, cap in effects:
+        hosts[name], residents[name], metrics["10a"][name] = \
+            ooc_random_effect(glog, name, keys, Xe, cap, y, offsets, opt,
+                              tmp)
+        torch.cuda.empty_cache()
+    shutil.rmtree(tmp, ignore_errors=True)
+    t_a = time.perf_counter()
+    log("phase 10d: the whole descent out of core")
+    launches, metrics["10d"] = ooc_descent(glog, built, hosts, residents,
+                                           resident_iters_per_s)
+    del built, hosts, residents
+    torch.cuda.empty_cache()
+    t_d = time.perf_counter()
+    log("phase 10b: device memory at the wide per-user effect")
+    metrics["10b"] = ooc_wide_memory(glog, td)
+    torch.cuda.empty_cache()
+    t_b = time.perf_counter()
+    log("phase 10c: the out-of-core factored random effect")
+    metrics["10c"] = ooc_factored(glog)
+    torch.cuda.empty_cache()
+    t_c = time.perf_counter()
+    log("phase 10e: the drivers out of core")
+    d_launches, val_launches, metrics["10e"] = ooc_drivers(glog, td, *files)
+    for op in launches:
+        launches[op] += d_launches[op]
+    t_e = time.perf_counter()
+    metrics["seconds"] = dict(a=t_a - t_phase, d=t_d - t_a, b=t_b - t_d,
+                              c=t_c - t_b, e=t_e - t_c)
+    glog(f"phase 10: {t_e - t_phase:.1f} s (10a {t_a - t_phase:.1f}, 10d "
+         f"{t_d - t_a:.1f}, 10b {t_b - t_d:.1f}, 10c {t_c - t_b:.1f}, 10e "
+         f"{t_e - t_c:.1f}); main-path SpMV launches {json.dumps(launches)},"
+         f" validation scoring matvec {val_launches}")
+    return launches, val_launches, metrics
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -3744,14 +4718,19 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
     sd_launches, sd_game, sd_metrics = phase_stream_drivers(
         smi, drv_files, drv_runs, td, (train, val))
     stream_metrics["drivers"] = sd_metrics
+    torch.cuda.empty_cache()
+    log("phase 10: GAME out of core")
+    ooc_launches, ooc_val, ooc_metrics = phase_game_ooc(
+        smi, td, (train, val), game_metrics["game_multi_re"]["iters_per_s"])
     # The binary records count phase 4's and 9c's GLM driver launches.
     drv_launches = {k: drv_launches.get(k, 0) + sd_launches.get(k, 0)
                     for k in set(drv_launches) | set(sd_launches)}
-    # The .game records count phase 6's, 7's, 8's and 9c's training
-    # launches; .game_val phase 7's and 8's validation scoring.
+    # The .game records count phase 6's, 7's, 8's, 9c's and 10's training
+    # launches; .game_val phase 7's, 8's and 10e's validation scoring.
     game_launches = {op: game_launches[op] + drv_train[op] + fb_train[op]
-                     + sd_game[op] for op in ("matvec", "rmatvec")}
-    drv_val += fb_val
+                     + sd_game[op] + ooc_launches[op]
+                     for op in ("matvec", "rmatvec")}
+    drv_val += fb_val + ooc_val
 
     log("not on the main path (no caller in the GLM slice), checked in "
         "phase 2: " + json.dumps({
@@ -3822,7 +4801,8 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
         f"GAME: {json.dumps(game_metrics)}; GAME drivers: "
         f"{json.dumps(drv_metrics)}; GAME fallback and factored: "
         f"{json.dumps(fb_metrics)}; out-of-core: "
-        f"{json.dumps(stream_metrics)}; "
+        f"{json.dumps(stream_metrics)}; GAME out of core: "
+        f"{json.dumps(ooc_metrics, default=float)}; "
         f"total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -45,13 +45,17 @@ def normalization_from_numpy(factors, shifts,
                                 intercept_index)
 
 
-def game_states_from_numpy(states: dict, device=None) -> dict:
+def game_states_from_numpy(states: dict, device=None, host=()) -> dict:
     """Coordinate-descent states as the port's tensors: a fixed effect's
     ``w`` array becomes one float32 tensor, a random effect's list of
     per-bucket ``(E, D)`` arrays a list of them, and a factored random
     effect's ``(list of (E, rank), (n_features, rank))`` a tuple of such a
     list and one tensor; ``None`` stays ``None``.  Both packages can then
-    warm-start from the same point."""
+    warm-start from the same point.
+
+    The coordinates named in ``host`` are out of core and keep their
+    per-bucket arrays on the host (float32 numpy copies); a factored one's
+    projection V still becomes a tensor on ``device``."""
     dev = resolve_device(device)
 
     def one(st):
@@ -63,7 +67,16 @@ def game_states_from_numpy(states: dict, device=None) -> dict:
             return [one(a) for a in st]
         return _f32(st, dev)
 
-    return {name: one(st) for name, st in states.items()}
+    def host_form(st):
+        if st is None:
+            return None
+        if isinstance(st, tuple):
+            u_list, V = st
+            return ([np.array(u, np.float32) for u in u_list], _f32(V, dev))
+        return [np.array(a, np.float32) for a in st]
+
+    return {name: host_form(st) if name in host else one(st)
+            for name, st in states.items()}
 
 
 def matrix_from_coo(rows, cols, vals, n_rows: int, n_cols: int,

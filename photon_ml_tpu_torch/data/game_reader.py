@@ -432,9 +432,8 @@ def read_game_avro(
     them is the scoring path, where unseen features are dropped, as the
     reference's scoring driver does).  ``stats``, when given, receives
     ``"decoder"``: ``"native"`` or ``"python"`` for the GAME schema,
-    ``"generic"`` for another one.  The streamed, bounded-block reader
-    of the reference (``iter_game_avro``) comes with the out-of-core
-    scoring path (ROADMAP.md, PyTorch/CUDA port, Queue 1 item 5).
+    ``"generic"`` for another one.  :func:`iter_game_avro` reads a file
+    in bounded row blocks instead (the streamed scoring path).
     """
     building = index_maps is None
     forward: dict[str, dict] = {
@@ -492,3 +491,115 @@ def read_game_avro(
     weight = np.asarray(acc.weight, np.float32)
     offset = np.asarray(acc.offset, np.float32)
     return shards, ids, response, weight, offset, acc.uids, out_maps
+
+
+def iter_game_avro(
+    path: str,
+    index_maps: dict,
+    block_rows: int = 1 << 16,
+    logger=None,
+    id_keys=(),
+    stats: Optional[dict] = None,
+):
+    """Read GAME Avro data in bounded row blocks: the out-of-core scoring
+    read path (memory is one block of rows, never the file).
+
+    Yields ``(shards, ids, response, weight, offset, uids)`` a block.
+    Blocks flush at container-block boundaries once at least ``block_rows``
+    rows have accumulated, so a block can exceed ``block_rows`` by at most
+    one container block's rows.  ``index_maps`` is required (scoring reads
+    through the saved maps; features not in them drop and are counted, and
+    one warning reports the totals).  Every index-mapped shard appears in
+    every block (all-zero when the block has no features for it), and every
+    key of ``id_keys`` (the model's entity-id columns) appears in every
+    block's ``ids`` (None-padded), in sorted key order.  The native decoder
+    runs one session a block, with the vocabularies encoded once.
+    ``stats``, when given, receives ``"decoder"`` as in
+    :func:`read_game_avro`.
+    """
+    if index_maps is None:
+        raise ValueError(
+            "iter_game_avro needs saved index maps (the scoring path)")
+    if block_rows <= 0:
+        raise ValueError(f"block_rows must be positive, got {block_rows}")
+    forward: dict[str, dict] = {s: dict(m) for s, m in index_maps.items()}
+    dropped_total: dict[str, int] = {}
+
+    def fresh_acc() -> _Accumulator:
+        return _Accumulator(False, forward)
+
+    def assemble(acc: _Accumulator):
+        n = acc.n
+        shards = {}
+        for shard, fwd in forward.items():
+            rows, cols, vals = acc.shard_rows.get(shard, ([], [], []))
+            shards[shard] = sp.csr_matrix(
+                (np.asarray(vals, np.float32),
+                 (np.asarray(rows, np.int64), np.asarray(cols, np.int64))),
+                shape=(n, len(fwd)),
+            )
+        ids = {}
+        # Sorted key order: the resident reader's columns come in
+        # whole-file order, and the scoring writer's bytes depend on it.
+        for k in sorted(set(acc.id_cols) | set(id_keys)):
+            lst = acc.id_cols.get(k, [])
+            if len(lst) < n:
+                lst = list(lst) + [None] * (n - len(lst))
+            ids[k] = np.asarray(lst)
+        for s, c in acc.dropped.items():
+            dropped_total[s] = dropped_total.get(s, 0) + c
+        return (shards, ids, np.asarray(acc.response, np.float32),
+                np.asarray(acc.weight, np.float32),
+                np.asarray(acc.offset, np.float32), acc.uids)
+
+    acc = fresh_acc()
+    decoder = "generic"
+    if _is_game_schema(avro.read_schema(path)):
+        from photon_ml_tpu_torch.native import load_game_decoder
+
+        lib = load_game_decoder()
+        if lib is not None:
+            decoder = "native"
+            h = None
+            preload = _native_preload_args(forward)
+            try:
+                for _schema, count, payload in avro.iter_blocks(path):
+                    if h is None:
+                        h = _native_new(lib, acc, preload)
+                    _native_feed(lib, h, path, payload, count)
+                    if int(lib.gd_n_rows(h)) >= block_rows:
+                        _native_extract(lib, h, acc)
+                        lib.gd_free(h)
+                        h = None
+                        yield assemble(acc)
+                        acc = fresh_acc()
+                if h is not None:
+                    _native_extract(lib, h, acc)
+                    lib.gd_free(h)
+                    h = None
+            finally:
+                if h is not None:
+                    lib.gd_free(h)
+        else:
+            decoder = "python"
+            for _schema, count, payload in avro.iter_blocks(path):
+                _decode_game_payload(payload, count, acc)
+                if acc.n >= block_rows:
+                    yield assemble(acc)
+                    acc = fresh_acc()
+    else:
+        for rec in avro.iter_container(path):
+            _add_generic_record(rec, acc)
+            if acc.n >= block_rows:
+                yield assemble(acc)
+                acc = fresh_acc()
+    if stats is not None:
+        stats["decoder"] = decoder
+    if acc.n:
+        yield assemble(acc)
+    if dropped_total:
+        (logger or logging.getLogger(__name__)).warning(
+            "iter_game_avro(%s): dropped features absent from supplied "
+            "index maps: %s", path,
+            ", ".join(f"{s}={c}" for s, c in sorted(dropped_total.items())),
+        )

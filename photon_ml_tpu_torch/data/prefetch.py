@@ -63,6 +63,10 @@ JOIN_TIMEOUT_SECONDS = 30.0
 
 _POLL_SECONDS = 0.05
 
+#: elements each array of an item is aligned to inside its slot (256 bytes
+#: for 4-byte dtypes).
+ALIGN = 64
+
 
 @dataclasses.dataclass
 class TransferStats:
@@ -197,6 +201,37 @@ class HostToDevice:
                 return None
         return time.perf_counter() - t0
 
+    @staticmethod
+    def layout(specs) -> tuple[dict, list]:
+        """Where an item's arrays, given as ``(shape, dtype)`` pairs, sit
+        in its slot: per dtype the elements used, per array its (dtype,
+        offset, shape).  Each array starts at a multiple of ``ALIGN``
+        elements, so its device view is as aligned as a fresh allocation
+        whatever precedes it in the item."""
+        totals: dict = {}
+        index = []
+        for shape, dtype in specs:
+            dt = np.dtype(dtype)
+            off = -(-totals.get(dt, 0) // ALIGN) * ALIGN
+            index.append((dt, off, tuple(shape)))
+            totals[dt] = off + int(np.prod(shape, dtype=np.int64))
+        return totals, index
+
+    def reserve(self, totals: dict) -> None:
+        """Allocate every slot's pinned buffers for items of up to
+        ``totals`` elements a dtype, before a pass (the pack would otherwise
+        grow them mid-pass, one pinned allocation each time)."""
+        if not self.cuda:
+            return
+        for bufs in self._slots:
+            for dt, n in totals.items():
+                dt = np.dtype(dt)
+                have = bufs.get(dt)
+                if have is None or have.numel() < n:
+                    bufs[dt] = torch.empty(max(int(n), 1),
+                                           dtype=torch_dtype(dt),
+                                           pin_memory=True)
+
     # -- pack thread ---------------------------------------------------------
     def pack(self, arrays):
         """Copy an item's arrays into the next pinned slot (on the card),
@@ -208,15 +243,8 @@ class HostToDevice:
         stall = self._acquire(slot)
         if stall is None:
             raise RuntimeError("prefetch pipeline aborted while packing")
-        totals: dict = {}
-        index = []
-        nbytes = 0
-        for a in arrays:
-            dt = np.dtype(a.dtype)
-            off = totals.get(dt, 0)
-            index.append((dt, off, tuple(a.shape)))
-            totals[dt] = off + int(a.size)
-            nbytes += int(a.nbytes)
+        totals, index = self.layout([(a.shape, a.dtype) for a in arrays])
+        nbytes = int(sum(a.nbytes for a in arrays))
         bufs = self._slots[slot]
         for dt, n in totals.items():
             have = bufs.get(dt)

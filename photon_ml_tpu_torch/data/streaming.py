@@ -124,6 +124,8 @@ class StreamingGlmData:
     staging: Optional[list] = None  # list[ChunkStaging], one per chunk
     staged: Optional[list] = None  # per chunk: tuple of staging buffers
     n_shards: int = 1
+    _nonzero_offsets: Optional[bool] = dataclasses.field(
+        default=None, repr=False, compare=False)
 
     @property
     def n_chunks(self) -> int:
@@ -137,6 +139,16 @@ class StreamingGlmData:
         """Host bytes held by all chunk leaves."""
         return int(sum(a.nbytes for c in self.chunks
                        for a in c.leaves.values()))
+
+    def has_nonzero_offsets(self) -> bool:
+        """Whether any chunk carries a nonzero offset (computed once: the
+        streamed GAME fixed effect refuses such stores, its offsets riding
+        the coordinate-descent total)."""
+        if self._nonzero_offsets is None:
+            self._nonzero_offsets = any(
+                bool(np.any(np.asarray(c.leaves["offsets"]) != 0))
+                for c in self.chunks)
+        return self._nonzero_offsets
 
     def ensure_staged(self) -> bool:
         """Pack the chunks into staging buffers if they are not already
@@ -175,6 +187,28 @@ def spill_tree(tree, dir_: str, tag: str):
     if isinstance(tree, dict):
         return {k: spill(k, v) for k, v in tree.items()}
     return [spill(i, v) for i, v in enumerate(tree)]
+
+
+def spill_random_effect_dataset(dataset, dir_: str):
+    """A host random-effect dataset (``build_random_effect_dataset(...,
+    device=False)``) with every block's leaves on disk, for the out-of-core
+    coordinates when even the host copy exceeds RAM: the blocks page
+    through the OS cache as pass groups slice them."""
+
+    def spill_block(block, tag):
+        if block is None:
+            return None
+        leaves = spill_tree({k: getattr(block, k) for k in block.LEAVES},
+                            dir_, tag)
+        return dataclasses.replace(block, **leaves)
+
+    return dataclasses.replace(
+        dataset,
+        blocks=[spill_block(b, f"re_block{i}")
+                for i, b in enumerate(dataset.blocks)],
+        passive_blocks=[spill_block(b, f"re_passive{i}")
+                        for i, b in enumerate(dataset.passive_blocks)],
+    )
 
 
 def make_streaming_glm_data(

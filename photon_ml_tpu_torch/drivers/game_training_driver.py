@@ -31,14 +31,17 @@ The coordinate configuration comes from a JSON file, e.g.::
 A coordinate may give ``reg_weights`` (a list) instead of ``reg_weight``:
 the grid is the cross product of every coordinate's variants.
 
-What the port does not run yet raises ``NotImplementedError`` naming its
-ROADMAP item (PyTorch/CUDA port, Queue 1): ``--data-parallel auto`` (item
-6), streamed or out-of-core coordinates and a value other than the
-reference's default of their knobs (``prefetch_depth``, ``chunk_fuse``,
-``batch_linesearch``, ``stream_compress``, ``stream_hot_budget_mb``,
-``hot_budget_mb``, a factored coordinate's ``device_budget_mb``: item 5),
-a random effect's ``split_factor`` and a coordinate's ``solver_options``
-(item 6) and tuning mode (item 8).  ``--max-retries`` re-enters the fit
+Out of core, as in the reference: a fixed effect with
+``streaming_chunk_rows`` streams a host chunk store (with
+``prefetch_depth``, ``chunk_fuse``, ``batch_linesearch``,
+``stream_compress`` and ``stream_hot_budget_mb``), and a plain or factored
+random effect with ``device_budget_mb`` streams its entity blocks in
+budget-bounded pass groups (with ``prefetch_depth`` and, plain,
+``hot_budget_mb``).  What the port does not run yet raises
+``NotImplementedError`` naming its ROADMAP item (PyTorch/CUDA port, Queue
+1): ``--data-parallel auto``, a random effect's ``split_factor`` other
+than 0.5 and a coordinate's ``solver_options`` (item 6, multi-device) and
+tuning mode (item 8).  ``--max-retries`` re-enters the fit
 after a transient failure (``utils/watchdog.py``), resuming from the CD
 checkpoint (or, for a config grid, from the grid checkpoint), so a retry
 repeats no finished iteration or grid point.
@@ -122,28 +125,12 @@ def expand_config_grid(coordinate_specs: Sequence[dict]) -> list[dict]:
     ]
 
 
-_OUT_OF_CORE = (5, "out-of-core")
 _MULTI_DEVICE = (6, "multi-device")
-#: Keys of the reference's coordinate specs that only its out-of-core
-#: (ROADMAP Queue 1 item 5) and multi-device (item 6) paths read: the value
-#: that leaves those paths off, and the item.  Any other value is refused.
+#: Keys of the reference's coordinate specs that only its multi-device
+#: path reads (ROADMAP Queue 1 item 6): the value that leaves that path
+#: off, and the item.  Any other value is refused.
 _UNPORTED_KEYS = {
-    "fixed": {
-        "prefetch_depth": (2, _OUT_OF_CORE),
-        "chunk_fuse": (1, _OUT_OF_CORE),
-        "batch_linesearch": (True, _OUT_OF_CORE),
-        "stream_compress": ("off", _OUT_OF_CORE),
-        "stream_hot_budget_mb": (0.0, _OUT_OF_CORE),
-    },
-    "random": {
-        "split_factor": (0.5, _MULTI_DEVICE),
-        "prefetch_depth": (2, _OUT_OF_CORE),
-        "hot_budget_mb": (0.0, _OUT_OF_CORE),
-    },
-    "factored": {
-        "device_budget_mb": (0.0, _OUT_OF_CORE),
-        "prefetch_depth": (2, _OUT_OF_CORE),
-    },
+    "random": {"split_factor": (0.5, _MULTI_DEVICE)},
 }
 
 
@@ -184,6 +171,11 @@ def parse_coordinate_config(spec: dict):
             reg_weight=float(spec.get("reg_weight", 0.0)),
             down_sampling_rate=float(spec.get("down_sampling_rate", 1.0)),
             streaming_chunk_rows=int(spec.get("streaming_chunk_rows", 0)),
+            prefetch_depth=int(spec.get("prefetch_depth", 2)),
+            chunk_fuse=int(spec.get("chunk_fuse", 1)),
+            batch_linesearch=bool(spec.get("batch_linesearch", True)),
+            stream_compress=str(spec.get("stream_compress", "off")),
+            stream_hot_budget_mb=float(spec.get("stream_hot_budget_mb", 0.0)),
         )
     if spec["type"] == "random":
         return name, RandomEffectCoordinateConfig(
@@ -198,6 +190,8 @@ def parse_coordinate_config(spec: dict):
             repack_seed=int(spec.get("repack_seed", 0)),
             device_budget_bytes=int(
                 float(spec.get("device_budget_mb", 0)) * 2**20),
+            prefetch_depth=int(spec.get("prefetch_depth", 2)),
+            hot_budget_mb=float(spec.get("hot_budget_mb", 0.0)),
         )
     if spec["type"] in ("factored_random", "factored"):
         proj_rw = spec.get("projection_reg_weight")
@@ -215,6 +209,9 @@ def parse_coordinate_config(spec: dict):
             repack=str(spec.get("repack", "geometric")),
             program_budget=int(spec.get("program_budget", 16)),
             repack_seed=int(spec.get("repack_seed", 0)),
+            device_budget_bytes=int(
+                float(spec.get("device_budget_mb", 0)) * 2**20),
+            prefetch_depth=int(spec.get("prefetch_depth", 2)),
         )
     raise ValueError(f"unknown coordinate type {spec['type']!r}")
 

@@ -39,6 +39,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.device import to_numpy
 from photon_ml_tpu_torch.game.data import (
     EntityBlock,
     FixedEffectDataset,
@@ -62,6 +63,18 @@ from photon_ml_tpu_torch.optim.problem import (
 )
 
 Tensor = torch.Tensor
+
+def _state_to_device(st, device):
+    """Recursively move a coordinate state (tensor, array, or list of them)
+    onto ``device``."""
+    if st is None:
+        return None
+    if isinstance(st, (list, tuple)):
+        return [_state_to_device(s, device) for s in st]
+    if isinstance(st, Tensor):
+        return st.to(device)
+    return torch.as_tensor(np.asarray(st), device=device)
+
 
 def not_ported(what: str, item: int, name: str) -> NotImplementedError:
     """The refusal of a branch the port does not have yet, naming the
@@ -89,6 +102,12 @@ class Coordinate:
 
     def score(self, state) -> Tensor:
         raise NotImplementedError
+
+    def place_state(self, state, device):
+        """A state restored from numpy (a checkpoint, an initial model) in
+        the form ``train`` keeps it: tensors on ``device`` here; the
+        out-of-core coordinates keep theirs on the host."""
+        return _state_to_device(state, device)
 
     def finalize(self, state, offsets=None):
         """Turn device state into the host-side model object.  ``offsets``
@@ -581,8 +600,8 @@ class RandomEffectCoordinate(Coordinate):
         for block, ids, coefs in zip(
             self.dataset.blocks, self.dataset.entity_ids, state
         ):
-            cmap = block.col_map.cpu().numpy()
-            w = coefs.cpu().numpy()
+            cmap = to_numpy(block.col_map)
+            w = to_numpy(coefs)
             var = (
                 self._block_variances(block, coefs, offsets)
                 if compute_var else None

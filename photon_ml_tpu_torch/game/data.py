@@ -9,7 +9,9 @@ solvers (``game/coordinates.py``) minimize as one tensor program a bucket.
 The build is host numpy, written as the reference writes it, so bucket
 shapes, lane order, ``col_map`` and ``row_index`` are identical; the
 blocks' tensors go to ``device`` (CUDA unless the caller asks for the CPU)
-only at the end.
+only at the end.  With ``device=False`` the blocks stay host numpy arrays:
+the dataset of the out-of-core coordinates (``game/ooc_random.py``), which
+slice and stream it to the card pass by pass.
 
 Padding: padding rows carry weight 0; padding columns map to global column
 -1 and carry value 0; padding rows point at the sentinel row ``n_rows``.
@@ -28,7 +30,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.data.dataset import GlmData
-from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.device import resolve_device, to_numpy
 
 Tensor = torch.Tensor
 
@@ -51,6 +53,12 @@ class EntityBlock:
     n_entities: int
     rows_per_entity: int
     block_dim: int
+
+    #: the array fields, in the order the out-of-core coordinates move them.
+    LEAVES = ("X", "labels", "weights", "col_map", "row_index")
+
+    def leaves(self) -> tuple:
+        return tuple(getattr(self, k) for k in self.LEAVES)
 
 
 @dataclasses.dataclass
@@ -311,11 +319,13 @@ def build_random_effect_dataset(
     with :func:`plan_entity_buckets` instead.  Entity keys are
     canonicalized to strings (the on-disk model format is string-keyed).
     ``allow_missing`` lets rows without an entity id (``None``) contribute
-    nothing instead of raising.
+    nothing instead of raising.  ``device=False`` keeps every block leaf a
+    host numpy array (the out-of-core coordinates' dataset).
     """
     import scipy.sparse as sp
 
-    dev = resolve_device(device)
+    host = device is False
+    dev = None if host else resolve_device(device)
     rows_csr = sp.csr_matrix(rows_csr)
     rows_csr.sum_duplicates()
     n_rows, d = rows_csr.shape
@@ -339,7 +349,8 @@ def build_random_effect_dataset(
             ds = build_random_effect_dataset(
                 entity_keys[keep], rows_csr[rows_kept], labels[keep],
                 weights[keep], max_rows_per_entity=max_rows_per_entity,
-                dtype=dtype, device=dev, bucket_growth=bucket_growth,
+                dtype=dtype, device=False if host else dev,
+                bucket_growth=bucket_growth,
                 repack=repack, program_budget=program_budget,
                 repack_seed=repack_seed,
             )
@@ -349,10 +360,11 @@ def build_random_effect_dataset(
             def _repoint(block):
                 if block is None:
                     return None
-                ri = block.row_index.cpu().numpy()
+                ri = to_numpy(block.row_index)
                 ri = np.where(ri >= kept_n, kept_n, ri)  # sentinel slot
-                new_ri = torch.as_tensor(remap[ri].astype(np.int32),
-                                         device=dev)
+                new_ri = remap[ri].astype(np.int32)
+                if not host:
+                    new_ri = torch.as_tensor(new_ri, device=dev)
                 return dataclasses.replace(block, row_index=new_ri)
 
             return dataclasses.replace(
@@ -364,6 +376,9 @@ def build_random_effect_dataset(
     entity_keys = entity_keys.astype(str)
 
     def _t(x, dt=None):
+        if host:
+            return x if dt is None else x.astype(
+                torch.empty(0, dtype=dt).numpy().dtype, copy=False)
         t = torch.as_tensor(x, device=dev)
         return t if dt is None else t.to(dt)
 

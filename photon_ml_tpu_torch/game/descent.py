@@ -19,25 +19,12 @@ import dataclasses
 import time
 from typing import Callable, Optional, Sequence
 
-import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
-from photon_ml_tpu_torch.game.coordinates import Coordinate
+from photon_ml_tpu_torch.game.coordinates import Coordinate, _state_to_device
 
 Tensor = torch.Tensor
-
-
-def _state_to_device(st, device):
-    """Recursively move a coordinate state (tensor, array, or list of them)
-    onto ``device``."""
-    if st is None:
-        return None
-    if isinstance(st, (list, tuple)):
-        return [_state_to_device(s, device) for s in st]
-    if isinstance(st, Tensor):
-        return st.to(device)
-    return torch.as_tensor(np.asarray(st), device=device)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -152,7 +139,7 @@ class CoordinateDescent:
             for coord in self.coordinates:
                 scores[coord.name] = _state_to_device(
                     saved["scores"][coord.name], device)
-                states[coord.name] = _state_to_device(
+                states[coord.name] = coord.place_state(
                     saved["states"][coord.name], device)
             history = list(saved["history"])
             if logger is not None:
@@ -164,7 +151,7 @@ class CoordinateDescent:
                 st = initial_states.get(coord.name)
                 if st is None:
                     continue
-                st = _state_to_device(st, device)
+                st = coord.place_state(st, device)
                 states[coord.name] = st
                 s = coord.score(st)
                 scores[coord.name] = s

@@ -13,12 +13,15 @@ scores data with a trained model on the host (unseen entities contribute
 arrays: ``shards`` maps feature-shard name → scipy CSR, ``ids`` maps
 id-column name → per-row entity keys.
 
-Every dataset lives on one device (CUDA unless the caller passes
+Every coordinate runs on one device (CUDA unless the caller passes
 ``device="cpu"``).  Random effects are plain (``RandomEffectCoordinate``)
 or factored (``game/factored.py``, w_e = V u_e); both share one built
-dataset.  What the reference runs beyond that — streaming and out-of-core
-coordinates and a device mesh — raises ``NotImplementedError`` naming the
-ROADMAP item that brings it.
+dataset.  Out of core: a fixed effect with ``streaming_chunk_rows > 0``
+streams a host chunk store (``game/streaming.py``), and a random effect
+with ``device_budget_bytes > 0`` streams a host dataset, cached apart from
+the resident one, in budget-bounded pass groups (``game/ooc_random.py``,
+``game/ooc_factored.py``).  A device mesh raises ``NotImplementedError``
+naming the ROADMAP item that brings it.
 """
 
 from __future__ import annotations
@@ -32,6 +35,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.data.dataset import make_glm_data
+from photon_ml_tpu_torch.data.streaming import make_streaming_glm_data
 from photon_ml_tpu_torch.device import resolve_device, to_numpy
 from photon_ml_tpu_torch.evaluation.evaluators import Evaluator
 from photon_ml_tpu_torch.game.coordinates import (
@@ -39,6 +43,13 @@ from photon_ml_tpu_torch.game.coordinates import (
     RandomEffectCoordinate,
     not_ported,
 )
+from photon_ml_tpu_torch.game.ooc_factored import (
+    OutOfCoreFactoredRandomEffectCoordinate,
+)
+from photon_ml_tpu_torch.game.ooc_random import (
+    OutOfCoreRandomEffectCoordinate,
+)
+from photon_ml_tpu_torch.game.streaming import StreamingFixedEffectCoordinate
 from photon_ml_tpu_torch.game.data import (
     FixedEffectDataset,
     build_random_effect_dataset,
@@ -65,8 +76,21 @@ class FixedEffectCoordinateConfig:
     #: uniform otherwise), re-weighting survivors; dropped rows get training
     #: weight 0, so every row is still scored.
     down_sampling_rate: float = 1.0
-    #: > 0 trains the coordinate out of core in the reference; refused here.
+    #: > 0 trains the coordinate OUT OF CORE: the shard lives in host RAM
+    #: as chunks of this many rows, streamed through the card each
+    #: objective pass (``game/streaming.py``).
     streaming_chunk_rows: int = 0
+    #: chunks in flight when streaming (2 = the double buffer).
+    prefetch_depth: int = 2
+    #: chunks moved in one transfer and run in one consumer step.
+    chunk_fuse: int = 1
+    #: evaluate a bracket of line-search trials a streamed pass.
+    batch_linesearch: bool = True
+    #: chunk wire format when streaming: off|lossless|fp16|int8.
+    stream_compress: str = "off"
+    #: > 0 keeps up to this many MB of chunk buffers on the card across
+    #: streamed passes (bitwise neutral).
+    stream_hot_budget_mb: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -86,8 +110,16 @@ class RandomEffectCoordinateConfig:
     repack: str = "geometric"
     program_budget: int = 16
     repack_seed: int = 0
-    #: > 0 trains the coordinate out of core in the reference; refused here.
+    #: > 0 trains the coordinate OUT OF CORE: entity blocks stay in host RAM
+    #: and stream through the card in pass groups bounded by this many
+    #: bytes (``game/ooc_random.py``).
     device_budget_bytes: int = 0
+    #: pass groups in flight when out of core (each sized to
+    #: device_budget_bytes / prefetch_depth).
+    prefetch_depth: int = 2
+    #: > 0 keeps up to this many MB of pass groups' static payloads on the
+    #: card across passes (bitwise neutral).
+    hot_budget_mb: float = 0.0
 
 
 @dataclasses.dataclass(frozen=True)
@@ -109,6 +141,10 @@ class FactoredRandomEffectCoordinateConfig:
     repack: str = "geometric"
     program_budget: int = 16
     repack_seed: int = 0
+    #: > 0 trains the coordinate OUT OF CORE (``game/ooc_factored.py``).
+    device_budget_bytes: int = 0
+    #: pass groups in flight when out of core.
+    prefetch_depth: int = 2
 
 
 CoordinateConfig = (
@@ -210,31 +246,18 @@ class GameEstimator:
         cache = {} if dataset_cache is None else dataset_cache
         coordinates = []
         for name, cfg in coordinate_configs.items():
-            if getattr(cfg, "streaming_chunk_rows", 0) > 0 or getattr(
-                    cfg, "device_budget_bytes", 0) > 0:
-                raise not_ported(
-                    f"coordinate {name!r}: out-of-core training", 5,
-                    "out-of-core")
             shard = shards[cfg.feature_shard]
             key = self.dataset_key(cfg)
             if isinstance(cfg, FixedEffectCoordinateConfig):
-                dataset = cache.get(key)
-                if dataset is None:
-                    with self._stage("fixed-effect dataset build"):
-                        data = make_glm_data(
-                            shard, response,
-                            weights=self._train_weight(cfg, response,
-                                                       weight),
-                            device=self.device,
-                        )
-                    dataset = FixedEffectDataset(data=data, n_global_rows=n)
-                    cache[key] = dataset
-                coordinates.append(FixedEffectCoordinate(
-                    name, dataset, self.task, cfg.optimization,
-                    cfg.reg_weight, feature_shard=cfg.feature_shard,
-                ))
+                coordinates.append(self._fixed(name, cfg, shard, response,
+                                               weight, cache, key, n))
                 continue
-            dataset = cache.get(key)
+            factored = isinstance(cfg, FactoredRandomEffectCoordinateConfig)
+            ooc = cfg.device_budget_bytes > 0
+            # The host dataset of the out-of-core path is cached apart from
+            # the resident one.
+            ds_key = ("ooc_ds",) + key if ooc else key
+            dataset = cache.get(ds_key)
             if dataset is None:
                 with self._stage("random-effect bucket build"):
                     dataset = build_random_effect_dataset(
@@ -247,24 +270,73 @@ class GameEstimator:
                         repack=cfg.repack,
                         program_budget=cfg.program_budget,
                         repack_seed=cfg.repack_seed,
-                        device=self.device,
+                        device=False if ooc else self.device,
                     )
-                cache[key] = dataset
-            if isinstance(cfg, FactoredRandomEffectCoordinateConfig):
-                coordinates.append(FactoredRandomEffectCoordinate(
+                cache[ds_key] = dataset
+            kw = dict(feature_shard=cfg.feature_shard,
+                      entity_key=cfg.entity_key)
+            if ooc:
+                kw.update(device_budget_bytes=cfg.device_budget_bytes,
+                          prefetch_depth=cfg.prefetch_depth,
+                          device=self.device)
+            if factored:
+                cls = (OutOfCoreFactoredRandomEffectCoordinate if ooc
+                       else FactoredRandomEffectCoordinate)
+                coordinates.append(cls(
                     name, dataset, self.task, cfg.optimization,
                     rank=cfg.rank, reg_weight=cfg.reg_weight,
                     projection_reg_weight=cfg.projection_reg_weight,
-                    alternations=cfg.alternations,
-                    feature_shard=cfg.feature_shard,
-                    entity_key=cfg.entity_key,
+                    alternations=cfg.alternations, **kw,
                 ))
-                continue
-            coordinates.append(RandomEffectCoordinate(
-                name, dataset, self.task, cfg.optimization, cfg.reg_weight,
-                feature_shard=cfg.feature_shard, entity_key=cfg.entity_key,
-            ))
+            elif ooc:
+                coordinates.append(OutOfCoreRandomEffectCoordinate(
+                    name, dataset, self.task, cfg.optimization,
+                    cfg.reg_weight,
+                    hot_budget_bytes=int(cfg.hot_budget_mb * 1e6), **kw,
+                ))
+            else:
+                coordinates.append(RandomEffectCoordinate(
+                    name, dataset, self.task, cfg.optimization,
+                    cfg.reg_weight, **kw,
+                ))
         return coordinates
+
+    def _fixed(self, name, cfg, shard, response, weight, cache, key, n):
+        """The fixed-effect coordinate of ``cfg``: streamed from a host
+        chunk store when ``streaming_chunk_rows > 0``, else resident."""
+        dataset = cache.get(key)
+        if cfg.streaming_chunk_rows > 0:
+            if dataset is None:
+                with self._stage("fixed-effect chunk store build"):
+                    dataset = make_streaming_glm_data(
+                        shard, response,
+                        weights=self._train_weight(cfg, response, weight),
+                        chunk_rows=cfg.streaming_chunk_rows,
+                        device=self.device,
+                    )
+                cache[key] = dataset
+            return StreamingFixedEffectCoordinate(
+                name, dataset, self.task, cfg.optimization, cfg.reg_weight,
+                feature_shard=cfg.feature_shard,
+                prefetch_depth=cfg.prefetch_depth,
+                chunk_fuse=cfg.chunk_fuse,
+                batch_linesearch=cfg.batch_linesearch,
+                compress=cfg.stream_compress,
+                hot_budget_bytes=int(cfg.stream_hot_budget_mb * 1e6),
+            )
+        if dataset is None:
+            with self._stage("fixed-effect dataset build"):
+                data = make_glm_data(
+                    shard, response,
+                    weights=self._train_weight(cfg, response, weight),
+                    device=self.device,
+                )
+            dataset = FixedEffectDataset(data=data, n_global_rows=n)
+            cache[key] = dataset
+        return FixedEffectCoordinate(
+            name, dataset, self.task, cfg.optimization, cfg.reg_weight,
+            feature_shard=cfg.feature_shard,
+        )
 
     def _train_weight(self, cfg, response, weight):
         """The fixed effect's training weights, down-sampled on a cache
@@ -343,7 +415,9 @@ class GameEstimator:
                 w = (means.detach().cpu().numpy()
                      if isinstance(means, torch.Tensor) else np.asarray(means))
                 w = w.astype(np.float32)
-                width = c.dataset.data.n_features
+                width = (c.n_features if isinstance(
+                    c, StreamingFixedEffectCoordinate)
+                    else c.dataset.data.n_features)
                 if w.shape[0] != width:
                     raise ValueError(
                         f"initial model coordinate {c.name!r} has "
@@ -351,9 +425,10 @@ class GameEstimator:
                         f"{width}; read the data with the initial model's "
                         "index maps"
                     )
-                states[c.name] = torch.as_tensor(w, device=self.device)
+                states[c.name] = c.place_state(w, self.device)
             elif isinstance(sub, RandomEffectModel):
-                if isinstance(c, FactoredRandomEffectCoordinate):
+                if isinstance(c, (FactoredRandomEffectCoordinate,
+                                  OutOfCoreFactoredRandomEffectCoordinate)):
                     continue
                 if sub.n_features != c.dataset.n_features:
                     raise ValueError(
@@ -362,13 +437,13 @@ class GameEstimator:
                         f"{c.dataset.n_features}; read the data with the "
                         "initial model's index maps"
                     )
-                states[c.name] = [
-                    torch.as_tensor(sub.coefficient_matrix_for(
-                        block.col_map.cpu().numpy(), ids),
-                        device=self.device)
+                # Host arrays; each coordinate places them as it keeps its
+                # state (out-of-core coordinates keep them on the host).
+                states[c.name] = c.place_state([
+                    sub.coefficient_matrix_for(to_numpy(block.col_map), ids)
                     for block, ids in zip(c.dataset.blocks,
                                           c.dataset.entity_ids)
-                ]
+                ], self.device)
         return states
 
     def fit_coordinates(

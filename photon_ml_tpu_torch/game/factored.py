@@ -17,7 +17,10 @@ The projection gradient sums each (bucket, lane, local column) term into
 its global column.  The reference does that with ``g.at[idx].add``; here a
 :class:`SortedSegmentSum` built once from the buckets' column maps adds
 each column's terms in one fixed order, with no atomics, so a training run
-repeats bitwise on the card.
+repeats bitwise on the card.  The value and the gradient's column sums
+accumulate in float64 (the reference's in float32), so the out-of-core
+coordinate, which sums the same terms slice by slice, rounds to the same
+float32 gradient and takes the same L-BFGS steps over V.
 
 ``finalize`` materializes ``w_e = V u_e`` into the standard
 ``RandomEffectModel`` table, so the model store, the scoring driver and the
@@ -34,6 +37,7 @@ from typing import Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.device import to_numpy
 from photon_ml_tpu_torch.game.coordinates import (
     BlockSolver,
     Coordinate,
@@ -60,19 +64,30 @@ class SortedSegmentSum:
     ``CHUNK``; one level gathers every chunk into a padded ``(chunks,
     CHUNK, ...)`` tensor (padding reads an appended zero row) and sums it,
     and the chunk sums are cut again until each segment holds one.  Every
-    sum has a fixed shape and order, so the result repeats bitwise."""
+    sum has a fixed shape and order, so the result repeats bitwise.
+    :meth:`host_tables` gives the gather tables as host arrays (the
+    out-of-core coordinate ships them with a pass group) and :meth:`apply`
+    sums over tables already on the rows' device."""
 
     CHUNK = 32
 
     def __init__(self, index: np.ndarray, n_out: int, device=None):
+        tables, final = self.host_tables(index, n_out)
+        self.tables = [torch.as_tensor(t, device=device) for t in tables]
+        self.final = torch.as_tensor(final, device=device)
+
+    @classmethod
+    def host_tables(cls, index: np.ndarray, n_out: int,
+                    dtype=np.int64) -> tuple[list, np.ndarray]:
+        """(per-level gather tables, final gather) as ``dtype`` arrays."""
         index = np.asarray(index, np.int64).reshape(-1)
         keep = np.flatnonzero(index >= 0)
         order = keep[np.argsort(index[keep], kind="stable")]
         counts = np.bincount(index[keep], minlength=n_out).astype(np.int64)
         starts = np.cumsum(counts) - counts
-        C = self.CHUNK
+        C = cls.CHUNK
         source, length = order, len(index)  # sorted position → input row
-        self.tables = []
+        tables = []
         while len(counts) and counts.max() > 1:
             chunks = (counts + C - 1) // C
             seg = np.repeat(np.arange(len(counts)), chunks)
@@ -82,21 +97,24 @@ class SortedSegmentSum:
             offset = rank[:, None] * C + j[None, :]
             valid = offset < counts[seg][:, None]
             pos = np.where(valid, starts[seg][:, None] + offset, 0)
-            table = np.where(valid, source[pos], length)
-            self.tables.append(torch.as_tensor(table, device=device))
+            tables.append(np.where(valid, source[pos], length).astype(dtype))
             counts, starts = chunks, first
             source, length = np.arange(len(seg)), len(seg)
         # A segment of one row reads it; an empty one the zero row.
         single = counts == 1
-        final = np.full(len(counts), length, np.int64)
+        final = np.full(len(counts), length, dtype)
         final[single] = source[starts[single]]
-        self.final = torch.as_tensor(final, device=device)
+        return tables, final
 
     def __call__(self, rows: Tensor) -> Tensor:
+        return self.apply(rows, self.tables, self.final)
+
+    @staticmethod
+    def apply(rows: Tensor, tables, final: Tensor) -> Tensor:
         a = rows
-        for table in self.tables:
+        for table in tables:
             a = torch.cat([a, a.new_zeros((1,) + a.shape[1:])])[table].sum(1)
-        return torch.cat([a, a.new_zeros((1,) + a.shape[1:])])[self.final]
+        return torch.cat([a, a.new_zeros((1,) + a.shape[1:])])[final]
 
 
 def _gather_v(V: Tensor, cmap: Tensor) -> Tensor:
@@ -212,19 +230,24 @@ class FactoredRandomEffectCoordinate(Coordinate):
     def projection_value_grad(self, vflat: Tensor, offs: list,
                               u_list: list):
         """The objective in vec(V) with every latent fixed, and its
-        gradient (deterministic column sums)."""
+        gradient (deterministic column sums).  Both sum their terms in
+        float64 (the value stays float64, the gradient returns to V's
+        dtype), so a sum cut into other pieces, as the out-of-core
+        coordinate's pass groups cut it, rounds to the same float32
+        gradient."""
         _, _, l2v = self._reg()
         V = vflat.view(self.dataset.n_features, self.rank)
-        val = 0.5 * l2v * torch.dot(vflat, vflat)
+        v64 = vflat.double()
+        val = 0.5 * l2v * torch.dot(v64, v64)
         parts = []
         for block, off, u in zip(self.dataset.blocks, offs, u_list):
             m = _rowdot(block.X, _materialize(V, block.col_map, u)) + off
             val = val + (block.weights
-                         * self.loss.value(m, block.labels)).sum()
+                         * self.loss.value(m, block.labels)).double().sum()
             dm = block.weights * self.loss.d1(m, block.labels)  # (E, R)
             g_local = _coldot(dm, block.X)[:, :, None] * u[:, None, :]
             parts.append(g_local.reshape(-1, self.rank))
-        g = (self._grad_sum(torch.cat(parts)) if parts
+        g = (self._grad_sum(torch.cat(parts).double()).to(V.dtype) if parts
              else torch.zeros_like(V)) + l2v * V
         return val, g.reshape(-1)
 
@@ -301,7 +324,7 @@ def finalize_factored_model(coord, state) -> RandomEffectModel:
                                  coord.dataset.entity_ids,
                                  coord.materialize(state)):
         col_parts, val_parts, _ = pack_entity_tables(
-            block.col_map.cpu().numpy(), coefs.cpu().numpy())
+            to_numpy(block.col_map), to_numpy(coefs))
         for lane, key in enumerate(ids):
             table[key] = (col_parts[lane], val_parts[lane])
     return RandomEffectModel(

@@ -34,7 +34,7 @@ from typing import Sequence
 import numpy as np
 import torch
 
-from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.device import resolve_device, to_numpy
 from photon_ml_tpu_torch.game.coordinates import _rowdot
 from photon_ml_tpu_torch.game.data import (
     RandomEffectDataset,
@@ -109,7 +109,7 @@ class RandomEffectValidationScorer:
             [[0], np.cumsum([e for e, _d in state_shapes])]).astype(np.int64)
         key_parts, pos_parts = [], []
         for tb, b in enumerate(train_dataset.blocks):
-            tcmap = b.col_map.cpu().numpy()  # (E, D) active cols, -1 pad
+            tcmap = to_numpy(b.col_map)  # (E, D) active cols, -1 pad
             lanes, cols = np.nonzero(tcmap >= 0)
             key_parts.append((lane_gid0[tb] + lanes).astype(np.int64) * d
                              + tcmap[lanes, cols])
@@ -147,7 +147,11 @@ class RandomEffectValidationScorer:
         self._device = dev
 
     def score(self, state: list[Tensor]) -> Tensor:
-        flat = torch.cat([s.reshape(-1) for s in state]
+        """``state``: per-bucket ``(E, D)`` tensors, or the host arrays of
+        an out-of-core coordinate (moved to the card here, as one copy)."""
+        flat = torch.cat([torch.as_tensor(s, dtype=torch.float32,
+                                          device=self._device).reshape(-1)
+                          for s in state]
                          + [torch.zeros(1, dtype=torch.float32,
                                         device=self._device)])
         out = torch.zeros(self.n_rows + 1, dtype=torch.float32,

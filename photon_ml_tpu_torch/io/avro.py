@@ -21,7 +21,7 @@ import json
 import os
 import struct
 import zlib
-from typing import Any, BinaryIO, Iterable, Iterator
+from typing import Any, BinaryIO, Iterable, Iterator, Optional
 
 MAGIC = b"Obj\x01"
 
@@ -437,38 +437,99 @@ def write_scoring_container(
     codec: str = "deflate",
     records_per_block: int = 4096,
 ) -> int:
-    """Write ``ScoringResultAvro`` records from columns: ``uids`` (str or
-    None), ``scores`` and ``labels`` (floats; a label may be None) and
-    ``ids`` (column name → per-row values; a None entry is left out of that
-    row's map, the join-miss contract), with the map keys in the iteration
-    order of ``ids``.  The bytes are those of the reference's columnar
-    writer given the same columns as one block.  Returns the rows
-    written."""
+    """Write ``ScoringResultAvro`` records from one block of columns (see
+    :func:`write_scoring_blocks`).  Returns the rows written."""
+    return write_scoring_blocks(path, [(uids, scores, labels, ids)],
+                                codec=codec,
+                                records_per_block=records_per_block)
+
+
+def write_scoring_blocks(
+    path: str,
+    blocks: Iterable[tuple],
+    codec: str = "deflate",
+    records_per_block: int = 4096,
+) -> int:
+    """Write ``ScoringResultAvro`` records from an iterable of column blocks
+    ``(uids, scores, labels, ids)``, consumed one block at a time (the
+    streamed scoring driver's generator): ``uids`` str or None, ``scores``
+    and ``labels`` floats (a label may be None), ``ids`` column name →
+    per-row values (a None entry is left out of that row's map, the
+    join-miss contract).  Container blocks hold ``records_per_block``
+    records whatever the input blocks' sizes.  A column absent from some
+    input blocks is None there; the map keys keep the first block's order,
+    and once a new column appears the columns are sorted.  The bytes are
+    those of the reference's ``write_scoring_container`` given the same
+    blocks.  Returns the rows written."""
     from photon_ml_tpu_torch.io.schemas import SCORING_RESULT
 
-    n = len(scores)
-    bad = [name for name, col in (("uids", uids), ("labels", labels),
-                                  *((f"ids[{k!r}]", v)
-                                    for k, v in ids.items()))
-           if len(col) != n]
-    if bad:
-        # A misaligned column would silently shift values into other rows.
-        raise ValueError(f"columns {bad} do not match len(scores)={n}")
-    keys = list(ids)
+    assert codec in ("null", "deflate", "snappy")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+    pend_u: list = []
+    pend_s: list = []
+    pend_l: list = []
+    pend_ids: Optional[dict] = None
+    total = 0
 
-    def records():
-        for i in range(n):
-            yield {
-                "uid": uids[i],
-                "predictionScore": float(scores[i]),
-                "label": None if labels[i] is None else float(labels[i]),
-                "ids": {k: str(ids[k][i]) for k in keys
+    def tolist(col):
+        return col.tolist() if hasattr(col, "tolist") else list(col)
+
+    def body_bytes(u, sc, lb, ids) -> bytes:
+        out = _io.BytesIO()
+        for i in range(len(sc)):
+            write_datum(out, SCORING_RESULT, {
+                "uid": u[i],
+                "predictionScore": float(sc[i]),
+                "label": None if lb[i] is None else float(lb[i]),
+                "ids": {k: str(ids[k][i]) for k in ids
                         if ids[k][i] is not None},
-            }
+            })
+        return out.getvalue()
 
-    write_container(path, SCORING_RESULT, records(), codec=codec,
-                    records_per_block=records_per_block)
-    return n
+    with open(path, "wb") as f:
+        _write_container_header(f, SCORING_RESULT, codec)
+
+        def flush(count):
+            nonlocal pend_u, pend_s, pend_l, total
+            u, pend_u = pend_u[:count], pend_u[count:]
+            sc, pend_s = pend_s[:count], pend_s[count:]
+            lb, pend_l = pend_l[:count], pend_l[count:]
+            ids = {k: v[:count] for k, v in pend_ids.items()}
+            for k in pend_ids:
+                pend_ids[k] = pend_ids[k][count:]
+            _write_block(f, count, body_bytes(u, sc, lb, ids), codec)
+            total += count
+
+        for uids, scores, labels, ids in blocks:
+            n_blk = len(scores)
+            bad = [name for name, col in (
+                ("uids", uids), ("labels", labels),
+                *((f"ids[{k!r}]", v) for k, v in ids.items()))
+                if len(col) != n_blk]
+            if bad:
+                # A misaligned column would silently shift values into
+                # other rows.
+                raise ValueError(
+                    f"columns {bad} do not match len(scores)={n_blk}")
+            if pend_ids is None:
+                pend_ids = {k: [] for k in ids}
+            else:
+                new = [k for k in ids if k not in pend_ids]
+                for k in new:
+                    pend_ids[k] = [None] * len(pend_s)
+                if new:
+                    pend_ids = {k: pend_ids[k] for k in sorted(pend_ids)}
+            pend_u.extend(tolist(uids))
+            pend_s.extend(tolist(scores))
+            pend_l.extend(tolist(labels))
+            for k in pend_ids:
+                pend_ids[k].extend(tolist(ids[k]) if k in ids
+                                   else [None] * n_blk)
+            while len(pend_s) >= records_per_block:
+                flush(records_per_block)
+        if pend_s:
+            flush(len(pend_s))
+    return total
 
 
 def _read_header(f: BinaryIO, path: str) -> tuple[Any, str, bytes]:

@@ -358,22 +358,12 @@ class GameGridCheckpointer:
     def _point_dir(self, gi: int) -> str:
         return os.path.join(self.root, f"point_{gi}")
 
-    #: Fields of the reference's config dataclasses that only its
-    #: out-of-core, mesh and host-kind-solver paths read (ROADMAP Queue 1
-    #: items 5 and 6); the port has no such field and runs as their
-    #: defaults, which the fingerprint records so that both packages
-    #: compute the same image.
+    #: Fields of the reference's config dataclasses that only its mesh and
+    #: host-kind-solver paths read (ROADMAP Queue 1 item 6); the port has
+    #: no such field and runs as their defaults, which the fingerprint
+    #: records so that both packages compute the same image.
     REFERENCE_DEFAULTS = {
-        "FixedEffectCoordinateConfig": {
-            "prefetch_depth": 2, "chunk_fuse": 1, "batch_linesearch": True,
-            "stream_compress": "off", "stream_hot_budget_mb": 0.0,
-        },
-        "RandomEffectCoordinateConfig": {
-            "split_factor": 0.5, "prefetch_depth": 2, "hot_budget_mb": 0.0,
-        },
-        "FactoredRandomEffectCoordinateConfig": {
-            "device_budget_bytes": 0, "prefetch_depth": 2,
-        },
+        "RandomEffectCoordinateConfig": {"split_factor": 0.5},
         "OptimizerConfig": {"solver_options": []},
     }
 

@@ -578,22 +578,24 @@ class StreamingObjective:
 # ---------------------------------------------------------------------------
 
 
-class _StorePasses:
+class StorePasses:
     """A :class:`StreamingObjective` behind the objective interface the
     registry's solvers call (``value_and_grad(w, data, l2_weight)``,
     ``hvp(w, v, data, l2_weight, d2w)``, ``d2_weights(w, data)``): every
-    call is one pass over the store, so ``data`` is unused, and TRON gets
+    call is one pass over the store (with ``offsets``, the per-chunk extra
+    margins, added), so ``data`` is unused, and TRON gets
     no per-iterate d2 cache (the HVP pass recomputes the weights per chunk;
     caching them would hold n_rows of state on the card)."""
 
-    def __init__(self, sobj: StreamingObjective):
+    def __init__(self, sobj: StreamingObjective, offsets=None):
         self.sobj = sobj
+        self.offsets = offsets  # per-chunk slices (offset_slices) or None
 
     def value_and_grad(self, w, data, l2_weight=0.0):
-        return self.sobj.value_and_grad(w, l2_weight)
+        return self.sobj.value_and_grad(w, l2_weight, offsets=self.offsets)
 
     def hvp(self, w, v, data, l2_weight=0.0, d2w=None):
-        return self.sobj.hvp(w, v, l2_weight)
+        return self.sobj.hvp(w, v, l2_weight, offsets=self.offsets)
 
     def d2_weights(self, w, data):
         return None
@@ -648,7 +650,7 @@ def streaming_run_grid(
     opt = cfg.optimizer
     l1_frac = cfg.regularization.l1_weight(1.0)
     defn = solver_registry.resolve(opt, l1_frac=l1_frac)
-    passes = _StorePasses(sobj)
+    passes = StorePasses(sobj)
 
     def solve_fn(lam, w_prev):
         l1 = l1_frac * float(lam)

@@ -447,31 +447,51 @@ class TestEstimator:
 
 class TestDeferredBranches:
     """Each branch the port does not have yet raises NotImplementedError
-    naming the ROADMAP item that brings it."""
-
-    def _est(self, **cfg_kw):
-        cfg, _ = _cfgs()
-        return estimator.GameEstimator("logistic", {
-            "fixed": estimator.FixedEffectCoordinateConfig("global", cfg,
-                                                           **cfg_kw)},
-            device=CPU)
+    naming the ROADMAP item that brings it; the out-of-core branches it
+    once refused fit as the reference's."""
 
     def test_refusals(self):
-        shards, ids, y = _game_problem(15)
-        cfg, _ = _cfgs()
         cases = [
-            (lambda: self._est(streaming_chunk_rows=64).fit(shards, ids, y),
-             "item 5"),
-            (lambda: estimator.GameEstimator("logistic", {
-                "user": estimator.RandomEffectCoordinateConfig(
-                    "user", "userId", cfg, device_budget_bytes=1 << 20)},
-                device=CPU).fit(shards, ids, y), "item 5"),
             (lambda: estimator.GameEstimator("logistic", {}, mesh=object(),
                                              device=CPU), "item 6"),
         ]
         for call, item in cases:
             with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
                 call()
+
+    @pytest.mark.parametrize("branch", ["streamed_fixed", "ooc_random"])
+    def test_out_of_core_branch_fits_as_the_reference(self, branch):
+        """The two out-of-core branches (a streamed fixed effect, an
+        out-of-core random effect), through ``GameEstimator.fit`` of both
+        packages on the same data."""
+        shards, ids, y = _game_problem(15)
+        cfg, rcfg = _cfgs()
+        fixed_kw = ({"streaming_chunk_rows": 64}
+                    if branch == "streamed_fixed" else {})
+        re_kw = ({"device_budget_bytes": 1 << 14}
+                 if branch == "ooc_random" else {})
+
+        def configs(mod, c):
+            return {
+                "fixed": mod.FixedEffectCoordinateConfig(
+                    "global", c, reg_weight=1.0, **fixed_kw),
+                "user": mod.RandomEffectCoordinateConfig(
+                    "user", "userId", c, reg_weight=1.0, **re_kw),
+            }
+
+        port = estimator.GameEstimator("logistic", configs(estimator, cfg),
+                                       n_iterations=2, device=CPU)
+        coords = port.build_coordinates(shards, ids, y)
+        kinds = {"streamed_fixed": "StreamingFixedEffectCoordinate",
+                 "ooc_random": "OutOfCoreRandomEffectCoordinate"}
+        assert kinds[branch] in {type(c).__name__ for c in coords}
+        model, hist = port.fit(shards, ids, y)
+        rmodel, rhist = ref_est.GameEstimator(
+            "logistic", configs(ref_est, rcfg), n_iterations=2).fit(
+                shards, ids, y)
+        _assert_models_close(model, rmodel)
+        assert hist[-1]["train_metric"] == pytest.approx(
+            rhist[-1]["train_metric"], abs=AUC_TOL)
 
 
 def test_factored_coordinate_fits_as_the_reference():

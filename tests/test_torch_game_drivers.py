@@ -677,36 +677,21 @@ def test_wide_per_user_effect_matches_reference(tmp_path, optimizer):
 
 class TestRefusals:
     """Each flag or config the port does not run yet raises
-    NotImplementedError naming its ROADMAP Queue 1 item."""
+    NotImplementedError naming its ROADMAP Queue 1 item; the out-of-core
+    routes it once refused run as the reference's."""
 
     @pytest.mark.parametrize("case,item", [
-        ("data_parallel", 6), ("streamed_fixed", 5), ("ooc_random", 5),
-        ("tuning", 8),
-        ("stream_scoring", 5), ("stream_knob", 5), ("ooc_knob", 5),
-        ("split_factor", 6), ("solver_options", 6),
+        ("data_parallel", 6), ("tuning", 8), ("split_factor", 6),
+        ("solver_options", 6),
     ])
     def test_refusal_names_its_item(self, game_files, trained, tmp_path,
                                     case, item):
         train, val, config = game_files
-        root, _, _ = trained
         flags, overrides = [], {}
         if case == "data_parallel":
             flags = ["--data-parallel", "auto"]
         elif case == "tuning":
             overrides = {"tuning": {"mode": "random", "iterations": 2}}
-        elif case == "streamed_fixed":
-            overrides = {"coordinates": [dict(COORDS[0],
-                                              streaming_chunk_rows=64),
-                                         COORDS[1]]}
-        elif case == "ooc_random":
-            overrides = {"coordinates": [COORDS[0], dict(
-                COORDS[1], device_budget_mb=1)]}
-        elif case == "stream_knob":
-            overrides = {"coordinates": [dict(COORDS[0], chunk_fuse=4),
-                                         COORDS[1]]}
-        elif case == "ooc_knob":
-            overrides = {"coordinates": [COORDS[0], dict(
-                COORDS[1], hot_budget_mb=64)]}
         elif case == "split_factor":
             overrides = {"coordinates": [COORDS[0], dict(
                 COORDS[1], split_factor=0.25)]}
@@ -715,18 +700,71 @@ class TestRefusals:
                 COORDS[0], solver_options={"rho": 1.0}), COORDS[1]]}
         match = f"Queue 1 item {item}"
         with pytest.raises(NotImplementedError, match=match):
-            if case == "stream_scoring":
-                game_scoring_driver.run([
-                    "--data", val, "--model-dir", str(root / "port"),
-                    "--output-dir", str(tmp_path / "s"),
-                    "--stream-block-rows", "64", *CPU])
-            else:
-                cfg = (_write_config(tmp_path / "c.json", **overrides)
-                       if overrides else config)
-                game_training_driver.run([
-                    "--train-data", train, "--validate-data", val,
-                    "--config", cfg, "--output-dir", str(tmp_path / "o"),
-                    *flags, *CPU])
+            cfg = (_write_config(tmp_path / "c.json", **overrides)
+                   if overrides else config)
+            game_training_driver.run([
+                "--train-data", train, "--validate-data", val,
+                "--config", cfg, "--output-dir", str(tmp_path / "o"),
+                *flags, *CPU])
+
+    #: The out-of-core specs, run by both packages' training drivers.
+    OOC_SPECS = {
+        "streamed_fixed": [dict(COORDS[0], streaming_chunk_rows=150),
+                           COORDS[1]],
+        "stream_knob": [dict(COORDS[0], streaming_chunk_rows=150,
+                             chunk_fuse=2, prefetch_depth=3,
+                             stream_compress="lossless",
+                             stream_hot_budget_mb=0.01), COORDS[1]],
+        "ooc_random": [COORDS[0], dict(COORDS[1], device_budget_mb=0.01)],
+        "ooc_knob": [COORDS[0], dict(COORDS[1], device_budget_mb=0.01,
+                                     prefetch_depth=3, hot_budget_mb=64)],
+    }
+
+    @pytest.mark.parametrize("case", ["streamed_fixed", "stream_knob",
+                                      "ooc_random", "ooc_knob",
+                                      "stream_scoring"])
+    def test_out_of_core_route_matches_the_reference(
+            self, game_files, trained, tmp_path, case):
+        """Each out-of-core route the drivers once refused, through both
+        packages: the training runs agree as whole fits do (2e-3) and with
+        the port's resident run; the streamed scoring run writes the
+        reference's streamed bytes and its whole-file scores."""
+        train, val, _ = game_files
+        root, port_resident, _ = trained
+        if case == "stream_scoring":
+            def score(mod, out, *extra):
+                return mod.run(["--data", val, "--model-dir",
+                                str(root / "ref"), "--output-dir",
+                                str(tmp_path / out), "--evaluator", "auc",
+                                "--stream-block-rows", "64", *extra])
+
+            port = score(game_scoring_driver, "port", *CPU)
+            ref = score(ref_scoring, "ref")
+            assert port["n_rows"] == ref["n_rows"] == 200
+            assert port["metric"] == ref["metric"]
+            assert (tmp_path / "port" / "scores.avro").read_bytes() == \
+                (tmp_path / "ref" / "scores.avro").read_bytes()
+            whole = game_scoring_driver.run([
+                "--data", val, "--model-dir", str(root / "ref"),
+                "--output-dir", str(tmp_path / "whole"), *CPU])
+            assert (tmp_path / "whole" / "scores.avro").read_bytes() == \
+                (tmp_path / "port" / "scores.avro").read_bytes()
+            return
+        _, port, port_dir, ref, ref_dir = _train_both(
+            game_files, tmp_path, self.OOC_SPECS[case])
+        assert port["validation_metric"] == pytest.approx(
+            ref["validation_metric"], abs=FIT_TOL)
+        assert port["validation_metric"] == pytest.approx(
+            port_resident["validation_metric"], abs=FIT_TOL)
+        _tables_close(port_dir, ref_dir)
+        _tables_close(port_dir, str(root / "ref"))
+        model, _ = load_game_model(os.path.join(port_dir, "models"),
+                                   device="cpu")
+        rmodel, _ = ref_load(os.path.join(ref_dir, "models"))
+        np.testing.assert_allclose(
+            model["fixed"].model.coefficients.means.numpy(),
+            np.asarray(rmodel["fixed"].model.coefficients.means),
+            atol=5e-3)
 
     def test_reference_defaults_of_unported_keys_are_accepted(self):
         """A spec that spells out the reference's defaults of the keys the
@@ -738,6 +776,24 @@ class TestRefusals:
                       hot_budget_mb=0.0)]
         port = game_training_driver.expand_config_grid(specs)[0]
         ref = ref_training.expand_config_grid(specs)[0]
+        assert checkpoint.GameGridCheckpointer.fingerprint(port) == \
+            ref_ckpt.GameGridCheckpointer.fingerprint(ref)
+
+    def test_out_of_core_keys_fingerprint_as_the_reference(self):
+        """Non-default out-of-core keys parse into the port's configs and
+        fingerprint as the reference's, for every coordinate kind."""
+        specs = [dict(COORDS[0], streaming_chunk_rows=128, prefetch_depth=3,
+                      chunk_fuse=2, batch_linesearch=False,
+                      stream_compress="lossless", stream_hot_budget_mb=1.5),
+                 dict(COORDS[1], device_budget_mb=2, prefetch_depth=4,
+                      hot_budget_mb=8.0),
+                 dict(FACTORED, name="per_user_f", device_budget_mb=3,
+                      prefetch_depth=1)]
+        port = game_training_driver.expand_config_grid(specs)[0]
+        ref = ref_training.expand_config_grid(specs)[0]
+        assert port["fixed"].stream_compress == "lossless"
+        assert port["per_user"].device_budget_bytes == 2 * 2**20
+        assert port["per_user_f"].prefetch_depth == 1
         assert checkpoint.GameGridCheckpointer.fingerprint(port) == \
             ref_ckpt.GameGridCheckpointer.fingerprint(ref)
 

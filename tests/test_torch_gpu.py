@@ -997,3 +997,119 @@ def test_cross_stream_stress_depth3_bitwise_depth1(cuda):
             assert torch.equal(vg[1], want[0][1])
         assert torch.equal(fast.hvp(w, v, 0.5), want[1])
         np.testing.assert_array_equal(fast.scores(w), want[2])
+
+
+def _ooc_problem(seed=41, n_entities=400):
+    """A zipf-tailed per-entity problem (several buckets) as a resident
+    dataset on the card and a host dataset, with its logistic config."""
+    import scipy.sparse as sp
+
+    from photon_ml_tpu_torch.game.data import build_random_effect_dataset
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        OptimizerConfig,
+    )
+    from photon_ml_tpu_torch.optim.regularization import RegularizationContext
+
+    rng = np.random.default_rng(seed)
+    counts = np.clip(rng.zipf(1.6, size=n_entities), 1, 64)
+    keys = np.repeat([f"e{i}" for i in range(n_entities)], counts)
+    n, d = len(keys), 6
+    X = sp.random(n, d, density=0.6, random_state=seed, format="csr",
+                  dtype=np.float32)
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    w = np.ones(n, np.float32)
+    cfg = GlmOptimizationConfig(
+        optimizer=OptimizerConfig(max_iters=20, tolerance=1e-6),
+        regularization=RegularizationContext.l2())
+    return (build_random_effect_dataset(keys, X, y, w, device="cuda"),
+            build_random_effect_dataset(keys, X, y, w, device=False), cfg,
+            rng.normal(size=n).astype(np.float32))
+
+
+def test_out_of_core_random_effect_on_card(cuda):
+    """The out-of-core random effect on the card at an eighth of its host
+    bytes: coefficients within 1e-5 and scores within 1e-4 of the resident
+    coordinate (the reference's tolerances), depth 1 = depth 2 and a hot
+    cache at half the static bytes = uncached, bitwise over three updates,
+    at most ``prefetch_depth`` groups live."""
+    from photon_ml_tpu_torch.game.coordinates import RandomEffectCoordinate
+    from photon_ml_tpu_torch.game.ooc_random import (
+        OutOfCoreRandomEffectCoordinate,
+    )
+
+    res_ds, host, cfg, off_np = _ooc_problem()
+    budget = sum(a.nbytes for b in host.blocks for a in b.leaves()) // 8
+    off = torch.as_tensor(off_np, device=cuda)
+    res = RandomEffectCoordinate("re", res_ds, "logistic", cfg,
+                                 reg_weight=0.5)
+    st_r = res.train(off)
+
+    def run(budget=budget, **kw):
+        c = OutOfCoreRandomEffectCoordinate(
+            "re", host, "logistic", cfg, reg_weight=0.5,
+            device_budget_bytes=budget, device=cuda, **kw)
+        state, scores = None, []
+        for _ in range(3):
+            state = c.train(off, warm_state=state)
+            scores.append(c.score(state))
+            assert 1 <= c.live_groups_high_water <= c.prefetch_depth
+        return c, state, scores
+
+    c, st, sc = run()
+    assert len(c.pass_plan) >= 8
+    first = OutOfCoreRandomEffectCoordinate(
+        "re", host, "logistic", cfg, reg_weight=0.5,
+        device_budget_bytes=budget, device=cuda)
+    st1 = first.train(off)
+    for a, b in zip(st1, st_r):
+        assert np.abs(a - b.cpu().numpy()).max() <= 1e-5
+    assert float((first.score(st1) - res.score(st_r)).abs().max()) <= 1e-4
+    static = sum(c._group_static_bytes(k, g) for g in c.pass_plan
+                 for k in ("train", "score"))
+    # Depth 1 at half the budget: the same per-pass budget, the same plan.
+    for kw in ({"prefetch_depth": 1, "budget": budget // 2},
+               {"hot_budget_bytes": static // 2}):
+        c2, st2, sc2 = run(**kw)
+        assert c2.pass_plan == c.pass_plan
+        assert all(np.array_equal(a, b) for a, b in zip(st, st2))
+        assert all(torch.equal(a, b) for a, b in zip(sc, sc2))
+    assert c2.hot_cache.hits > 0
+
+
+def test_streamed_game_fixed_effect_on_card(cuda):
+    """The streamed GAME fixed effect (kernel-layout chunks) against the
+    resident fixed effect on the card: within the reference's 5e-3, the
+    SpMV kernels launched per chunk, and depth 1 = depth 2 bitwise."""
+    from photon_ml_tpu_torch.data.dataset import make_glm_data
+    from photon_ml_tpu_torch.data.streaming import make_streaming_glm_data
+    from photon_ml_tpu_torch.game.coordinates import FixedEffectCoordinate
+    from photon_ml_tpu_torch.game.data import FixedEffectDataset
+    from photon_ml_tpu_torch.game.streaming import (
+        StreamingFixedEffectCoordinate,
+    )
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        OptimizerConfig,
+    )
+    from photon_ml_tpu_torch.optim.regularization import RegularizationContext
+
+    X, y = _stream_problem(43, 1 << 15, 512, 8)
+    cfg = GlmOptimizationConfig(
+        optimizer=OptimizerConfig(max_iters=30, tolerance=1e-6),
+        regularization=RegularizationContext.l2())
+    off = torch.as_tensor(np.random.default_rng(2).normal(
+        size=X.shape[0]).astype(np.float32) * 0.1, device=cuda)
+    res = FixedEffectCoordinate("fixed", FixedEffectDataset(
+        make_glm_data(X, y, device=cuda), X.shape[0]), "logistic", cfg,
+        reg_weight=1.0)
+    stream = make_streaming_glm_data(X, y, chunk_rows=1 << 13, device=cuda)
+    assert stream.kind == "kernel" and stream.n_chunks == 4
+    _kernels.reset_launches()
+    ws = [StreamingFixedEffectCoordinate(
+        "fixed", stream, "logistic", cfg, reg_weight=1.0,
+        prefetch_depth=depth).train(off) for depth in (1, 2)]
+    assert _kernels.LAUNCHES["matvec"] > 0 and _kernels.LAUNCHES["rmatvec"] > 0
+    assert torch.equal(ws[0], ws[1])
+    w_r = res.train(off)
+    assert float((ws[0] - w_r).abs().max()) <= 5e-3

@@ -76,6 +76,9 @@ def test_import_leaves_jax_out_of_sys_modules():
     "photon_ml_tpu_torch.data.streaming",
     "photon_ml_tpu_torch.optim.streaming",
     "photon_ml_tpu_torch.drivers.glm_driver",
+    "photon_ml_tpu_torch.game.ooc_random",
+    "photon_ml_tpu_torch.game.ooc_factored",
+    "photon_ml_tpu_torch.game.streaming",
 ])
 def test_solver_slice_module_imports_alone_without_jax(module):
     """Each module of the solver, GAME, GAME-driver and out-of-core slices,
