@@ -224,18 +224,41 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    (10 blocks) files: scores equal to the whole-file runs', the same AUC,
    and the per-block device logistic loss within 1e-6 of the host one.
 
+11. Multi-device GLM (``parallel/``, ``solvers/{admm,block_cd,sharded}.py``)
+   on one card.  11a, right after 9b on phase 3's matrix: consensus ADMM
+   over 4 logical shards of 2^18 rows (each the kernel-backed matrix, held
+   against its plain version with phase 2's checks) on 3b's elastic-net
+   grid, scored beside 3b's OWL-QN by one float64 host evaluator (relative
+   gap at most 1e-3), its reductions a solve against OWL-QN's evaluations
+   a solve; then 3b's squared labels and L1 λ through the ridge x-update
+   (a Gram matrix by one HVP a basis vector, one 8192 x 8192 eigh a
+   shard).  11c, beside it: a one-rank NCCL process group (a FileStore in
+   the script's temporary directory): ``run_grid_distributed`` on phase
+   3's L2 grid bitwise the single-device grid (variances included), with
+   as many all-reduces as evaluations and variance passes, and ADMM over
+   the group bitwise ADMM on one logical shard.  11b, after phase 4: block
+   CD over 4 logical shards on ``bench_solvers``' ill-conditioned dense
+   draw at 2^17 x 512 (elastic net) within 1e-5 of the resident OWL-QN's
+   float64 objective, its rounds, seconds and launches a round; then
+   ``glm_driver --solver block_cd`` on phase 4's files, a few rounds a λ,
+   as a route check (model written, AUC = host re-score within 1e-6).
+   11c's driver check: ``glm_driver --data-parallel auto`` under a
+   one-rank group writes phase 4's L2 model files byte for byte.
+
 Phase 7's GAME Avro files are written by a spawned process that starts
 after phase 1 and runs beside phases 2-6; phase 7 waits for it.
 
 Launch counts are zeroed just before each main-path run of phases 3, 3b,
-4, 5, 6, 7, 8, 9 and 10 and read just after; every kernel those paths run
-must have launched.  A kernel record's ``launches`` sums its main-path runs
-(phases 3, 3b, 9a and 9b for the valued instances, phase 4's three runs
-and 9c's GLM driver runs for the binary ones, phase 6's descents and
-estimator fits, phases 7's, 8's and 9c's training runs and phase 10's
-descents, streamed solves and training runs for the ``.game`` records,
-phases 7's, 8's and 10e's validation scoring for ``.game_val``).  The second-to-last line is the kernels' JSON record and
-the last line ``{"ok": true, "device": {...}}``.
+4, 5, 6, 7, 8, 9, 10 and 11 and read just after; every kernel those paths
+run must have launched.  A kernel record's ``launches`` sums its main-path
+runs (phases 3, 3b, 9a, 9b and 11c's group runs for the valued instances,
+11a's for the ``.shard`` ones, phase 4's three runs, 11b's and 11c's
+driver runs and 9c's GLM driver runs for the binary ones, phase 6's
+descents and estimator fits, phases 7's, 8's and 9c's training runs and
+phase 10's descents, streamed solves and training runs for the ``.game``
+records, phases 7's, 8's and 10e's validation scoring for ``.game_val``).
+The second-to-last line is the kernels' JSON record and the last line
+``{"ok": true, "device": {...}}``.
 """
 
 import dataclasses
@@ -901,7 +924,9 @@ def solver_labels(margins, seed=5):
 def phase_solvers(data, plain_data, abs_F, margins, kern):
     """Phase 3b: OWL-QN, TRON and SPG through GlmOptimizationProblem at full
     width on phase 3's data (other losses: its features with new labels).
-    Returns ({op: launches}, {solver: record})."""
+    Returns ({op: launches}, {solver: record}, {(name, λ): w} of the
+    elastic-net grid's and the squared L1 solve's OWL-QN solutions, which
+    phase 11a scores beside ADMM's)."""
     from photon_ml_tpu_torch.ops import _kernels
     from photon_ml_tpu_torch.optim.problem import (
         GlmOptimizationConfig,
@@ -917,6 +942,7 @@ def phase_solvers(data, plain_data, abs_F, margins, kern):
     kernel_ms = {op: kern["valued"][op]["ms"] for op in OPS}
     total = {op: 0 for op in OPS}
     records = {}
+    solutions = {}
 
     def problem(task, reg, optimizer=OptimizerType.LBFGS, tol=SOLVE_TOL,
                 max_iters=100):
@@ -1036,6 +1062,7 @@ def phase_solvers(data, plain_data, abs_F, margins, kern):
         kkt(name, res, half.solve_single_device(data, lam, w_prev),
             en.objective, data, l1, l2)
         w_prev = res.w
+        solutions[("elastic_net", lam)] = res.w
         grid_recs.append(dict(owlqn_record(name, res, l1, v), lam=lam,
                               wall_s=en.grid_wall_seconds[lam]))
         log(f"solvers {name}: solve wall {en.grid_wall_seconds[lam]:.3f} s")
@@ -1067,7 +1094,8 @@ def phase_solvers(data, plain_data, abs_F, margins, kern):
         kkt(name, res, half.solve(d, lam), l1p.objective, d, l1, 0.0)
         records[f"owlqn.{task}_l1"] = dict(
             owlqn_record(name, res, l1, v),
-            **costs(launches, wall, k_ms, res.iterations))
+            **costs(launches, wall, k_ms, res.iterations), lam=lam)
+        solutions[(f"{task}_l1", lam)] = res.w
         if task == "linear":
             again = l1p.solve(d, lam)
             check(torch.equal(again.w, res.w),
@@ -1162,7 +1190,7 @@ def phase_solvers(data, plain_data, abs_F, margins, kern):
     log(f"phase 3b: {time.perf_counter() - t_phase:.1f} s wall; launches "
         f"{json.dumps(total)}")
     log(f"solver records: {json.dumps(records)}")
-    return total, records
+    return total, records, solutions
 
 
 def write_libsvm_binary(path, rows, cols, n, y):
@@ -1204,9 +1232,11 @@ def phase_driver(td):
     return total, (train, val), runs
 
 
-def driver_run(label, flags, td, train, val):
+def driver_run(label, flags, td, train, val,
+               kernels=("matvec_unit", "rmatvec_unit", "sq_rmatvec_unit")):
     """One ``glm_driver.run`` on the LIBSVM pair under zeroed launch
-    counters, its saved model re-scored on the host."""
+    counters, its saved model re-scored on the host; each of ``kernels``
+    must have launched."""
     from photon_ml_tpu_torch.data.index_map import IndexMap
     from photon_ml_tpu_torch.data.libsvm import read_libsvm
     from photon_ml_tpu_torch.drivers import glm_driver
@@ -1247,7 +1277,7 @@ def driver_run(label, flags, td, train, val):
     check(drv_auc > 0.5, f"driver {label}: AUC {drv_auc}")
     check(abs(drv_auc - host_auc) <= 1e-6,
           f"driver {label}: AUC {drv_auc} vs host {host_auc}")
-    for op in ("matvec_unit", "rmatvec_unit", "sq_rmatvec_unit"):
+    for op in kernels:
         check(launches[op] > 0, f"driver {label}: {op} never launched")
     return launches, (out, result)
 
@@ -1346,11 +1376,26 @@ def phase_experiments():
     graph_wall = wall_ms(graph.replay) / reps
     eager_wall = wall_ms(lambda: common.run_chain(step, w_d, reps)) / reps
     chain_bound = bytes_bound(n * k * 8 + 8 * d, 2 * n * k + 2 * d)
+    # The library's pass (cuSPARSE torch.mv on the same CSR) in the same
+    # 10-pass graph, or as an eager chain where the capture fails.
+    def lib_step(x):
+        return x + 1e-20 * torch.mv(A, x)[: x.shape[0]]
+
+    try:
+        lib_graph = common.ChainGraph(lib_step, w_d, reps)
+        chain_lib_ms, chain_lib_route = (
+            median_ms(lib_graph.replay) / reps, "graph")
+        del lib_graph
+    except RuntimeError as e:  # a capture the library refuses
+        log(f"  ell chain: cuSPARSE capture failed ({e}); timed eager")
+        chain_lib_ms, chain_lib_route = median_ms(
+            lambda: common.run_chain(lib_step, w_d, reps)) / reps, "eager"
     recs["chain"] = dict(
         max_abs_err=float(chain_err.max()), ms=graph_ms,
         plain_ms=median_ms(lambda: common.run_chain(plain_step, w_d, reps),
                            n=10) / reps,
-        library_ms=None, bound_ms=chain_bound[0], bound_by=chain_bound[1])
+        library_ms=chain_lib_ms, bound_ms=chain_bound[0],
+        bound_by=chain_bound[1])
     r = recs["ell"]
     log(f"  ell ok  kernel {r['ms']:.4f} ms ({r['bound_ms'] / r['ms']:.1%} of "
         f"the {r['bound_by']} bound {r['bound_ms']:.4f} ms)  plain "
@@ -1361,7 +1406,8 @@ def phase_experiments():
         f"({r['bound_ms'] / graph_ms:.1%} of the {r['bound_by']} bound "
         f"{r['bound_ms']:.4f} ms), eager host loop {eager_ms:.4f} ms/pass "
         f"(gap {eager_ms - graph_ms:.4f} ms/pass), plain "
-        f"{r['plain_ms']:.4f} ms/pass; graph == eager bitwise")
+        f"{r['plain_ms']:.4f} ms/pass, cuSPARSE {chain_lib_ms:.4f} ms/pass "
+        f"({chain_lib_route} chain); graph == eager bitwise")
     log(f"  ell chain of {reps} alone (host clock, synchronize around one "
         f"chain): graph {graph_wall:.4f} ms/pass, eager {eager_wall:.4f} "
         f"ms/pass: host launch cost {eager_wall - graph_wall:.4f} ms/pass")
@@ -4644,6 +4690,396 @@ def phase_game_ooc(smi, td, files, resident_iters_per_s):
     return launches, val_launches, metrics
 
 
+# -- phase 11: multi-device GLM --------------------------------------------
+
+ADMM_SHARDS = 4
+#: Consensus ADMM's knobs at full width (ρ near a shard's per-coordinate
+#: curvature, the reference bench's over-relaxation).
+ADMM_OPTIONS = (("rho", "64"), ("reltol", "1e-4"),
+                ("over_relaxation", "1.8"))
+ADMM_MAX_OUTER = 60
+#: The ridge x-update's: ρ near a shard's squared-loss curvature (2^18 rows
+#: x 32/8192 of a column's entries), and the cheap closed-form rounds run
+#: to 400.
+RIDGE_OPTIONS = (("rho", "1024"), ("reltol", "1e-4"),
+                 ("over_relaxation", "1.8"), ("local_solver", "ridge"))
+RIDGE_MAX_OUTER = 400
+BCD_ROWS = 1 << 17
+BCD_FEATURES = 512
+BCD_SHARDS = 4
+BCD_LAM = 0.3 * BCD_ROWS / 8192
+BCD_OPTIONS = (("n_blocks", "8"), ("sweeps", "1"), ("max_rounds", "800"),
+               ("tolerance", "1e-9"))
+BCD_GAP = 1e-5
+BCD_DRIVER_ROUNDS = 4
+
+
+def f64_objective(task, X, y, w, l1, l2):
+    """The full objective at ``w`` in float64 on the host (one scipy
+    mat-vec): the one evaluator phase 11 scores every solver with."""
+    w = w.double().cpu().numpy() if isinstance(w, torch.Tensor) else (
+        np.asarray(w, np.float64))
+    m = np.asarray(X @ w, np.float64).ravel()
+    y = np.asarray(y, np.float64)
+    if task == "logistic":
+        loss = np.sum(np.logaddexp(0.0, m) - y * m)
+    else:
+        loss = 0.5 * np.sum((m - y) ** 2)
+    return float(loss + l1 * np.abs(w).sum() + 0.5 * l2 * w @ w)
+
+
+def glm_problem(task, reg, solver=None, options=(), max_iters=100,
+                tol=SOLVE_TOL, accumulate="f64", compute_variances=False):
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        GlmOptimizationProblem,
+        OptimizerConfig,
+    )
+
+    return GlmOptimizationProblem(task, GlmOptimizationConfig(
+        optimizer=OptimizerConfig(max_iters=max_iters, tolerance=tol,
+                                  solver=solver, solver_options=options),
+        regularization=reg, compute_variances=compute_variances),
+        accumulate=accumulate)
+
+
+def phase_admm(X, y, margins, sol_records, sol_ws, gen):
+    """Phase 11a: consensus ADMM over 4 logical shards of phase 3's matrix
+    (2^18 rows each, on the SpMV kernels) on 3b's elastic-net grid, against
+    3b's OWL-QN; the squared labels through the ridge x-update.  Returns
+    (main-path launches, shard 0's kernel records, metrics)."""
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.ops.sparse_cuda import CudaSparseMatrix
+    from photon_ml_tpu_torch.optim.regularization import (
+        RegularizationContext,
+    )
+    from photon_ml_tpu_torch.parallel import distributed
+    from photon_ml_tpu_torch.solvers import sharded
+
+    t_phase = time.perf_counter()
+    t0 = time.perf_counter()
+    dist = distributed.shard_glm_data(X, y, None, n_shards=ADMM_SHARDS,
+                                      device=DEVICE)
+    torch.cuda.synchronize()
+    log(f"admm: {ADMM_SHARDS} logical shards of {dist.rows_per} rows, "
+        f"host build {time.perf_counter() - t0:.1f} s")
+    check(all(isinstance(s.features, CudaSparseMatrix) for s in dist.shards),
+          "admm: a shard is not the kernel-backed matrix")
+    # Each shard's kernel against its plain version (phase 2's checks).
+    shard_recs = [kernel_vs_plain(f"shard{i}", s.features, gen)
+                  for i, s in enumerate(dist.shards)]
+
+    grid_rec = sol_records["owlqn.elastic_net_grid"]
+    grid = [r["lam"] for r in grid_rec["grid"]]
+    alpha = 0.5
+    problem = glm_problem("logistic", RegularizationContext.elastic_net(alpha),
+                          "admm", ADMM_OPTIONS, max_iters=ADMM_MAX_OUTER,
+                          tol=OWLQN_TOL)
+    total = {op: 0 for op in OPS}
+
+    def counted(label, fn):
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        distributed.reset_allreduces()
+        t0 = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {op: _kernels.LAUNCHES[op] for op in OPS}
+        for op in OPS:
+            total[op] += launches[op]
+        check(launches["matvec"] > 0 and launches["rmatvec"] > 0,
+              f"admm {label}: matvec/rmatvec never launched")
+        return out, wall, launches, dict(distributed.ALLREDUCES)
+
+    out, wall, launches, reduces = counted(
+        "elastic-net grid",
+        lambda: sharded.run_grid_sharded(problem, dist, None, grid))
+    gaps, rounds = {}, {}
+    for lam, model, res in out:
+        l1 = float(np.float32(alpha) * np.float32(lam))
+        l2 = float(np.float32(1 - alpha) * np.float32(lam))
+        f_admm = f64_objective("logistic", X, y, model.coefficients.means,
+                               l1, l2)
+        f_owlqn = f64_objective("logistic", X, y,
+                                sol_ws[("elastic_net", lam)], l1, l2)
+        gaps[lam] = (f_admm - f_owlqn) / max(1.0, abs(f_owlqn))
+        rounds[lam] = res.iterations
+        vals = res.values.numpy().astype(np.float64)
+        check(np.all(np.isfinite(vals)) and np.isfinite(f_admm),
+              f"admm λ={lam:.6g}: non-finite objective")
+        log(f"admm λ={lam:.6g}: {res.iterations} outer rounds, converged "
+            f"{res.converged}, float64 objective {f_admm:.10g} vs OWL-QN "
+            f"{f_owlqn:.10g}: relative gap {gaps[lam]:.3g}; "
+            f"solve wall {problem.grid_wall_seconds[lam]:.3f} s")
+    admm_per_solve = reduces["count"] / len(grid)
+    owlqn_per_solve = grid_rec["evals"] / len(grid)
+    ratio = owlqn_per_solve / admm_per_solve
+    log(f"admm: {reduces['count']} reductions ({reduces['bytes']} bytes) "
+        f"over {len(grid)} solves: {admm_per_solve:.1f} a solve against "
+        f"OWL-QN's {owlqn_per_solve:.1f} evaluations a solve (each one "
+        f"all-reduce over a group): {ratio:.2f}x fewer (the reference's "
+        f"bench gate is >= 5x); grid wall {wall:.1f} s, launches "
+        f"{json.dumps({k: v for k, v in launches.items() if v})}")
+    check(max(gaps.values()) <= 1e-3,
+          f"admm: objective gap {max(gaps.values()):.3g} above 1e-3 of "
+          "OWL-QN's")
+
+    # The squared labels through the ridge x-update: one Gram matrix (one
+    # HVP a basis vector on the kernels) and one 8192 x 8192 eigh a shard.
+    lin = solver_labels(margins)["linear"]
+    rp = dist.rows_per
+    dist_lin = dataclasses.replace(dist, shards=[
+        dataclasses.replace(s, labels=torch.as_tensor(
+            lin[i * rp:(i + 1) * rp], device=DEVICE))
+        for i, s in enumerate(dist.shards)])
+    lin_rec = sol_records["owlqn.linear_l1"]
+    lam_lin = lin_rec["lam"]
+    ridge = glm_problem("linear", RegularizationContext.l1(), "admm",
+                        RIDGE_OPTIONS, max_iters=RIDGE_MAX_OUTER,
+                        tol=OWLQN_TOL)
+    r_out, r_wall, r_launches, r_reduces = counted(
+        "ridge", lambda: sharded.run_grid_sharded(ridge, dist_lin, None,
+                                                  [lam_lin]))
+    [(_, r_model, r_res)] = r_out
+    l1 = float(np.float32(lam_lin))
+    f_ridge = f64_objective("linear", X, lin, r_model.coefficients.means,
+                            l1, 0.0)
+    f_lin = f64_objective("linear", X, lin, sol_ws[("linear_l1", lam_lin)],
+                          l1, 0.0)
+    ridge_gap = (f_ridge - f_lin) / max(1.0, abs(f_lin))
+    log(f"admm ridge (squared, L1 λ={lam_lin:.6g}): {r_res.iterations} outer "
+        f"rounds, converged {r_res.converged}, {r_reduces['count']} "
+        f"reductions, wall {r_wall:.1f} s (Gram by {N_FEATURES} HVPs and "
+        f"one {N_FEATURES} x {N_FEATURES} eigh a shard inside), float64 "
+        f"objective {f_ridge:.10g} vs OWL-QN {f_lin:.10g}: relative gap "
+        f"{ridge_gap:.3g}; launches "
+        f"{json.dumps({k: v for k, v in r_launches.items() if v})}")
+    check(np.isfinite(f_ridge) and ridge_gap <= 1e-3,
+          f"admm ridge: objective gap {ridge_gap:.3g} above 1e-3")
+    log(f"phase 11a: {time.perf_counter() - t_phase:.1f} s; main-path "
+        f"launches {json.dumps(total)}")
+    metrics = dict(gaps={str(k): v for k, v in gaps.items()},
+                   rounds={str(k): v for k, v in rounds.items()},
+                   reductions_per_solve=admm_per_solve,
+                   owlqn_evals_per_solve=owlqn_per_solve,
+                   reduce_ratio=ratio, grid_wall_s=wall,
+                   ridge_gap=ridge_gap, ridge_wall_s=r_wall,
+                   ridge_rounds=r_res.iterations)
+    return total, shard_recs[0], metrics
+
+
+def bcd_data(seed=7):
+    """``bench_solvers``' ill-conditioned dense construction (geometric
+    spectrum 1 → 0.02 under a random rotation, bench.py:2566-2578) at
+    2^17 x 512, squared-loss labels."""
+    rng = np.random.default_rng(seed)
+    n, d = BCD_ROWS, BCD_FEATURES
+    Z = rng.normal(size=(n, d))
+    Q, _ = np.linalg.qr(rng.normal(size=(d, d)))
+    spec = np.geomspace(1.0, 0.02, d)
+    X = ((Z * spec) @ Q.T / np.sqrt(d)).astype(np.float32)
+    w_true = (rng.normal(size=d) * (rng.uniform(size=d) < 0.3)).astype(
+        np.float32)
+    y = (X @ w_true + 0.1 * rng.normal(size=n)).astype(np.float32)
+    return X, y
+
+
+def count_ops(fn):
+    """(result, aten ops dispatched that are not views): each is about one
+    kernel launch."""
+    from torch.utils._python_dispatch import TorchDispatchMode
+
+    class Count(TorchDispatchMode):
+        n = 0
+
+        def __torch_dispatch__(self, func, types, args=(), kwargs=None):
+            if not func.is_view:
+                Count.n += 1
+            return func(*args, **(kwargs or {}))
+
+    with Count():
+        out = fn()
+    return out, Count.n
+
+
+def phase_block_cd(drv_files, td):
+    """Phase 11b: block CD on the ill-conditioned dense draw against the
+    resident OWL-QN's objective, then ``glm_driver --solver block_cd`` on
+    phase 4's files as a route check.  Returns (the driver run's launches,
+    metrics)."""
+    from photon_ml_tpu_torch.data.dataset import make_glm_data
+    from photon_ml_tpu_torch.optim.regularization import (
+        RegularizationContext,
+    )
+    from photon_ml_tpu_torch.parallel import distributed
+    from photon_ml_tpu_torch.solvers import sharded
+
+    t_phase = time.perf_counter()
+    X, y = bcd_data()
+    reg = RegularizationContext.elastic_net(0.5)
+    l1 = l2 = float(np.float32(0.5) * np.float32(BCD_LAM))
+    resident = glm_problem("linear", reg, max_iters=500, tol=1e-9)
+    data = make_glm_data(X, y, device=DEVICE)
+    t0 = time.perf_counter()
+    ref = resident.solve(data, BCD_LAM)
+    torch.cuda.synchronize()
+    ref_wall = time.perf_counter() - t0
+    f_ref = f64_objective("linear", X, y, ref.w, l1, l2)
+    problem = glm_problem("linear", reg, "block_cd", BCD_OPTIONS,
+                          tol=1e-9, accumulate="f32")
+    dist = distributed.shard_glm_data(X, y, None, n_shards=BCD_SHARDS,
+                                      device=DEVICE)
+    distributed.reset_allreduces()
+    torch.cuda.synchronize()
+    t0 = time.perf_counter()
+    [(_, model, res)] = sharded.run_grid_sharded(problem, dist, None,
+                                                 [BCD_LAM])
+    torch.cuda.synchronize()
+    wall = time.perf_counter() - t0
+    reduces = distributed.ALLREDUCES["count"]
+    f_cd = f64_objective("linear", X, y, model.coefficients.means, l1, l2)
+    gap = (f_cd - f_ref) / max(1.0, abs(f_ref))
+    # One more block round alone, its dispatched ops counted.
+    one = glm_problem("linear", reg, "block_cd", BCD_OPTIONS[:2] + (
+        ("max_rounds", "1"),), accumulate="f32")
+    _, ops = count_ops(lambda: sharded.run_grid_sharded(
+        one, dist, None, [BCD_LAM], w0=model.coefficients.means))
+    log(f"block_cd: {BCD_ROWS} x {BCD_FEATURES} ill-conditioned, "
+        f"{BCD_SHARDS} logical shards, {dict(BCD_OPTIONS)}: {res.iterations} "
+        f"rounds, converged {res.converged}, {wall:.2f} s "
+        f"({wall / max(res.iterations, 1) * 1e3:.2f} ms a round), "
+        f"{reduces} reductions; about {ops} launches a round (the non-view "
+        f"aten ops of one round and its final evaluation); float64 objective "
+        f"{f_cd:.10g} vs resident OWL-QN {f_ref:.10g} ({ref.iterations} "
+        f"iterations, {ref_wall:.2f} s): relative gap {gap:.3g}")
+    check(res.converged and gap <= BCD_GAP,
+          f"block_cd: gap {gap:.3g} to the resident objective (<= "
+          f"{BCD_GAP:g}), converged {res.converged}")
+    del dist, data
+
+    # The GLM driver's block-CD route on phase 4's files: the design
+    # densified, 2 logical shards, BCD_DRIVER_ROUNDS rounds a λ.
+    train, val = drv_files
+    launches, (out, result) = driver_run(
+        "block_cd", ("--reg-type", "l2", "--solver", "block_cd",
+                     "--solver-option", f"max_rounds={BCD_DRIVER_ROUNDS}"),
+        td, train, val, kernels=("matvec_unit", "sq_rmatvec_unit"))
+    log(f"phase 11b: {time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(rounds=res.iterations, wall_s=wall,
+                          ms_per_round=wall / max(res.iterations, 1) * 1e3,
+                          launches_per_round=ops, gap=gap,
+                          driver_wall_s=result["wall_seconds"])
+
+
+def one_rank_group(path):
+    """A NCCL process group of one rank through a FileStore at ``path``."""
+    import torch.distributed as dist
+
+    dist.init_process_group("nccl", store=dist.FileStore(path, 1), rank=0,
+                            world_size=1)
+
+
+def phase_group_grid(data, X, y, store_path):
+    """Phase 11c on phase 3's matrix: a one-rank NCCL group's λ grid and
+    ADMM, each bitwise its single-device (one logical shard) run.  Returns
+    ({op: launches} of the group's runs, metrics)."""
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.optim.regularization import (
+        RegularizationContext,
+    )
+    from photon_ml_tpu_torch.parallel import distributed, multihost
+    from photon_ml_tpu_torch.solvers import sharded
+
+    t_phase = time.perf_counter()
+    one_rank_group(store_path)
+    try:
+        mesh = multihost.global_data_mesh()
+        # Phase 3's grid (L2 L-BFGS, 30 iterations, variances).
+        problem = glm_problem("logistic", RegularizationContext.l2(),
+                              max_iters=30, tol=1e-7, accumulate="f32",
+                              compute_variances=True)
+        single = problem.run_grid(data, list(GRID))
+        # One rank holds the whole matrix: shard_glm_data's block for a
+        # group of one is phase 3's matrix itself.
+        held = distributed.DistributedGlmData(shards=[data], n_shards=1)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        distributed.reset_allreduces()
+        t0 = time.perf_counter()
+        grid = distributed.run_grid_distributed(problem, held, mesh,
+                                                list(GRID))
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches = {op: _kernels.LAUNCHES[op] for op in OPS}
+        reduces = distributed.ALLREDUCES["count"]
+        evals = launches["rmatvec"] + launches["sq_rmatvec"]
+        for (lam, m, res), (_, m1, res1) in zip(grid, single):
+            check(torch.equal(m.coefficients.means, m1.coefficients.means)
+                  and torch.equal(m.coefficients.variances,
+                                  m1.coefficients.variances)
+                  and res.iterations == res1.iterations,
+                  f"group grid λ={lam}: not bitwise the single-device run")
+        check(reduces == evals,
+              f"group grid: {reduces} all-reduces against {evals} "
+              "evaluations and variance passes")
+        log(f"group (NCCL, 1 rank): phase 3's grid bitwise the single-device"
+            f" run; {reduces} all-reduces = {launches['rmatvec']} "
+            f"evaluations + {launches['sq_rmatvec']} variance passes; wall "
+            f"{wall:.3f} s; launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+
+        admm = glm_problem("logistic", RegularizationContext.elastic_net(0.5),
+                           "admm", ADMM_OPTIONS + (("max_outer", "3"),
+                                                   ("local_max_iters", "10")),
+                           tol=OWLQN_TOL)
+        lam = GRID[1]
+        [(_, ma, ra)] = sharded.run_grid_sharded(admm, held, None, [lam])
+        _kernels.reset_launches()
+        [(_, mg, rg)] = distributed.run_grid_distributed(admm, held, mesh,
+                                                         [lam])
+        torch.cuda.synchronize()
+        for op in OPS:
+            launches[op] += _kernels.LAUNCHES[op]
+        check(torch.equal(ma.coefficients.means, mg.coefficients.means)
+              and ra.iterations == rg.iterations,
+              "group ADMM: not bitwise ADMM on one logical shard")
+        log(f"group (NCCL, 1 rank): ADMM ({rg.iterations} rounds at λ={lam})"
+            " bitwise ADMM on one logical shard")
+    finally:
+        dist.destroy_process_group()
+    log(f"phase 11c (grid, ADMM): {time.perf_counter() - t_phase:.1f} s")
+    return launches, dict(grid_wall_s=wall, allreduces=reduces)
+
+
+def phase_group_driver(drv_files, drv_runs, td, store_path):
+    """Phase 11c's driver check: ``glm_driver --data-parallel auto`` under
+    a one-rank NCCL group writes phase 4's L2 run's model files byte for
+    byte.  Returns the run's launches."""
+    import torch.distributed as dist
+
+    one_rank_group(store_path)
+    try:
+        launches, (out, _) = driver_run(
+            "l2_data_parallel", ("--reg-type", "l2", "--data-parallel",
+                                 "auto"), td, *drv_files)
+    finally:
+        dist.destroy_process_group()
+    ref_out = drv_runs["l2"][0]
+    models = sorted(f for f in os.listdir(ref_out)
+                    if f.startswith("model_lambda_"))
+    check(bool(models) and all(
+        open(os.path.join(out, f), "rb").read()
+        == open(os.path.join(ref_out, f), "rb").read() for f in models),
+        "group driver: --data-parallel auto model files differ from the "
+        "run without it")
+    log(f"group (NCCL, 1 rank): glm_driver --data-parallel auto wrote "
+        f"{models} byte-equal to phase 4's run")
+    return launches
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -4673,32 +5109,57 @@ def _main_from_phase2(smi, t_start, td, writer):
     lib_launches, lib_metrics, (data, plain_data, abs_F, X) = \
         phase_library(bench)
     log("phase 3b: solvers")
-    sol_launches, sol_records = phase_solvers(data, plain_data, abs_F,
-                                              bench[4], kern)
+    sol_launches, sol_records, sol_ws = phase_solvers(
+        data, plain_data, abs_F, bench[4], kern)
     del plain_data
     torch.cuda.empty_cache()
     log("phase 9a-9b: out-of-core objective and solvers (run here, on "
         "phase 3's matrix)")
     stream_launches, stream_metrics = phase_streaming(
         smi, bench, data, abs_F, X, lib_metrics)
-    # The valued kernels' main-path launches: phases 3, 3b, 9a and 9b.
+    log("phase 11a: consensus ADMM over logical shards (run here, on phase "
+        "3's matrix)")
+    shard_launches, shard_kern, admm_metrics = phase_admm(
+        X, bench[3], bench[4], sol_records, sol_ws,
+        torch.Generator(device=DEVICE).manual_seed(11))
+    torch.cuda.empty_cache()
+    log("phase 11c: a one-rank process group (run here, on phase 3's "
+        "matrix)")
+    grp_launches, grp_metrics = phase_group_grid(
+        data, X, bench[3], os.path.join(td, "pg_store_grid"))
+    # The valued kernels' main-path launches: phases 3, 3b, 9a, 9b and
+    # 11c's group runs.
     val_launches = {op: lib_launches[op] + sol_launches[op]
-                    + stream_launches[op] for op in OPS}
+                    + stream_launches[op] + grp_launches[op] for op in OPS}
+    multi = dict(admm=admm_metrics, group=grp_metrics,
+                 shard_launches=shard_launches, shard_kern=shard_kern)
     del bench, data, abs_F, X
     torch.cuda.empty_cache()
     drv_td = tempfile.mkdtemp(prefix="photon_glm_driver_")
     try:
         return _main_from_phase4(smi, t_start, kern, lib_metrics,
                                  sol_records, stream_metrics, val_launches,
-                                 drv_td, td, writer)
+                                 drv_td, td, writer, multi)
     finally:
         shutil.rmtree(drv_td, ignore_errors=True)
 
 
 def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
-                      stream_metrics, val_launches, drv_td, td, writer):
+                      stream_metrics, val_launches, drv_td, td, writer,
+                      multi):
     log("phase 4: driver")
     drv_launches, drv_files, drv_runs = phase_driver(drv_td)
+    torch.cuda.empty_cache()
+    log("phase 11b: block coordinate descent (run here, on phase 4's "
+        "files)")
+    bcd_launches, multi["block_cd"] = phase_block_cd(drv_files, drv_td)
+    torch.cuda.empty_cache()
+    log("phase 11c: the driver under a one-rank process group")
+    gd_launches = phase_group_driver(drv_files, drv_runs, drv_td,
+                                     os.path.join(td, "pg_store_driver"))
+    for extra in (bcd_launches, gd_launches):
+        for k, n in extra.items():
+            drv_launches[k] = drv_launches.get(k, 0) + n
     torch.cuda.empty_cache()
     log("phase 5: experiments")
     exp, abl_launches = phase_experiments()
@@ -4722,7 +5183,8 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
     log("phase 10: GAME out of core")
     ooc_launches, ooc_val, ooc_metrics = phase_game_ooc(
         smi, td, (train, val), game_metrics["game_multi_re"]["iters_per_s"])
-    # The binary records count phase 4's and 9c's GLM driver launches.
+    # The binary records count phase 4's, 11b's, 11c's and 9c's GLM driver
+    # launches.
     drv_launches = {k: drv_launches.get(k, 0) + sd_launches.get(k, 0)
                     for k in set(drv_launches) | set(sd_launches)}
     # The .game records count phase 6's, 7's, 8's, 9c's and 10's training
@@ -4771,6 +5233,18 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    # A logical shard of phase 3's matrix (2^18 x 8192): phase 11a's ADMM
+    # x-updates and ridge Gram matrices.
+    for op in ("matvec", "rmatvec"):
+        r = multi["shard_kern"][op]
+        records.append({
+            "name": f"spmv.{op}.shard", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+            "launches": multi["shard_launches"][op],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
     # The validation matrix's shape (80,000 x 512, 8 values a row): the
     # fixed-effect validation scorer's matvec in phase 7's training runs.
     r = kern_val["matvec"]
@@ -4802,8 +5276,9 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
         f"{json.dumps(drv_metrics)}; GAME fallback and factored: "
         f"{json.dumps(fb_metrics)}; out-of-core: "
         f"{json.dumps(stream_metrics)}; GAME out of core: "
-        f"{json.dumps(ooc_metrics, default=float)}; "
-        f"total {time.perf_counter() - t_start:.1f} s")
+        f"{json.dumps(ooc_metrics, default=float)}; multi-device: "
+        f"{json.dumps({k: multi[k] for k in ('admm', 'group', 'block_cd')})}"
+        f"; total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))
     log(json.dumps({"ok": True, "device": {

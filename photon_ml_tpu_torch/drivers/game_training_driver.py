@@ -37,11 +37,14 @@ Out of core, as in the reference: a fixed effect with
 ``stream_compress`` and ``stream_hot_budget_mb``), and a plain or factored
 random effect with ``device_budget_mb`` streams its entity blocks in
 budget-bounded pass groups (with ``prefetch_depth`` and, plain,
-``hot_budget_mb``).  What the port does not run yet raises
-``NotImplementedError`` naming its ROADMAP item (PyTorch/CUDA port, Queue
-1): ``--data-parallel auto``, a random effect's ``split_factor`` other
-than 0.5 and a coordinate's ``solver_options`` (item 6, multi-device) and
-tuning mode (item 8).  ``--max-retries`` re-enters the fit
+``hot_budget_mb``).  A fixed effect's ``solver`` may name a host-kind
+solver (``admm``, ``block_cd``) with its knobs in ``solver_options``: it
+runs over logical row shards of a dense design.  ``--data-parallel auto``
+and a random effect's ``split_factor`` act only where a mesh forms, as in
+the reference: on one process they change nothing.  What the port does not
+run yet raises ``NotImplementedError`` naming its ROADMAP item
+(PyTorch/CUDA port, Queue 1): GAME over a process group of more than one
+rank (item 6c) and tuning mode (item 8).  ``--max-retries`` re-enters the fit
 after a transient failure (``utils/watchdog.py``), resuming from the CD
 checkpoint (or, for a config grid, from the grid checkpoint), so a retry
 repeats no finished iteration or grid point.
@@ -125,37 +128,23 @@ def expand_config_grid(coordinate_specs: Sequence[dict]) -> list[dict]:
     ]
 
 
-_MULTI_DEVICE = (6, "multi-device")
-#: Keys of the reference's coordinate specs that only its multi-device
-#: path reads (ROADMAP Queue 1 item 6): the value that leaves that path
-#: off, and the item.  Any other value is refused.
-_UNPORTED_KEYS = {
-    "random": {"split_factor": (0.5, _MULTI_DEVICE)},
-}
-
-
-def _refuse_unported_keys(spec: dict) -> None:
-    kind = "factored" if spec["type"] == "factored_random" else spec["type"]
-    for key, (off, (item, name)) in _UNPORTED_KEYS.get(kind, {}).items():
-        if key in spec and type(off)(spec[key]) != off:
-            raise not_ported(f"coordinate {spec['name']!r}: {key!r} = "
-                             f"{spec[key]!r}", item, name)
-    if spec.get("solver_options"):
-        raise not_ported(f"coordinate {spec['name']!r}: solver_options "
-                         "(the host-kind solvers' knobs)", *_MULTI_DEVICE)
-
-
 def parse_coordinate_config(spec: dict):
     """One JSON coordinate spec → (name, CoordinateConfig), with the
     reference's keys and defaults."""
-    _refuse_unported_keys(spec)
     solver = spec.get("solver")
+    # A tuple of (key, value) strings, sorted: hashable, and the same image
+    # in both packages' checkpoint fingerprints.
+    solver_options = tuple(
+        sorted((str(k), str(v)) for k, v in
+               dict(spec.get("solver_options", {})).items())
+    )
     opt = GlmOptimizationConfig(
         optimizer=OptimizerConfig(
             optimizer=OptimizerType(spec.get("optimizer", "lbfgs")),
             max_iters=int(spec.get("max_iters", 100)),
             tolerance=float(spec.get("tolerance", 1e-7)),
             solver=solver if solver is None else str(solver),
+            solver_options=solver_options,
         ),
         regularization=RegularizationContext(
             RegularizationType(spec.get("reg_type", "none")),
@@ -188,6 +177,7 @@ def parse_coordinate_config(spec: dict):
             repack=str(spec.get("repack", "geometric")),
             program_budget=int(spec.get("program_budget", 16)),
             repack_seed=int(spec.get("repack_seed", 0)),
+            split_factor=float(spec.get("split_factor", 0.5)),
             device_budget_bytes=int(
                 float(spec.get("device_budget_mb", 0)) * 2**20),
             prefetch_depth=int(spec.get("prefetch_depth", 2)),
@@ -308,7 +298,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--data-parallel",
         choices=["off", "auto"],
         default="off",
-        help="auto: shard over every visible card (not ported yet)",
+        help="auto: shard over the ranks of a torch.distributed process "
+        "group when one with more than one rank forms (GAME on a process "
+        "group is not ported yet); a single process trains as with off",
     )
     p.add_argument(
         "--pipeline-coordinates",
@@ -351,7 +343,14 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_arg_parser().parse_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
-    with PhotonLogger(args.output_dir) as logger:
+    from photon_ml_tpu_torch.parallel import multihost
+
+    with PhotonLogger(args.output_dir) as logger, multihost.driver_group(
+            logger, args.device) as world:
+        if args.data_parallel == "auto" and world > 1:
+            # The reference forms a mesh only over more than one device.
+            raise not_ported(f"--data-parallel auto over {world} ranks",
+                             "6c", "GAME on a mesh")
         return _run_impl(args, logger)
 
 
@@ -374,8 +373,6 @@ def _suite_from_config(config: dict, task: str) -> EvaluationSuite:
 def _run_impl(args, logger) -> dict:
     timer = Timer().start()
     device = resolve_device(args.device)
-    if args.data_parallel == "auto":
-        raise not_ported("--data-parallel auto", 6, "multi-device")
 
     with open(args.config) as f:
         config = json.load(f)

@@ -11,8 +11,12 @@ solver run on ``--device`` (CUDA by default), where sparse features go
 through the hand-written CUDA SpMV kernel.
 
 The flags cover the four losses with L1, L2 and elastic-net regularization,
-the resident solvers of the registry (L-BFGS, OWL-QN, TRON, SPG) with
-``--optimizer``/``--solver``, box constraints (``--coefficient-bounds``),
+the solvers of the registry with ``--optimizer``/``--solver``: the
+resident L-BFGS, OWL-QN, TRON and SPG, and the host-kind consensus-ADMM
+and block coordinate descent (``--solver admm|block_cd``, with their
+knobs in ``--solver-option KEY=VALUE`` and ``--solver-shards``: they run
+over logical row shards on one card, or over the process group under
+``--data-parallel auto``), box constraints (``--coefficient-bounds``),
 λ-grid checkpoint/resume (``--resume``), warm starts from a saved model
 (``--initial-model``), automatic retries of transient failures from the
 checkpoint (``--max-retries``, ``--retry-backoff``; ``utils/watchdog.py``),
@@ -21,10 +25,20 @@ the diagnostics report (``--training-report``), and out-of-core training
 rows stay on the host as a chunk store (``data/streaming.py``) and every
 objective evaluation streams them through the card
 (``optim/streaming.py``), with validation scored on the host.
-``--data-parallel auto`` and the host-kind solvers with their
-``--solver-option``/``--solver-shards`` come with multi-device training
-(ROADMAP Queue 1 item 6); telemetry, the ops plane and the compile cache
-with item 8.
+
+``--data-parallel auto`` trains over a ``torch.distributed`` process group
+(``parallel/``) when one with more than one rank forms: the group comes up
+from ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID`` (or
+``PHOTON_MULTIHOST=1`` under ``torchrun``), each rank keeps its
+``host_local_rows`` block of the training rows on its card, every
+objective evaluation is one all-reduce, and rank 0 writes the outputs.
+With one rank the flag changes nothing, as in the reference, which forms
+a mesh only over more than one device.  Telemetry, the ops plane and the
+compile cache come with ROADMAP Queue 1 item 8.
+
+Multi-rank usage (one process a card):
+    PHOTON_MULTIHOST=1 torchrun --nproc-per-node 4 \\
+        -m photon_ml_tpu_torch.drivers.glm_driver --data-parallel auto ...
 
 Usage:
     python -m photon_ml_tpu_torch.drivers.glm_driver \\
@@ -100,8 +114,26 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument(
         "--solver",
         help="registered solver name (photon_ml_tpu_torch/solvers): lbfgs | "
-        "owlqn | tron | spg.  Unset keeps the historical routing (bounds → "
-        "spg, any L1 → owlqn, else --optimizer)",
+        "owlqn | tron | spg | admm | block_cd.  Unset keeps the historical "
+        "routing (bounds → spg, any L1 → owlqn, else --optimizer).  "
+        "Host-kind solvers (admm, block_cd) run sharded: over the "
+        "--data-parallel process group when one forms, else over "
+        "--solver-shards logical shards on one card",
+    )
+    p.add_argument(
+        "--solver-shards",
+        type=int,
+        default=0,
+        help="logical shard count for host-kind solvers without a process "
+        "group (0 = auto: 2, or the solver_options 'shards' knob)",
+    )
+    p.add_argument(
+        "--solver-option",
+        action="append",
+        default=[],
+        metavar="KEY=VALUE",
+        help="solver-specific knob (repeatable), e.g. --solver-option "
+        "rho=1.0 --solver-option n_blocks=8",
     )
     p.add_argument(
         "--reg-type",
@@ -149,7 +181,9 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "--data-parallel",
         choices=["off", "auto"],
         default="off",
-        help="auto: shard rows over every visible card (not ported yet)",
+        help="auto: shard the training rows over the ranks of a "
+        "torch.distributed process group (one card each) when one with "
+        "more than one rank forms; a single process trains as with off",
     )
     p.add_argument(
         "--training-report",
@@ -245,17 +279,21 @@ def build_arg_parser() -> argparse.ArgumentParser:
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_arg_parser().parse_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
-    with PhotonLogger(args.output_dir) as logger:
-        return _run_impl(args, logger)
+    from photon_ml_tpu_torch.parallel import multihost
+
+    with PhotonLogger(args.output_dir) as logger, multihost.driver_group(
+            logger, args.device) as world:
+        return _run_impl(args, logger, world)
 
 
-def _check_stream_flags(args) -> bool:
+def _check_stream_flags(args, data_parallel: bool) -> bool:
     """The reference's guards on the ``--stream-*`` flags, before any
     ingest; returns whether the run streams."""
-    if args.data_parallel == "auto":
+    if data_parallel and args.stream_chunk_rows > 0:
         from photon_ml_tpu_torch.game.coordinates import not_ported
 
-        raise not_ported("--data-parallel auto", 6, "multi-device")
+        raise not_ported("--stream-chunk-rows over a process group (a "
+                         "streamed mesh)", "6e", "the streamed mesh")
     if args.stream_storage_dir and args.stream_chunk_rows <= 0:
         # Ignoring the flag would train fully resident on exactly the
         # oversized dataset the flag exists for.
@@ -271,10 +309,13 @@ def _check_stream_flags(args) -> bool:
     return args.stream_chunk_rows > 0
 
 
-def _run_impl(args, logger) -> dict:
+def _run_impl(args, logger, world: int = 1) -> dict:
     timer = Timer().start()
     device = resolve_device(args.device)
-    streaming = _check_stream_flags(args)
+    # The reference forms a mesh only over more than one device.
+    data_parallel = args.data_parallel == "auto" and world > 1
+    streaming = _check_stream_flags(args, data_parallel)
+    writer = not data_parallel or _rank() == 0
 
     # Stage 1: read ---------------------------------------------------------
     X_train, y_train = libsvm.read_libsvm(
@@ -291,8 +332,9 @@ def _run_impl(args, logger) -> dict:
     index_map = IndexMap.build(names, add_intercept=args.intercept)
 
     # Stage 2: summarize + normalization ------------------------------------
-    if streaming:
-        # The streamed run never puts the whole matrix on the card.
+    if streaming or data_parallel:
+        # The streamed run never puts the whole matrix on the card, and a
+        # rank keeps only its own row block there.
         train_data = None
         summary = summarize_host(X_train)
     else:
@@ -313,21 +355,44 @@ def _run_impl(args, logger) -> dict:
         "nnz": to_numpy(summary.nnz).tolist(),
         "count": float(summary.count),
     }
-    with open(os.path.join(args.output_dir, "feature_summary.json"), "w") as f:
-        json.dump(summary_out, f)
-    save_feature_summary(
-        summary, index_map,
-        os.path.join(args.output_dir, "feature_summary.avro"),
-    )
+    if writer:
+        with open(os.path.join(args.output_dir, "feature_summary.json"),
+                  "w") as f:
+            json.dump(summary_out, f)
+        save_feature_summary(
+            summary, index_map,
+            os.path.join(args.output_dir, "feature_summary.avro"),
+        )
 
     # Stage 3: train over the λ grid ----------------------------------------
+    solver_options = []
+    for kv in args.solver_option:
+        if "=" not in kv:
+            raise SystemExit(f"--solver-option must be KEY=VALUE, got {kv!r}")
+        k, _, v = kv.partition("=")
+        solver_options.append((k.strip(), v.strip()))
+    if args.solver_shards:
+        solver_options.append(("shards", args.solver_shards))
+    host_solver = False
     if args.solver is not None:
         from photon_ml_tpu_torch.solvers import registry as solver_registry
 
         try:
-            solver_registry.get(args.solver)
-        except (KeyError, NotImplementedError) as e:
+            host_solver = solver_registry.get(args.solver).kind == "host"
+        except KeyError as e:
             raise SystemExit(str(e))
+        if host_solver:
+            if streaming:
+                raise SystemExit(
+                    f"--solver {args.solver} runs over sharded resident "
+                    "data; it does not compose with --stream-chunk-rows")
+            if args.compute_variances:
+                raise SystemExit(f"--solver {args.solver} does not support "
+                                 "--compute-variances")
+            if args.coefficient_bounds:
+                raise SystemExit(
+                    f"--solver {args.solver} does not support "
+                    "--coefficient-bounds (only spg does)")
     problem = GlmOptimizationProblem(
         args.task,
         GlmOptimizationConfig(
@@ -336,6 +401,7 @@ def _run_impl(args, logger) -> dict:
                 max_iters=args.max_iters,
                 tolerance=args.tolerance,
                 solver=args.solver,
+                solver_options=tuple(solver_options),
             ),
             regularization=RegularizationContext(
                 RegularizationType(args.reg_type), args.elastic_net_alpha
@@ -359,7 +425,7 @@ def _run_impl(args, logger) -> dict:
     bounds = bounds_fp = None
     if args.coefficient_bounds:
         lower, upper = _read_bounds(args, index_map, d, normalization,
-                                    streaming)
+                                    streaming or data_parallel)
         logger.info("box constraints on %d of %d coefficients",
                     int((np.isfinite(lower) | np.isfinite(upper)).sum()), d)
         bounds = (torch.as_tensor(lower, device=device),
@@ -381,8 +447,10 @@ def _run_impl(args, logger) -> dict:
         solved = ckpt.load()
     else:
         # A stale checkpoint (possibly from a run on other data) must not
-        # survive into a later --resume.
-        ckpt.clear()
+        # survive into a later --resume.  One rank keeps the checkpoint;
+        # every rank solves the same λs.
+        if writer:
+            ckpt.clear()
         solved = {}
     if solved:
         logger.info("resuming: %d of %d grid points already solved",
@@ -449,7 +517,9 @@ def _run_impl(args, logger) -> dict:
 
         def on_solved(lam, w):
             solved_acc[lam] = to_numpy(w)
-            ckpt.save(solved_acc, extra_meta={"bounds_fingerprint": bounds_fp})
+            if writer:
+                ckpt.save(solved_acc,
+                          extra_meta={"bounds_fingerprint": bounds_fp})
 
         if streaming:
             from photon_ml_tpu_torch.optim.streaming import streaming_run_grid
@@ -459,6 +529,10 @@ def _run_impl(args, logger) -> dict:
                 on_solved=on_solved, l1_mask=l1_mask,
                 batch_linesearch=args.stream_batch_linesearch == "on",
             )
+        if data_parallel or host_solver:
+            return _train_sharded(args, problem, X_train, y_train, device,
+                                  data_parallel, reg_weights, w0, l1_mask,
+                                  solved_now, on_solved, logger)
         data = train_data if attempt == 0 else make_glm_data(
             X_train, y_train, device=device)
         return problem.run_grid(data, reg_weights, w0=w0, l1_mask=l1_mask,
@@ -506,8 +580,9 @@ def _run_impl(args, logger) -> dict:
     # needs the whole matrix on the card.
     val_data = None
     if not streaming:
-        val_data = (make_glm_data(X_val, y_val, device=device)
-                    if args.validate_data else train_data)
+        val_data = (train_data if train_data is not None
+                    and not args.validate_data
+                    else make_glm_data(X_val, y_val, device=device))
 
     report = None
     if args.training_report:
@@ -563,10 +638,13 @@ def _run_impl(args, logger) -> dict:
     to_write = grid if args.output_mode == "all" else [
         (lam, mdl, res) for lam, mdl, res in grid if lam == best_lam
     ]
+    if not writer:
+        to_write = []
     for lam, model, _ in to_write:
         out = os.path.join(args.output_dir, f"model_lambda_{lam:g}.avro")
         save_glm_model(model, index_map, out, model_id=f"lambda={lam:g}")
-    index_map.save(args.output_dir)
+    if writer:
+        index_map.save(args.output_dir)
     result = {
         "best_lambda": best_lam,
         "metrics": {str(k): v for k, v in metrics.items()},
@@ -583,12 +661,16 @@ def _run_impl(args, logger) -> dict:
     if streaming_out is not None:
         streaming_out["transfer"] = sobj.transfer_stats.snapshot()
         result["streaming"] = streaming_out
-    if report is not None:
+    if data_parallel:
+        result["data_parallel"] = {"ranks": world, "rank": _rank()}
+    if report is not None and writer:
         jpath, hpath = report.save(args.output_dir)
         result["report"] = {"json": jpath, "html": hpath}
         logger.info("training report: %s", hpath)
-    with open(os.path.join(args.output_dir, "training_result.json"), "w") as f:
-        json.dump(result, f, indent=2)
+    if writer:
+        with open(os.path.join(args.output_dir, "training_result.json"),
+                  "w") as f:
+            json.dump(result, f, indent=2)
     logger.info(
         "selected lambda=%g (%s=%.6f) in %.2fs",
         best_lam, type(evaluator).__name__, best_metric,
@@ -597,7 +679,51 @@ def _run_impl(args, logger) -> dict:
     return result
 
 
-def _read_bounds(args, index_map, d, normalization, streaming):
+def _rank() -> int:
+    import torch.distributed as dist
+
+    return dist.get_rank()
+
+
+def _train_sharded(args, problem, X_train, y_train, device, data_parallel,
+                   reg_weights, w0, l1_mask, solved, on_solved, logger):
+    """The grid over row shards: the process group's (each rank its
+    ``host_local_rows`` block, every evaluation one all-reduce; host-kind
+    solvers one reduction a round) or, for a host-kind solver on one card,
+    ``--solver-shards`` logical shards."""
+    from photon_ml_tpu_torch.parallel import multihost
+    from photon_ml_tpu_torch.parallel.distributed import (
+        run_grid_distributed,
+        shard_glm_data,
+    )
+    from photon_ml_tpu_torch.solvers import sharded as solvers_sharded
+
+    X = X_train
+    if args.solver == "block_cd" and hasattr(X, "todense"):
+        # Block CD reads per-shard columns: densify (LIBSVM inputs at
+        # driver scale fit).
+        X = np.asarray(X.todense(), np.float32)
+        logger.info("block_cd: densified %d x %d design for column access",
+                    X.shape[0], X.shape[1])
+    if data_parallel:
+        mesh = multihost.global_data_mesh()
+        start, stop = multihost.host_local_rows(X.shape[0])
+        dist = shard_glm_data(X, y_train, mesh, device=device)
+        logger.info("data-parallel: rank %d of %d holds rows [%d, %d) "
+                    "(%d a rank)", mesh.rank, mesh.size, start, stop,
+                    dist.rows_per)
+        return run_grid_distributed(
+            problem, dist, mesh, reg_weights, w0=w0, l1_mask=l1_mask,
+            solved=solved, on_solved=on_solved)
+    n_shards = solvers_sharded.resolve_shard_count(problem.config.optimizer)
+    dist = shard_glm_data(X, y_train, None, n_shards=n_shards, device=device)
+    logger.info("solver %s: %d logical shard(s)", args.solver, n_shards)
+    return solvers_sharded.run_grid_sharded(
+        problem, dist, None, reg_weights, w0=w0, l1_mask=l1_mask,
+        solved=solved, on_solved=on_solved)
+
+
+def _read_bounds(args, index_map, d, normalization, sharded):
     """The ``--coefficient-bounds`` JSON map as (lower, upper) float32
     arrays of width ``d`` (unlisted features ±inf), with the reference
     driver's checks."""
@@ -605,7 +731,7 @@ def _read_bounds(args, index_map, d, normalization, streaming):
     # where a per-feature box does not map back to the user's box.
     if normalization is not None:
         raise SystemExit("--coefficient-bounds requires --normalization none")
-    if streaming:
+    if sharded:
         raise SystemExit(
             "--coefficient-bounds is single-device resident-data only")
     if args.compute_variances:

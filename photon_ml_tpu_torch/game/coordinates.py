@@ -76,7 +76,7 @@ def _state_to_device(st, device):
     return torch.as_tensor(np.asarray(st), device=device)
 
 
-def not_ported(what: str, item: int, name: str) -> NotImplementedError:
+def not_ported(what: str, item, name: str) -> NotImplementedError:
     """The refusal of a branch the port does not have yet, naming the
     ROADMAP item that brings it."""
     return NotImplementedError(
@@ -139,13 +139,21 @@ class FixedEffectCoordinate(Coordinate):
         self.problem = GlmOptimizationProblem(task, config)
         self.reg_weight = reg_weight
         self.feature_shard = feature_shard
+        self._sharded_trainer = None
         solver_name = getattr(config.optimizer, "solver", None)
         if solver_name is not None:
-            # The reference hands host-kind solvers (ADMM, block CD) this
-            # coordinate's solve; the port's registry refuses them by name.
             from photon_ml_tpu_torch.solvers import registry as solver_registry
 
-            solver_registry.get(solver_name)
+            if solver_registry.get(solver_name).kind == "host":
+                # Host-kind solvers (ADMM, block CD) distribute this
+                # coordinate's solve over logical row shards; each GAME
+                # iteration's offsets re-slot into one shard template.
+                from photon_ml_tpu_torch.solvers import sharded
+
+                self._sharded_trainer = sharded.make_fixed_effect_trainer(
+                    self.problem, dataset.data,
+                    sharded.resolve_shard_count(config.optimizer),
+                )
 
     @property
     def device(self) -> torch.device:
@@ -159,6 +167,8 @@ class FixedEffectCoordinate(Coordinate):
                         device=data.device)
             if warm_state is None else warm_state
         )
+        if self._sharded_trainer is not None:
+            return self._sharded_trainer(offsets, w0, self.reg_weight)
         return self.problem.solve_single_device(data, self.reg_weight, w0).w
 
     def score(self, state: Tensor) -> Tensor:
@@ -393,6 +403,14 @@ class BlockSolver:
             defn = solver_registry.resolve(
                 opt, l1_frac=config.regularization.l1_weight(1.0)
             )
+            if defn.kind != "jit":
+                # Random-effect blocks are batched per-entity solves; the
+                # host-kind solvers distribute the FIXED-effect coordinate.
+                raise ValueError(
+                    f"solver {defn.name!r} is host-kind and cannot run the "
+                    "per-entity random-effect blocks; set it on the "
+                    "fixed-effect coordinate's spec instead"
+                )
             self.use_owlqn = defn.name == "owlqn" or has_l1
             self.use_tron = defn.name == "tron"
         else:

@@ -110,6 +110,10 @@ class RandomEffectCoordinateConfig:
     repack: str = "geometric"
     program_budget: int = 16
     repack_seed: int = 0
+    #: the mesh placement threshold of the reference (a bucket whose solve
+    #: cost is ≥ split_factor × the ideal per-device share splits over
+    #: the mesh); read only where a mesh forms, so ignored on one device.
+    split_factor: float = 0.5
     #: > 0 trains the coordinate OUT OF CORE: entity blocks stay in host RAM
     #: and stream through the card in pass groups bounded by this many
     #: bytes (``game/ooc_random.py``).
@@ -182,8 +186,8 @@ class GameEstimator:
         device=None,
     ):
         if mesh is not None:
-            raise not_ported("multi-device GAME (a mesh)", 6,
-                              "multi-device")
+            raise not_ported("multi-device GAME (a mesh)", "6c",
+                             "GAME on a mesh")
         self.task = losses_lib.get(task).name  # canonicalize aliases
         self.coordinate_configs = dict(coordinate_configs)
         self.device_metrics = device_metrics
@@ -292,7 +296,8 @@ class GameEstimator:
                 coordinates.append(OutOfCoreRandomEffectCoordinate(
                     name, dataset, self.task, cfg.optimization,
                     cfg.reg_weight,
-                    hot_budget_bytes=int(cfg.hot_budget_mb * 1e6), **kw,
+                    hot_budget_bytes=int(cfg.hot_budget_mb * 1e6),
+                    split_factor=cfg.split_factor, **kw,
                 ))
             else:
                 coordinates.append(RandomEffectCoordinate(

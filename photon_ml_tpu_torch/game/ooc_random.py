@@ -35,8 +35,10 @@ disk-spilled (memmap) dataset: the same programs run on the same slices in
 the same order.  Across plans (another budget, or the resident coordinate)
 a lane's reductions may split differently, so those agree to tolerance.
 
-Not ported: a device mesh, ``plan_bucket_shards`` placements and
-``split_factor`` (ROADMAP Queue 1 item 6, multi-device), and the
+Not ported: a device mesh and its ``plan_bucket_shards`` placements
+(ROADMAP Queue 1 item 6c, GAME on a mesh; ``split_factor``, their
+threshold, is accepted and ignored without one, as in the reference), and
+the
 reference's telemetry gauge and counter and its ``game.bucket_shard``
 chaos site (item 8).
 """
@@ -195,11 +197,14 @@ class OutOfCoreRandomEffectCoordinate(RandomEffectCoordinate):
         device=None,
     ):
         if mesh is not None:
-            raise not_ported("out-of-core random effects on a mesh", 6,
-                             "multi-device")
-        if split_factor != 0.5:
-            raise not_ported(f"split_factor = {split_factor!r} (the mesh "
-                             "bucket placement)", 6, "multi-device")
+            raise not_ported("out-of-core random effects on a mesh", "6c",
+                             "GAME on a mesh")
+        if not 0.0 < split_factor <= 1.0:
+            raise ValueError(
+                f"split_factor must lie in (0, 1], got {split_factor!r}")
+        # The mesh bucket placement's threshold: with no mesh there is no
+        # placement, and the reference ignores it as the port does.
+        self.split_factor = float(split_factor)
         super().__init__(name, dataset, task, config, reg_weight,
                          feature_shard=feature_shard, entity_key=entity_key)
         self.device_budget_bytes = int(device_budget_bytes)

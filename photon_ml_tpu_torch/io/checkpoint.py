@@ -358,15 +358,6 @@ class GameGridCheckpointer:
     def _point_dir(self, gi: int) -> str:
         return os.path.join(self.root, f"point_{gi}")
 
-    #: Fields of the reference's config dataclasses that only its mesh and
-    #: host-kind-solver paths read (ROADMAP Queue 1 item 6); the port has
-    #: no such field and runs as their defaults, which the fingerprint
-    #: records so that both packages compute the same image.
-    REFERENCE_DEFAULTS = {
-        "RandomEffectCoordinateConfig": {"split_factor": 0.5},
-        "OptimizerConfig": {"solver_options": []},
-    }
-
     @classmethod
     def fingerprint(cls, configs: dict) -> dict:
         """JSON-stable image of the ENTIRE config per coordinate: any field
@@ -378,12 +369,8 @@ class GameGridCheckpointer:
 
         def conv(o):
             if _dc.is_dataclass(o) and not isinstance(o, type):
-                image = {f.name: conv(getattr(o, f.name))
-                         for f in _dc.fields(o)}
-                for k, v in cls.REFERENCE_DEFAULTS.get(
-                        type(o).__name__, {}).items():
-                    image.setdefault(k, v)
-                return image
+                return {f.name: conv(getattr(o, f.name))
+                        for f in _dc.fields(o)}
             if isinstance(o, enum.Enum):
                 return o.value
             if isinstance(o, (list, tuple)):

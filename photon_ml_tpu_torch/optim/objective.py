@@ -7,6 +7,12 @@ The gradient is the explicit ``Xᵀ(weight ⊙ d1(Xw))`` and the HVP the GLM
 closed form ``Xᵀ(weight ⊙ d2 ⊙ (X v))`` — both are the same two sparse
 mat-vecs (``matvec`` then ``rmatvec``), so there is no separate backward
 kernel.  Normalization is applied in coefficient space.
+
+``reduce`` takes the place of the reference's ``axis_name``: a callable
+that sums its tensors over every rank of a process group in ONE collective
+(``parallel/distributed.py``: ``DataGroup.reduce``), applied to the
+data term before the L2 term is added, so each rank's solver reads the
+same reduced value and gradient.  ``None`` is the single-device path.
 """
 
 from __future__ import annotations
@@ -94,17 +100,28 @@ class GlmObjective:
         dm = self._matvec(data, v)
         return self._rmatvec(data, d2w * dm)
 
-    # -- full objective ----------------------------------------------------
-    def value(self, w: Tensor, data: GlmData, l2_weight=0.0) -> Tensor:
-        return self.raw_value(w, data) + 0.5 * l2_weight * torch.dot(w, w)
+    # -- full objective (optionally reduced over a process group) ---------
+    def value(self, w: Tensor, data: GlmData, l2_weight=0.0,
+              reduce=None) -> Tensor:
+        val = self.raw_value(w, data)
+        if reduce is not None:
+            (val,) = reduce(val)
+        return val + 0.5 * l2_weight * torch.dot(w, w)
 
-    def value_and_grad(self, w: Tensor, data: GlmData, l2_weight=0.0):
+    def value_and_grad(self, w: Tensor, data: GlmData, l2_weight=0.0,
+                       reduce=None):
         val, grad = self.raw_value_and_grad(w, data)
+        if reduce is not None:
+            # The treeAggregate analogue: one fused all-reduce.
+            val, grad = reduce(val, grad)
         return val + 0.5 * l2_weight * torch.dot(w, w), grad + l2_weight * w
 
     def hvp(self, w: Tensor, v: Tensor, data: GlmData, l2_weight=0.0,
-            d2w: Optional[Tensor] = None) -> Tensor:
-        return self.raw_hvp(w, v, data, d2w) + l2_weight * v
+            d2w: Optional[Tensor] = None, reduce=None) -> Tensor:
+        h = self.raw_hvp(w, v, data, d2w)
+        if reduce is not None:
+            (h,) = reduce(h)
+        return h + l2_weight * v
 
     # -- scoring -----------------------------------------------------------
     def mean(self, w: Tensor, data: GlmData) -> Tensor:

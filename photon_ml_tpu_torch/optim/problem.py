@@ -8,7 +8,15 @@ and sweeps a regularization-weight grid with warm starts (the reference's
 Every solve dispatches through the solver registry
 (``photon_ml_tpu_torch/solvers/registry.py``): bounds → SPG, any L1
 component → OWL-QN, else the configured optimizer, or the solver that
-``OptimizerConfig.solver`` names.
+``OptimizerConfig.solver`` names.  Host-kind solvers (consensus-ADMM,
+block CD) drive their own outer loop over sharded data and are refused
+here; ``solvers/sharded.py::run_grid_sharded`` runs them through the same
+:meth:`GlmOptimizationProblem.grid_loop`.
+
+``reduce`` is the reference's ``axis_name``: the data-parallel grid
+(``parallel/distributed.py::run_grid_distributed``) solves each rank's row
+block with a hook that all-reduces the objective's data term, so one
+solve here serves one device or a process group.
 """
 
 from __future__ import annotations
@@ -45,13 +53,15 @@ class OptimizerConfig:
     maximumIterations, tolerance).  ``solver`` names a registered solver
     (``photon_ml_tpu_torch/solvers/registry.py``) explicitly; None keeps the
     historical routing (bounds → SPG, any L1 component → OWL-QN, else
-    ``optimizer``)."""
+    ``optimizer``).  ``solver_options`` carries the solver's knobs as a
+    tuple of (key, value) pairs, hashable like the rest of the config."""
 
     optimizer: OptimizerType = OptimizerType.LBFGS
     max_iters: int = 100
     tolerance: float = 1e-7
     history: int = 10  # L-BFGS/OWL-QN corrections
     solver: Optional[str] = None
+    solver_options: tuple = ()
 
 
 @dataclasses.dataclass(frozen=True)
@@ -89,11 +99,12 @@ class GlmOptimizationProblem:
         w0: Optional[Tensor] = None,
         l1_mask: Optional[Tensor] = None,
         bounds: Optional[tuple[Tensor, Tensor]] = None,
+        reduce=None,
     ) -> SolveResult:
         """The reference's jit-cached single-device entry, which hands λ to
         the solve as a float32 scalar; the port runs eagerly."""
         return self.solve(data, float(np.float32(reg_weight)), w0, l1_mask,
-                          bounds)
+                          bounds, reduce=reduce)
 
     def solve(
         self,
@@ -102,13 +113,15 @@ class GlmOptimizationProblem:
         w0: Optional[Tensor] = None,
         l1_mask: Optional[Tensor] = None,
         bounds: Optional[tuple[Tensor, Tensor]] = None,
+        reduce=None,
     ) -> SolveResult:
         """One optimization run at one regularization weight.
 
         ``bounds`` = (lower, upper) per-coefficient tensors (±inf entries
         unconstrained) routes the solve to the box-constrained SPG path.
         ``l1_mask`` exempts coordinates (the intercept) from an L1
-        penalty."""
+        penalty.  ``reduce`` sums the objective's data term over a process
+        group (``data`` is then this rank's row block)."""
         cfg = self.config
         if bounds is not None and cfg.compute_variances:
             # The diag-inverse-Hessian variance assumes an interior
@@ -146,19 +159,30 @@ class GlmOptimizationProblem:
         defn = solver_registry.resolve(
             opt, l1_frac=l1_frac, has_bounds=bounds is not None
         )
+        if defn.kind != "jit":
+            raise ValueError(
+                f"solver {defn.name!r} runs a host-side outer loop and "
+                "cannot execute inside a single solve; route through "
+                "solvers.sharded.run_grid_sharded (glm_driver --solver "
+                "and run_grid_distributed do this automatically)"
+            )
         return defn.resident(solver_registry.ResidentSolve(
             objective=self.objective, data=data, w0=w0, l1=l1, l2=l2,
-            opt=opt, l1_mask=l1_mask, bounds=bounds,
+            opt=opt, l1_mask=l1_mask, bounds=bounds, reduce=reduce,
         ))
 
     def coefficient_variances(self, w: Tensor, data: GlmData,
-                              reg_weight: float = 0.0) -> Tensor:
+                              reg_weight: float = 0.0,
+                              reduce=None) -> Tensor:
         """Diagonal-inverse-Hessian approximation ``1 / H_jj`` (the
         reference's ``VarianceComputationType.SIMPLE``), with ``H_jj =
-        Σᵢ wᵢ·d2ᵢ·X²ᵢⱼ + λ₂`` — one squared-column reduction."""
+        Σᵢ wᵢ·d2ᵢ·X²ᵢⱼ + λ₂`` — one squared-column reduction (summed over
+        the process group by ``reduce``)."""
         l2 = self.config.regularization.l2_weight(1.0) * float(reg_weight)
         d2w = self.objective.d2_weights(w, data)
         diag = data.features.sq_rmatvec(d2w)
+        if reduce is not None:
+            (diag,) = reduce(diag)
         return 1.0 / torch.clamp(diag + l2, min=1e-12)
 
     def make_model(self, w: Tensor,

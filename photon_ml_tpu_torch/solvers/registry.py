@@ -5,14 +5,20 @@ Each solver registers a :class:`SolverDef` under a name, and
 :func:`resolve` applies the reference's historical routing (bounds → SPG,
 any L1 component → OWL-QN, else the configured optimizer).
 
-Every registered solver is resident: one solve over device tensors
-(L-BFGS, OWL-QN, TRON, SPG), called through its ``resident`` callable.
-The out-of-core grid (``optim/streaming.py``) calls the same callables
-with an objective whose every evaluation is one pass over a chunk store.
-The reference's host-kind solvers (consensus-ADMM, distributed block CD)
-drive a sharded step program from a host loop, which the port has not got
-yet: ``get("admm")`` and ``get("block_cd")`` raise ``NotImplementedError``
-naming the ROADMAP item that ports them.
+Two solver kinds exist, as in the reference:
+
+- ``"jit"`` — one solve over device tensors (L-BFGS, OWL-QN, TRON, SPG),
+  called through its ``resident`` callable.  The out-of-core grid
+  (``optim/streaming.py``) calls the same callables with an objective
+  whose every evaluation is one pass over a chunk store, and the
+  data-parallel grid with a ``reduce`` hook that all-reduces each
+  evaluation over a process group.
+- ``"host"`` — a host outer loop around per-shard subproblems and a
+  fixed-size reduction a round (consensus-ADMM, distributed block CD):
+  ``problem.solve`` refuses them, and the grid runners go through
+  :func:`photon_ml_tpu_torch.solvers.sharded.run_grid_sharded`.
+  ``sharded`` is the factory: ``sharded(problem, dist, mesh, l1_mask) →
+  solve_fn(lam, w_prev, dist_override=None)``.
 
 Registration is guarded by a lock: drivers resolve concurrently while tests
 register scratch solvers.
@@ -28,13 +34,6 @@ import torch
 
 Tensor = torch.Tensor
 
-#: The reference's host-kind solvers, not registered in the port yet.
-NOT_PORTED = {
-    "admm": "consensus-ADMM",
-    "block_cd": "distributed block coordinate descent",
-}
-
-
 class ResidentSolve(NamedTuple):
     """One resident solve request — what ``problem.solve`` hands a
     solver.  ``l1``/``l2`` are the already-split regularization
@@ -48,6 +47,9 @@ class ResidentSolve(NamedTuple):
     opt: Any  # OptimizerConfig
     l1_mask: Optional[Tensor] = None
     bounds: Optional[tuple] = None
+    # The objective's all-reduce over a process group (the reference's
+    # axis_name); None on one device.
+    reduce: Optional[Callable] = None
     # (K, d) → ((K,), (K, d)): the line searches' batched trials (L-BFGS,
     # OWL-QN), for objectives where one evaluation is a streamed pass.
     value_and_grad_batch: Optional[Callable] = None
@@ -55,13 +57,28 @@ class ResidentSolve(NamedTuple):
 
 @dataclasses.dataclass(frozen=True)
 class SolverDef:
-    """One registered solver and the resident callable that runs it."""
+    """One registered solver.  ``resident`` serves jit-kind solvers;
+    ``sharded`` serves host-kind ones and is a FACTORY — it binds the
+    problem and the sharded data once and returns the per-λ ``solve_fn``,
+    so Gram factorizations are shared across a warm-start grid."""
 
     name: str
+    kind: str  # "jit" | "host"
     description: str
-    resident: Callable[[ResidentSolve], Any]
     supports_l1: bool = False
     supports_bounds: bool = False
+    resident: Optional[Callable[[ResidentSolve], Any]] = None
+    sharded: Optional[Callable] = None
+
+    def __post_init__(self):
+        if self.kind not in ("jit", "host"):
+            raise ValueError(f"solver kind must be jit|host, got {self.kind!r}")
+        if self.kind == "jit" and self.resident is None:
+            raise ValueError(
+                f"jit-kind solver {self.name!r} needs a resident callable")
+        if self.kind == "host" and self.sharded is None:
+            raise ValueError(
+                f"host-kind solver {self.name!r} needs a sharded factory")
 
 
 _REGISTRY: dict[str, SolverDef] = {}
@@ -84,12 +101,6 @@ def register(defn: SolverDef, replace: bool = False) -> SolverDef:
 def get(name: str) -> SolverDef:
     with _LOCK:
         defn = _REGISTRY.get(name)
-    if defn is None and name in NOT_PORTED:
-        raise NotImplementedError(
-            f"solver {name!r} ({NOT_PORTED[name]}) is not ported to "
-            "photon_ml_tpu_torch yet: it runs over sharded data (ROADMAP.md, "
-            "PyTorch/CUDA port, Queue 1 item 6: multi-device)"
-        )
     if defn is None:
         raise KeyError(
             f"unknown solver {name!r}; registered: {names()}"
@@ -100,6 +111,12 @@ def get(name: str) -> SolverDef:
 def names() -> list[str]:
     with _LOCK:
         return sorted(_REGISTRY)
+
+
+def solver_options_dict(opt) -> dict:
+    """``OptimizerConfig.solver_options`` (a hashable tuple of (key, value)
+    pairs) as a plain dict."""
+    return dict(getattr(opt, "solver_options", ()) or ())
 
 
 def resolve(opt, *, l1_frac: float, has_bounds: bool = False) -> SolverDef:
@@ -146,9 +163,14 @@ def resolve(opt, *, l1_frac: float, has_bounds: bool = False) -> SolverDef:
 # ---------------------------------------------------------------------------
 
 
+def _reduce_kw(ctx: ResidentSolve) -> dict:
+    # Objectives of one device (a streamed pass among them) take no hook.
+    return {} if ctx.reduce is None else {"reduce": ctx.reduce}
+
+
 def _value_and_grad(ctx: ResidentSolve):
-    obj, data = ctx.objective, ctx.data
-    return lambda w: obj.value_and_grad(w, data, l2_weight=ctx.l2)
+    obj, data, kw = ctx.objective, ctx.data, _reduce_kw(ctx)
+    return lambda w: obj.value_and_grad(w, data, l2_weight=ctx.l2, **kw)
 
 
 def _lbfgs_resident(ctx: ResidentSolve):
@@ -191,7 +213,8 @@ def _tron_resident(ctx: ResidentSolve):
     obj, data = ctx.objective, ctx.data
     return tron_solve(
         _value_and_grad(ctx),
-        lambda w, v, aux: obj.hvp(w, v, data, l2_weight=ctx.l2, d2w=aux),
+        lambda w, v, aux: obj.hvp(w, v, data, l2_weight=ctx.l2, d2w=aux,
+                                  **_reduce_kw(ctx)),
         ctx.w0,
         TRONConfig(max_iters=ctx.opt.max_iters, tolerance=ctx.opt.tolerance),
         d2_fn=lambda w: obj.d2_weights(w, data),
@@ -212,22 +235,26 @@ def _spg_resident(ctx: ResidentSolve):
 
 register(SolverDef(
     name="lbfgs",
+    kind="jit",
     description="limited-memory BFGS (smooth objectives)",
     resident=_lbfgs_resident,
 ))
 register(SolverDef(
     name="owlqn",
+    kind="jit",
     description="orthant-wise L-BFGS (L1/elastic-net)",
     supports_l1=True,
     resident=_owlqn_resident,
 ))
 register(SolverDef(
     name="tron",
+    kind="jit",
     description="trust-region Newton-CG (smooth objectives)",
     resident=_tron_resident,
 ))
 register(SolverDef(
     name="spg",
+    kind="jit",
     description="spectral projected gradient (box constraints)",
     supports_bounds=True,
     resident=_spg_resident,

@@ -39,9 +39,12 @@ class OptimizationStatesTracker:
             )
         values = to_numpy(res.values).astype(np.float64)
         keep = ~np.isnan(values)
+        # Block CD's "norms" are its per-round objective changes: one
+        # fewer than its values.
+        grad_norms = to_numpy(res.grad_norms).astype(np.float64)
         return OptimizationStatesTracker(
             values=values[keep],
-            grad_norms=to_numpy(res.grad_norms).astype(np.float64)[keep],
+            grad_norms=grad_norms[keep[:grad_norms.size]],
             iterations=int(res.iterations),
             converged=bool(res.converged),
             wall_seconds=wall_seconds,

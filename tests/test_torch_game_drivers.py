@@ -678,34 +678,80 @@ def test_wide_per_user_effect_matches_reference(tmp_path, optimizer):
 class TestRefusals:
     """Each flag or config the port does not run yet raises
     NotImplementedError naming its ROADMAP Queue 1 item; the out-of-core
-    routes it once refused run as the reference's."""
+    routes it once refused run as the reference's, and the settings the
+    reference reads only where a mesh forms change nothing on one
+    process."""
 
-    @pytest.mark.parametrize("case,item", [
-        ("data_parallel", 6), ("tuning", 8), ("split_factor", 6),
-        ("solver_options", 6),
-    ])
-    def test_refusal_names_its_item(self, game_files, trained, tmp_path,
-                                    case, item):
-        train, val, config = game_files
-        flags, overrides = [], {}
-        if case == "data_parallel":
-            flags = ["--data-parallel", "auto"]
-        elif case == "tuning":
-            overrides = {"tuning": {"mode": "random", "iterations": 2}}
-        elif case == "split_factor":
-            overrides = {"coordinates": [COORDS[0], dict(
-                COORDS[1], split_factor=0.25)]}
-        elif case == "solver_options":
-            overrides = {"coordinates": [dict(
-                COORDS[0], solver_options={"rho": 1.0}), COORDS[1]]}
-        match = f"Queue 1 item {item}"
-        with pytest.raises(NotImplementedError, match=match):
-            cfg = (_write_config(tmp_path / "c.json", **overrides)
-                   if overrides else config)
+    def test_refusal_names_its_item(self, game_files, trained, tmp_path):
+        train, val, _ = game_files
+        cfg = _write_config(tmp_path / "c.json",
+                            tuning={"mode": "random", "iterations": 2})
+        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
             game_training_driver.run([
                 "--train-data", train, "--validate-data", val,
                 "--config", cfg, "--output-dir", str(tmp_path / "o"),
-                *flags, *CPU])
+                *CPU])
+
+    @pytest.mark.parametrize("case", ["data_parallel", "split_factor",
+                                      "solver_options"])
+    def test_one_device_settings_change_nothing(self, game_files, trained,
+                                                tmp_path, case):
+        """``--data-parallel auto`` on one process, a random effect's
+        ``split_factor`` other than 0.5 and a fixed effect's
+        ``solver_options`` (knobs of the host-kind solvers, unread by
+        L-BFGS) train the same models as without them, in the port and in
+        the reference; the grid checkpoint's fingerprint carries the
+        settings as the reference's does."""
+        train, val, _ = game_files
+        root, port, ref = trained
+        flags, overrides = [], {}
+        if case == "data_parallel":
+            flags = ["--data-parallel", "auto"]
+        elif case == "split_factor":
+            overrides = {"coordinates": [COORDS[0], dict(
+                COORDS[1], split_factor=0.25)]}
+        else:
+            overrides = {"coordinates": [dict(
+                COORDS[0], solver_options={"rho": 1.0}), COORDS[1]]}
+        cfg = (_write_config(tmp_path / "c.json", **overrides)
+               if overrides else game_files[2])
+        args = ["--train-data", train, "--validate-data", val,
+                "--config", cfg, *flags]
+        out = game_training_driver.run(
+            args + ["--output-dir", str(tmp_path / "o"), *CPU])
+        assert out["validation_metric"] == port["validation_metric"]
+        np.testing.assert_array_equal(
+            _scores(str(tmp_path / "o"), val),
+            _scores(str(root / "port"), val))
+        ref_out = ref_training.run(args + ["--output-dir",
+                                           str(tmp_path / "r")])
+        assert abs(ref_out["validation_metric"]
+                   - out["validation_metric"]) <= FIT_TOL
+        with open(cfg) as f:
+            specs = json.load(f)["coordinates"]
+        configs = dict(game_training_driver.parse_coordinate_config(c)
+                       for c in specs)
+        ref_configs = dict(ref_training.parse_coordinate_config(c)
+                           for c in specs)
+        assert (checkpoint.GameGridCheckpointer.fingerprint(configs)
+                == ref_ckpt.GameGridCheckpointer.fingerprint(ref_configs))
+
+    def test_data_parallel_over_ranks_names_item_6c(self, game_files,
+                                                    tmp_path, monkeypatch):
+        """Over a process group of more than one rank, GAME refuses,
+        naming the GAME-on-a-mesh item."""
+        import contextlib
+
+        from photon_ml_tpu_torch.parallel import multihost
+
+        monkeypatch.setattr(multihost, "driver_group",
+                            lambda *a, **k: contextlib.nullcontext(2))
+        train, val, config = game_files
+        with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
+            game_training_driver.run([
+                "--train-data", train, "--validate-data", val,
+                "--config", config, "--output-dir", str(tmp_path / "o"),
+                "--data-parallel", "auto", *CPU])
 
     #: The out-of-core specs, run by both packages' training drivers.
     OOC_SPECS = {

@@ -423,14 +423,52 @@ class TestFallbackBuckets:
 class TestRefusals:
     @pytest.mark.parametrize("name", ["admm", "block_cd"])
     def test_host_kind_solvers_refused(self, name):
+        """A host-kind solver runs the FIXED effect over logical row shards
+        of a dense design (the resident L-BFGS objective within 1e-5); the
+        reference's refusals stay: a sparse fixed-effect design (no row
+        shards of a resident sparse matrix) and the per-entity blocks of a
+        random effect."""
+        from photon_ml_tpu.data.dataset import make_glm_data as ref_make
+        from photon_ml_tpu.game.data import (
+            FixedEffectDataset as RefFixedEffectDataset,
+        )
         from photon_ml_tpu_torch.data.dataset import make_glm_data
         from photon_ml_tpu_torch.game.data import FixedEffectDataset
 
-        cfg = _configs(solver=name)[0]
+        cfg, rcfg = _configs(solver=name)
         X = sp.csr_matrix(np.eye(3, dtype=np.float32))
         fe = FixedEffectDataset(make_glm_data(X, np.zeros(3), device=CPU), 3)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(ValueError, match="DenseMatrix"):
             coordinates.FixedEffectCoordinate("fe", fe, "logistic", cfg)
+        rfe = RefFixedEffectDataset(ref_make(X, np.zeros(3)), 3)
+        with pytest.raises(ValueError, match="DenseMatrix"):
+            ref_coords.FixedEffectCoordinate("fe", rfe, "logistic", rcfg)
         _, ds, _, _ = _bucket_problem(1, "logistic", n_ent=10)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(ValueError, match="host-kind"):
             coordinates.RandomEffectCoordinate("re", ds, "logistic", cfg)
+
+        rng = np.random.default_rng(4)
+        Xd = rng.normal(size=(90, 4)).astype(np.float32)
+        y = (rng.uniform(size=90) < 0.5).astype(np.float32)
+        off = torch.as_tensor(rng.normal(scale=0.3, size=90)
+                              .astype(np.float32))
+        opts = (("tolerance", "1e-10"), ("max_rounds", "600")) if (
+            name == "block_cd") else (("reltol", "1e-6"),)
+        host = GlmOptimizationConfig(optimizer=OptimizerConfig(
+            max_iters=200, tolerance=1e-9, solver=name,
+            solver_options=opts), regularization=RegularizationContext.l2())
+        dense = FixedEffectDataset(make_glm_data(Xd, y, device=CPU), 90)
+        w = coordinates.FixedEffectCoordinate(
+            "fe", dense, "logistic", host, reg_weight=1.0).train(off)
+        w_ref = coordinates.FixedEffectCoordinate(
+            "fe", dense, "logistic", _configs(max_iters=200)[0],
+            reg_weight=1.0).train(off)
+
+        def objective(w):  # float64, the reference's 1e-5 bar
+            w = w.numpy().astype(np.float64)
+            m = Xd.astype(np.float64) @ w + off.numpy()
+            return (np.sum(np.logaddexp(0.0, m) - y * m)
+                    + 0.5 * np.dot(w, w))
+
+        f, f_ref = objective(w), objective(w_ref)
+        assert abs(f - f_ref) / max(1.0, abs(f_ref)) <= 1e-5

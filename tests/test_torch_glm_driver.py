@@ -357,17 +357,105 @@ def test_coefficient_bounds_refusals(a1a_shaped, tmp_path, case):
                              "--device", "cpu"))
 
 
-@pytest.mark.parametrize("solver,error", [("admm", "Queue 1 item 6"),
-                                          ("levenberg", "unknown solver")])
+@pytest.mark.parametrize("flags,error", [
+    (("--solver", "admm", "--compute-variances"),
+     "does not support --compute-variances"),
+    (("--solver", "levenberg"), "unknown solver")],
+    ids=["admm-variances", "levenberg"])
 def test_driver_refuses_unported_and_unknown_solvers(a1a_shaped, tmp_path,
-                                                     solver, error):
+                                                     flags, error):
+    """An unknown solver, and the reference's refusals of a host-kind
+    solver's combinations (variances, bounds, streaming)."""
     train, val = a1a_shaped
     with pytest.raises(SystemExit, match=error):
-        glm_driver.run(_argv(train, val, str(tmp_path / "out"),
-                             "--solver", solver, "--device", "cpu"))
+        glm_driver.run(_argv(train, val, str(tmp_path / "out"), *flags,
+                             "--device", "cpu"))
 
 
-# -- out-of-core training, warm starts, reports and retries --------------
+def test_host_kind_solver_routes_match_jax(a1a_shaped, tmp_path):
+    """``--solver admm`` with ``--solver-option`` and ``--solver-shards``:
+    the port's logical shards against the reference's, the same λ
+    selected, AUCs within two validation pairs (the two packages' ADMM
+    take their adaptive-ρ decisions at the float32 noise floor apart, so
+    their stopping rounds differ), coefficients within 1e-3 of the
+    largest."""
+    train, val = a1a_shaped
+    flags = ("--solver", "admm", "--solver-shards", "4",
+             "--solver-option", "reltol=1e-6", "--solver-option", "rho=0.5")
+    ours_dir, ref_dir = str(tmp_path / "torch"), str(tmp_path / "jax")
+    ours = glm_driver.run(_argv(train, val, ours_dir, *flags, "--device",
+                                "cpu"))
+    ref = jax_driver.run(_argv(train, val, ref_dir, *flags))
+    assert ours["best_lambda"] == ref["best_lambda"]
+    for lam, auc in ours["metrics"].items():
+        assert abs(auc - ref["metrics"][lam]) <= AUC_PAIRS_TOL, lam
+    name = f"model_lambda_{ours['best_lambda']:g}.avro"
+    m, _ = model_store.load_glm_model(os.path.join(ours_dir, name),
+                                      device="cpu")
+    jm, _ = jax_store.load_glm_model(os.path.join(ref_dir, name))
+    w, jw = m.coefficients.means.numpy(), np.asarray(jm.coefficients.means)
+    assert np.abs(w - jw).max() <= 1e-3 * np.abs(jw).max()
+
+
+def test_block_cd_driver_route_matches_jax(a1a_shaped, tmp_path):
+    """``--solver block_cd``: the driver densifies the design and solves
+    over ``--solver-shards`` logical shards; its model equals the
+    reference's block CD on the same densified design: their float64
+    objectives within 1e-5 relative (the reference's block-CD bar).  (The reference's driver cannot run this route:
+    its tracker indexes block CD's one-shorter ``grad_norms`` with the
+    values' mask and raises IndexError.)"""
+    from photon_ml_tpu.optim import problem as jp
+    from photon_ml_tpu.optim.regularization import (
+        RegularizationContext as JReg,
+    )
+    from photon_ml_tpu.parallel.distributed import shard_glm_data
+    from photon_ml_tpu.solvers import sharded as jax_sharded
+
+    train, val = a1a_shaped
+    out = str(tmp_path / "torch")
+    opts = (("n_blocks", "4"), ("tolerance", "1e-9"))
+    ours = glm_driver.run(_argv(
+        train, val, out, "--solver", "block_cd", "--solver-shards", "2",
+        *(f for k, v in opts for f in ("--solver-option", f"{k}={v}")),
+        "--reg-weights", "10", "--max-iters", "200", "--device", "cpu"))
+    X, y = jax_libsvm.read_libsvm(train, n_features=D, add_intercept=True)
+    problem = jp.GlmOptimizationProblem("logistic", jp.GlmOptimizationConfig(
+        optimizer=jp.OptimizerConfig(
+            max_iters=200, tolerance=1e-5, solver="block_cd",
+            solver_options=opts + (("shards", "2"),)),
+        regularization=JReg.l2()))
+    mask = np.ones(D + 1, np.float32)
+    mask[-1] = 0.0
+    [(_, jm, _)] = jax_sharded.run_grid_sharded(
+        problem, shard_glm_data(np.asarray(X.todense(), np.float32), y,
+                                None, n_shards=2),
+        None, [10.0], l1_mask=jnp.asarray(mask))
+    m, _ = model_store.load_glm_model(
+        os.path.join(out, "model_lambda_10.avro"), device="cpu")
+    Xd, yd = np.asarray(X.todense(), np.float64), np.asarray(y, np.float64)
+
+    def objective(w):
+        m = Xd @ np.asarray(w, np.float64)
+        return (np.sum(np.logaddexp(0.0, m) - yd * m)
+                + 0.5 * 10.0 * np.dot(w, w))
+
+    f, f_ref = objective(m.coefficients.means.numpy()), objective(
+        np.asarray(jm.coefficients.means))
+    assert abs(f - f_ref) / max(1.0, abs(f_ref)) <= 1e-5
+    assert ours["metrics"]["10.0"] > 0.7
+
+
+def test_data_parallel_on_one_process_trains_as_without(a1a_shaped,
+                                                        tmp_path):
+    """``--data-parallel auto`` forms no group on one process: the model
+    files are byte-equal to the run without it, as the reference (which
+    forms a mesh only over more than one device) trains the same model."""
+    train, val = a1a_shaped
+    outs = [str(tmp_path / "off"), str(tmp_path / "auto")]
+    glm_driver.run(_argv(train, val, outs[0], "--device", "cpu"))
+    glm_driver.run(_argv(train, val, outs[1], "--data-parallel", "auto",
+                         "--device", "cpu"))
+    assert _model_bytes(outs[0]) == _model_bytes(outs[1])
 
 
 def _solves(out):
@@ -634,5 +722,13 @@ def test_stream_flag_guards(a1a_shaped, tmp_path, case, error):
     exc = {"bounds": SystemExit,
            "data-parallel": NotImplementedError}.get(case, ValueError)
     with pytest.raises(exc, match=error):
-        glm_driver.run(_argv(train, val, str(tmp_path / "out"), *flags,
-                             "--device", "cpu"))
+        if case == "data-parallel":
+            # Streaming over a process group of more than one rank (the
+            # streamed mesh, item 6e); on one process the flag forms none.
+            glm_driver._check_stream_flags(
+                glm_driver.build_arg_parser().parse_args(_argv(
+                    train, val, str(tmp_path / "out"), *STREAM, *flags)),
+                data_parallel=True)
+        else:
+            glm_driver.run(_argv(train, val, str(tmp_path / "out"), *flags,
+                                 "--device", "cpu"))

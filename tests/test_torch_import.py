@@ -79,10 +79,16 @@ def test_import_leaves_jax_out_of_sys_modules():
     "photon_ml_tpu_torch.game.ooc_random",
     "photon_ml_tpu_torch.game.ooc_factored",
     "photon_ml_tpu_torch.game.streaming",
+    "photon_ml_tpu_torch.parallel",
+    "photon_ml_tpu_torch.parallel.distributed",
+    "photon_ml_tpu_torch.parallel.multihost",
+    "photon_ml_tpu_torch.solvers.admm",
+    "photon_ml_tpu_torch.solvers.block_cd",
+    "photon_ml_tpu_torch.solvers.sharded",
 ])
 def test_solver_slice_module_imports_alone_without_jax(module):
-    """Each module of the solver, GAME, GAME-driver and out-of-core slices,
-    imported alone in a fresh process, leaves jax and the JAX package out
+    """Each module of the solver, GAME, GAME-driver, out-of-core and
+    multi-device slices, imported alone in a fresh process, leaves jax and the JAX package out
     of sys.modules."""
     code = (
         "import importlib, json, sys\n"

@@ -156,12 +156,24 @@ def test_lbfgs_on_quadratic_matches_jax():
 
 @pytest.mark.parametrize("route", ["admm", "block_cd"])
 def test_routes_outside_the_slice_raise(route):
-    """The reference's host-kind solvers run over sharded data, which the
-    port has not got yet: naming one raises, pointing at ROADMAP."""
+    """The host-kind solvers run a host outer loop over sharded data
+    (``solvers/sharded.py``): a single ``problem.solve`` refuses them with
+    the reference's message, as the reference's does."""
+    from photon_ml_tpu.data.dataset import make_glm_data as jax_make
+    from photon_ml_tpu.optim import problem as jp
+    from photon_ml_tpu.optim.regularization import (
+        RegularizationContext as JReg,
+    )
+
     X, y = _logistic_problem(5, n=100, d=10)
     data = make_glm_data(X, y, device="cpu")
     problem = GlmOptimizationProblem("logistic", GlmOptimizationConfig(
         optimizer=OptimizerConfig(solver=route),
         regularization=RegularizationContext.elastic_net(0.5)))
-    with pytest.raises(NotImplementedError, match="ROADMAP"):
+    with pytest.raises(ValueError, match="host-side outer loop"):
         problem.solve(data, 1.0)
+    ref = jp.GlmOptimizationProblem("logistic", jp.GlmOptimizationConfig(
+        optimizer=jp.OptimizerConfig(solver=route),
+        regularization=JReg.elastic_net(0.5)))
+    with pytest.raises(ValueError, match="host-side outer loop"):
+        ref.solve(jax_make(X, y), 1.0)

@@ -603,12 +603,13 @@ class TestProblemDispatch:
 
 class TestRegistry:
     def test_builtins_registered(self):
-        assert set(registry.names()) >= {"lbfgs", "owlqn", "tron", "spg"}
+        assert set(registry.names()) >= {"lbfgs", "owlqn", "tron", "spg",
+                                         "admm", "block_cd"}
 
     def test_duplicate_refused_replace_allowed(self):
         defn = registry.SolverDef(
-            name="scratch_test_solver", description="test double",
-            resident=lambda ctx: None,
+            name="scratch_test_solver", kind="jit",
+            description="test double", resident=lambda ctx: None,
         )
         registry.register(defn, replace=True)
         with pytest.raises(ValueError, match="already registered"):
@@ -617,23 +618,45 @@ class TestRegistry:
         assert registry.get("scratch_test_solver") is defn
 
     def test_def_validation(self):
-        # Every registered solver is resident: a definition without its
-        # resident callable is refused, and every built-in has one.
-        with pytest.raises(TypeError, match="resident"):
-            registry.SolverDef(name="x", description="")
+        # A jit-kind definition needs its resident callable and a host-kind
+        # one its sharded factory, as in the reference; every built-in has
+        # the one of its kind.
+        with pytest.raises(ValueError, match="kind"):
+            registry.SolverDef(name="x", kind="weird", description="")
+        with pytest.raises(ValueError, match="resident"):
+            registry.SolverDef(name="x", kind="jit", description="")
+        with pytest.raises(ValueError, match="sharded"):
+            registry.SolverDef(name="x", kind="host", description="")
         for name in ("lbfgs", "owlqn", "tron", "spg"):
             assert callable(registry.get(name).resident)
+        for name in ("admm", "block_cd"):
+            assert callable(registry.get(name).sharded)
 
     def test_unknown_name(self):
         with pytest.raises(KeyError, match="unknown solver"):
             registry.get("levenberg")
 
     @pytest.mark.parametrize("name", ["admm", "block_cd"])
-    def test_host_kind_solvers_not_ported(self, name):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            registry.get(name)
-        with pytest.raises(NotImplementedError, match="ROADMAP"):
-            registry.resolve(OptimizerConfig(solver=name), l1_frac=0.5)
+    def test_host_kind_solvers_registered(self, name):
+        """The reference's host-kind solvers resolve by name, with the
+        reference's kind, L1 support and box-constraint refusal."""
+        from photon_ml_tpu.optim.problem import OptimizerConfig as JOpt
+        from photon_ml_tpu.solvers import registry as jax_registry
+
+        defn, jdefn = registry.get(name), jax_registry.get(name)
+        assert (defn.kind, defn.supports_l1, defn.supports_bounds) == (
+            jdefn.kind, jdefn.supports_l1, jdefn.supports_bounds) == (
+            "host", True, False)
+        assert registry.resolve(OptimizerConfig(solver=name),
+                                l1_frac=0.5) is defn
+        with pytest.raises(ValueError, match="box constraints"):
+            registry.resolve(OptimizerConfig(solver=name), l1_frac=0.0,
+                             has_bounds=True)
+        opt = OptimizerConfig(solver=name,
+                              solver_options=(("shards", "4"),))
+        assert registry.solver_options_dict(opt) == (
+            jax_registry.solver_options_dict(JOpt(
+                solver=name, solver_options=(("shards", "4"),))))
 
     def test_legacy_routing(self):
         from photon_ml_tpu.solvers import registry as jax_registry
