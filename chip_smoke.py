@@ -147,8 +147,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    iteration, latent- and projection-step seconds and the L-BFGS
    iterations over V are logged.  8d: ``game_training_driver`` on phase 7's
    GAME Avro files with a per-user elastic-net effect, and with a per-user
-   factored effect over ``global`` (rank 8) run through, killed after
-   iteration 1 and ``--resume``d (model files byte-equal), then
+   factored effect over ``global`` (rank 8) run through, killed for real
+   right after iteration 1's checkpoint and ``--resume``d (model files
+   byte-equal), then
    ``game_scoring_driver`` on its model (AUC = the training driver's and
    the device AUC of its scores within 1e-6); the drivers'
    ``stage_seconds`` logged.
@@ -245,18 +246,41 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    11c's driver check: ``glm_driver --data-parallel auto`` under a
    one-rank group writes phase 4's L2 model files byte for byte.
 
+12. GAME and the streamed mesh over a process group
+   (``game/{distributed,hierarchical}.py``, the group forms of the
+   out-of-core coordinates and of ``optim/streaming.py``), after phase 10.
+   12a, a one-rank NCCL group: the GAME training driver's group route on
+   phase 7's files (the row-sharded fixed effect, the bucket-shard random
+   effect) and the GLM driver's ``--stream-chunk-rows`` route (the rank's
+   shard of every chunk, one all-reduce a pass) write phase 7's and phase
+   9c's one-card model files byte for byte.  12b,
+   ``experiments.multirank --game`` over a spawned gloo group of 4 ranks
+   sharing the card at full width (646,253 rows): the per-user plan splits
+   its costliest bucket and packs its cheapest; one descent iteration of
+   the three random effects, every coefficient within 1e-6 of the largest
+   |w| of one card's and every score within 1e-5 of its row's Σ|x·w|; the
+   per-user effect out of core at 1/8 of its bytes at the same tolerances;
+   the row-sharded fixed effect's float64 objective within 1e-5 of one
+   card's; phase 9a's store sharded 4 ways, one all-reduce a pass, within
+   1e-5 of Σ|terms| of the resident pass.  Its times are of four ranks
+   sharing one card.  Then a rank's row block of the fixed effect and a
+   part of the sharded store against their plain versions (phase 2's
+   checks).
+
 Phase 7's GAME Avro files are written by a spawned process that starts
 after phase 1 and runs beside phases 2-6; phase 7 waits for it.
 
 Launch counts are zeroed just before each main-path run of phases 3, 3b,
-4, 5, 6, 7, 8, 9, 10 and 11 and read just after; every kernel those paths
-run must have launched.  A kernel record's ``launches`` sums its main-path
-runs (phases 3, 3b, 9a, 9b and 11c's group runs for the valued instances,
-11a's for the ``.shard`` ones, phase 4's three runs, 11b's and 11c's
-driver runs and 9c's GLM driver runs for the binary ones, phase 6's
-descents and estimator fits, phases 7's, 8's and 9c's training runs and
-phase 10's descents, streamed solves and training runs for the ``.game``
-records, phases 7's, 8's and 10e's validation scoring for ``.game_val``).
+4, 5, 6, 7, 8, 9, 10, 11 and 12 and read just after; every kernel those
+paths run must have launched.  A kernel record's ``launches`` sums its
+main-path runs (phases 3, 3b, 9a, 9b and 11c's group runs for the valued
+instances, 11a's for the ``.shard`` ones, phase 4's three runs, 11b's and
+11c's driver runs and 9c's and 12a's GLM driver runs for the binary ones,
+phase 6's descents and estimator fits, phases 7's, 8's, 9c's and 12a's
+training runs and phase 10's descents, streamed solves and training runs
+for the ``.game`` records, phases 7's, 8's and 10e's validation scoring
+for ``.game_val``, 12b's four ranks for ``.game_shard`` and
+``.chunk_shard``).
 The second-to-last line is the kernels' JSON record and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -324,8 +348,6 @@ GAME_FIXED_NNZ = 8
 GAME_RE_DIM = 8
 GAME_ROW_CAP = 128
 GAME_BUCKET_GROWTH = 4.0
-GAME_CONTEXTS = 200
-GAME_CONTEXT_CAP = 256
 GAME_TIMED_ITERS = 3
 GAME_TIMED_RUNS = 2
 # Phase 7: the GAME drivers at bench_game_cd's width, with a validation
@@ -1539,38 +1561,12 @@ def game_multi_re_data():
     """``bench.py``'s ``bench_game_multi_re`` draw at full width (seed 3):
     the fixed effect plus per-user (zipf 1.8), per-item (zipf 1.5 pool of
     20,000 items) and per-context (200 contexts, active cap 256: passive
-    rows) random effects, each 8 wide and dense."""
-    import scipy.sparse as sp
+    rows) random effects, each 8 wide and dense (the draw of
+    ``experiments/common.py``, which ``experiments.multirank --game`` runs
+    too)."""
+    from photon_ml_tpu_torch.experiments.common import game_multi_re_draw
 
-    rng = np.random.default_rng(3)
-    sizes = np.minimum(rng.zipf(1.8, GAME_ENTITIES), GAME_ROW_CAP)
-    n = int(sizes.sum())
-    users = np.repeat(
-        np.array([f"u{i}" for i in range(GAME_ENTITIES)], dtype=object),
-        sizes)[rng.permutation(n)]
-    n_items = max(2, GAME_ENTITIES // 5)
-    item_sizes = np.minimum(rng.zipf(1.5, n_items), 4 * GAME_ROW_CAP)
-    item_pool = np.repeat(
-        np.array([f"i{i}" for i in range(n_items)], dtype=object),
-        item_sizes)
-    items = item_pool[rng.integers(0, len(item_pool), size=n)]
-    contexts = np.array([f"c{rng.integers(GAME_CONTEXTS)}" for _ in range(n)],
-                        dtype=object)
-    nnzf = n * GAME_FIXED_NNZ
-    Xg = sp.csr_matrix(
-        (rng.normal(size=nnzf).astype(np.float32),
-         (np.repeat(np.arange(n, dtype=np.int64), GAME_FIXED_NNZ),
-          rng.integers(0, GAME_FIXED_FEATURES, size=nnzf))),
-        shape=(n, GAME_FIXED_FEATURES))
-    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
-    effects = []
-    for name, keys, cap in (("per_user", users, None),
-                            ("per_item", items, None),
-                            ("per_context", contexts, GAME_CONTEXT_CAP)):
-        Xe = sp.csr_matrix(
-            rng.normal(size=(n, GAME_RE_DIM)).astype(np.float32))
-        effects.append((name, keys, Xe, cap))
-    return n, Xg, y, effects
+    return game_multi_re_draw(entities=GAME_ENTITIES)
 
 
 def game_objective(coords, y, scores, states, base, rows=None):
@@ -2671,6 +2667,7 @@ def phase_game_drivers(smi, td, writer):
         full, n_it, descent_s = training(
             "train", common + ["--config", cfg3, "--output-dir",
                                out["full"]], record=True)
+        PHASE12["game_driver"] = (common + ["--config", cfg3], out["full"])
         recorded = list(rec.recorded)
         metrics["train"]["iters_per_s"] = n_it / descent_s
         glog(f"train: {n_it} GAME iterations in {descent_s:.3f} s of "
@@ -2962,9 +2959,12 @@ def phase_fallback_drivers(glog, td, train, val):
               "AUC over the fixed effect alone")
         out = {k: os.path.join(td, f"fact_{k}") for k in ("full", "resumed")}
         cfg2 = fallback_driver_config(os.path.join(td, "fact2.json"), 2, fact)
-        cfg1 = fallback_driver_config(os.path.join(td, "fact1.json"), 1, fact)
         full = training("factored", cfg2, out["full"])
-        training("factored, kill after iteration 1", cfg1, out["resumed"])
+        # Killed for real, so the killed run saves no model (a factored
+        # save takes ≈ 35 s).
+        run_killed_after_iteration_1(lambda: training(
+            "factored, kill after iteration 1", cfg2, out["resumed"]))
+        glog("factored: the run was killed after iteration 1's checkpoint")
         resumed = training("factored, resume to 2", cfg2, out["resumed"],
                            ["--resume"])
     for rel in ("fixed-effect/fixed/coefficients.avro",
@@ -3249,6 +3249,8 @@ def phase_streaming(smi, bench, data, abs_F, X, lib_metrics):
 
     # -- 9a: the streamed objective ----------------------------------------
     store, build_s = build("store", STREAM_CHUNKS)
+    # Part (chunk 0, shard 0) of phase 12b's 4-way sharded store.
+    PHASE12["chunk_shard"] = X[:N_ROWS // STREAM_CHUNKS // GROUP_RANKS]
     metrics["build_s"] = build_s
     obj = GlmObjective(losses.get("logistic"))
     gen = torch.Generator(device=DEVICE).manual_seed(17)
@@ -3644,6 +3646,7 @@ def phase_stream_drivers(smi, files, drv_runs, game_td, game_files):
     # every saved model's AUC equals a host re-score.
     l2, l2_out = run("l2", ["--reg-type", "l2", "--output-mode", "all",
                             "--training-report"])
+    PHASE12["glm_stream"] = (train, val, l2_out)
     en, en_out = run("elastic_net", ["--reg-type", "elastic_net",
                                      "--optimizer", "owlqn",
                                      "--output-mode", "all"])
@@ -4439,7 +4442,33 @@ def ooc_descent(glog, built, hosts, residents, resident_iters_per_s):
 
 
 class _Killed(Exception):
-    """The failure 10e injects into a training run after iteration 1."""
+    """The failure 8d and 10e inject into a training run after iteration
+    1."""
+
+
+def run_killed_after_iteration_1(train) -> None:
+    """``train()`` killed for real: the run stops right after iteration
+    1's checkpoint is written (the checkpointer patched from this script).
+    Fails if the run was not killed."""
+    from photon_ml_tpu_torch.io.checkpoint import (
+        CoordinateDescentCheckpointer,
+    )
+
+    real_save = CoordinateDescentCheckpointer.save
+
+    def save_then_die(self, it, *a, **k):
+        real_save(self, it, *a, **k)
+        if it == 0:
+            raise _Killed("killed after iteration 1")
+
+    CoordinateDescentCheckpointer.save = save_then_die
+    try:
+        train()
+    except _Killed:
+        return
+    finally:
+        CoordinateDescentCheckpointer.save = real_save
+    check(False, "the killed run was not killed")
 
 
 def ooc_driver_config(path, iterations, budget_mb):
@@ -4497,9 +4526,6 @@ def ooc_drivers(glog, td, train, val):
     from photon_ml_tpu_torch.evaluation.evaluators import get_evaluator
     from photon_ml_tpu_torch.game.data import build_random_effect_dataset
     from photon_ml_tpu_torch.io import avro
-    from photon_ml_tpu_torch.io.checkpoint import (
-        CoordinateDescentCheckpointer,
-    )
     from photon_ml_tpu_torch.io.game_store import load_game_model
     from photon_ml_tpu_torch.ops import _kernels
 
@@ -4540,24 +4566,10 @@ def ooc_drivers(glog, td, train, val):
 
         full = training("train", common + ["--config", cfg3, "--output-dir",
                                            out["full"]])
-        # Killed for real: the run stops right after iteration 1's
-        # checkpoint is written (patched from this script).
-        real_save = CoordinateDescentCheckpointer.save
-
-        def save_then_die(self, it, *a, **k):
-            real_save(self, it, *a, **k)
-            if it == 0:
-                raise _Killed("killed after iteration 1")
-
-        CoordinateDescentCheckpointer.save = save_then_die
-        try:
-            training("kill after iteration 1", common + [
-                "--config", cfg3, "--output-dir", out["resumed"]])
-            check(False, "ooc 10e: the killed run was not killed")
-        except _Killed:
-            glog("10e: the run was killed after iteration 1's checkpoint")
-        finally:
-            CoordinateDescentCheckpointer.save = real_save
+        run_killed_after_iteration_1(lambda: training(
+            "kill after iteration 1", common + [
+                "--config", cfg3, "--output-dir", out["resumed"]]))
+        glog("10e: the run was killed after iteration 1's checkpoint")
         training("resume to 3", common + [
             "--config", cfg3, "--output-dir", out["resumed"], "--resume"])
     val_launches = sum(m["val_matvec"] for m in metrics.values())
@@ -4665,6 +4677,8 @@ def phase_game_ooc(smi, td, files, resident_iters_per_s):
     log("phase 10d: the whole descent out of core")
     launches, metrics["10d"] = ooc_descent(glog, built, hosts, residents,
                                            resident_iters_per_s)
+    # Rank 0's row block of phase 12b's row-sharded fixed effect.
+    PHASE12["game_shard"] = built[1][:-(-n // GROUP_RANKS)]
     del built, hosts, residents
     torch.cuda.empty_cache()
     t_d = time.perf_counter()
@@ -5080,6 +5094,198 @@ def phase_group_driver(drv_files, drv_runs, td, store_path):
     return launches
 
 
+# -- phase 12: GAME and the streamed mesh over a process group --------------
+
+#: Phase 12b's group: gloo ranks sharing the one card (NCCL refuses two
+#: ranks on one card).
+GROUP_RANKS = 4
+#: The multi-device metrics the last log line carries.
+MULTI_KEYS = ("admm", "group", "block_cd", "game_group")
+#: What phases 7, 9a, 9c and 10 leave for phase 12: the driver runs to
+#: repeat over a group, and one shard of each sharded matrix.
+PHASE12: dict = {}
+
+
+def model_files(root):
+    """{relative path: bytes} of every file under ``root``."""
+    out = {}
+    for dirpath, _, files in os.walk(root):
+        for f in files:
+            path = os.path.join(dirpath, f)
+            with open(path, "rb") as fh:
+                out[os.path.relpath(path, root)] = fh.read()
+    return out
+
+
+def phase_group_game(smi, td):
+    """Phase 12a: a one-rank NCCL group runs the GAME training driver's
+    group route on phase 7's files and the GLM driver's streamed route on
+    phase 4's files (each rank its shard of every chunk); their model
+    files must equal phase 7's and phase 9c's one-card runs byte for byte.
+    Phase 12b: ``experiments.multirank --game`` over a spawned gloo group of
+    GROUP_RANKS ranks sharing this card at full width (its checks raise).
+    Then the two new shard instances of kernel #1 against their plain
+    versions.  Returns ({instance: {op: record}}, {instance: {op:
+    launches}}, metrics)."""
+    import torch.distributed as dist
+
+    from photon_ml_tpu_torch.data.dataset import make_glm_data
+    from photon_ml_tpu_torch.drivers import game_training_driver, glm_driver
+    from photon_ml_tpu_torch.experiments import multirank
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.parallel import distributed, multihost
+    from photon_ml_tpu_torch.utils.logging import PhotonLogger
+
+    def glog(msg):
+        log(f"group GAME [{smi}] {msg}")
+
+    t_phase = time.perf_counter()
+    launches = {"game": {"matvec": 0, "rmatvec": 0}, "unit": {}}
+    metrics = {}
+    one_rank_group(os.path.join(td, "pg_store_game"))
+    try:
+        mesh = multihost.global_data_mesh()
+        argv, one_out = PHASE12["game_driver"]
+        # Without per-update validation: every matvec counted is the fixed
+        # effect's (the model files do not depend on it).
+        i = argv.index("--validate-data")
+        argv = argv[:i] + argv[i + 2:]
+        out = os.path.join(td, "group_game")
+        args = game_training_driver.build_arg_parser().parse_args(
+            argv + ["--output-dir", out, "--data-parallel", "auto",
+                    "--device", DEVICE])
+        os.makedirs(out, exist_ok=True)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        distributed.reset_allreduces()
+        t0 = time.perf_counter()
+        with PhotonLogger(out) as logger:
+            res = game_training_driver._run_impl(args, logger, mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        for op in ("matvec", "rmatvec"):
+            launches["game"][op] += _kernels.LAUNCHES[op]
+        got, want = (model_files(os.path.join(d, "models"))
+                     for d in (out, one_out))
+        check(bool(want) and got == want,
+              "12a: the GAME driver's group route wrote model files that "
+              "differ from phase 7's one-card run")
+        glog(f"12a GAME driver over a one-rank NCCL group: {len(got)} model "
+             f"files byte-equal to phase 7's run; {wall:.2f} s, "
+             f"{distributed.ALLREDUCES['count']} all-reduces, "
+             f"{distributed.GATHERS['count']} gathers, train AUC "
+             f"{res.get('train_metric')}")
+        metrics["game_driver_s"] = wall
+
+        train, val, stream_out = PHASE12["glm_stream"]
+        out = os.path.join(td, "group_glm_stream")
+        os.makedirs(out, exist_ok=True)
+        args = glm_driver.build_arg_parser().parse_args([
+            "--train-data", train, "--validate-data", val,
+            "--output-dir", out, "--task", "logistic", "--reg-type", "l2",
+            "--output-mode", "all", "--training-report",
+            "--reg-weights", "0.1,1,10", "--max-iters", "50",
+            "--n-features", str(N_FEATURES), "--device", DEVICE,
+            "--stream-chunk-rows", str(STREAM_DRIVER_CHUNK_ROWS),
+            "--stream-storage-dir", os.path.join(out, "store"),
+            "--data-parallel", "auto"])
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        distributed.reset_allreduces()
+        t0 = time.perf_counter()
+        with PhotonLogger(out) as logger:
+            res = glm_driver._run_impl(args, logger, mesh)
+        torch.cuda.synchronize()
+        wall = time.perf_counter() - t0
+        launches["unit"] = dict(_kernels.LAUNCHES)
+        passes = res["streaming"]["transfer"]["passes"]
+        names = sorted(f for f in os.listdir(stream_out)
+                       if f.startswith("model_lambda_"))
+        check(bool(names) and all(
+            open(os.path.join(out, f), "rb").read()
+            == open(os.path.join(stream_out, f), "rb").read()
+            for f in names),
+            "12a: the GLM driver's streamed group route wrote model files "
+            "that differ from phase 9c's one-card run")
+        reduces = distributed.ALLREDUCES["count"]
+        check(0 < reduces <= passes,
+              f"12a: {reduces} all-reduces against {passes} streamed "
+              "passes (one a value, batch or HVP pass)")
+        glog(f"12a GLM driver --stream-chunk-rows over the group: {names} "
+             f"byte-equal to phase 9c's run; {wall:.2f} s, {passes} passes, "
+             f"{reduces} all-reduces")
+        metrics["glm_stream_s"] = wall
+    finally:
+        dist.destroy_process_group()
+    torch.cuda.empty_cache()
+
+    t0 = time.perf_counter()
+    group = multirank.main(["--game", "--ranks", str(GROUP_RANKS),
+                            "--share-card",
+                            "--device", DEVICE, "--rows", str(N_ROWS),
+                            "--game-entities", str(GAME_ENTITIES)])
+    wall = time.perf_counter() - t0
+    for name in ("per_user", "per_item", "per_context"):
+        p = group[f"plan.{name}"]
+        glog(f"12b plan {name} over {GROUP_RANKS} ranks: n_split "
+             f"{p['n_split']}, n_packed {p['n_packed']}, imbalance_ratio "
+             f"{p['imbalance_ratio']:.4f}")
+    for name in ("per_user", "per_item", "per_context"):
+        e = group[f"descent.{name}"]
+        glog(f"12b descent {name}: coefficients {e['coef_err']:.3g} of the "
+             f"largest |w| (limit 1e-6), scores {e['score_err']:.3g} of "
+             "Σ|x·w| (limit 1e-5)")
+    o, f, st = group["ooc"], group["fixed"], group["stream"]
+    glog(f"12b per_user out of core at 1/8 over the group: {o['groups']} "
+         f"groups, {o['parts']} parts on rank 0; coefficients "
+         f"{o['coef_err']:.3g}, scores {o['score_err']:.3g}")
+    glog(f"12b row-sharded fixed effect: {f['rows_per']} rows a rank, "
+         f"{f['allreduces']} all-reduces, float64 objective gap "
+         f"{f['objective_gap']:.3g} to one card (limit 1e-5)")
+    glog(f"12b phase 9a's store sharded {GROUP_RANKS} ways: {st['parts']} "
+         f"parts of {st['rows_per_part']} rows a rank, {st['allreduces']} "
+         f"all-reduce a pass; value {st['value_err']:.3g}, gradient "
+         f"{st['grad_err']:.3g} of Σ|terms| (limit 1e-5)")
+    glog(f"12b times of {GROUP_RANKS} gloo ranks SHARING ONE CARD (not a "
+         f"speed across cards): whole call {wall:.1f} s, dataset builds "
+         f"{group['build_s']:.2f} s, descent warm {group['descent_s']:.3f}"
+         f" s, cold {group['descent_cold_s']:.3f} s (one card warm "
+         f"{group['one_card_descent_s']:.3f} s), out-of-core train+score "
+         f"{o['train_score_s']:.3f} s, fixed solve {f['solve_s']:.3f} s, "
+         f"streamed pass warm {st['pass_s']:.3f} s, cold "
+         f"{st['cold_pass_s']:.3f} s (one card warm "
+         f"{st['one_card_pass_s']:.3f} s); "
+         f"collectives through host memory (gloo): "
+         f"{json.dumps(group['host_staged'])}")
+    metrics["group"] = {k: group[k] for k in (
+        "build_s", "descent_s", "descent_cold_s", "one_card_descent_s",
+        "ooc", "fixed",
+        "stream", "host_staged")}
+    metrics["group_call_s"] = wall
+    ls = group["launches_all_ranks"]
+    for op in ("matvec", "rmatvec"):
+        check(ls[f"fixed.{op}"] > 0 and ls[f"stream.{op}"] > 0,
+              f"12b: the shard instances' {op} never launched")
+    launches["game_shard"] = {op: ls[f"fixed.{op}"]
+                              for op in ("matvec", "rmatvec")}
+    launches["chunk_shard"] = {op: ls[f"stream.{op}"]
+                               for op in ("matvec", "rmatvec")}
+
+    # The two new instances against their plain versions.
+    gen = torch.Generator(device=DEVICE).manual_seed(23)
+    kern = {}
+    for label, X in (("game_shard", PHASE12["game_shard"]),
+                     ("chunk_shard", PHASE12["chunk_shard"])):
+        M = make_glm_data(X, np.zeros(X.shape[0], np.float32),
+                          device=DEVICE).features
+        kern[label] = kernel_vs_plain(label, M, gen)
+        del M
+    metrics["seconds"] = time.perf_counter() - t_phase
+    glog(f"phase 12: {metrics['seconds']:.1f} s")
+    return kern, launches, metrics
+
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -5183,6 +5389,13 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
     log("phase 10: GAME out of core")
     ooc_launches, ooc_val, ooc_metrics = phase_game_ooc(
         smi, td, (train, val), game_metrics["game_multi_re"]["iters_per_s"])
+    torch.cuda.empty_cache()
+    log("phase 12: GAME and the streamed mesh over a process group")
+    kern_group, grp_game, multi["game_group"] = phase_group_game(smi, td)
+    for op in ("matvec", "rmatvec"):
+        ooc_launches[op] += grp_game["game"][op]
+    for k, n in grp_game["unit"].items():
+        sd_launches[k] = sd_launches.get(k, 0) + n
     # The binary records count phase 4's, 11b's, 11c's and 9c's GLM driver
     # launches.
     drv_launches = {k: drv_launches.get(k, 0) + sd_launches.get(k, 0)
@@ -5245,6 +5458,21 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
             "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
             "bound_by": r["bound_by"], "library_ms": r["library_ms"],
         })
+    # Phase 12b's shards: a rank's row block of the GAME fixed effect
+    # (161,564 x 512, 8 values a row) and a part of the 4-way sharded
+    # streamed store (2^16 x 8192, 32 a row), with the group's launches
+    # (every rank's, on the one card).
+    for inst in ("game_shard", "chunk_shard"):
+        for op in ("matvec", "rmatvec"):
+            r = kern_group[inst][op]
+            records.append({
+                "name": f"spmv.{op}.{inst}", "route": "cuda",
+                "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+                "launches": grp_game[inst][op],
+                "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+                "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+                "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+            })
     # The validation matrix's shape (80,000 x 512, 8 values a row): the
     # fixed-effect validation scorer's matvec in phase 7's training runs.
     r = kern_val["matvec"]
@@ -5277,7 +5505,7 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
         f"{json.dumps(fb_metrics)}; out-of-core: "
         f"{json.dumps(stream_metrics)}; GAME out of core: "
         f"{json.dumps(ooc_metrics, default=float)}; multi-device: "
-        f"{json.dumps({k: multi[k] for k in ('admm', 'group', 'block_cd')})}"
+        f"{json.dumps({k: multi[k] for k in MULTI_KEYS}, default=float)}"
         f"; total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -33,6 +33,12 @@ On the card, :class:`HostToDevice` supplies the three stages:
 
 On the CPU the same pipeline runs with a plain host copy as its transfer.
 
+Over a process group each rank runs its own pipeline over its own items:
+a rank's store holds only its shard of every chunk (``data/streaming.py``)
+and an out-of-core random effect's pass group only the rank's part of
+each slice, so the pinned ring, the copies and :class:`TransferStats`
+(its bytes included) are that rank's.
+
 Every transfer is timed to completion, and :class:`TransferStats`
 attributes wall time to the stages as the reference defines them
 (``pack_seconds``, ``dispatch_seconds`` ⊂ ``h2d_seconds``,

@@ -9,8 +9,10 @@ contiguous buffer per distinct dtype, so a chunk crosses the link as a few
 large copies:
 
 - :func:`plan_staging` maps a chunk's leaves onto the buffers (one per
-  dtype, each shaped ``(1, elems)``; leaves in sorted-key order, as a JAX
-  pytree flattens a dictionary);
+  dtype, each shaped ``(n_shards, elems)``; leaves in sorted-key order, as
+  a JAX pytree flattens a dictionary).  With ``n_shards > 1`` every leaf
+  carries a leading shard axis and each buffer row holds one shard's part,
+  the reference's layout for a chunk stacked over a mesh;
 - :func:`pack_chunk` fills the buffers from the leaves (host side, at store
   build time);
 - :func:`chunk_view` rebuilds the chunk as zero-copy numpy views into the
@@ -21,7 +23,10 @@ large copies:
 The port's chunks differ in shape (a CSR chunk has its own entry count;
 the kernels launch on any shape), so every chunk has its own plan, where
 the reference pads all chunks to one so that one compiled program serves
-them.
+them.  For the same reason a sharded chunk store
+(``data/streaming.py``) stages each shard's part of a chunk under its own
+one-shard plan: a shard's kernel layout has its own shapes, and a rank of
+a process group moves only its own part.
 
 **Compressed chunk formats** (:class:`ChunkCodec`, :func:`plan_compression`)
 ride the same discipline one level down: every staging slot (one leaf's
@@ -34,8 +39,7 @@ re-segregated into wire buffers by wire dtype.  The decode
 compute stream: slices, casts, an integer ``cumsum`` (exact in int32 and
 int64) and bit shifts.  ``lossless`` gives the raw buffers back byte for
 byte; fp16/int8 are lossy and opt-in.  The host encoding is the
-reference's byte for byte.  Sharded chunks (``n_shards > 1``) are refused:
-they come with multi-device training (ROADMAP Queue 1 item 6).
+reference's byte for byte.
 """
 
 from __future__ import annotations
@@ -68,15 +72,6 @@ def torch_dtype(dtype) -> torch.dtype:
         raise TypeError(f"staging cannot move dtype {np.dtype(dtype)}")
 
 
-def refuse_shards(n_shards: int) -> None:
-    if n_shards != 1:
-        raise NotImplementedError(
-            f"n_shards={n_shards}: sharded chunk stores are not ported to "
-            "photon_ml_tpu_torch yet; they come with multi-device training "
-            "(ROADMAP.md, PyTorch/CUDA port, Queue 1 item 6)"
-        )
-
-
 def _flatten(chunk) -> tuple[tuple, list]:
     """(structure, leaves) of a chunk: a mapping flattens in sorted-key
     order, a list or tuple in index order."""
@@ -101,9 +96,10 @@ class _LeafSlot:
     """Where one leaf lives inside the staging buffers."""
 
     buffer: int  # index into the dtype-segregated buffer list
-    offset: int  # element offset within the buffer's row
-    size: int  # elements
-    shape: tuple  # leaf shape
+    offset: int  # element offset within one shard's row of the buffer
+    size: int  # elements a shard row
+    shape: tuple  # full leaf shape
+    shard_shape: tuple  # one shard's shape (== shape when n_shards == 1)
 
 
 @dataclasses.dataclass(frozen=True)
@@ -114,8 +110,9 @@ class ChunkStaging:
 
     treedef: Any  # ("dict", sorted keys) | ("seq", n)
     dtypes: tuple  # per-buffer numpy dtype
-    row_elems: tuple  # per-buffer elements
+    row_elems: tuple  # per-buffer elements a shard row
     slots: tuple  # _LeafSlot per leaf, in flatten order
+    n_shards: int = 1
 
     @property
     def n_buffers(self) -> int:
@@ -124,45 +121,63 @@ class ChunkStaging:
     @property
     def nbytes(self) -> int:
         """Staged bytes of the chunk (= bytes of one chunk transfer)."""
-        return sum(r * np.dtype(dt).itemsize
+        return sum(self.n_shards * r * np.dtype(dt).itemsize
                    for r, dt in zip(self.row_elems, self.dtypes))
 
     def unpack_device(self, buffers):
         return unpack_device(self, buffers)
 
 
+def _shard_split(shape: tuple, n_shards: int) -> tuple:
+    """One shard's shape of a leaf: with ``n_shards > 1`` every leaf
+    carries the leading shard axis."""
+    if n_shards == 1:
+        return shape
+    if not shape or shape[0] != n_shards:
+        raise ValueError(
+            f"sharded chunk leaf has shape {shape}; expected leading "
+            f"shard axis of {n_shards}"
+        )
+    return shape[1:]
+
+
 def plan_staging(chunk, n_shards: int = 1) -> ChunkStaging:
-    """Lay the chunk's leaves out over dtype-segregated staging buffers."""
-    refuse_shards(n_shards)
+    """Lay the chunk's leaves out over dtype-segregated staging buffers of
+    ``n_shards`` rows (one a shard)."""
     treedef, leaves = _flatten(chunk)
     dtypes: list = []
     row_elems: list = []
     slots: list = []
     for leaf in leaves:
         arr = np.asarray(leaf)
+        shard_shape = _shard_split(tuple(arr.shape), n_shards)
+        size = int(math.prod(shard_shape))
         dt = arr.dtype
         if dt not in dtypes:
             dtypes.append(dt)
             row_elems.append(0)
         b = dtypes.index(dt)
-        slots.append(_LeafSlot(buffer=b, offset=row_elems[b],
-                               size=int(arr.size), shape=tuple(arr.shape)))
-        row_elems[b] += int(arr.size)
+        slots.append(_LeafSlot(buffer=b, offset=row_elems[b], size=size,
+                               shape=tuple(arr.shape),
+                               shard_shape=shard_shape))
+        row_elems[b] += size
     return ChunkStaging(treedef=treedef, dtypes=tuple(dtypes),
-                        row_elems=tuple(row_elems), slots=tuple(slots))
+                        row_elems=tuple(row_elems), slots=tuple(slots),
+                        n_shards=n_shards)
 
 
 def pack_chunk(staging: ChunkStaging, chunk) -> tuple:
     """Copy a chunk's leaves into freshly allocated staging buffers, one
-    contiguous ``(1, row_elems)`` array per dtype.  Memmap leaves are paged
-    in transiently (one chunk of RAM)."""
+    contiguous ``(n_shards, row_elems)`` array per dtype.  Memmap leaves are
+    paged in transiently (one chunk of RAM)."""
     treedef, leaves = _flatten(chunk)
     if treedef != staging.treedef:
         raise ValueError(
             "chunk structure does not match the staging plan "
             f"({treedef} vs {staging.treedef})"
         )
-    bufs = [np.empty((1, r), dt)
+    k = staging.n_shards
+    bufs = [np.empty((k, r), dt)
             for r, dt in zip(staging.row_elems, staging.dtypes)]
     for leaf, slot in zip(leaves, staging.slots):
         arr = np.asarray(leaf)
@@ -174,7 +189,7 @@ def pack_chunk(staging: ChunkStaging, chunk) -> tuple:
                 f"{staging.dtypes[slot.buffer]}"
             )
         bufs[slot.buffer][:, slot.offset:slot.offset + slot.size] = (
-            arr.reshape(1, slot.size))
+            arr.reshape(k, slot.size))
     return tuple(bufs)
 
 
@@ -188,12 +203,18 @@ def chunk_view(staging: ChunkStaging, buffers: Sequence[np.ndarray]):
 
 
 def unpack_device(staging: ChunkStaging, buffers):
-    """The chunk as zero-copy views into its ``(1, row_elems)`` buffers on
-    the device (torch tensors): a slice and a ``view`` per leaf."""
-    leaves = [
-        buffers[s.buffer][0, s.offset:s.offset + s.size].view(s.shape)
-        for s in staging.slots
-    ]
+    """The chunk as zero-copy views into its buffers on the device (torch
+    tensors): a slice and a ``view`` per leaf.  The leading dimension is
+    read off the buffer, so a sharded plan unpacks its full
+    ``(n_shards, row)`` buffers and one shard's ``(1, row)`` rows alike."""
+    leaves = []
+    for s in staging.slots:
+        buf = buffers[s.buffer]
+        if staging.n_shards == 1:
+            leaves.append(buf[0, s.offset:s.offset + s.size].view(s.shape))
+        else:
+            leaves.append(buf[:, s.offset:s.offset + s.size].reshape(
+                (buf.shape[0],) + s.shard_shape))
     return _unflatten(staging.treedef, leaves)
 
 
@@ -252,7 +273,7 @@ class ChunkCodec:
     @property
     def wire_nbytes(self) -> int:
         """Encoded bytes one chunk moves across the link."""
-        return sum(r * np.dtype(dt).itemsize
+        return sum(self.staging.n_shards * r * np.dtype(dt).itemsize
                    for r, dt in zip(self.wire_row_elems, self.wire_dtypes))
 
     @property
@@ -275,7 +296,7 @@ class ChunkCodec:
         """Encode one chunk's staged buffers into wire buffers (host side,
         once per chunk when the codec is planned, never per pass)."""
         st = self.staging
-        wire = [np.zeros((1, r), dt)
+        wire = [np.zeros((st.n_shards, r), dt)
                 for r, dt in zip(self.wire_row_elems, self.wire_dtypes)]
         for slot, enc in zip(st.slots, self.encodings):
             seg = np.asarray(buffers[slot.buffer])[
@@ -305,9 +326,9 @@ class ChunkCodec:
 
     def unpack_device(self, wire):
         """Decode the chunk's wire buffers (torch tensors on the device,
-        each ``(1, elems)``) into its leaves, as torch ops on the current
-        stream: slices, casts, an integer cumsum and bit shifts.  Raw slots
-        stay views of the wire buffers."""
+        each ``(n_shards, elems)``) into its leaves, as torch ops on the
+        current stream: slices, casts, an integer cumsum and bit shifts.
+        Raw slots stay views of the wire buffers."""
         st = self.staging
         scales = None
         if self.n_scales:
@@ -332,7 +353,9 @@ class ChunkCodec:
             elif enc.kind == "int8":
                 sc = scales[:, enc.scale_index:enc.scale_index + 1]
                 seg = seg.to(odt) * sc
-            leaves.append(seg.reshape(slot.shape))
+            leaves.append(seg.reshape(slot.shape) if st.n_shards == 1
+                          else seg.reshape((seg.shape[0],)
+                                           + slot.shard_shape))
         return _unflatten(st.treedef, leaves)
 
 

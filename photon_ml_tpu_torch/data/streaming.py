@@ -29,9 +29,14 @@ so the trainable size is bounded by host memory or disk, not by the card.
   buffers to ``.npy`` files and train from memmaps of them.
 - **Padding**: rows added to fill the last chunk carry weight 0, so every
   weighted reduction is unchanged.
-
-Sharded stores (``n_shards > 1``) are refused: they come with multi-device
-training (ROADMAP Queue 1 item 6).
+- **Sharded stores** (``n_shards = k``) keep the reference's chunk
+  arithmetic: ``chunk_rows`` rounds up to a multiple of k and shard s of
+  chunk c holds its rows ``[s·per_shard, (s+1)·per_shard)`` with
+  ``per_shard = chunk_rows // k``.  Each shard's part is a chunk of its
+  own (its own kernel layout with local row ids, its own staging plan), so
+  the SpMV kernels run on every part.  A store built for a rank of a
+  process group (``mesh``) holds and stages that rank's shard of every
+  chunk only; ``mesh=None`` holds all k parts (logical shards).
 """
 
 from __future__ import annotations
@@ -48,7 +53,6 @@ from photon_ml_tpu_torch.data.staging import (
     chunk_view,
     pack_chunk,
     plan_staging,
-    refuse_shards,
 )
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.ops.sparse import (
@@ -111,25 +115,50 @@ class StreamingGlmData:
     """A GLM dataset as a list of host chunks of ``chunk_rows`` rows each
     (the last one row-padded with weight 0).
 
-    ``staging[k]`` and ``staged[k]`` are chunk k's staging plan and its
-    dtype-segregated buffers; ``chunks[k].leaves`` are zero-copy views
-    into ``staged[k]``.  ``device`` is the device the layout was built for
-    (the kernel layout on CUDA, COO on the CPU)."""
+    ``chunks`` holds the PARTS this store keeps: one a chunk unsharded;
+    with ``n_shards = k``, the held shards' parts of every chunk in (chunk,
+    shard) order, each ``per_shard`` rows (:meth:`part_rows` says which
+    rows).  ``held`` lists the shards kept (None: all k, logical shards; a
+    process-group rank keeps its own).  ``staging[p]`` and ``staged[p]`` are
+    part p's staging plan and its dtype-segregated buffers;
+    ``chunks[p].leaves`` are zero-copy views into ``staged[p]``.
+    ``device`` is the device the layout was built for (the kernel layout on
+    CUDA, COO on the CPU).  ``row_block`` is the ``[start, stop)`` of a
+    global row space the store's rows are (a rank's ``host_local_rows``
+    under a group of several hosts), None when they are all of it."""
 
-    chunks: list  # list[HostChunk]
+    chunks: list  # list[HostChunk], one a held part
     n_rows: int  # real (unpadded) rows over all chunks
     n_features: int
     chunk_rows: int
     device: torch.device
-    staging: Optional[list] = None  # list[ChunkStaging], one per chunk
-    staged: Optional[list] = None  # per chunk: tuple of staging buffers
+    staging: Optional[list] = None  # list[ChunkStaging], one per part
+    staged: Optional[list] = None  # per part: tuple of staging buffers
     n_shards: int = 1
+    held: Optional[tuple] = None
+    row_block: Optional[tuple] = None
     _nonzero_offsets: Optional[bool] = dataclasses.field(
         default=None, repr=False, compare=False)
 
     @property
+    def held_shards(self) -> tuple:
+        return (tuple(range(self.n_shards)) if self.held is None
+                else tuple(self.held))
+
+    @property
+    def per_shard(self) -> int:
+        return self.chunk_rows // self.n_shards
+
+    @property
     def n_chunks(self) -> int:
-        return len(self.chunks)
+        return len(self.chunks) // len(self.held_shards)
+
+    def part_rows(self, p: int) -> tuple:
+        """(chunk, shard, first padded row) of part ``p``."""
+        held = self.held_shards
+        c, s = divmod(p, len(held))
+        s = held[s]
+        return c, s, c * self.chunk_rows + s * self.per_shard
 
     @property
     def kind(self) -> str:
@@ -221,6 +250,7 @@ def make_streaming_glm_data(
     n_shards: int = 1,
     storage_dir: Optional[str] = None,
     device=None,
+    mesh=None,
 ) -> StreamingGlmData:
     """Cut already-materialized host data into chunks: a wrapper over
     :func:`streaming_from_blocks` with the whole dataset as one block.
@@ -234,7 +264,7 @@ def make_streaming_glm_data(
         [(features, np.asarray(labels, np.float32), weights, offsets)],
         n_features=features.shape[1], chunk_rows=chunk_rows,
         use_kernel=use_kernel, n_shards=n_shards, storage_dir=storage_dir,
-        device=device,
+        device=device, mesh=mesh,
     )
 
 
@@ -273,11 +303,17 @@ def streaming_from_blocks(
     n_shards: int = 1,
     storage_dir: Optional[str] = None,
     device=None,
+    mesh=None,
 ) -> StreamingGlmData:
     """Build the chunk store from an iterator of ``(X, y[, w[, o]])``
     blocks, re-cut to ``chunk_rows`` boundaries as they arrive: each chunk's
     layout is built, staged (and, with ``storage_dir``, spilled) the moment
     it fills, and its raw rows are dropped.
+
+    ``n_shards = k > 1`` cuts every chunk into k shard parts (``chunk_rows``
+    rounded up to a multiple of k, as the reference does); under a process
+    group (``mesh``) k is the group's size and only this rank's part of
+    each chunk is built and kept.
 
     Blocks may be scipy sparse or numpy (the first block decides).
     ``use_kernel`` picks the sparse chunk layout as ``make_glm_data`` does:
@@ -286,9 +322,20 @@ def streaming_from_blocks(
     ``storage_dir`` must be empty or missing."""
     import scipy.sparse as sp
 
-    refuse_shards(n_shards)
     if chunk_rows <= 0:
         raise ValueError(f"chunk_rows must be positive, got {chunk_rows}")
+    held = None
+    if mesh is not None:
+        if n_shards not in (1, mesh.size):
+            raise ValueError(f"n_shards={n_shards} under a group of "
+                             f"{mesh.size} ranks")
+        n_shards, held = mesh.size, (mesh.rank,)
+    if n_shards < 1:
+        raise ValueError(f"n_shards must be >= 1, got {n_shards}")
+    if n_shards > 1 and chunk_rows % n_shards:
+        chunk_rows = -(-chunk_rows // n_shards) * n_shards
+    per_shard = chunk_rows // n_shards
+    parts = tuple(range(n_shards)) if held is None else held
     dev = resolve_device(device)
     if storage_dir is not None:
         os.makedirs(storage_dir, exist_ok=True)
@@ -311,20 +358,24 @@ def streaming_from_blocks(
     staged: list = []
 
     def finish(X, y, w, o) -> None:
-        chunk = _host_chunk(mode, X, y, w, o, chunk_rows, d)
-        plan = plan_staging(chunk.leaves)
-        bufs = pack_chunk(plan, chunk.leaves)
-        if storage_dir is not None:
-            spilled = []
-            for b, arr in enumerate(bufs):
-                path = os.path.join(storage_dir,
-                                    f"chunk{len(chunks)}_stage{b}.npy")
-                np.save(path, arr)
-                spilled.append(np.load(path, mmap_mode="r"))
-            bufs = tuple(spilled)
-        plans.append(plan)
-        staged.append(bufs)
-        chunks.append(_with_leaves(chunk, chunk_view(plan, bufs)))
+        c = len(chunks) // len(parts)
+        for sh in parts:
+            rows = slice(sh * per_shard, (sh + 1) * per_shard)
+            chunk = _host_chunk(mode, X[rows], y[rows], w[rows], o[rows],
+                                per_shard, d)
+            plan = plan_staging(chunk.leaves)
+            bufs = pack_chunk(plan, chunk.leaves)
+            if storage_dir is not None:
+                tag = f"chunk{c}" if n_shards == 1 else f"chunk{c}_shard{sh}"
+                spilled = []
+                for b, arr in enumerate(bufs):
+                    path = os.path.join(storage_dir, f"{tag}_stage{b}.npy")
+                    np.save(path, arr)
+                    spilled.append(np.load(path, mmap_mode="r"))
+                bufs = tuple(spilled)
+            plans.append(plan)
+            staged.append(bufs)
+            chunks.append(_with_leaves(chunk, chunk_view(plan, bufs)))
 
     def pop_rows(take: int):
         """Copy exactly ``take`` rows off the front of the buffer (a cursor
@@ -401,5 +452,6 @@ def streaming_from_blocks(
     drain(final=True)
     return StreamingGlmData(
         chunks=chunks, n_rows=n_rows, n_features=d, chunk_rows=chunk_rows,
-        device=dev, staging=plans, staged=staged,
+        device=dev, staging=plans, staged=staged, n_shards=n_shards,
+        held=held,
     )

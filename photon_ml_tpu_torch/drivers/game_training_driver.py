@@ -40,11 +40,15 @@ budget-bounded pass groups (with ``prefetch_depth`` and, plain,
 ``hot_budget_mb``).  A fixed effect's ``solver`` may name a host-kind
 solver (``admm``, ``block_cd``) with its knobs in ``solver_options``: it
 runs over logical row shards of a dense design.  ``--data-parallel auto``
-and a random effect's ``split_factor`` act only where a mesh forms, as in
-the reference: on one process they change nothing.  What the port does not
-run yet raises ``NotImplementedError`` naming its ROADMAP item
-(PyTorch/CUDA port, Queue 1): GAME over a process group of more than one
-rank (item 6c) and tuning mode (item 8).  ``--max-retries`` re-enters the fit
+and a random effect's ``split_factor`` act only where a group of more than
+one rank forms, as in the reference: on one process they change nothing.
+Over a group (``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``, or
+``PHOTON_MULTIHOST=1`` under ``torchrun``) every rank reads the same files
+and places only its own shards on its card (``game/estimator.py``: the
+reference's one-host mesh, the whole dataset in each process's RAM); rank
+0 writes the checkpoints, the model and the results.  Tuning mode raises
+``NotImplementedError`` naming its ROADMAP item (PyTorch/CUDA port, Queue 1
+item 8).  ``--max-retries`` re-enters the fit
 after a transient failure (``utils/watchdog.py``), resuming from the CD
 checkpoint (or, for a config grid, from the grid checkpoint), so a retry
 repeats no finished iteration or grid point.
@@ -299,8 +303,8 @@ def build_arg_parser() -> argparse.ArgumentParser:
         choices=["off", "auto"],
         default="off",
         help="auto: shard over the ranks of a torch.distributed process "
-        "group when one with more than one rank forms (GAME on a process "
-        "group is not ported yet); a single process trains as with off",
+        "group when one with more than one rank forms (one card a rank; "
+        "rank 0 writes the outputs); a single process trains as with off",
     )
     p.add_argument(
         "--pipeline-coordinates",
@@ -347,11 +351,29 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
 
     with PhotonLogger(args.output_dir) as logger, multihost.driver_group(
             logger, args.device) as world:
-        if args.data_parallel == "auto" and world > 1:
-            # The reference forms a mesh only over more than one device.
-            raise not_ported(f"--data-parallel auto over {world} ranks",
-                             "6c", "GAME on a mesh")
-        return _run_impl(args, logger)
+        # The reference forms a mesh only over more than one device.
+        mesh = (multihost.global_data_mesh()
+                if args.data_parallel == "auto" and world > 1 else None)
+        return _run_impl(args, logger, mesh)
+
+
+class _ReadOnly:
+    """A checkpointer for the ranks that do not write: reads through to the
+    one rank 0 writes, saves and clears nothing."""
+
+    def __init__(self, inner):
+        self._inner = inner
+
+    def __getattr__(self, name):
+        return getattr(self._inner, name)
+
+    def save(self, *args, **kwargs) -> None:
+        return None
+
+    save_point = save
+
+    def clear(self) -> None:
+        return None
 
 
 def _suite_from_config(config: dict, task: str) -> EvaluationSuite:
@@ -370,9 +392,13 @@ def _suite_from_config(config: dict, task: str) -> EvaluationSuite:
     return suite
 
 
-def _run_impl(args, logger) -> dict:
+def _run_impl(args, logger, mesh=None) -> dict:
     timer = Timer().start()
     device = resolve_device(args.device)
+    writer = mesh is None or mesh.rank == 0
+    if mesh is not None:
+        logger.info("data-parallel: rank %d of %d (%s)", mesh.rank,
+                    mesh.size, mesh.backend)
 
     with open(args.config) as f:
         config = json.load(f)
@@ -421,7 +447,7 @@ def _run_impl(args, logger) -> dict:
     )
 
     # Optional per-shard feature summaries (Avro artifacts).
-    if config.get("feature_summaries", False):
+    if config.get("feature_summaries", False) and writer:
         from photon_ml_tpu_torch.data.stats import summarize_host
         from photon_ml_tpu_torch.io.summary_store import save_feature_summary
 
@@ -474,11 +500,21 @@ def _run_impl(args, logger) -> dict:
         raise ValueError(
             '--resume requires checkpointing ("checkpoint": false is set '
             "in the config JSON)")
+    if mesh is not None:
+        # One rank keeps the checkpoints; every rank resumes from them, so
+        # no rank may read before rank 0 has cleared a stale one.
+        if not writer:
+            checkpointer = checkpointer and _ReadOnly(checkpointer)
+            grid_checkpointer = (grid_checkpointer
+                                 and _ReadOnly(grid_checkpointer))
+        import torch.distributed as dist
+
+        dist.barrier()
 
     estimator = GameEstimator(
         task, coordinate_configs, n_iterations=n_cd_iterations,
         logger=logger, device_metrics=args.device_metrics,
-        pipeline=args.pipeline_coordinates, device=device,
+        pipeline=args.pipeline_coordinates, device=device, mesh=mesh,
     )
     # A retry re-enters the fit, which resumes from the checkpoint: the CD
     # loop reloads it on entry, and the grid skips its finished points.
@@ -544,17 +580,21 @@ def _run_impl(args, logger) -> dict:
                     result["validation_metric"])
 
     save_timer = Timer().start()
-    save_game_model(model, index_maps,
-                    os.path.join(args.output_dir, "models"))
+    if writer:
+        save_game_model(model, index_maps,
+                        os.path.join(args.output_dir, "models"))
     stages["model save"] = save_timer.stop()
     if retry_stats.retries or retry_stats.failures:
         result["retry"] = retry_stats.snapshot()
     result["stage_seconds"] = {**stages, **estimator.stage_seconds}
     result["decoders"] = {k: v["decoder"] for k, v in decoders.items()}
+    if mesh is not None:
+        result["data_parallel"] = {"ranks": mesh.size, "rank": mesh.rank}
     result["wall_seconds"] = timer.stop()
-    with open(os.path.join(args.output_dir, "training_result.json"),
-              "w") as f:
-        json.dump(result, f, indent=2)
+    if writer:
+        with open(os.path.join(args.output_dir, "training_result.json"),
+                  "w") as f:
+            json.dump(result, f, indent=2)
     logger.info("GAME training done in %.2fs", result["wall_seconds"])
     return result
 

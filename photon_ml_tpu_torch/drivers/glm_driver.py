@@ -32,6 +32,9 @@ from ``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID`` (or
 ``PHOTON_MULTIHOST=1`` under ``torchrun``), each rank keeps its
 ``host_local_rows`` block of the training rows on its card, every
 objective evaluation is one all-reduce, and rank 0 writes the outputs.
+With ``--stream-chunk-rows`` each rank streams its shard of every chunk
+(one all-reduce a pass; ``--stream-chunk-fuse > 1`` and
+``--stream-hot-budget-mb`` are refused, as the reference refuses them).
 With one rank the flag changes nothing, as in the reference, which forms
 a mesh only over more than one device.  Telemetry, the ops plane and the
 compile cache come with ROADMAP Queue 1 item 8.
@@ -283,17 +286,15 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
 
     with PhotonLogger(args.output_dir) as logger, multihost.driver_group(
             logger, args.device) as world:
-        return _run_impl(args, logger, world)
+        # The reference forms a mesh only over more than one device.
+        mesh = (multihost.global_data_mesh()
+                if args.data_parallel == "auto" and world > 1 else None)
+        return _run_impl(args, logger, mesh)
 
 
 def _check_stream_flags(args, data_parallel: bool) -> bool:
     """The reference's guards on the ``--stream-*`` flags, before any
     ingest; returns whether the run streams."""
-    if data_parallel and args.stream_chunk_rows > 0:
-        from photon_ml_tpu_torch.game.coordinates import not_ported
-
-        raise not_ported("--stream-chunk-rows over a process group (a "
-                         "streamed mesh)", "6e", "the streamed mesh")
     if args.stream_storage_dir and args.stream_chunk_rows <= 0:
         # Ignoring the flag would train fully resident on exactly the
         # oversized dataset the flag exists for.
@@ -306,16 +307,26 @@ def _check_stream_flags(args, data_parallel: bool) -> bool:
             raise ValueError(f"{flag} must be >= 1, got {value}")
     if args.stream_hot_budget_mb < 0:
         raise ValueError("--stream-hot-budget-mb must be >= 0")
+    if args.stream_chunk_fuse > 1 and data_parallel:
+        # The objective would refuse it too, but only after the ingest.
+        raise ValueError(
+            "--stream-chunk-fuse > 1 is single-device only (a fused group "
+            "does not compose with the group's reduction)")
+    if args.stream_hot_budget_mb > 0 and data_parallel:
+        raise ValueError(
+            "--stream-hot-budget-mb > 0 is single-device only (a cached "
+            "chunk would pin one rank's shard across passes)")
     return args.stream_chunk_rows > 0
 
 
-def _run_impl(args, logger, world: int = 1) -> dict:
+def _run_impl(args, logger, mesh=None) -> dict:
+    """The driver's stages; ``mesh`` is the process group a
+    ``--data-parallel auto`` run trains over (None: one process)."""
     timer = Timer().start()
     device = resolve_device(args.device)
-    # The reference forms a mesh only over more than one device.
-    data_parallel = args.data_parallel == "auto" and world > 1
+    data_parallel = mesh is not None
     streaming = _check_stream_flags(args, data_parallel)
-    writer = not data_parallel or _rank() == 0
+    writer = not data_parallel or mesh.rank == 0
 
     # Stage 1: read ---------------------------------------------------------
     X_train, y_train = libsvm.read_libsvm(
@@ -470,7 +481,6 @@ def _run_impl(args, logger, world: int = 1) -> dict:
     sobj = None
     streaming_out = None
     if streaming:
-        from photon_ml_tpu_torch.data.streaming import make_streaming_glm_data
         from photon_ml_tpu_torch.optim.streaming import (
             StreamingObjective,
             ensure_streamable,
@@ -479,12 +489,9 @@ def _run_impl(args, logger, world: int = 1) -> dict:
         # Refuse an unstreamable config BEFORE the (possibly long) ingest.
         ensure_streamable(problem.config)
         build = Timer().start()
-        stream = make_streaming_glm_data(
-            X_train, y_train, chunk_rows=args.stream_chunk_rows,
-            storage_dir=args.stream_storage_dir, device=device,
-        )
+        stream = _build_stream(args, X_train, y_train, device, mesh, logger)
         sobj = StreamingObjective(
-            problem.objective, stream,
+            problem.objective, stream, mesh=mesh,
             prefetch_depth=args.stream_prefetch_depth,
             chunk_fuse=args.stream_chunk_fuse,
             compress=args.stream_compress,
@@ -531,7 +538,7 @@ def _run_impl(args, logger, world: int = 1) -> dict:
             )
         if data_parallel or host_solver:
             return _train_sharded(args, problem, X_train, y_train, device,
-                                  data_parallel, reg_weights, w0, l1_mask,
+                                  mesh, reg_weights, w0, l1_mask,
                                   solved_now, on_solved, logger)
         data = train_data if attempt == 0 else make_glm_data(
             X_train, y_train, device=device)
@@ -662,7 +669,7 @@ def _run_impl(args, logger, world: int = 1) -> dict:
         streaming_out["transfer"] = sobj.transfer_stats.snapshot()
         result["streaming"] = streaming_out
     if data_parallel:
-        result["data_parallel"] = {"ranks": world, "rank": _rank()}
+        result["data_parallel"] = {"ranks": mesh.size, "rank": mesh.rank}
     if report is not None and writer:
         jpath, hpath = report.save(args.output_dir)
         result["report"] = {"json": jpath, "html": hpath}
@@ -679,13 +686,39 @@ def _run_impl(args, logger, world: int = 1) -> dict:
     return result
 
 
-def _rank() -> int:
-    import torch.distributed as dist
+def _build_stream(args, X_train, y_train, device, mesh, logger):
+    """The chunk store a run streams: one card's whole store, or under a
+    group this rank's shard of every chunk (every rank read the same file;
+    the reference's one-host mesh) — over several hosts, a store of this
+    rank's ``host_local_rows`` alone."""
+    from photon_ml_tpu_torch.data.streaming import make_streaming_glm_data
+    from photon_ml_tpu_torch.parallel import multihost
 
-    return dist.get_rank()
+    kw = dict(chunk_rows=args.stream_chunk_rows,
+              storage_dir=args.stream_storage_dir, device=device)
+    if mesh is None:
+        return make_streaming_glm_data(X_train, y_train, **kw)
+    if args.stream_storage_dir:
+        # Ranks of one host would collide in one directory.
+        kw["storage_dir"] = os.path.join(args.stream_storage_dir,
+                                         f"rank{mesh.rank}")
+    if multihost.spans_hosts(mesh):
+        start, stop = multihost.host_local_rows(X_train.shape[0])
+        stream = make_streaming_glm_data(X_train[start:stop],
+                                         y_train[start:stop], **kw)
+        stream.row_block = (start, stop, X_train.shape[0])
+        logger.info("streamed data-parallel: rank %d of %d streams its "
+                    "host-local rows [%d, %d)", mesh.rank, mesh.size, start,
+                    stop)
+        return stream
+    stream = make_streaming_glm_data(X_train, y_train, mesh=mesh, **kw)
+    logger.info("streamed data-parallel: rank %d of %d streams shard %d of "
+                "each of %d chunks (%d rows a shard)", mesh.rank, mesh.size,
+                mesh.rank, stream.n_chunks, stream.per_shard)
+    return stream
 
 
-def _train_sharded(args, problem, X_train, y_train, device, data_parallel,
+def _train_sharded(args, problem, X_train, y_train, device, mesh,
                    reg_weights, w0, l1_mask, solved, on_solved, logger):
     """The grid over row shards: the process group's (each rank its
     ``host_local_rows`` block, every evaluation one all-reduce; host-kind
@@ -705,8 +738,7 @@ def _train_sharded(args, problem, X_train, y_train, device, data_parallel,
         X = np.asarray(X.todense(), np.float32)
         logger.info("block_cd: densified %d x %d design for column access",
                     X.shape[0], X.shape[1])
-    if data_parallel:
-        mesh = multihost.global_data_mesh()
+    if mesh is not None:
         start, stop = multihost.host_local_rows(X.shape[0])
         dist = shard_glm_data(X, y_train, mesh, device=device)
         logger.info("data-parallel: rank %d of %d holds rows [%d, %d) "

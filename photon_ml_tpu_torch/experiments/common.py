@@ -81,3 +81,45 @@ def describe(device: torch.device) -> str:
     if device.type == "cuda":
         return f"{torch.cuda.get_device_name(device)} (cuda)"
     return "cpu (plain PyTorch versions)"
+
+
+def game_multi_re_draw(entities: int = 100_000):
+    """``bench.py``'s ``bench_game_multi_re`` draw (seed 3; 646,253 rows
+    at the default ``entities``): a 512-wide fixed effect with 8 normal
+    values a row, per-user (zipf 1.8 rows a user, capped at 128), per-item
+    (a zipf 1.5 pool of entities / 5 items, capped at 512 rows an item)
+    and per-context (200 contexts, active cap 256: passive rows) random
+    effects, each 8 wide and dense; coin-flip labels.  Returns
+    (n, Xg, y, [(name, keys, Xe, cap)])."""
+    import numpy as np
+    import scipy.sparse as sp
+
+    row_cap, fixed_features, fixed_nnz, re_dim = 128, 512, 8, 8
+    rng = np.random.default_rng(3)
+    sizes = np.minimum(rng.zipf(1.8, entities), row_cap)
+    n = int(sizes.sum())
+    users = np.repeat(
+        np.array([f"u{i}" for i in range(entities)], dtype=object),
+        sizes)[rng.permutation(n)]
+    n_items = max(2, entities // 5)
+    item_sizes = np.minimum(rng.zipf(1.5, n_items), 4 * row_cap)
+    item_pool = np.repeat(
+        np.array([f"i{i}" for i in range(n_items)], dtype=object),
+        item_sizes)
+    items = item_pool[rng.integers(0, len(item_pool), size=n)]
+    ctx = np.array([f"c{rng.integers(200)}" for _ in range(n)],
+                   dtype=object)
+    nnzf = n * fixed_nnz
+    Xg = sp.csr_matrix(
+        (rng.normal(size=nnzf).astype(np.float32),
+         (np.repeat(np.arange(n, dtype=np.int64), fixed_nnz),
+          rng.integers(0, fixed_features, size=nnzf))),
+        shape=(n, fixed_features))
+    y = (rng.uniform(size=n) < 0.5).astype(np.float32)
+    effects = []
+    for name, keys, cap in (("per_user", users, None),
+                            ("per_item", items, None),
+                            ("per_context", ctx, 256)):
+        Xe = sp.csr_matrix(rng.normal(size=(n, re_dim)).astype(np.float32))
+        effects.append((name, keys, Xe, cap))
+    return n, Xg, y, effects

@@ -20,8 +20,17 @@ dataset.  Out of core: a fixed effect with ``streaming_chunk_rows > 0``
 streams a host chunk store (``game/streaming.py``), and a random effect
 with ``device_budget_bytes > 0`` streams a host dataset, cached apart from
 the resident one, in budget-bounded pass groups (``game/ooc_random.py``,
-``game/ooc_factored.py``).  A device mesh raises ``NotImplementedError``
-naming the ROADMAP item that brings it.
+``game/ooc_factored.py``).
+
+Over a process group (``mesh``, a ``DataGroup``: one rank a card) every
+rank builds the same host datasets and places only its own shards on its
+card: a resident fixed effect row-sharded (``game/distributed.py``), a
+streamed one from a store of this rank's shard of every chunk, a resident
+random effect placed by the bucket-shard plan (``game/hierarchical.py``,
+``split_factor`` its threshold), a factored one over everything-split
+lanes, an out-of-core one with its slices placed by the same plan.  Every
+rank ends each update with the coordinate's whole score vector, so every
+rank runs the same descent.
 """
 
 from __future__ import annotations
@@ -41,7 +50,6 @@ from photon_ml_tpu_torch.evaluation.evaluators import Evaluator
 from photon_ml_tpu_torch.game.coordinates import (
     FixedEffectCoordinate,
     RandomEffectCoordinate,
-    not_ported,
 )
 from photon_ml_tpu_torch.game.ooc_factored import (
     OutOfCoreFactoredRandomEffectCoordinate,
@@ -110,9 +118,9 @@ class RandomEffectCoordinateConfig:
     repack: str = "geometric"
     program_budget: int = 16
     repack_seed: int = 0
-    #: the mesh placement threshold of the reference (a bucket whose solve
-    #: cost is ≥ split_factor × the ideal per-device share splits over
-    #: the mesh); read only where a mesh forms, so ignored on one device.
+    #: the bucket placement threshold (a bucket whose solve cost is ≥
+    #: split_factor × the ideal per-rank share splits over the group); read
+    #: only where a group forms, so ignored on one device.
     split_factor: float = 0.5
     #: > 0 trains the coordinate OUT OF CORE: entity blocks stay in host RAM
     #: and stream through the card in pass groups bounded by this many
@@ -185,9 +193,7 @@ class GameEstimator:
         pipeline: bool = False,
         device=None,
     ):
-        if mesh is not None:
-            raise not_ported("multi-device GAME (a mesh)", "6c",
-                             "GAME on a mesh")
+        self.mesh = mesh
         self.task = losses_lib.get(task).name  # canonicalize aliases
         self.coordinate_configs = dict(coordinate_configs)
         self.device_metrics = device_metrics
@@ -258,6 +264,11 @@ class GameEstimator:
                 continue
             factored = isinstance(cfg, FactoredRandomEffectCoordinateConfig)
             ooc = cfg.device_budget_bytes > 0
+            if self.mesh is not None and not ooc:
+                coordinates.append(self._distributed_random(
+                    name, cfg, shard, ids, response, weight, cache, key,
+                    factored))
+                continue
             # The host dataset of the out-of-core path is cached apart from
             # the resident one.
             ds_key = ("ooc_ds",) + key if ooc else key
@@ -282,7 +293,7 @@ class GameEstimator:
             if ooc:
                 kw.update(device_budget_bytes=cfg.device_budget_bytes,
                           prefetch_depth=cfg.prefetch_depth,
-                          device=self.device)
+                          device=self.device, mesh=self.mesh)
             if factored:
                 cls = (OutOfCoreFactoredRandomEffectCoordinate if ooc
                        else FactoredRandomEffectCoordinate)
@@ -308,7 +319,9 @@ class GameEstimator:
 
     def _fixed(self, name, cfg, shard, response, weight, cache, key, n):
         """The fixed-effect coordinate of ``cfg``: streamed from a host
-        chunk store when ``streaming_chunk_rows > 0``, else resident."""
+        chunk store when ``streaming_chunk_rows > 0`` (over a group, this
+        rank's shard of every chunk), else resident (over a group,
+        row-sharded)."""
         dataset = cache.get(key)
         if cfg.streaming_chunk_rows > 0:
             if dataset is None:
@@ -317,18 +330,21 @@ class GameEstimator:
                         shard, response,
                         weights=self._train_weight(cfg, response, weight),
                         chunk_rows=cfg.streaming_chunk_rows,
-                        device=self.device,
+                        device=self.device, mesh=self.mesh,
                     )
                 cache[key] = dataset
             return StreamingFixedEffectCoordinate(
                 name, dataset, self.task, cfg.optimization, cfg.reg_weight,
-                feature_shard=cfg.feature_shard,
+                feature_shard=cfg.feature_shard, mesh=self.mesh,
                 prefetch_depth=cfg.prefetch_depth,
                 chunk_fuse=cfg.chunk_fuse,
                 batch_linesearch=cfg.batch_linesearch,
                 compress=cfg.stream_compress,
                 hot_budget_bytes=int(cfg.stream_hot_budget_mb * 1e6),
             )
+        if self.mesh is not None:
+            return self._distributed_fixed(name, cfg, shard, response,
+                                           weight, cache, key)
         if dataset is None:
             with self._stage("fixed-effect dataset build"):
                 data = make_glm_data(
@@ -342,6 +358,98 @@ class GameEstimator:
             name, dataset, self.task, cfg.optimization, cfg.reg_weight,
             feature_shard=cfg.feature_shard,
         )
+
+    def _distributed_fixed(self, name, cfg, shard, response, weight, cache,
+                           key):
+        """The row-sharded fixed effect.  Grid points sharing the dataset
+        and the optimizer config reuse the coordinate (a shallow copy with
+        its own name and ``reg_weight``); the sharded dataset is cached
+        apart, so a config change never re-shards or re-uploads the
+        matrix."""
+        import copy
+
+        from photon_ml_tpu_torch.game.distributed import (
+            DistributedFixedEffectCoordinate,
+        )
+
+        cached = cache.get(("dist",) + key)
+        if cached is not None and cached[0] == cfg.optimization:
+            coord = copy.copy(cached[1])
+            coord.name = name
+            coord.reg_weight = cfg.reg_weight
+            return coord
+        dist = cache.get(("dist_ds",) + key)
+        with self._stage("fixed-effect dataset build"):
+            coord = DistributedFixedEffectCoordinate(
+                name, shard, np.asarray(response, np.float32), self.mesh,
+                self.task, cfg.optimization, cfg.reg_weight,
+                feature_shard=cfg.feature_shard,
+                # The (down-sampled) weights matter only for a new shard.
+                weights=(None if dist is not None
+                         else self._train_weight(cfg, response, weight)),
+                dist=dist, device=self.device)
+        cache[("dist_ds",) + key] = coord.dist
+        cache[("dist",) + key] = (cfg.optimization, coord)
+        return coord
+
+    def _distributed_random(self, name, cfg, shard, ids, response, weight,
+                            cache, key, factored: bool):
+        """A random effect over the group: plain through the bucket-shard
+        plan (big buckets split, the tail packed whole onto ranks; reads
+        ``split_factor``), factored over everything-split lanes.  The same
+        reuse rules as :meth:`_distributed_fixed`: the entity grouping is
+        cached apart from the config, so a config change re-places blocks
+        but never re-groups entities."""
+        import copy
+
+        from photon_ml_tpu_torch.game.distributed import (
+            entity_sharded_factored_coordinate,
+        )
+        from photon_ml_tpu_torch.game.hierarchical import (
+            ShardedBucketRandomEffectCoordinate,
+        )
+
+        sig = ((cfg.optimization, cfg.rank, cfg.alternations) if factored
+               else (cfg.optimization, cfg.split_factor))
+        cache_key = ("dist", factored) + key
+        cached = cache.get(cache_key)
+        if cached is not None and cached[0] == sig:
+            coord = copy.copy(cached[1])
+            coord.name = name
+            coord.reg_weight = cfg.reg_weight
+            if factored:
+                coord.projection_reg_weight = (
+                    cfg.reg_weight if cfg.projection_reg_weight is None
+                    else cfg.projection_reg_weight)
+            return coord
+        ds_key = ("dist_ds",) + key
+        dataset = cache.get(ds_key)
+        if dataset is None:
+            with self._stage("random-effect bucket build"):
+                dataset = build_random_effect_dataset(
+                    ids[cfg.entity_key], shard,
+                    np.asarray(response, np.float32), weight,
+                    max_rows_per_entity=cfg.max_rows_per_entity,
+                    bucket_growth=cfg.bucket_growth, repack=cfg.repack,
+                    program_budget=cfg.program_budget,
+                    repack_seed=cfg.repack_seed,
+                    device=False,  # the coordinate places its own lanes
+                )
+            cache[ds_key] = dataset
+        kw = dict(feature_shard=cfg.feature_shard, entity_key=cfg.entity_key,
+                  device=self.device)
+        if factored:
+            coord = entity_sharded_factored_coordinate(
+                name, dataset, self.mesh, self.task, cfg.optimization,
+                rank=cfg.rank, reg_weight=cfg.reg_weight,
+                projection_reg_weight=cfg.projection_reg_weight,
+                alternations=cfg.alternations, **kw)
+        else:
+            coord = ShardedBucketRandomEffectCoordinate(
+                name, dataset, self.mesh, self.task, cfg.optimization,
+                cfg.reg_weight, split_factor=cfg.split_factor, **kw)
+        cache[cache_key] = (sig, coord)
+        return coord
 
     def _train_weight(self, cfg, response, weight):
         """The fixed effect's training weights, down-sampled on a cache
@@ -420,9 +528,8 @@ class GameEstimator:
                 w = (means.detach().cpu().numpy()
                      if isinstance(means, torch.Tensor) else np.asarray(means))
                 w = w.astype(np.float32)
-                width = (c.n_features if isinstance(
-                    c, StreamingFixedEffectCoordinate)
-                    else c.dataset.data.n_features)
+                width = (c.dataset.data.n_features
+                         if hasattr(c, "dataset") else c.n_features)
                 if w.shape[0] != width:
                     raise ValueError(
                         f"initial model coordinate {c.name!r} has "
@@ -444,8 +551,11 @@ class GameEstimator:
                     )
                 # Host arrays; each coordinate places them as it keeps its
                 # state (out-of-core coordinates keep them on the host).
+                # (A sharded coordinate's padding lanes past the ids are
+                # placed as zeros.)
                 states[c.name] = c.place_state([
-                    sub.coefficient_matrix_for(to_numpy(block.col_map), ids)
+                    sub.coefficient_matrix_for(
+                        to_numpy(block.col_map)[:len(ids)], ids)
                     for block, ids in zip(c.dataset.blocks,
                                           c.dataset.entity_ids)
                 ], self.device)

@@ -117,6 +117,15 @@ class SortedSegmentSum:
         return torch.cat([a, a.new_zeros((1,) + a.shape[1:])])[final]
 
 
+def _grad_sum(col_maps, n_features: int, device) -> SortedSegmentSum:
+    """The projection gradient's column sum over blocks' lanes (their
+    ``(E, D)`` column maps, tensors or arrays, in order)."""
+    index = [to_numpy(c).reshape(-1) for c in col_maps]
+    return SortedSegmentSum(
+        np.concatenate(index) if index else np.zeros(0, np.int64),
+        n_features, device=device)
+
+
 def _gather_v(V: Tensor, cmap: Tensor) -> Tensor:
     """Per-lane rows of V in the block's LOCAL column space: (E, D, rank).
     Padding columns (cmap == -1) read as zero rows."""
@@ -191,13 +200,14 @@ class FactoredRandomEffectCoordinate(Coordinate):
             np.random.default_rng(seed).normal(
                 size=(dataset.n_features, self.rank))
             / np.sqrt(max(self.rank, 1))).astype(np.float32), device=dev)
-        # Every (bucket, lane, local column) term of the projection
-        # gradient → its global column, summed in one fixed order.
-        index = [b.col_map.reshape(-1).cpu().numpy() for b in dataset.blocks]
-        self._grad_sum = SortedSegmentSum(
-            np.concatenate(index) if index else np.zeros(0, np.int64),
-            dataset.n_features, device=dev)
+        self._grad_sum = self._whole_grad_sum()
         self.last_train: Optional[dict] = None
+
+    def _whole_grad_sum(self) -> Optional[SortedSegmentSum]:
+        """Every (bucket, lane, local column) term of the projection
+        gradient → its global column, summed in one fixed order."""
+        return _grad_sum([b.col_map for b in self.dataset.blocks],
+                         self.dataset.n_features, self.device)
 
     @property
     def device(self) -> Optional[torch.device]:
@@ -335,3 +345,163 @@ def finalize_factored_model(coord, state) -> RandomEffectModel:
         n_features=coord.dataset.n_features,
         variances=None,
     )
+
+
+class ShardedFactoredRandomEffectCoordinate(FactoredRandomEffectCoordinate):
+    """The factored random effect over entity-sharded lanes (port of the
+    reference's ``entity_sharded_factored_coordinate``): every block is
+    split over the group (the reference's everything-split layout), each
+    rank solves the latent step of its own lanes and sums its own lanes'
+    projection terms; the projection step's value and float64 gradient are
+    the ranks' partial sums added in rank order (one all-gather an
+    evaluation, ``DataGroup.gather_sum``), so every rank takes the same
+    L-BFGS steps over V and a group of k ranks gives the bits of k logical
+    shards (``mesh=None, n_shards=k``).  ``self.dataset`` is the padded
+    host dataset; the state is ``(u_list, V)`` with every block's whole
+    padded ``(E, rank)`` latents on every rank."""
+
+    def __init__(self, name: str, dataset: RandomEffectDataset, mesh,
+                 task: str, config: GlmOptimizationConfig, rank: int,
+                 reg_weight: float = 0.0,
+                 projection_reg_weight: Optional[float] = None,
+                 alternations: int = 2, feature_shard: str = "global",
+                 entity_key: str = "", seed: int = 0,
+                 n_shards: Optional[int] = None, device=None):
+        from photon_ml_tpu_torch.device import resolve_device
+        from photon_ml_tpu_torch.game.distributed import (
+            _device_block,
+            held_shards,
+            lane_parts,
+            shard_count,
+            shard_dataset_entities,
+        )
+
+        k = shard_count(mesh, n_shards)
+        self._device = resolve_device(device)
+        padded = shard_dataset_entities(dataset, k)
+        super().__init__(name, padded, task, config, rank,
+                         reg_weight=reg_weight,
+                         projection_reg_weight=projection_reg_weight,
+                         alternations=alternations,
+                         feature_shard=feature_shard, entity_key=entity_key,
+                         seed=seed)
+        self.mesh, self.n_shards = mesh, k
+        split = [("split",)] * len(padded.blocks)
+        self._parts_of = {s: lane_parts(padded.blocks, split, k, [s])
+                          for s in range(k)}
+        self._held = held_shards(mesh, k)
+        self._parts = [p for s in self._held for p in self._parts_of[s]]
+        passive = padded.passive_blocks or [None] * len(padded.blocks)
+        dev = self._device
+        self._local = [
+            (_device_block(padded.blocks[p.block_idx], p.lane_lo, p.lane_hi,
+                           dev),
+             None if passive[p.block_idx] is None else _device_block(
+                 passive[p.block_idx], p.lane_lo, p.lane_hi, dev))
+            for p in self._parts]
+        self._grad_sums = {
+            s: _grad_sum([b.col_map for (b, _), p in zip(self._local,
+                                                         self._parts)
+                          if p.shard == s], padded.n_features, dev)
+            for s in self._held}
+
+    @property
+    def device(self):
+        return self._device
+
+    def _whole_grad_sum(self) -> None:
+        """None: a rank sums only its held shards' lanes (``_grad_sums``),
+        so no table over the whole dataset reaches its card."""
+        return None
+
+    def _own(self, offsets, u_list, V):
+        offsets = torch.as_tensor(offsets, dtype=torch.float32,
+                                  device=self._device)
+        offs = [_gather_block_offsets(offsets, b) for b, _ in self._local]
+        u = [torch.zeros((p.lane_hi - p.lane_lo, self.rank),
+                         dtype=torch.float32, device=self._device)
+             if u_list is None else u_list[p.block_idx][p.lane_lo:p.lane_hi]
+             for p in self._parts]
+        return offs, u
+
+    def latent_step(self, offs: list, u_list: list, V: Tensor):
+        """The latent step of this process's lanes (``u_list`` a part)."""
+        l1, l2, _ = self._reg()
+        items = [(_project_block(b, V, self.rank), off, u)
+                 for (b, _), off, u in zip(self._local, offs, u_list)]
+        return self._solver.solve_all(items, l1, l2)
+
+    def projection_value_grad(self, vflat: Tensor, offs: list,
+                              u_list: list):
+        from photon_ml_tpu_torch.parallel.distributed import sum_shards
+
+        _, _, l2v = self._reg()
+        nf = self.dataset.n_features
+        V = vflat.view(nf, self.rank)
+        payloads = []
+        for s in self._held:
+            val = torch.zeros((), dtype=torch.float64, device=V.device)
+            parts = []
+            for (block, _), p, off, u in zip(self._local, self._parts, offs,
+                                             u_list):
+                if p.shard != s:
+                    continue
+                m = _rowdot(block.X, _materialize(V, block.col_map, u)) + off
+                val = val + (block.weights * self.loss.value(
+                    m, block.labels)).double().sum()
+                dm = block.weights * self.loss.d1(m, block.labels)
+                g_local = _coldot(dm, block.X)[:, :, None] * u[:, None, :]
+                parts.append(g_local.reshape(-1, self.rank))
+            g = (self._grad_sums[s](torch.cat(parts).double()) if parts
+                 else torch.zeros((nf, self.rank), dtype=torch.float64,
+                                  device=V.device))
+            payloads.append(torch.cat([val.reshape(1), g.reshape(-1)]))
+        tot = sum_shards(payloads, self.mesh)
+        v64 = vflat.double()
+        value = 0.5 * l2v * torch.dot(v64, v64) + tot[0]
+        g = tot[1:].view(nf, self.rank).to(V.dtype) + l2v * V
+        return value, g.reshape(-1)
+
+    def train(self, offsets: Tensor, warm_state=None):
+        from photon_ml_tpu_torch.game.distributed import place_lanes
+
+        u_full, V = (None, self._v0) if warm_state is None else warm_state
+        offs, u = self._own(offsets, u_full, V)
+        record = {"latent": [], "projection": [], "latent_s": [],
+                  "projection_s": []}
+        for _ in range(self.alternations):
+            t0 = time.perf_counter()
+            u, stats = self.latent_step(offs, u, V)
+            t1 = time.perf_counter()
+            V, res = self.projection_step(offs, u, V)
+            record["latent"].append(stats)
+            record["projection"].append(res)
+            record["latent_s"].append(t1 - t0)
+            record["projection_s"].append(time.perf_counter() - t1)
+        self.last_train = record
+        shapes = [(b.n_entities, self.rank) for b in self.dataset.blocks]
+        u_full = place_lanes(shapes, self._parts_of,
+                             dict(zip(self._parts, u)), self.mesh,
+                             self._device)
+        return u_full, V
+
+    def score(self, state) -> Tensor:
+        u_full, V = state
+        n = self.dataset.n_global_rows
+        total = torch.zeros(n + 1, dtype=torch.float32, device=self._device)
+        for (block, passive), p in zip(self._local, self._parts):
+            w = _materialize(V, block.col_map,
+                             u_full[p.block_idx][p.lane_lo:p.lane_hi])
+            for b in (block, passive):
+                if b is not None:
+                    s = _rowdot(b.X, w) + 0.0
+                    total.index_put_((b.row_index.reshape(-1).long(),),
+                                     s.reshape(-1))
+        total = total[:n].contiguous()
+        return total if self.mesh is None else self.mesh.sum_scores(total)
+
+    def materialize(self, state) -> list[Tensor]:
+        u_list, V = state
+        return [_materialize(V, torch.as_tensor(np.asarray(b.col_map),
+                                                device=self._device), u)
+                for b, u in zip(self.dataset.blocks, u_list)]

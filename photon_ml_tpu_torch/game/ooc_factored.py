@@ -80,6 +80,11 @@ class OutOfCoreFactoredRandomEffectCoordinate(OutOfCoreRandomEffectCoordinate):
     host reads, projection-step ``SolveResult`` and both steps'
     seconds."""
 
+    # The projection step threads one (V, gradient) accumulator through
+    # every part of a pass, so every block stays split over a group (the
+    # reference's everything-split layout).
+    _supports_packed = False
+
     def prestage(self, warm_state=None) -> None:
         # The factored train streams its own payloads, not the base class's
         # (block, w0) slices: nothing to stage.
@@ -102,6 +107,7 @@ class OutOfCoreFactoredRandomEffectCoordinate(OutOfCoreRandomEffectCoordinate):
         seed: int = 0,
         prefetch_depth: int = 2,
         device=None,
+        n_shards: Optional[int] = None,
     ):
         if rank < 1:
             raise ValueError(f"rank must be >= 1, got {rank}")
@@ -112,7 +118,7 @@ class OutOfCoreFactoredRandomEffectCoordinate(OutOfCoreRandomEffectCoordinate):
             name, dataset, task, config, reg_weight=reg_weight,
             feature_shard=feature_shard, entity_key=entity_key,
             device_budget_bytes=device_budget_bytes, mesh=mesh,
-            prefetch_depth=prefetch_depth, device=device,
+            prefetch_depth=prefetch_depth, device=device, n_shards=n_shards,
         )
         self.loss = losses_lib.get(self.task)
         self.projection_reg_weight = (
@@ -250,20 +256,25 @@ class OutOfCoreFactoredRandomEffectCoordinate(OutOfCoreRandomEffectCoordinate):
         """The objective in vec(V) with every latent fixed and its gradient,
         as one pass: the data terms accumulate slice by slice in plan
         order, each slice's gradient through its deterministic column
-        sum."""
+        sum.  Over shards each shard accumulates its own parts, and the
+        shards' sums are added in shard order (over a group, one
+        all-gather: ``DataGroup.gather_sum``)."""
         _, _, l2v = self._reg3()
         nf, rank = self._n_features, self.rank
         Vm = vflat.view(nf, rank)
-        acc = {"val": torch.zeros((), dtype=torch.float64,
-                                  device=self.device),
-               "g": torch.zeros((nf, rank), dtype=torch.float64,
-                                device=self.device)}
+        # One (value, gradient) accumulator a held shard.
+        accs = {r: {"val": torch.zeros((), dtype=torch.float64,
+                                       device=self.device),
+                    "g": torch.zeros((nf, rank), dtype=torch.float64,
+                                     device=self.device)}
+                for r in self._held}
 
         n = len(EntityBlock.LEAVES)
 
         def consume(gi, tensors):
             pos = 0
             for s in self.pass_plan[gi]:
+                acc = accs[s.shard]
                 k = len(self._grad_tables[s][1])
                 like = dataclasses.replace(self.dataset.blocks[s.block_idx],
                                            n_entities=s.padded_e)
@@ -286,8 +297,18 @@ class OutOfCoreFactoredRandomEffectCoordinate(OutOfCoreRandomEffectCoordinate):
 
         self._run_groups(self._host_group(u_list, projection=True), consume)
         v64 = vflat.double()
-        return (acc["val"] + 0.5 * l2v * torch.dot(v64, v64),
-                (acc["g"].to(Vm.dtype) + l2v * Vm).reshape(-1))
+        if self.mesh is None and len(self._held) == 1:
+            acc = accs[self._held[0]]
+            val, g = acc["val"], acc["g"]
+        else:
+            from photon_ml_tpu_torch.parallel.distributed import sum_shards
+
+            tot = sum_shards([torch.cat([accs[r]["val"].reshape(1),
+                                         accs[r]["g"].reshape(-1)])
+                              for r in self._held], self.mesh)
+            val, g = tot[0], tot[1:].view(nf, rank)
+        return (val + 0.5 * l2v * torch.dot(v64, v64),
+                (g.to(Vm.dtype) + l2v * Vm).reshape(-1))
 
     def projection_step(self, padded: Tensor, u_list: list, V: Tensor):
         """One L-BFGS over vec(V), one pass an evaluation.  Returns (V,
@@ -319,7 +340,7 @@ class OutOfCoreFactoredRandomEffectCoordinate(OutOfCoreRandomEffectCoordinate):
             record["latent_s"].append(t1 - t0)
             record["projection_s"].append(time.perf_counter() - t1)
         self.last_train = record
-        return u_list, V
+        return self._exchange(u_list), V
 
     def _slice_leaves(self, s) -> tuple:
         return _slice_block(self.dataset.blocks[s.block_idx], s.lane_lo,
@@ -360,7 +381,7 @@ class OutOfCoreFactoredRandomEffectCoordinate(OutOfCoreRandomEffectCoordinate):
                                      sc.reshape(-1))
 
         self._run_groups(host_group, consume)
-        return total[:sentinel]
+        return self._sum_scores(total)
 
     def materialize(self, state) -> list[np.ndarray]:
         """Per-bucket dense local coefficients ``w_e = V u_e``, computed
@@ -370,7 +391,7 @@ class OutOfCoreFactoredRandomEffectCoordinate(OutOfCoreRandomEffectCoordinate):
         V = _v_on(V, self.device)
         out = [np.zeros((b.n_entities, b.block_dim), np.float32)
                for b in self.dataset.blocks]
-        for group in self.pass_plan:
+        for group in self.slice_plan:
             for s in group:
                 lo, hi, e = s.lane_lo, s.lane_hi, s.padded_e
                 cmap = torch.as_tensor(np.ascontiguousarray(_cut(

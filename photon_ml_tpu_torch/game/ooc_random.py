@@ -35,12 +35,22 @@ disk-spilled (memmap) dataset: the same programs run on the same slices in
 the same order.  Across plans (another budget, or the resident coordinate)
 a lane's reductions may split differently, so those agree to tolerance.
 
-Not ported: a device mesh and its ``plan_bucket_shards`` placements
-(ROADMAP Queue 1 item 6c, GAME on a mesh; ``split_factor``, their
-threshold, is accepted and ignored without one, as in the reference), and
-the
-reference's telemetry gauge and counter and its ``game.bucket_shard``
-chaos site (item 8).
+**Over a process group** (``mesh``; or ``n_shards`` logical shards in
+one process) the blocks are placed by ``game/hierarchical.py``'s
+:func:`plan_bucket_shards` (``split_factor`` its threshold) and the slices
+inherit their block's placement, as in the reference: a split slice's
+padded lanes (a multiple of the group size) divide over the ranks in
+contiguous runs, a packed slice is streamed only by its rank.
+``slice_plan`` is the reference's plan; ``pass_plan`` holds the parts this
+process streams (a part is a slice of its own: a rank's lanes of a split
+slice, or a whole packed slice), each group's parts in one lockstep.
+After a train pass the ranks' lanes are exchanged in one all-gather so
+every rank holds the whole host state; a score is each rank's scatter of
+its own parts summed over the group.  The reference's single-host guard is
+kept: a group that spans more than one host is refused.
+
+Not ported: the reference's telemetry gauge and counter and its
+``game.bucket_shard`` chaos site (ROADMAP Queue 1 item 8).
 """
 
 from __future__ import annotations
@@ -63,9 +73,14 @@ from photon_ml_tpu_torch.game.coordinates import (
     RandomEffectCoordinate,
     _coldot,
     _rowdot,
-    not_ported,
 )
 from photon_ml_tpu_torch.game.data import EntityBlock, RandomEffectDataset
+from photon_ml_tpu_torch.game.distributed import (
+    exchange_lanes,
+    held_shards,
+    shard_count,
+)
+from photon_ml_tpu_torch.game.hierarchical import plan_bucket_shards
 from photon_ml_tpu_torch.ops import losses as losses_lib
 from photon_ml_tpu_torch.optim.problem import GlmOptimizationConfig
 from photon_ml_tpu_torch.optim.streaming import HotChunkCache
@@ -77,8 +92,8 @@ Tensor = torch.Tensor
 class _Slice:
     """One schedulable unit: lanes [lane_lo, lane_hi) of block
     ``block_idx``, padded to ``padded_e`` entities (one count for every
-    slice of a block).  ``placement`` is the reference's mesh placement;
-    without a mesh it is always ``("split",)``."""
+    slice of a block).  ``placement`` is the block's placement over a group
+    (``("split",)`` without one)."""
 
     block_idx: int
     lane_lo: int
@@ -86,6 +101,7 @@ class _Slice:
     padded_e: int
     bytes: int
     placement: tuple = ("split",)
+    shard: int = 0  # the shard that streams it (a part of a slice)
 
 
 def _lane_bytes(block: EntityBlock, passive: Optional[EntityBlock]) -> int:
@@ -195,16 +211,26 @@ class OutOfCoreRandomEffectCoordinate(RandomEffectCoordinate):
         split_factor: float = 0.5,
         hot_budget_bytes: int = 0,
         device=None,
+        n_shards: Optional[int] = None,
     ):
-        if mesh is not None:
-            raise not_ported("out-of-core random effects on a mesh", "6c",
-                             "GAME on a mesh")
         if not 0.0 < split_factor <= 1.0:
             raise ValueError(
                 f"split_factor must lie in (0, 1], got {split_factor!r}")
-        # The mesh bucket placement's threshold: with no mesh there is no
+        if mesh is not None:
+            from photon_ml_tpu_torch.parallel.multihost import spans_hosts
+
+            if spans_hosts(mesh):
+                raise NotImplementedError(
+                    "out-of-core random effects are single-host: entity "
+                    "blocks live in one process's RAM, and a group that "
+                    "spans more than one host is refused")
+        # The bucket placement's threshold: with one shard there is no
         # placement, and the reference ignores it as the port does.
         self.split_factor = float(split_factor)
+        self.mesh = mesh
+        self.n_shards = (1 if mesh is None and n_shards is None
+                         else shard_count(mesh, n_shards))
+        self._held = held_shards(mesh, self.n_shards)
         super().__init__(name, dataset, task, config, reg_weight,
                          feature_shard=feature_shard, entity_key=entity_key)
         self.device_budget_bytes = int(device_budget_bytes)
@@ -218,7 +244,18 @@ class OutOfCoreRandomEffectCoordinate(RandomEffectCoordinate):
                 p for p in dataset.passive_blocks if p is not None]:
             for leaf in b.leaves():
                 _host_leaf(leaf)
-        self.pass_plan = self._build_plan()
+        k = self.n_shards
+        self.bucket_plan = (
+            plan_bucket_shards(dataset.blocks, k, split_factor=split_factor)
+            if k > 1 and self._supports_packed else None)
+        self.slice_plan = self._build_plan()
+        # Each shard's parts, group by group (aligned with slice_plan).
+        self._parts_of = {r: [self._parts(group, r)
+                              for group in self.slice_plan]
+                          for r in range(k)}
+        self.pass_plan = [g for g in (
+            [p for r in self._held for p in self._parts_of[r][gi]]
+            for gi in range(len(self.slice_plan))) if g]
         #: high-water mark of pass groups with live device buffers in the
         #: latest pass: the bounded-memory witness (≤ prefetch_depth).
         self.live_groups_high_water = 0
@@ -262,6 +299,33 @@ class OutOfCoreRandomEffectCoordinate(RandomEffectCoordinate):
 
     # -- pass planning -----------------------------------------------------
 
+    #: Whether blocks may pack whole onto one shard (the factored
+    #: coordinate keeps every block split, as the reference does).
+    _supports_packed = True
+
+    def _placement(self, bi: int) -> tuple:
+        return (("split",) if self.bucket_plan is None
+                else self.bucket_plan.placements[bi])
+
+    def _parts(self, group, r: int) -> list:
+        """The parts of ``group``'s slices shard ``r`` streams: its
+        contiguous run of a split slice's padded lanes (real lanes first,
+        then padding), or a slice packed onto it whole."""
+        out = []
+        k = self.n_shards
+        for s in group:
+            if s.placement[0] == "pack":
+                if s.placement[1] == r:
+                    out.append(dataclasses.replace(s, shard=r))
+                continue
+            per = s.padded_e // k
+            lo = min(s.lane_lo + r * per, s.lane_hi)
+            hi = min(s.lane_lo + (r + 1) * per, s.lane_hi)
+            per_lane = s.bytes // s.padded_e
+            out.append(_Slice(s.block_idx, lo, hi, per, per_lane * per,
+                              s.placement, r))
+        return out
+
     def _build_plan(self) -> list[list[_Slice]]:
         """Split blocks along the entity axis and pack slices into groups:
         each block is cut into ``n_parts`` slices of one padded lane count
@@ -280,10 +344,14 @@ class OutOfCoreRandomEffectCoordinate(RandomEffectCoordinate):
         plan: list[list[_Slice]] = []
         group: list[_Slice] = []
         group_bytes = 0
-        q = 1  # the lane quantum: one lane a slice without a mesh
         for bi, block in enumerate(self.dataset.blocks):
             passive = (self.dataset.passive_blocks[bi]
                        if self.dataset.passive_blocks else None)
+            # The lane quantum: a split slice needs one lane a shard; a
+            # packed (or unsharded) slice runs whole on one.
+            placement = self._placement(bi)
+            q = (self.n_shards if self.n_shards > 1
+                 and placement[0] == "split" else 1)
             per_lane = (_lane_bytes(block, passive)
                         + self._extra_lane_bytes(block))
             e = block.n_entities
@@ -305,7 +373,7 @@ class OutOfCoreRandomEffectCoordinate(RandomEffectCoordinate):
             sub_e = ((sub_e + q - 1) // q) * q
             for lo in range(0, e, sub_e):
                 hi = min(lo + sub_e, e)
-                s = _Slice(bi, lo, hi, sub_e, per_lane * sub_e)
+                s = _Slice(bi, lo, hi, sub_e, per_lane * sub_e, placement)
                 if group and group_bytes + s.bytes > budget:
                     plan.append(group)
                     group, group_bytes = [], 0
@@ -562,7 +630,24 @@ class OutOfCoreRandomEffectCoordinate(RandomEffectCoordinate):
         self.last_solve = {"bodies": bodies, "host_reads": reads[0],
                            "groups": len(self.pass_plan),
                            "slices": sum(map(len, self.pass_plan))}
+        return self._exchange(state)
+
+    def _exchange(self, state: list) -> list:
+        """Every rank's solved lanes into every rank's host state (one
+        all-gather); logical shards wrote them all already."""
+        if self.mesh is not None:
+            exchange_lanes(state, {
+                r: [p for g in groups for p in g if p.lane_hi > p.lane_lo]
+                for r, groups in self._parts_of.items()},
+                self.mesh, self._device)
         return state
+
+    def _sum_scores(self, total: Tensor) -> Tensor:
+        """This process's scatter of its parts → the whole score vector."""
+        total = total[:self.dataset.n_global_rows]
+        if self.mesh is None:
+            return total
+        return self.mesh.sum_scores(total.contiguous())
 
     def _probe_hot(self, kind: str) -> dict:
         """Resident static payloads by group for this pass: one cache probe
@@ -624,7 +709,7 @@ class OutOfCoreRandomEffectCoordinate(RandomEffectCoordinate):
                                             self._hot_bytes[("score", gi)])
 
         self._run_groups(host_group, consume)
-        return total[:sentinel]
+        return self._sum_scores(total)
 
     def _block_variances(self, block: EntityBlock, coefs, offsets):
         """Budget-bounded variances: the resident version moves the WHOLE
@@ -632,7 +717,7 @@ class OutOfCoreRandomEffectCoordinate(RandomEffectCoordinate):
         one moves the plan's slices of the block, one at a time."""
         bi = next(i for i, b in enumerate(self.dataset.blocks)
                   if b is block)
-        sub_e = next(s.padded_e for group in self.pass_plan for s in group
+        sub_e = next(s.padded_e for group in self.slice_plan for s in group
                      if s.block_idx == bi)
         sentinel = self.dataset.n_global_rows
         loss = losses_lib.get(self.task)

@@ -15,8 +15,13 @@ reference keeps separate streamed solvers only because its resident ones
 cannot call host code.  Scores stream back chunk by chunk.
 
 The chunks must carry ZERO offsets: in GAME the base offsets ride the
-coordinate-descent total, so chunk offsets would count twice.  A mesh is
-refused (ROADMAP Queue 1 item 6).
+coordinate-descent total, so chunk offsets would count twice.
+
+Over a process group (``mesh``) the store is this rank's shard of every
+chunk (``make_streaming_glm_data(..., mesh=)``): each pass ends in one
+all-reduce, every rank runs the same solve, the offsets arrive as the full
+n-row vector every rank holds and are cut to the rank's rows, and the
+scores come back whole on every rank (an all-gather).
 """
 
 from __future__ import annotations
@@ -36,7 +41,6 @@ from photon_ml_tpu_torch.optim.streaming import (
     StorePasses,
     StreamingObjective,
     ensure_streamable,
-    refuse_mesh,
 )
 
 Tensor = torch.Tensor
@@ -72,7 +76,6 @@ class StreamingFixedEffectCoordinate(Coordinate):
         hot_budget_bytes: int = 0,
     ):
         ensure_streamable(config)
-        refuse_mesh(mesh)
         if stream.has_nonzero_offsets():  # computed once a store
             raise ValueError(
                 "streamed GAME chunks must carry zero offsets — base "
@@ -86,8 +89,9 @@ class StreamingFixedEffectCoordinate(Coordinate):
         self.feature_shard = feature_shard
         self.batch_linesearch = bool(batch_linesearch)
         self.last_solve = None
+        self.mesh = mesh
         self._sobj = StreamingObjective(
-            self.task, stream, accumulate=accumulate,
+            self.task, stream, mesh=mesh, accumulate=accumulate,
             prefetch_depth=prefetch_depth, chunk_fuse=chunk_fuse,
             compress=compress, hot_budget_bytes=hot_budget_bytes,
         )

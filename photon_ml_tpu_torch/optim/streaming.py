@@ -34,9 +34,24 @@ single evaluation, so ``value_and_grad_batch`` row i is bitwise
 (``linesearch.wolfe_line_search``, ``owlqn.owlqn_solve``) take the
 one-trial-per-pass trajectory exactly in fewer passes.
 
-Not ported here: the streamed mesh (``mesh=``; multi-device training,
-ROADMAP Queue 1 item 6) and the reference's telemetry and chaos sites
-(item 8).
+**Over a process group** (``mesh``, a
+:class:`~photon_ml_tpu_torch.parallel.distributed.DataGroup`), every rank
+streams its own shard of each chunk (a store built with the same ``mesh``,
+``data/streaming.py``) through its own card and accumulates its own
+partial sums; a pass ends in ONE fused all-reduce of ``[value, grad]``
+(of every candidate's, for a batched trial; TRON's HVP pass one more), the
+streamed counterpart of the reference's psum.  Every rank then holds the
+same reduced numbers, so every solver decision agrees.  A store that keeps
+all k shards (``mesh=None``) is k LOGICAL shards: each shard accumulates
+apart and the shards' sums are added in shard order, so a group of two
+ranks gives the bits of two logical shards; more than two ranks sum in the
+backend's order, which may differ between buffers of different lengths,
+so there a batched trial's row equals its single pass to rounding only.
+Under a group that spans several hosts a rank streams a store of its own
+``host_local_rows`` instead (``row_block``).
+
+Not ported here: the reference's telemetry and chaos sites (ROADMAP Queue 1
+item 8).
 """
 
 from __future__ import annotations
@@ -57,21 +72,41 @@ from photon_ml_tpu_torch.data.prefetch import (
 from photon_ml_tpu_torch.data.staging import (
     COMPRESSION_MODES,
     plan_compression,
-    refuse_shards,
 )
 from photon_ml_tpu_torch.data.streaming import StreamingGlmData
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.optim.objective import GlmObjective
+from photon_ml_tpu_torch.parallel.distributed import reduce_shards
 
 Tensor = torch.Tensor
 
-def refuse_mesh(mesh) -> None:
-    if mesh is not None:
-        raise NotImplementedError(
-            "a streamed mesh (mesh=...) is not ported to photon_ml_tpu_torch "
-            "yet; it comes with multi-device training (ROADMAP.md, "
-            "PyTorch/CUDA port, Queue 1 item 6)"
-        )
+
+def check_stream_mesh(stream: StreamingGlmData, mesh) -> None:
+    """The reference's guards on a store and a group: a rank streams the
+    shard the group gives it; a store without shards is refused with a
+    group, and a rank's store without one."""
+    if mesh is None:
+        if stream.held is not None or stream.row_block is not None:
+            raise ValueError(
+                "sharded chunks need a mesh: this store holds one rank's "
+                "part of each chunk")
+        return
+    if stream.row_block is not None:
+        return  # a rank's host-local rows under a group of several hosts
+    if stream.held is None:
+        if stream.n_shards == 1:
+            raise ValueError(
+                "single-shard chunks carry no shard axis: a group needs a "
+                "store built with mesh= (one shard a rank); pass mesh=None "
+                "for a single-device stream")
+        raise ValueError(
+            f"this store holds all {stream.n_shards} logical shards; a "
+            "rank of a group streams a store built with mesh=")
+    if stream.n_shards != mesh.size or stream.held != (mesh.rank,):
+        raise ValueError(
+            f"stream has n_shards={stream.n_shards} holding "
+            f"{stream.held}; rank {mesh.rank} of this group needs "
+            f"{mesh.size} shards holding ({mesh.rank},)")
 
 
 # ---------------------------------------------------------------------------
@@ -213,8 +248,6 @@ class StreamingObjective:
         else:
             self.objective = GlmObjective(losses_lib.get(task_or_objective),
                                           normalization)
-        refuse_mesh(mesh)
-        refuse_shards(stream.n_shards)
         if accumulate not in ("f32", "kahan"):
             raise ValueError(f"accumulate must be f32|kahan, got {accumulate}")
         if prefetch_depth < 1:
@@ -222,6 +255,10 @@ class StreamingObjective:
                 f"prefetch_depth must be >= 1, got {prefetch_depth}")
         if chunk_fuse < 1:
             raise ValueError(f"chunk_fuse must be >= 1, got {chunk_fuse}")
+        if chunk_fuse > 1 and mesh is not None:
+            raise ValueError(
+                "chunk_fuse > 1 is single-device only: pass chunk_fuse=1 "
+                "with a mesh")
         if compress not in COMPRESSION_MODES:
             raise ValueError(
                 f"compress must be one of {COMPRESSION_MODES}, got "
@@ -229,6 +266,15 @@ class StreamingObjective:
         if hot_budget_bytes < 0:
             raise ValueError(
                 f"hot_budget_bytes must be >= 0, got {hot_budget_bytes}")
+        if hot_budget_bytes and mesh is not None:
+            from photon_ml_tpu_torch.parallel.multihost import spans_hosts
+
+            if spans_hosts(mesh):
+                raise ValueError(
+                    "the hot working-set cache is single-host only: pass "
+                    "hot_budget_bytes=0 under a group of several hosts")
+        check_stream_mesh(stream, mesh)
+        self.mesh = mesh
         self.stream = stream
         self.device = resolve_device(stream.device)
         self.accumulate = accumulate
@@ -243,12 +289,15 @@ class StreamingObjective:
                 "chunk_fuse > 1, compress and hot_budget_bytes need the "
                 "staged (coalesced-buffer) representation; this store could "
                 "not be staged (a hand-built disk-backed store?)")
+        # Items are groups of parts: a chunk's held shard parts, times
+        # chunk_fuse chunks.
         n_ch = stream.n_chunks
+        self._n_held = nh = len(stream.held_shards)
         fuse = min(self.chunk_fuse, max(n_ch, 1))
-        self._groups = [range(lo, min(lo + fuse, n_ch))
+        self._groups = [range(lo * nh, min(lo + fuse, n_ch) * nh)
                         for lo in range(0, n_ch, fuse)]
-        # Compressed wire formats: one codec a chunk (each chunk has its
-        # own staging plan), every chunk encoded once, here.
+        # Compressed wire formats: one codec a part (each part has its
+        # own staging plan), every part encoded once, here.
         self._codecs = self._wire = None
         if compress != "off":
             self._codecs = [plan_compression(st, [bufs], compress)
@@ -320,21 +369,31 @@ class StreamingObjective:
         A list is taken as already sliced."""
         if isinstance(offsets, list):
             return offsets
-        n_ch, cr = self.stream.n_chunks, self.stream.chunk_rows
+        st = self.stream
+        n_ch, cr = st.n_chunks, st.chunk_rows
+        n_parts = len(st.chunks)
         if offsets is None:
-            return [None] * n_ch
-        if offsets.shape[0] != self.stream.n_rows:
+            return [None] * n_parts
+        want = st.n_rows if st.row_block is None else st.row_block[2]
+        if offsets.shape[0] != want:
             # A silently zero-padded short array would train the tail rows
             # against offset 0.
             raise ValueError(
                 f"offsets has {offsets.shape[0]} rows; the stream has "
-                f"{self.stream.n_rows}")
+                f"{want}")
         off = torch.as_tensor(offsets, dtype=torch.float32,
                               device=self.device)
+        if st.row_block is not None:
+            off = off[st.row_block[0]:st.row_block[1]]
         pad = n_ch * cr - off.shape[0]
         if pad:
             off = torch.cat([off, off.new_zeros(pad)])
-        return [off[k * cr:(k + 1) * cr] for k in range(n_ch)]
+        ps = st.per_shard
+        out = []
+        for p in range(n_parts):
+            start = st.part_rows(p)[2]
+            out.append(off[start:start + ps])
+        return out
 
     @staticmethod
     def _with_offsets(data, off):
@@ -437,6 +496,13 @@ class StreamingObjective:
         comp = torch.zeros_like(acc)
         return lambda x: _kahan_add(acc, comp, x)
 
+    def _reduce(self, per_shard) -> tuple:
+        """The pass's partial sums, one tuple a held shard, reduced over the
+        shards and the group (no reduction for one shard alone)."""
+        if self.mesh is None and len(per_shard) == 1:
+            return tuple(per_shard[0])
+        return reduce_shards(per_shard, self.mesh)
+
     @staticmethod
     def _fresh(w: Tensor) -> Tensor:
         """A fresh contiguous copy of ``w``: a single evaluation and a
@@ -449,19 +515,22 @@ class StreamingObjective:
         ``offsets``: optional (n_rows,) extra margins added per row."""
         w = self._fresh(w)
         slices = self.offset_slices(offsets)
-        vacc = self._zeros((), self._value_dtype)
-        gacc = self._zeros((self.n_features,))
-        add_v, add_g = self._adder(vacc), self._adder(gacc)
+        nh = self._n_held
+        accs = [(self._zeros((), self._value_dtype),
+                 self._zeros((self.n_features,))) for _ in range(nh)]
+        adders = [(self._adder(v), self._adder(g)) for v, g in accs]
         obj = self.objective
 
         def step(k, data):
             v, g = obj.raw_value_and_grad(
                 w, self._with_offsets(data, slices[k]))
+            add_v, add_g = adders[k % nh]
             add_v(v)
             add_g(g)
             return v
 
         self._stream(step, scoring=True)
+        vacc, gacc = self._reduce(accs)
         return (vacc + 0.5 * l2_weight * torch.dot(w, w),
                 gacc + l2_weight * w)
 
@@ -479,16 +548,19 @@ class StreamingObjective:
         wl = [self._fresh(w) for w in ws]
         K = len(wl)
         slices = self.offset_slices(offsets)
-        vaccs = [self._zeros((), self._value_dtype) for _ in range(K)]
-        gaccs = [self._zeros((self.n_features,)) for _ in range(K)]
-        adders = [(self._adder(v), self._adder(g))
-                  for v, g in zip(vaccs, gaccs)]
+        nh = self._n_held
+        # Per held shard: K value accumulators, then K gradients.
+        accs = [[self._zeros((), self._value_dtype) for _ in range(K)]
+                + [self._zeros((self.n_features,)) for _ in range(K)]
+                for _ in range(nh)]
+        adders = [[(self._adder(a[i]), self._adder(a[K + i]))
+                   for i in range(K)] for a in accs]
         obj = self.objective
 
         def step(k, data):
             data = self._with_offsets(data, slices[k])
             first = None
-            for w, (add_v, add_g) in zip(wl, adders):
+            for w, (add_v, add_g) in zip(wl, adders[k % nh]):
                 v, g = obj.raw_value_and_grad(w, data)
                 add_v(v)
                 add_g(g)
@@ -496,6 +568,8 @@ class StreamingObjective:
             return first
 
         self._stream(step, scoring=True)
+        red = self._reduce(accs)
+        vaccs, gaccs = red[:K], red[K:]
         vals = torch.stack([v + 0.5 * l2_weight * torch.dot(w, w)
                             for v, w in zip(vaccs, wl)])
         grads = torch.stack([g + l2_weight * w for g, w in zip(gaccs, wl)])
@@ -506,15 +580,17 @@ class StreamingObjective:
         variances)."""
         w = self._fresh(w)
         slices = self.offset_slices(offsets)
-        diag = self._zeros((self.n_features,))
+        nh = self._n_held
+        diags = [(self._zeros((self.n_features,)),) for _ in range(nh)]
         obj = self.objective
 
         def step(k, data):
             data = self._with_offsets(data, slices[k])
-            diag.add_(data.features.sq_rmatvec(obj.d2_weights(w, data)))
+            diags[k % nh][0].add_(
+                data.features.sq_rmatvec(obj.d2_weights(w, data)))
 
         self._stream(step)
-        return diag
+        return self._reduce(diags)[0]
 
     def hvp(self, w: Tensor, v: Tensor, l2_weight=0.0, offsets=None):
         """H(w)·v = Xᵀ(d2w ⊙ (Xv)) + λ·v as one streamed pass (the
@@ -523,25 +599,29 @@ class StreamingObjective:
         n_rows of state on the card."""
         w, v = self._fresh(w), self._fresh(v)
         slices = self.offset_slices(offsets)
-        h = self._zeros((self.n_features,))
-        add_h = self._adder(h)
+        nh = self._n_held
+        hs = [(self._zeros((self.n_features,)),) for _ in range(nh)]
+        adders = [self._adder(h[0]) for h in hs]
         obj = self.objective
 
         def step(k, data):
-            add_h(obj.raw_hvp(w, v, self._with_offsets(data, slices[k])))
+            adders[k % nh](
+                obj.raw_hvp(w, v, self._with_offsets(data, slices[k])))
 
         self._stream(step)
-        return h + l2_weight * v
+        return self._reduce(hs)[0] + l2_weight * v
 
     def scores(self, w: Tensor) -> np.ndarray:
         """Margins of every row of the store, streamed; each chunk's margins
         start an asynchronous copy to a pinned host buffer and are read a
         window of ``prefetch_depth`` chunks later.  Always streams (the hot
-        cache is not consulted)."""
+        cache is not consulted).  Over a group every rank returns all the
+        rows: the ranks' parts are all-gathered and put back in row
+        order."""
         w = self._fresh(w)
         cuda = self.device.type == "cuda"
         window = 0 if self.prefetch_depth == 1 else self.prefetch_depth
-        outs: list = [None] * self.stream.n_chunks
+        outs: list = [None] * len(self.stream.chunks)
         pend: collections.deque = collections.deque()
         obj = self.objective
 
@@ -570,7 +650,26 @@ class StreamingObjective:
             self._hot_cache = cache
         while pend:
             materialize(*pend.popleft())
-        return np.concatenate(outs)[: self.stream.n_rows]
+        local = np.concatenate(outs)
+        st = self.stream
+        if self.mesh is None:
+            # Parts in (chunk, shard) order are the rows in order.
+            return local[: st.n_rows]
+        mesh = self.mesh
+        if st.row_block is not None:
+            # Ranks' host-local blocks: ceil(n / k) rows each, the last
+            # short (multihost.host_local_rows).
+            start, stop, n = st.row_block
+            per = -(-n // mesh.size)
+            block = np.zeros(per, local.dtype)
+            block[: stop - start] = local[: stop - start]
+            rows = mesh.gather_rows(torch.as_tensor(block,
+                                                    device=self.device), n)
+            return rows.cpu().numpy()
+        parts = mesh.all_gather(torch.as_tensor(
+            local.reshape(st.n_chunks, st.per_shard), device=self.device))
+        # (rank, chunk, row) → (chunk, rank, row): the rows in order.
+        return parts.transpose(0, 1).reshape(-1)[: st.n_rows].cpu().numpy()
 
 
 # ---------------------------------------------------------------------------
@@ -627,7 +726,8 @@ def streaming_run_grid(
     """The λ-grid warm-start chain (``problem.grid_loop``) over a streamed
     dataset, each λ solved by the solver ``problem.solve`` would pick
     (L1/elastic net → OWL-QN, else the configured optimizer) with one
-    streamed pass an evaluation.
+    streamed pass an evaluation.  Over a group (``sobj.mesh``) every pass
+    ends in one all-reduce, so every rank returns the same models.
 
     ``sobj`` is a :class:`StreamingObjective` over ``problem.objective``
     (the same loss, accumulation and normalization); its settings (depth,
@@ -637,7 +737,9 @@ def streaming_run_grid(
     about half the passes)."""
     from photon_ml_tpu_torch.solvers import registry as solver_registry
 
-    refuse_mesh(mesh)
+    if mesh is not None and mesh is not sobj.mesh:
+        raise ValueError("streaming_run_grid's mesh must be the "
+                         "StreamingObjective's (build it with mesh=)")
     a, b = sobj.objective, problem.objective
     if ((a.loss.name, a.accumulate) != (b.loss.name, b.accumulate)
             or a.normalization is not b.normalization):

@@ -28,7 +28,19 @@ leading shard axis (block CD), with a sum over the shards in a fixed order
 standing in for the all-reduce.
 
 :data:`ALLREDUCES` counts every reduction of either kind (``count``, and
-the ``bytes`` each moves), as ``ops/_kernels.LAUNCHES`` counts launches.
+the ``bytes`` each moves), as ``ops/_kernels.LAUNCHES`` counts launches;
+:data:`GATHERS` counts the all-gathers that move rows or lanes (no sum).
+
+GAME's coordinates exchange their scores over the group so that every rank
+holds each coordinate's full n-row score vector (the reference replicates
+it over the mesh): a row-sharded fixed effect all-gathers its row blocks
+(:meth:`DataGroup.gather_rows`), an entity-sharded random effect sums each
+rank's scatter over the group (:meth:`DataGroup.sum_scores`).
+
+gloo's ``all_gather`` takes CPU tensors only (its ``all_reduce`` and
+``broadcast`` also take CUDA ones), so a gloo group whose ranks compute on
+the card copies an all-gather's buffer through host memory explicitly;
+:data:`HOST_STAGED` counts each such collective by name.
 """
 
 from __future__ import annotations
@@ -49,10 +61,20 @@ Tensor = torch.Tensor
 #: logical stand-ins (a sum over the shards one process holds).
 ALLREDUCES: dict[str, int] = {"count": 0, "bytes": 0}
 
+#: All-gathers over a process group that move rows, lanes or states.
+GATHERS: dict[str, int] = {"count": 0, "bytes": 0}
+
+#: Collectives copied through host memory (a gloo group on the card), by
+#: collective name.
+HOST_STAGED: dict[str, int] = {}
+
 
 def reset_allreduces() -> None:
     for k in ALLREDUCES:
         ALLREDUCES[k] = 0
+    for k in GATHERS:
+        GATHERS[k] = 0
+    HOST_STAGED.clear()
 
 
 def _count(buf: Tensor) -> None:
@@ -79,6 +101,12 @@ class DataGroup:
 
         return dist.get_rank(self.group)
 
+    @property
+    def backend(self) -> str:
+        import torch.distributed as dist
+
+        return str(dist.get_backend(self.group))
+
     def all_reduce(self, buf: Tensor) -> Tensor:
         """Sum ``buf`` over the group in place (one collective)."""
         import torch.distributed as dist
@@ -87,20 +115,59 @@ class DataGroup:
         dist.all_reduce(buf, group=self.group)
         return buf
 
+    def _all_gather(self, buf: Tensor) -> list:
+        """Every rank's ``buf`` (same shape on every rank), in rank order,
+        on ``buf``'s device; through host memory for a CUDA tensor on a
+        gloo group (counted in :data:`HOST_STAGED`)."""
+        import torch.distributed as dist
+
+        src = buf.contiguous()
+        staged = src.device.type == "cuda" and self.backend == "gloo"
+        if staged:
+            HOST_STAGED["all_gather"] = HOST_STAGED.get("all_gather", 0) + 1
+            src = src.cpu()
+        parts = [torch.empty_like(src) for _ in range(self.size)]
+        dist.all_gather(parts, src, group=self.group)
+        if staged:
+            parts = [p.to(buf.device) for p in parts]
+        return parts
+
     def gather_sum(self, buf: Tensor) -> Tensor:
         """Sum ``buf`` over the group in rank order: one all-gather, then
         the ranks' buffers added in order on every rank — the order logical
         shards are added in, so both give the same bits at any group
         size."""
-        import torch.distributed as dist
-
-        parts = [torch.empty_like(buf) for _ in range(self.size)]
         _count(buf)
-        dist.all_gather(parts, buf.contiguous(), group=self.group)
+        parts = self._all_gather(buf)
         tot = parts[0]
         for p in parts[1:]:
             tot = tot + p
         return tot
+
+    def all_gather(self, buf: Tensor) -> Tensor:
+        """``(size, *buf.shape)``: every rank's ``buf`` stacked in rank
+        order (one all-gather, counted in :data:`GATHERS`)."""
+        GATHERS["count"] += 1
+        GATHERS["bytes"] += buf.numel() * buf.element_size() * self.size
+        return torch.stack(self._all_gather(buf))
+
+    def gather_rows(self, block: Tensor, n_rows: int) -> Tensor:
+        """A row-sharded coordinate's full score vector: every rank's row
+        block (the same length on every rank, padding rows last)
+        concatenated in rank order and cut to ``n_rows``.  A gather moves
+        bits, so the result is exactly the rows' own scores."""
+        return self.all_gather(block).reshape(-1)[:n_rows]
+
+    def sum_scores(self, partial: Tensor) -> Tensor:
+        """An entity-sharded coordinate's full score vector: each rank
+        scattered its own lanes' scores into a zeroed vector, so every row
+        is nonzero on at most one rank and the sum over the group (one
+        all-reduce) gives each row its own score in any sum order — as
+        exact as a rank-order sum.  The one exception is a score of -0.0,
+        which comes back +0.0; the coordinates' scatters already write
+        ``s + 0.0`` (the reference's ``zeros.at[rows].add(s)``), so no
+        -0.0 reaches the sum and the bitwise tests hold as they are."""
+        return self.all_reduce(partial)
 
     def reduce(self, *parts: Tensor) -> tuple[Tensor, ...]:
         """Sum every tensor of ``parts`` over the group in ONE all-reduce:
@@ -136,6 +203,38 @@ def sum_shards(payloads: Sequence[Tensor], mesh: Optional[DataGroup]
         tot = tot + p
     _count(tot)
     return tot
+
+
+def _fuse(parts, dtype) -> Tensor:
+    return torch.cat([p.reshape(-1).to(dtype) for p in parts])
+
+
+def reduce_shards(per_shard: Sequence[Sequence[Tensor]],
+                  mesh: Optional[DataGroup]) -> tuple:
+    """The fused reduction of a streamed pass: ``per_shard[j]`` are the
+    accumulators (value, gradient, ...) of the j-th held shard.  Each
+    shard's tensors travel flattened in one buffer of their promoted dtype
+    (as :meth:`DataGroup.reduce` sends them); the held shards' buffers are
+    added in shard order, then summed over the group in ONE all-reduce.
+    Logical shards (``mesh=None``) are one reduction counted, so a group of
+    two ranks gives the bits of two logical shards.  Returns the reduced
+    tensors in their own dtypes and shapes."""
+    first = per_shard[0]
+    dtype = first[0].dtype
+    for p in first[1:]:
+        dtype = torch.promote_types(dtype, p.dtype)
+    buf = _fuse(first, dtype)
+    for parts in per_shard[1:]:
+        buf = buf + _fuse(parts, dtype)
+    if mesh is not None:
+        mesh.all_reduce(buf)
+    else:
+        _count(buf)
+    out, at = [], 0
+    for p in first:
+        out.append(buf[at:at + p.numel()].reshape(p.shape).to(p.dtype))
+        at += p.numel()
+    return tuple(out)
 
 
 @dataclasses.dataclass

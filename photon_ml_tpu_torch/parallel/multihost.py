@@ -200,3 +200,24 @@ def host_local_rows(n_global_rows: int) -> Tuple[int, int]:
 
     return _process_row_bounds(n_global_rows, dist.get_rank(), 1,
                                dist.get_world_size())
+
+
+_SPANS: dict = {}
+
+
+def spans_hosts(mesh: Optional[DataGroup]) -> bool:
+    """Whether the group's ranks run on more than one host (their host
+    names all-gathered once a group; a collective, so every rank calls
+    it).  The reference's single-host guards read this."""
+    if mesh is None:
+        return False
+    key = id(mesh.group)
+    if key not in _SPANS:
+        import socket
+
+        import torch.distributed as dist
+
+        names = [None] * mesh.size
+        dist.all_gather_object(names, socket.gethostname(), group=mesh.group)
+        _SPANS[key] = len(set(names)) > 1
+    return _SPANS[key]

@@ -446,18 +446,51 @@ class TestEstimator:
 
 
 class TestDeferredBranches:
-    """Each branch the port does not have yet raises NotImplementedError
-    naming the ROADMAP item that brings it; the out-of-core branches it
-    once refused fit as the reference's."""
+    """The branches the port once refused fit as the reference's: the
+    mesh routes and the out-of-core branches."""
 
-    def test_refusals(self):
-        cases = [
-            (lambda: estimator.GameEstimator("logistic", {}, mesh=object(),
-                                             device=CPU), "item 6"),
-        ]
-        for call, item in cases:
-            with pytest.raises(NotImplementedError, match=f"Queue 1 {item}"):
-                call()
+    def test_refusals(self, tmp_path):
+        """A mesh no longer raises: over a (one-rank gloo) process group
+        the estimator builds the row-sharded fixed effect and the
+        bucket-shard random effect, and fits one process's models within
+        1e-5 (the group's all-reduce of one rank changes no bits; the
+        row block is a COO matrix of its own)."""
+        import torch.distributed as dist
+
+        from photon_ml_tpu_torch.game.distributed import (
+            DistributedFixedEffectCoordinate,
+        )
+        from photon_ml_tpu_torch.game.hierarchical import (
+            ShardedBucketRandomEffectCoordinate,
+        )
+        from photon_ml_tpu_torch.parallel.distributed import DataGroup
+
+        shards, ids, y = _game_problem(10)
+        ids = {"userId": ids["userId"]}
+        cfg, _ = _cfgs(max_iters=20)
+        one = estimator.GameEstimator(
+            "logistic", _est_configs(estimator, cfg), n_iterations=2,
+            device=CPU)
+        model, _ = one.fit(shards, ids, y)
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                                rank=0, world_size=1)
+        try:
+            est = estimator.GameEstimator(
+                "logistic", _est_configs(estimator, cfg), n_iterations=2,
+                mesh=DataGroup(), device=CPU)
+            coords = est.build_coordinates(shards, ids, y)
+            assert [type(c) for c in coords] == [
+                DistributedFixedEffectCoordinate,
+                ShardedBucketRandomEffectCoordinate]
+            gmodel, _ = est.fit(shards, ids, y)
+        finally:
+            dist.destroy_process_group()
+        _close(gmodel["fixed"].model.coefficients.means.numpy(),
+               model["fixed"].model.coefficients.means.numpy(), 1e-5)
+        for k, (cols, vals) in model["user"].coefficients.items():
+            gcols, gvals = gmodel["user"].coefficients[k]
+            np.testing.assert_array_equal(gcols, cols)
+            np.testing.assert_allclose(gvals, vals, rtol=0, atol=1e-5)
 
     @pytest.mark.parametrize("branch", ["streamed_fixed", "ooc_random"])
     def test_out_of_core_branch_fits_as_the_reference(self, branch):

@@ -738,20 +738,41 @@ class TestRefusals:
 
     def test_data_parallel_over_ranks_names_item_6c(self, game_files,
                                                     tmp_path, monkeypatch):
-        """Over a process group of more than one rank, GAME refuses,
-        naming the GAME-on-a-mesh item."""
+        """Over a process group GAME no longer refuses: the driver's group
+        route (the mesh coordinates, rank 0 writing) runs; over a group of
+        one rank (gloo, made to look like a larger world) it writes one
+        process's validation metric within 1e-4 and the same entities.
+        Groups of 2 and 4 ranks: ``tests/test_torch_game_mesh.py``."""
         import contextlib
+
+        import torch.distributed as dist
 
         from photon_ml_tpu_torch.parallel import multihost
 
-        monkeypatch.setattr(multihost, "driver_group",
-                            lambda *a, **k: contextlib.nullcontext(2))
         train, val, config = game_files
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6c"):
-            game_training_driver.run([
-                "--train-data", train, "--validate-data", val,
-                "--config", config, "--output-dir", str(tmp_path / "o"),
-                "--data-parallel", "auto", *CPU])
+        args = ["--train-data", train, "--validate-data", val, "--config",
+                config, *CPU]
+        one = game_training_driver.run(
+            args + ["--output-dir", str(tmp_path / "one")])
+        dist.init_process_group("gloo", init_method=f"file://{tmp_path}/pg",
+                                rank=0, world_size=1)
+        try:
+            monkeypatch.setattr(multihost, "driver_group",
+                                lambda *a, **k: contextlib.nullcontext(2))
+            group = game_training_driver.run(
+                args + ["--output-dir", str(tmp_path / "o"),
+                        "--data-parallel", "auto"])
+        finally:
+            dist.destroy_process_group()
+        assert group["data_parallel"] == {"ranks": 1, "rank": 0}
+        assert group["validation_metric"] == pytest.approx(
+            one["validation_metric"], abs=1e-4)
+        m_one, _ = load_game_model(str(tmp_path / "one" / "models"),
+                                   device="cpu")
+        m_group, _ = load_game_model(str(tmp_path / "o" / "models"),
+                                     device="cpu")
+        assert sorted(m_group.models["per_user"].coefficients) == sorted(
+            m_one.models["per_user"].coefficients)
 
     #: The out-of-core specs, run by both packages' training drivers.
     OOC_SPECS = {

@@ -216,9 +216,12 @@ def test_refusals(case):
             device=CPU)
         err, match = ValueError, "zero offsets"
     else:
+        # A group streams a store built for it (one shard a rank): a
+        # store without shards is refused, as the reference refuses
+        # single-shard chunks with a mesh.
         stream = make_streaming_glm_data(X, y, chunk_rows=100, device=CPU)
         kw = {"mesh": object()}
-        err, match = NotImplementedError, "Queue 1 item 6"
+        err, match = ValueError, "no shard axis"
     with pytest.raises(err, match=match):
         StreamingFixedEffectCoordinate("fixed", stream, "logistic",
                                        GlmOptimizationConfig(), **kw)

@@ -706,7 +706,8 @@ def test_streamed_training_report_carries_every_lambda(a1a_shaped,
 @pytest.mark.parametrize("case,error", [
     ("storage-without-chunks", "requires --stream-chunk-rows"),
     ("bounds", "single-device resident-data only"),
-    ("data-parallel", "Queue 1 item 6"),
+    pytest.param("data-parallel", "single-device",
+                 id="data-parallel-Queue 1 item 6"),
     ("prefetch-depth", "--stream-prefetch-depth must be >= 1"),
 ])
 def test_stream_flag_guards(a1a_shaped, tmp_path, case, error):
@@ -716,15 +717,17 @@ def test_stream_flag_guards(a1a_shaped, tmp_path, case, error):
                                    str(tmp_path / "s")),
         "bounds": (*STREAM, "--coefficient-bounds",
                    _bounds_file(tmp_path, {"f0": [-1, 1]})),
-        "data-parallel": ("--data-parallel", "auto"),
+        "data-parallel": ("--data-parallel", "auto",
+                          "--stream-chunk-fuse", "2"),
         "prefetch-depth": (*STREAM, "--stream-prefetch-depth", "0"),
     }[case]
-    exc = {"bounds": SystemExit,
-           "data-parallel": NotImplementedError}.get(case, ValueError)
+    exc = {"bounds": SystemExit}.get(case, ValueError)
     with pytest.raises(exc, match=error):
         if case == "data-parallel":
-            # Streaming over a process group of more than one rank (the
-            # streamed mesh, item 6e); on one process the flag forms none.
+            # Streaming over a process group of more than one rank runs
+            # (tests/test_torch_streaming_mesh.py), but a fused group is
+            # refused there, as the reference refuses it; on one process
+            # the flag forms no group.
             glm_driver._check_stream_flags(
                 glm_driver.build_arg_parser().parse_args(_argv(
                     train, val, str(tmp_path / "out"), *STREAM, *flags)),

@@ -85,11 +85,14 @@ def test_import_leaves_jax_out_of_sys_modules():
     "photon_ml_tpu_torch.solvers.admm",
     "photon_ml_tpu_torch.solvers.block_cd",
     "photon_ml_tpu_torch.solvers.sharded",
+    "photon_ml_tpu_torch.game.distributed",
+    "photon_ml_tpu_torch.game.hierarchical",
+    "photon_ml_tpu_torch.experiments.multirank",
 ])
 def test_solver_slice_module_imports_alone_without_jax(module):
     """Each module of the solver, GAME, GAME-driver, out-of-core and
-    multi-device slices, imported alone in a fresh process, leaves jax and the JAX package out
-    of sys.modules."""
+    multi-device slices (GAME over a group too), imported alone in a fresh
+    process, leaves jax and the JAX package out of sys.modules."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({module!r})\n"

@@ -115,8 +115,13 @@ class TestStagingRoundtrip:
             pack_chunk(stream.staging[0], other)
 
     def test_sharded_plans_refused(self):
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            plan_staging({"a": np.zeros((2, 3), np.float32)}, n_shards=2)
+        """A sharded plan takes leaves with the leading shard axis (one
+        buffer row a shard); a leaf without it is refused, as the
+        reference's ``_shard_split`` refuses it."""
+        plan = plan_staging({"a": np.zeros((2, 3), np.float32)}, n_shards=2)
+        assert plan.row_elems == (3,) and plan.slots[0].shard_shape == (3,)
+        with pytest.raises(ValueError, match="leading shard axis"):
+            plan_staging({"a": np.zeros((3, 3), np.float32)}, n_shards=2)
 
     def test_ensure_staged_retrofits_hand_built_store(self, rng):
         _, _, stream = _stream(rng, "coo")

@@ -510,7 +510,13 @@ class TestPipelineParity:
         _, _, stream = _stream4(rng)
         with pytest.raises(ValueError, match="chunk_fuse"):
             StreamingObjective("logistic", stream, chunk_fuse=0)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        # The reference's guards with a mesh: a fused group is
+        # single-device, and a store without shards carries none to feed
+        # a rank.
+        with pytest.raises(ValueError, match="single-device"):
+            StreamingObjective("logistic", stream, mesh=object(),
+                               chunk_fuse=2)
+        with pytest.raises(ValueError, match="no shard axis"):
             StreamingObjective("logistic", stream, mesh=object())
 
     @pytest.mark.parametrize("accumulate", ["f32", "kahan"])
@@ -743,8 +749,14 @@ class TestChunkStore:
     def test_guards_and_refusals(self, rng):
         X, y = _logistic_problem(rng, 200, 8)
         stream = _stream(X, y, "coo", 64)
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
-            make_streaming_glm_data(X, y, chunk_rows=64, n_shards=2,
+        # Sharded stores: chunk_rows rounds up to a multiple of the shards
+        # (the reference's arithmetic); a rank's store needs its group.
+        sharded = make_streaming_glm_data(X, y, chunk_rows=63, n_shards=2,
+                                          device="cpu")
+        assert (sharded.chunk_rows, sharded.per_shard) == (64, 32)
+        assert sharded.n_chunks == 4 and len(sharded.chunks) == 8
+        with pytest.raises(ValueError, match="n_shards"):
+            make_streaming_glm_data(X, y, chunk_rows=64, n_shards=0,
                                     device="cpu")
         with pytest.raises(ValueError, match="chunk_rows"):
             make_streaming_glm_data(X, y, chunk_rows=0, device="cpu")
@@ -757,7 +769,7 @@ class TestChunkStore:
         sobj = StreamingObjective("logistic", stream)
         with pytest.raises(ValueError, match="rows"):
             sobj.value_and_grad(torch.zeros(8), offsets=np.zeros(199))
-        with pytest.raises(NotImplementedError, match="Queue 1 item 6"):
+        with pytest.raises(ValueError, match="StreamingObjective's"):
             streaming_run_grid(_problems()[0], sobj, [1.0], mesh=object())
         with pytest.raises(ValueError, match="problem.objective"):
             streaming_run_grid(_problems(accumulate="f64")[0], sobj, [1.0])
