@@ -266,12 +266,35 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    sharing one card.  Then a rank's row block of the fixed effect and a
    part of the sharded store against their plain versions (phase 2's
    checks).
+13. Online serving of phase 7's model, reusing phase 7's files (the saved
+   model, the grid's model, the scoring driver's scores of the validation
+   file); it trains nothing.  13a, the serving kernel
+   (``csrc/serve_margins.cu``) against its plain version at every bucket
+   of the 1..64 ladder for phase 7's geometry (fixed 512 + per-user 8)
+   and ``bench_serving``'s (fixed 64 + per-entity 8): margins within 1e-5
+   of Σ|x·w|, two launches bitwise, every row of the full bucket bitwise
+   the row alone, fused == composed, a hot row == the same row cold;
+   times at buckets 1 and 64 beside the byte bound, the plain version and
+   the same function as composed torch ops.  13b, ``ScoringRuntime`` with
+   a 4,096-row hot set over 100,000 users behind ``ScoringService`` and
+   ``start_http_server``: all 80,000 validation rows in process, features
+   named through the saved index maps, margins within 1e-5 of Σ|x·w| of
+   the scoring driver's scores and the AUC within 1e-6 of its AUC; 512
+   rows over HTTP JSON and the same over the binary wire, both bitwise the
+   in-process scores; ``/healthz``, ``/readyz``, ``/stats``.  13c,
+   ``POST /reload`` to the grid's model under a client's traffic (zero
+   failed requests, version 2 bitwise a fresh runtime), then to a copy
+   with one flipped payload byte (rolled back, zero failed requests).
+   13d, a 5 s closed loop of 16 clients on ``bench_serving``'s model
+   (50,000 entities, seed 9): requests/s, p50/p99, mean batch rows,
+   hot-hit rate, zero errors.  No batch may score degraded; every
+   breaker stays closed.
 
 Phase 7's GAME Avro files are written by a spawned process that starts
 after phase 1 and runs beside phases 2-6; phase 7 waits for it.
 
 Launch counts are zeroed just before each main-path run of phases 3, 3b,
-4, 5, 6, 7, 8, 9, 10, 11 and 12 and read just after; every kernel those
+4, 5, 6, 7, 8, 9, 10, 11, 12 and 13 (13b-13d) and read just after; every kernel those
 paths run must have launched.  A kernel record's ``launches`` sums its
 main-path runs (phases 3, 3b, 9a, 9b and 11c's group runs for the valued
 instances, 11a's for the ``.shard`` ones, phase 4's three runs, 11b's and
@@ -280,7 +303,8 @@ phase 6's descents and estimator fits, phases 7's, 8's, 9c's and 12a's
 training runs and phase 10's descents, streamed solves and training runs
 for the ``.game`` records, phases 7's, 8's and 10e's validation scoring
 for ``.game_val``, 12b's four ranks for ``.game_shard`` and
-``.chunk_shard``).
+``.chunk_shard``; 13b's and 13c's for ``serve_margins``, 13d's for
+``serve_margins.bench_serving``, every bucket, warm-ups included).
 The second-to-last line is the kernels' JSON record and the last line
 ``{"ok": true, "device": {...}}``.
 """
@@ -294,6 +318,7 @@ import shutil
 import subprocess
 import sys
 import tempfile
+import threading
 import time
 import warnings
 
@@ -544,6 +569,13 @@ def phase_environment():
           f"window_matvec build, found {len(window)}")
     check(window[0][2] == 0, "window_matvec_kernel spills")
     log(f"window_matvec_kernel: {window[0][1]} registers, no spill")
+    serve = [k for k in ptxas_kernels(
+        _kernels.BUILD_INFO["serve_margins"]["ptxas"])
+        if "serve_margins_kernel" in k[0]]
+    check(len(serve) == 1 and serve[0][2] == 0,
+          f"serve_margins_kernel: expected one instance without spill, "
+          f"found {serve}")
+    log(f"serve_margins_kernel: {serve[0][1]} registers, no spill")
     return smi
 
 
@@ -5286,6 +5318,592 @@ def phase_group_game(smi, td):
 
 
 
+# -- phase 13: online serving ---------------------------------------------
+
+SERVE_SOURCE = "photon_ml_tpu_torch/csrc/serve_margins.cu"
+SERVE_REPLACES = "photon_ml_tpu/serving/kernels.py:137"
+SERVE_MAX_BATCH = 64
+SERVE_HOT = 4096
+SERVE_BENCH_ENTITIES = 50_000
+SERVE_CHUNK = 2048
+SERVE_HTTP_ROWS = 512
+SERVE_LOAD_SECONDS = 5.0
+SERVE_LOAD_CLIENTS = 16
+
+
+def serve_inputs(x_f, w, x_r, coefs, hot_mask, seed):
+    """One full bucket of the serving kernel's operands on the card: the
+    rows' fixed features ``x_f`` and random-effect features ``x_r``, the
+    fixed coefficients ``w``, each row's entity coefficients ``coefs``;
+    rows in ``hot_mask`` find their entity in a hot table (slot i + 1),
+    the others carry it as a cold row.  Offsets N(0, 0.1²)."""
+    x_f, w, x_r, coefs = (np.asarray(a, np.float32)
+                          for a in (x_f, w, x_r, coefs))
+    b, d_r = x_r.shape
+    rng = np.random.default_rng(seed)
+    table = np.zeros((b + 1, d_r), np.float32)
+    slots = np.zeros(b, np.int32)
+    cold = np.zeros((b, d_r), np.float32)
+    for i in range(b):
+        if hot_mask[i]:
+            slots[i] = i + 1
+            table[i + 1] = coefs[i]
+        else:
+            cold[i] = coefs[i]
+
+    def dev(a):
+        return torch.as_tensor(np.ascontiguousarray(a), device=DEVICE)
+
+    off = rng.normal(scale=0.1, size=b).astype(np.float32)
+    return (dev(off), dev(x_f), dev(w), dev(x_r), dev(table), dev(slots),
+            dev(cold))
+
+
+def serve_kernel_checks(label, ops, task):
+    """13a: the serving kernel against its plain version at every bucket
+    of the ladder, bitwise repeats, every row of the full bucket bitwise
+    the row alone, fused == composed, a hot row == the same row cold;
+    times at buckets 1 and the top against the byte bound and the same
+    function as composed torch ops (no single PyTorch call computes it).
+    Returns {bucket: record}."""
+    from photon_ml_tpu_torch.serving import kernels as sk
+
+    off, xf, w, xr, table, slots, cold = ops
+    top = off.shape[0]
+    link = sk.link_for_task(task)
+
+    def args(lo, hi, slots_=None, cold_=None):
+        s = slots[lo:hi] if slots_ is None else slots_
+        c = cold[lo:hi] if cold_ is None else cold_
+        return (off[lo:hi], [(xf[lo:hi], w)], [(xr[lo:hi], table, s, c)],
+                link)
+
+    def scale(lo, hi):
+        coefs = table.index_select(0, slots[lo:hi].long()) + cold[lo:hi]
+        return (off[lo:hi].abs() + (xf[lo:hi] * w).abs().sum(1)
+                + (xr[lo:hi] * coefs).abs().sum(1)).double()
+
+    def torch_ops(o, x1, w1, x2, t, s, c):
+        m = o + (x1 * w1).sum(1) + (x2 * (t[s.long()] + c)).sum(1)
+        return torch.stack([m, {"logistic": torch.sigmoid, "exp": torch.exp,
+                                "identity": torch.clone}[link](m)])
+
+    records = {}
+    full = None
+    for b in [1 << k for k in range(top.bit_length()) if 1 << k < top] + [
+            top]:
+        out = sk.serve_margins(*args(0, b))
+        again = sk.serve_margins(*args(0, b))
+        torch.cuda.synchronize()
+        plain = sk.serve_margins_plain(*args(0, b))
+        check(torch.equal(out, again), f"{label} bucket {b}: two launches "
+              "differ")
+        err = float(((out[0] - plain[0]).double().abs()
+                     / scale(0, b).clamp_min(1e-30)).max())
+        mean_err = float((out[1] - plain[1]).double().abs().max())
+        check(err <= RTOL, f"{label} bucket {b}: margins vs plain "
+              f"{err:.3g} of Σ|x·w|")
+        check(mean_err <= 1e-6, f"{label} bucket {b}: means vs plain "
+              f"{mean_err:.3g}")
+        packed = torch.cat([off[:b, None], xf[:b], xr[:b], cold[:b]],
+                           1).contiguous()
+        fused = sk.build_fused_bucket_kernel(task)(
+            packed, slots[None, :b].contiguous(), (w,), (table,))
+        check(torch.equal(fused, out), f"{label} bucket {b}: fused != "
+              "composed")
+        records[b] = {"max_abs_err": float((out[0] - plain[0]).abs().max()),
+                      "rel_err": err}
+        if b == top:
+            full = out
+    # Every row of the full bucket alone; a hot row cold.
+    hot_rows = 0
+    for i in range(top):
+        one = sk.serve_margins(*args(i, i + 1))
+        check(torch.equal(one[:, 0], full[:, i]), f"{label}: row {i} of the "
+              f"full bucket differs from the row scored alone")
+        s = int(slots[i])
+        if s:
+            hot_rows += 1
+            as_cold = sk.serve_margins(*args(
+                i, i + 1, torch.zeros(1, dtype=torch.int32, device=DEVICE),
+                table[s:s + 1].clone()))
+            check(torch.equal(as_cold, one), f"{label}: row {i} hot != cold")
+    torch.cuda.synchronize()
+    check(hot_rows > 0, f"{label}: no hot row to compare")
+    d_f, d_r = xf.shape[1], xr.shape[1]
+    for b in (1, top):
+        a = args(0, b)
+        ms = median_ms(lambda: sk.serve_margins(*a))
+        plain_ms = median_ms(lambda: sk.serve_margins_plain(*a))
+        ops_ms = median_ms(lambda: torch_ops(off[:b], xf[:b], w, xr[:b],
+                                             table, slots[:b], cold[:b]))
+        # Bytes the function must move: offsets, both feature blocks, w,
+        # the hot-table rows these slots name (distinct), the cold rows,
+        # the slots, and the (2, b) output.
+        n_rows = int(torch.unique(slots[:b]).numel())
+        nbytes = 4 * (b + b * d_f + d_f + 2 * b * d_r + n_rows * d_r
+                      + b + 2 * b)
+        flops = b * (2 * d_f + 3 * d_r + 4)
+        bound_ms, bound_by = bytes_bound(nbytes, flops)
+        records[b].update(ms=ms, plain_ms=plain_ms, torch_ops_ms=ops_ms,
+                          bound_ms=bound_ms, bound_by=bound_by)
+        log(f"serving [13a {label}] bucket {b}: kernel {ms:.4f} ms, plain "
+            f"{plain_ms:.4f} ms, composed torch ops {ops_ms:.4f} ms, bound "
+            f"{bound_ms:.6f} ms ({bound_by}, {nbytes} bytes); margins vs "
+            f"plain {records[b]['max_abs_err']:.3g} abs, {err:.3g} of "
+            f"Σ|x·w|")
+    log(f"serving [13a {label}]: every bucket {sorted(records)} within "
+        f"{RTOL} of Σ|x·w| of the plain version, launches bitwise "
+        f"repeatable, {top} rows bitwise alone, fused == composed, "
+        f"{hot_rows} hot rows == cold")
+    return records
+
+
+def serving_requests(shards, ids, offsets, imaps, rows):
+    """Validation rows as serving requests with features NAMED through the
+    saved index maps (each row's nonzeros, duplicates summed)."""
+    names = {s: [imaps[s].index_to_name(j) for j in range(len(imaps[s]))]
+             for s in shards}
+    csr = {s: m.tocsr() for s, m in shards.items()}
+    for m in csr.values():
+        m.sum_duplicates()
+    out = []
+    for i in rows:
+        feats = {}
+        for s, m in csr.items():
+            lo, hi = m.indptr[i], m.indptr[i + 1]
+            feats[s] = [[names[s][c], "", float(v)]
+                        for c, v in zip(m.indices[lo:hi], m.data[lo:hi])]
+        out.append({"features": feats,
+                    "ids": {k: str(v[i]) for k, v in ids.items()},
+                    "offset": float(offsets[i])})
+    return out
+
+
+def dense_requests(shards, ids, offsets, rows):
+    """The same rows with ``dense`` shards (the binary wire's form)."""
+    out = []
+    for i in rows:
+        out.append({"dense": {s: np.asarray(m[i].todense(), np.float32)
+                              .ravel().tolist() for s, m in shards.items()},
+                    "ids": {k: str(v[i]) for k, v in ids.items()},
+                    "offset": float(offsets[i])})
+    return out
+
+
+def http_json(base, route, body=None):
+    import urllib.error
+    import urllib.request
+
+    req = urllib.request.Request(
+        base + route, data=None if body is None else json.dumps(
+            body).encode(), headers={"Content-Type": "application/json"})
+    try:
+        with urllib.request.urlopen(req, timeout=120) as resp:
+            return resp.status, json.loads(resp.read())
+    except urllib.error.HTTPError as e:
+        return e.code, json.loads(e.read())
+
+
+class ServingClient:
+    """A thread scoring ``requests`` over HTTP JSON in a loop until
+    stopped; counts completed and failed requests."""
+
+    def __init__(self, base, requests):
+        from photon_ml_tpu_torch.serving.loadgen import HttpSubmitter
+
+        self.sub = HttpSubmitter(base, wire_format="json", workers=2)
+        self.requests = requests
+        self.done, self.failed = 0, []
+        self._stop = threading.Event()
+        self.thread = threading.Thread(target=self._run, daemon=True)
+
+    def _run(self):
+        i = 0
+        while not self._stop.is_set():
+            try:
+                self.sub.submit(self.requests[i % len(self.requests)]
+                                ).result(timeout=60)
+                self.done += 1
+            except Exception as exc:  # noqa: BLE001 — counted, then checked
+                self.failed.append(repr(exc))
+            i += 1
+
+    def __enter__(self):
+        self.thread.start()
+        return self
+
+    def __exit__(self, *exc):
+        self._stop.set()
+        self.thread.join(timeout=120)
+        self.sub.close()
+        return False
+
+
+def tamper_coefficient(path):
+    """Flip the sign bit of one coefficient in the first block of a
+    deflate Avro container and leave every other byte of the file as it
+    was: the file still decodes, so only its fingerprint can tell."""
+    import io
+    import zlib
+
+    from photon_ml_tpu_torch.io import avro
+
+    with open(path, "rb") as f:
+        data = f.read()
+    sync = data[-16:]  # every block ends with the header's sync marker
+    buf = io.BytesIO(data)
+    buf.seek(data.index(sync) + 16)
+    head = buf.tell()
+    count, size = avro.read_long(buf), avro.read_long(buf)
+    start = buf.tell()
+    schema = avro.read_schema(path)
+    body = io.BytesIO(zlib.decompress(data[start:start + size], -15))
+    recs = [avro.read_datum(body, schema) for _ in range(count)]
+    coef = next(e for r in recs for e in r["coefficients"]
+                if e["value"] != 0.0)
+    coef["value"] = -coef["value"]
+    out = io.BytesIO()
+    for rec in recs:
+        avro.write_datum(out, schema, rec)
+    block = io.BytesIO()
+    avro.write_long(block, count)
+    avro.write_bytes(block, zlib.compress(out.getvalue())[2:-4])
+    with open(path, "wb") as f:
+        f.write(data[:head] + block.getvalue() + data[start + size:])
+
+
+def serving_healthy(label, runtime):
+    st = runtime.stats()
+    check(not st["degraded"] and st["degraded_batches"] == 0
+          and st["device_failures"] == 0, f"{label}: a batch scored degraded"
+          f" ({st['degraded_batches']} degraded, {st['device_failures']} "
+          "device failures)")
+    check(st["breaker"]["state"] == "closed", f"{label}: breaker "
+          f"{st['breaker']['state']}")
+
+
+def phase_serving(smi, td):
+    """Phase 13: serve phase 7's GAME model through the port's serving tier
+    (13a the kernel against its plain version, 13b in-process and HTTP
+    scoring against the scoring driver, 13c hot swap and a tampered
+    rollback under traffic, 13d a closed-loop load on ``bench_serving``'s
+    model).  Returns (kernel records, launches by geometry, metrics)."""
+    from photon_ml_tpu_torch.data.game_reader import read_game_avro
+    from photon_ml_tpu_torch.evaluation.suite import EvaluationSuite
+    from photon_ml_tpu_torch.io import avro
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.serving import kernels as sk
+    from photon_ml_tpu_torch.serving import loadgen, wire
+    from photon_ml_tpu_torch.serving.batcher import BatcherConfig
+    from photon_ml_tpu_torch.serving.runtime import (
+        RuntimeConfig,
+        ScoringRuntime,
+    )
+    from photon_ml_tpu_torch.serving.service import (
+        ScoringService,
+        start_http_server,
+    )
+    from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
+
+    def slog(msg):
+        log(f"serving [{smi}] {msg}")
+
+    t_phase = time.perf_counter()
+    metrics = {}
+    cfg = RuntimeConfig(max_batch_size=SERVE_MAX_BATCH,
+                        hot_entities=SERVE_HOT, device=DEVICE)
+    model_dir = os.path.join(td, "full", "models")
+    t0 = time.perf_counter()
+    model, imaps = ScoringRuntime.load_model(model_dir, device=DEVICE)
+    val = os.path.join(td, "validate.avro")
+    v_shards, v_ids, v_y, v_w, v_off, _, _ = read_game_avro(
+        val, index_maps=imaps)
+    n_val = v_y.shape[0]
+    slog(f"model and validation file read in {time.perf_counter() - t0:.2f}"
+         f" s ({n_val} rows, {model['per_user'].n_entities} users)")
+
+    # -- 13a: the kernel against its plain version, both geometries ------
+    w = model["fixed"].model.coefficients.means.detach().cpu().numpy()
+    re = model["per_user"]
+    b = SERVE_MAX_BATCH
+    keys = [str(k) for k in v_ids["userId"][:b]]
+    known = np.array([k in re.coefficients for k in keys])
+    ops7 = serve_inputs(v_shards["global"][:b].toarray(), w,
+                        v_shards["userFeatures"][:b].toarray(),
+                        sk.dense_coefficient_rows(re, keys),
+                        known & (np.arange(b) % 2 == 0), 13)
+    rec7 = serve_kernel_checks("phase 7's model", ops7, "logistic")
+    bench = SyntheticWorkload(n_entities=SERVE_BENCH_ENTITIES, fixed_dim=64,
+                              re_dim=8, seed=9)
+    breq = [bench.request(i) for i in range(b)]
+    bre = bench.model.models["per_entity"]
+    ops_b = serve_inputs(
+        [r["dense"][bench.fixed_shard] for r in breq],
+        bench.model.models["fixed"].model.coefficients.means.numpy(),
+        [r["dense"][bench.re_shard] for r in breq],
+        sk.dense_coefficient_rows(bre, [r["ids"][bench.entity_key]
+                                        for r in breq]),
+        np.arange(b) % 2 == 0, 14)
+    recb = serve_kernel_checks("bench_serving's model", ops_b, "logistic")
+    del ops7, ops_b
+
+    # -- 13b: phase 7's model served on the card --------------------------
+    t0 = time.perf_counter()
+    rt = ScoringRuntime(model, imaps, cfg)
+    rt.model_path = model_dir
+    slog(f"ScoringRuntime: buckets {rt.buckets}, {rt.warmup_compiles} "
+         f"warmed in {time.perf_counter() - t0:.2f} s, hot tables "
+         f"{rt.hot_table_bytes} bytes")
+    requests = serving_requests(v_shards, v_ids, v_off, imaps, range(n_val))
+    service = ScoringService(rt, BatcherConfig(
+        max_batch_size=SERVE_MAX_BATCH, max_wait_us=1000,
+        max_queue=2 * SERVE_CHUNK))
+    with service:
+        server, _ = start_http_server(service, host="127.0.0.1", port=0)
+        base = f"http://127.0.0.1:{server.server_address[1]}"
+        try:
+            # The main path's launches: 13b's in-process and HTTP traffic
+            # through the service, counted after the runtime's warm-up.
+            torch.cuda.synchronize()
+            _kernels.reset_launches()
+            b0 = rt.batches
+            t0 = time.perf_counter()
+            served = []
+            for lo in range(0, n_val, SERVE_CHUNK):
+                res = service.score_many(requests[lo:lo + SERVE_CHUNK])
+                bad = [r for r in res if "error" in r]
+                check(not bad, f"13b: in-process scoring failed: {bad[:3]}")
+                served.extend(np.float32(r["score"]) for r in res)
+            wall = time.perf_counter() - t0
+            served = np.asarray(served, np.float32)
+            st = rt.stats()
+            hot = st["hot_sets"]["per_user"]
+            slog(f"13b: {n_val} rows in process in {wall:.2f} s "
+                 f"({n_val / wall:.1f} rows/s), {st['batches']} batches, "
+                 f"hot hits {hot['hits']}, cold misses {hot['misses']}, "
+                 f"evictions {hot['evictions']}, unknown "
+                 f"{hot['unknown_entities']}")
+            check(hot["evictions"] > 0 and hot["misses"] > 0,
+                  "13b: the hot set never evicted (no cold tail)")
+            _, recs = avro.read_container(os.path.join(td, "score_host",
+                                                       "scores.avro"))
+            driver = np.array([r["predictionScore"] for r in recs])
+            Xg = v_shards["global"].astype(np.float64)
+            Xu = v_shards["userFeatures"].toarray().astype(np.float64)
+            W = sk.dense_coefficient_rows(
+                re, [str(k) for k in v_ids["userId"]]).astype(np.float64)
+            scale = (abs(Xg) @ np.abs(w.astype(np.float64))
+                     + (np.abs(Xu) * np.abs(W)).sum(1) + np.abs(v_off))
+            err = float((np.abs(served - driver)
+                         / np.maximum(scale, 1e-30)).max())
+            check(err <= RTOL, f"13b: served margins vs the scoring "
+                  f"driver's scores {err:.3g} of Σ|x·w|")
+            with open(os.path.join(td, "score_host",
+                                   "scoring_result.json")) as f:
+                drv_auc = json.load(f)["metric"]
+            auc = EvaluationSuite.from_specs(["auc"]).evaluate(
+                served.astype(np.float64), v_y, v_w)["auc"]
+            check(abs(auc - drv_auc) <= 1e-6, f"13b: served AUC {auc!r} vs "
+                  f"the scoring driver's {drv_auc!r}")
+            slog(f"13b: served margins vs the scoring driver's scores: max "
+                 f"{err:.3g} of Σ|x·w|; AUC {auc!r} vs the driver's "
+                 f"{drv_auc!r}")
+            metrics["in_process"] = {"rows": n_val, "wall_s": wall,
+                                     "rows_per_s": n_val / wall,
+                                     "rel_err": err, "auc": auc,
+                                     "driver_auc": drv_auc}
+
+            # HTTP: JSON (named features) and the binary wire (dense).
+            idx = np.random.default_rng(13).choice(n_val, SERVE_HTTP_ROWS,
+                                                   replace=False)
+            sub = [requests[i] for i in idx]
+            t0 = time.perf_counter()
+            via_json = []
+            for lo in range(0, len(sub), SERVE_MAX_BATCH):
+                status, body = http_json(
+                    base, "/score", {"rows": sub[lo:lo + SERVE_MAX_BATCH]})
+                check(status == 200, f"13b: /score JSON -> {status}")
+                via_json.extend(np.float32(r["score"])
+                                for r in body["results"])
+            json_s = time.perf_counter() - t0
+            dense = dense_requests(v_shards, v_ids, v_off, idx)
+            import urllib.request
+
+            t0 = time.perf_counter()
+            via_bin = []
+            for lo in range(0, len(dense), SERVE_MAX_BATCH):
+                req = urllib.request.Request(
+                    base + "/score",
+                    data=wire.encode_request(dense[lo:lo + SERVE_MAX_BATCH]),
+                    headers={"Content-Type": wire.CONTENT_TYPE})
+                with urllib.request.urlopen(req, timeout=120) as resp:
+                    check(resp.headers.get("Content-Type") ==
+                          wire.CONTENT_TYPE, "13b: no binary response")
+                    via_bin.extend(np.float32(r["score"]) for r in
+                                   wire.decode_response(resp.read()))
+            bin_s = time.perf_counter() - t0
+            want = served[idx].tobytes()
+            check(np.asarray(via_json, np.float32).tobytes() == want,
+                  "13b: HTTP JSON scores differ from the in-process scores")
+            check(np.asarray(via_bin, np.float32).tobytes() == want,
+                  "13b: binary-wire scores differ from the in-process "
+                  "scores")
+            slog(f"13b: {SERVE_HTTP_ROWS} rows over HTTP JSON "
+                 f"({json_s:.2f} s) and the binary wire ({bin_s:.2f} s), "
+                 "both bitwise the in-process scores")
+            for route in ("/healthz", "/readyz", "/stats"):
+                status, body = http_json(base, route)
+                check(status == 200, f"13b: {route} -> {status}")
+            health = http_json(base, "/healthz")[1]
+            check(health["status"] == "ok" and health["degraded"] is False,
+                  f"13b: /healthz {health}")
+            stats = http_json(base, "/stats")[1]
+            check(stats["runtime"]["degraded"] is False,
+                  "13b: /stats says degraded")
+            serving_healthy("13b", rt)
+            torch.cuda.synchronize()
+            launches = {"phase 7's model": _kernels.LAUNCHES["serve_margins"]}
+            check(launches["phase 7's model"] == rt.batches - b0,
+                  f"13b: {launches} launches for {rt.batches - b0} batches")
+            # One batch's host-to-result time: the pinned upload, the
+            # kernel and the readback of a full bucket; and the whole
+            # score_rows call (host packing included).
+            rows64 = [rt.parse_request(r) for r in sub[:SERVE_MAX_BATCH]]
+            packed = np.zeros((SERVE_MAX_BATCH, rt._packed_width),
+                              np.float32)
+            slots = np.zeros((1, SERVE_MAX_BATCH), np.int32)
+            service.stop()
+            launch_ms = wall_ms(lambda: rt._launch(SERVE_MAX_BATCH, packed,
+                                                   slots), n=50)
+            batch_ms = wall_ms(lambda: rt.score_rows(rows64), n=50)
+            service.start()
+            slog(f"13b: one {SERVE_MAX_BATCH}-row batch: pinned upload + "
+                 f"kernel + readback {launch_ms:.4f} ms; score_rows (host "
+                 f"packing, hot lookups included) {batch_ms:.4f} ms")
+            metrics["batch_host_to_result_ms"] = launch_ms
+            metrics["score_rows_ms"] = batch_ms
+
+            # -- 13c: hot swap and a tampered rollback under traffic -----
+            grid_dir = os.path.join(td, "grid", "models")
+            with ServingClient(base, sub) as client:
+                time.sleep(0.3)
+                t0 = time.perf_counter()
+                status, body = http_json(base, "/reload",
+                                         {"model_dir": grid_dir})
+                swap_s = time.perf_counter() - t0
+                time.sleep(0.3)
+            check(status == 200 and body["status"] == "swapped",
+                  f"13c: /reload -> {status} {body}")
+            check(not client.failed and client.done > 0,
+                  f"13c: {len(client.failed)} requests failed during the "
+                  f"swap: {client.failed[:3]}")
+            new_rt = service.current_runtime
+            check(new_rt.model_version == 2 and new_rt is not rt,
+                  "13c: the swap did not commit version 2")
+            got = service.score_many(sub)
+            fresh = ScoringRuntime(new_rt.model, new_rt.index_maps, cfg)
+            ref = np.concatenate([fresh.score_rows(
+                [fresh.parse_request(r) for r in sub[lo:lo + b]])[0]
+                for lo in range(0, len(sub), b)])
+            check(np.asarray([r["score"] for r in got], np.float32
+                             ).tobytes() == ref.tobytes(),
+                  "13c: the swapped-in version's scores differ from a "
+                  "fresh runtime's")
+            slog(f"13c: /reload to the grid's model in {swap_s:.2f} s under"
+                 f" traffic: {client.done} requests, 0 failed; version 2 "
+                 "scores bitwise a fresh runtime's")
+            bad_dir = os.path.join(td, "serving_tampered")
+            shutil.copytree(grid_dir, bad_dir)
+            tamper_coefficient(os.path.join(bad_dir, "random-effect",
+                                            "per_user", "coefficients.avro"))
+            with ServingClient(base, sub) as client:
+                time.sleep(0.3)
+                status, body = http_json(base, "/reload",
+                                         {"model_dir": bad_dir})
+                time.sleep(0.3)
+            check(status == 422 and body["status"] == "rolled_back"
+                  and body["version_after"] == 2,
+                  f"13c: tampered /reload -> {status} {body}")
+            check(not client.failed, f"13c: {len(client.failed)} requests "
+                  f"failed during the tampered reload: {client.failed[:3]}")
+            check(service.current_runtime is new_rt,
+                  "13c: the tampered reload replaced the runtime")
+            check(body["stage"] == "load"
+                  and "checksum mismatch" in body["reason"],
+                  f"13c: the tampered reload was not refused by its "
+                  f"fingerprint: {body['stage']!r} {body['reason']!r}")
+            slog(f"13c: tampered copy rolled back at stage "
+                 f"{body['stage']!r} ({body['reason'][:120]}); "
+                 f"{client.done} requests, 0 failed")
+            for r in (rt, new_rt, fresh):
+                serving_healthy("13c", r)
+            metrics["swap_s"] = swap_s
+        finally:
+            server.shutdown()
+            server.server_close()
+
+    # -- 13d: closed-loop load on bench_serving's model -------------------
+    from photon_ml_tpu_torch import telemetry
+
+    brt = ScoringRuntime(bench.model, bench.index_maps, cfg)
+    bsvc = ScoringService(brt, BatcherConfig(
+        max_batch_size=SERVE_MAX_BATCH, max_wait_us=1000, max_queue=1024))
+    with telemetry.Telemetry(sinks=[]) as hub, bsvc:
+        loadgen.closed_loop(bsvc.submit, bench.request, clients=4,
+                            duration_s=0.5)
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        b0, r0 = brt.batches, brt.rows_scored
+        report = loadgen.closed_loop(bsvc.submit, bench.request,
+                                     clients=SERVE_LOAD_CLIENTS,
+                                     duration_s=SERVE_LOAD_SECONDS)
+        torch.cuda.synchronize()
+        launches["bench_serving's model"] = _kernels.LAUNCHES["serve_margins"]
+        batches, rows = brt.batches - b0, brt.rows_scored - r0
+        occ = hub.snapshot()["gauges"].get("serving_batch_occupancy")
+    snap = report.snapshot()
+    hot = brt.stats()["hot_sets"]["per_entity"]
+    mean_rows = rows / max(batches, 1)
+    check(report.errors == 0 and report.rejected == 0 and
+          report.completed > 0, f"13d: closed loop {snap}")
+    serving_healthy("13d", brt)
+    check(launches["bench_serving's model"] == batches,
+          f"13d: {launches} launches for {batches} batches")
+    slog(f"13d: {SERVE_LOAD_CLIENTS} closed-loop clients for "
+         f"{SERVE_LOAD_SECONDS} s: {snap['throughput_rps']} requests/s, p50 "
+         f"{snap['latency_p50_ms']} ms, p99 {snap['latency_p99_ms']} ms, p99.9"
+         f" {snap['latency_p999_ms']} ms, mean batch {mean_rows:.2f} rows, "
+         f"hot-hit rate {hot['hit_rate']:.4f}, occupancy gauge {occ}, "
+         f"{report.errors} errors, {report.rejected} rejected — {smi}")
+    metrics["load"] = dict(snap, mean_batch_rows=mean_rows,
+                           hot_hit_rate=hot["hit_rate"], card=smi)
+    for name, n in launches.items():
+        check(n > 0, f"13: the serving kernel never launched on {name}'s "
+              "main path")
+    metrics["phase_s"] = time.perf_counter() - t_phase
+    slog(f"phase 13: {metrics['phase_s']:.1f} s; main-path launches "
+         f"{launches}")
+    records = []
+    for label, recs, n in (("", rec7, launches["phase 7's model"]),
+                           (".bench_serving", recb,
+                            launches["bench_serving's model"])):
+        for bucket in (1, SERVE_MAX_BATCH):
+            r = recs[bucket]
+            records.append({
+                "name": f"serve_margins{label}.b{bucket}", "route": "cuda",
+                "source": SERVE_SOURCE, "replaces": SERVE_REPLACES,
+                "launches": n, "max_abs_err": r["max_abs_err"],
+                "ms": r["ms"], "plain_ms": r["plain_ms"],
+                "bound_ms": r["bound_ms"], "bound_by": r["bound_by"],
+                "library_ms": None})
+    metrics["torch_ops_ms"] = {f"{g}.b{bk}": recs[bk]["torch_ops_ms"]
+                               for g, recs in (("phase7", rec7),
+                                               ("bench_serving", recb))
+                               for bk in (1, SERVE_MAX_BATCH)}
+    return records, launches, metrics
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -5396,6 +6014,10 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
         ooc_launches[op] += grp_game["game"][op]
     for k, n in grp_game["unit"].items():
         sd_launches[k] = sd_launches.get(k, 0) + n
+    torch.cuda.empty_cache()
+    log("phase 13: online serving of phase 7's model")
+    serve_records, _, serve_metrics = phase_serving(smi, td)
+    torch.cuda.empty_cache()
     # The binary records count phase 4's, 11b's, 11c's and 9c's GLM driver
     # launches.
     drv_launches = {k: drv_launches.get(k, 0) + sd_launches.get(k, 0)
@@ -5498,6 +6120,7 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
                         "source": KERNEL_SOURCE, "replaces": TPU_ABLATE,
                         "launches": abl_launches[f"spmv_ablate_{mode}_{op}"],
                         **{f: r[f] for f in fields[1:]}})
+    records.extend(serve_records)
     log(f"metrics: {json.dumps(lib_metrics)}; solvers: "
         f"{json.dumps({k: r['wall_s'] for k, r in sol_records.items()})}; "
         f"GAME: {json.dumps(game_metrics)}; GAME drivers: "
@@ -5506,6 +6129,7 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
         f"{json.dumps(stream_metrics)}; GAME out of core: "
         f"{json.dumps(ooc_metrics, default=float)}; multi-device: "
         f"{json.dumps({k: multi[k] for k in MULTI_KEYS}, default=float)}"
+        f"; serving: {json.dumps(serve_metrics, default=float)}"
         f"; total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -93,3 +93,37 @@ def matrix_from_coo(rows, cols, vals, n_rows: int, n_cols: int,
     from photon_ml_tpu_torch.ops.sparse import from_coo
 
     return from_coo(rows, cols, vals, n_rows, n_cols, device=device, **kwargs)
+
+
+def game_model_from_numpy(coordinates: dict, task: str, device=None):
+    """A ``GameModel`` from numpy arrays.  ``coordinates`` maps each
+    coordinate name, in coordinate order, to its spec: a fixed effect is
+    ``{"feature_shard": s, "means": array}`` (the means become a float32
+    tensor on ``device``); a random effect is ``{"feature_shard": s,
+    "entity_key": k, "n_features": d, "coefficients": {entity: (cols,
+    vals)}}`` (the per-entity table stays host numpy, int32 columns and
+    float32 values, as the port's model holds it)."""
+    from photon_ml_tpu_torch.game.model import (
+        FixedEffectModel,
+        GameModel,
+        RandomEffectModel,
+    )
+
+    name = losses_lib.get(task).name
+    models = {}
+    for coord, spec in coordinates.items():
+        if "means" in spec:
+            models[coord] = FixedEffectModel(
+                glm_from_numpy(spec["means"], name, device=device),
+                spec["feature_shard"])
+        else:
+            table = {
+                key: (np.asarray(cols, np.int32).copy(),
+                      np.asarray(vals, np.float32).copy())
+                for key, (cols, vals) in spec["coefficients"].items()
+            }
+            models[coord] = RandomEffectModel(
+                coefficients=table, feature_shard=spec["feature_shard"],
+                entity_key=spec["entity_key"], task=name,
+                n_features=int(spec["n_features"]))
+    return GameModel(models=models, task=name)

@@ -508,3 +508,53 @@ def plan_compression(staging: ChunkStaging, staged: Sequence,
         n_scales=n_scales, scale_buffer=scale_buffer,
         scale_offset=scale_offset,
     )
+
+
+# ---------------------------------------------------------------------------
+# Wire dtype tags
+# ---------------------------------------------------------------------------
+
+#: Stable one-byte tags for the dtypes that may ride a binary wire
+#: frame (serving/wire.py).  The table is append-only: tags are part of
+#: the framed layout, so a tag must never be renumbered once a frame
+#: version has shipped with it.  Segregating payload segments by dtype
+#: tag is the same slot idiom :class:`ChunkCodec` uses for compressed
+#: chunk buffers — a decoder maps each directory entry straight onto a
+#: typed view of the payload, no per-element parsing.
+WIRE_DTYPE_TAGS: tuple = (
+    np.dtype(np.float32),   # 0
+    np.dtype(np.float64),   # 1
+    np.dtype(np.float16),   # 2
+    np.dtype(np.int8),      # 3
+    np.dtype(np.int16),     # 4
+    np.dtype(np.int32),     # 5
+    np.dtype(np.int64),     # 6
+    np.dtype(np.uint8),     # 7
+    np.dtype(np.uint16),    # 8
+    np.dtype(np.uint32),    # 9
+    np.dtype(np.uint64),    # 10
+    np.dtype(np.bool_),     # 11
+)
+
+_WIRE_TAG_BY_DTYPE = {dt: i for i, dt in enumerate(WIRE_DTYPE_TAGS)}
+
+
+def wire_dtype_tag(dtype) -> int:
+    """The one-byte wire tag for ``dtype``; raises ``KeyError`` with the
+    offending dtype named when it has no tag (complex, object, …)."""
+    dt = np.dtype(dtype)
+    tag = _WIRE_TAG_BY_DTYPE.get(dt)
+    if tag is None:
+        raise KeyError(
+            f"dtype {dt} has no wire tag; supported: "
+            f"{[str(d) for d in WIRE_DTYPE_TAGS]}"
+        )
+    return tag
+
+
+def wire_dtype_from_tag(tag: int) -> np.dtype:
+    """Inverse of :func:`wire_dtype_tag`; raises ``KeyError`` on an
+    unknown tag so decoders refuse rather than misread."""
+    if not 0 <= tag < len(WIRE_DTYPE_TAGS):
+        raise KeyError(f"unknown wire dtype tag {tag}")
+    return WIRE_DTYPE_TAGS[tag]

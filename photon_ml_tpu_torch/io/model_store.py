@@ -69,10 +69,14 @@ def coefficient_checksum(entry_lists) -> str:
 def _warn_unverified(path: str, why: str) -> None:
     """A model loading WITHOUT fingerprint verification is a quiet hole
     in the tamper story (a flipped bit serves wrong scores with no
-    error) — make it loud with a pointed warning.  Re-save with the
-    current writer to get a sidecar."""
+    error) — make it loud: a pointed warning for the operator reading
+    logs plus ``model_load_unverified_total`` on the telemetry hub.
+    Re-save with the current writer to get a sidecar."""
     import warnings
 
+    from photon_ml_tpu_torch import telemetry as telemetry_mod
+
+    telemetry_mod.current().counter("model_load_unverified_total").inc()
     warnings.warn(
         f"{path}: loading UNVERIFIED ({why}); content tampering or "
         "truncation cannot be detected on this model — re-save it with "

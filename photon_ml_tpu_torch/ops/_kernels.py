@@ -14,7 +14,11 @@ The libraries and the TPU kernels they replace:
   into row blocks of :data:`ROW_BLOCK` rows, then a combine over the
   blocks); in their ablation modes, ``experiments/exp_ablate.py``'s kernels;
 - ``ell_matvec`` — ``experiments/exp_g8192.py``'s ``pallas_matvec``;
-- ``window_matvec`` — ``experiments/exp_g8192_v2.py``'s ``make_matvec``.
+- ``window_matvec`` — ``experiments/exp_g8192_v2.py``'s ``make_matvec``;
+- ``serve_margins`` — not a TPU kernel: the serving runtime's padded-bucket
+  margin program (``photon_ml_tpu/serving/kernels.py``'s
+  ``build_bucket_kernel`` / ``build_fused_bucket_kernel``), wrapped by
+  ``serving/kernels.py::serve_margins``.
 
 :func:`spmv_rows` and :func:`spmv_cols` are the SpMV wrappers; the others
 live with their experiments under ``photon_ml_tpu_torch/experiments/`` and launch through
@@ -42,7 +46,8 @@ _PKG = Path(__file__).resolve().parent.parent
 CSRC = _PKG / "csrc"
 BUILD_DIR = _PKG / "_build"
 SOURCES = {name: CSRC / f"{name}.cu"
-           for name in ("spmv", "ell_matvec", "window_matvec")}
+           for name in ("spmv", "ell_matvec", "window_matvec",
+                        "serve_margins")}
 NVCC_FLAGS = (
     "-gencode", "arch=compute_90a,code=sm_90a",
     "-std=c++17", "-O3", "-shared", "-Xcompiler", "-fPIC",
@@ -68,6 +73,10 @@ SIGNATURES = {
     "window_matvec": {
         "photon_window_matvec": ([_P, _P, _P, _P, _P, _LL, _P], _I),
         "photon_window_config": ([_LL, _P], _I),
+    },
+    "serve_margins": {
+        "photon_serve_margins": ([_P, _LL, _I, _P, _P, _P, _P, _I, _P, _P,
+                                  _P, _P, _P, _P, _P, _I, _P, _LL, _P], _I),
     },
 }
 
@@ -98,6 +107,7 @@ LAUNCHES: dict[str, int] = {
     "ell_matvec": 0,
     "window_matvec": 0,
     "window_ring_probe": 0,
+    "serve_margins": 0,
     "spmv_row_block_probe": 0,
     **{f"spmv_ablate_{mode}_{op}": 0
        for mode in ABLATE_MODES for op in ABLATE_OPS},

@@ -1,0 +1,537 @@
+"""Serving CLI: selfcheck, HTTP server, and the built-in load generator
+(port of ``photon_ml_tpu/serving/__main__.py``, the in-process passes).
+
+Selfcheck::
+
+    python -m photon_ml_tpu_torch.serving --selfcheck --device cpu
+
+builds a synthetic GAME model, warms the bucket ladder, serves CONCURRENT
+requests through the real HTTP endpoint, and verifies:
+
+- every batched score is BIT-IDENTICAL to single-request scoring
+  (the padded-bucket kernel's parity contract);
+- the telemetry snapshot carries request-latency histograms and a
+  nonzero batch-occupancy gauge;
+- /healthz and /stats answer.
+
+A second, tenancy pass replays the ``noisy_neighbor`` scenario against a
+two-tenant policy on one service: an aggressor tenant bursting to ~10x
+its token-bucket quota is shed alone while the victim tenant's p99 stays
+inside its SLO with zero failures, and the per-tenant
+``serving_tenant_<t>_*`` metric family records both sides.
+
+The reference's high-availability (``--replicas``), process-mode
+(``--workers``), fleet and shared-memory-ingress passes and flags need
+the process tier (ROADMAP item 7b); the ops-plane flags
+(``--metrics-port``, ``--metrics-interval-s``, ``--tenant-report``,
+``--membership`` and the fleet verbs) need the rest of the telemetry and
+cluster packages (item 8).  Each is refused, naming its item.
+
+Serve a saved model (on the card unless ``--device cpu``)::
+
+    python -m photon_ml_tpu_torch.serving --model-dir /tmp/game_out/models \\
+        --port 8080
+
+Load-generate against an in-process service (no HTTP overhead)::
+
+    python -m photon_ml_tpu_torch.serving --synthetic 50000 \\
+        --loadgen closed --clients 16 --duration 5
+"""
+
+from __future__ import annotations
+
+import argparse
+import json
+import os
+import sys
+import tempfile
+import threading
+import urllib.request
+
+#: flags of the reference this port refuses, with the ROADMAP item that
+#: brings each (refused when given, i.e. off their default).
+_REFUSED = {
+    "workers": "7b", "shm_ingress": "7b", "membership": "8",
+    "fleet_join": "8", "fleet_drain": "8", "metrics_port": "8",
+    "metrics_interval_s": "8", "tenant_report": "8",
+}
+
+
+def build_arg_parser() -> argparse.ArgumentParser:
+    p = argparse.ArgumentParser(
+        prog="python -m photon_ml_tpu_torch.serving",
+        description="online GAME/GLM scoring service",
+    )
+    p.add_argument("--selfcheck", action="store_true")
+    p.add_argument(
+        "--model-dir",
+        help="saved GAME model directory (or a GLM .avro file)",
+    )
+    p.add_argument(
+        "--synthetic", type=int, metavar="N_ENTITIES", default=0,
+        help="serve a synthetic GAME model with this many random-effect "
+        "entities instead of --model-dir",
+    )
+    p.add_argument(
+        "--device", default=None,
+        help="cuda (default: the card, raises without one) or cpu",
+    )
+    p.add_argument("--host", default="127.0.0.1")
+    p.add_argument("--port", type=int, default=8080)
+    p.add_argument("--max-batch-size", type=int, default=64)
+    p.add_argument(
+        "--max-wait-us", type=int, default=2000,
+        help="how long the dispatcher holds the first request open for "
+        "coalescing",
+    )
+    p.add_argument("--max-queue", type=int, default=256)
+    p.add_argument(
+        "--adaptive-wait", action="store_true",
+        help="size the coalescing wait from the arrival-rate EWMA "
+        "instead of always paying --max-wait-us (which becomes the "
+        "ceiling)",
+    )
+    p.add_argument(
+        "--hot-entities", type=int, default=1024,
+        help="per-coordinate LRU hot-set capacity (device-resident rows)",
+    )
+    p.add_argument(
+        "--replicas", type=int, default=1,
+        help="supervised scoring replicas (>1 needs the process tier, "
+        "ROADMAP item 7b: refused)",
+    )
+    p.add_argument(
+        "--timeout-ms", type=float, default=None,
+        help="default per-request deadline (None = no deadline)",
+    )
+    p.add_argument(
+        "--loadgen", choices=["closed", "open"],
+        help="run the built-in load generator against the service, print "
+        "a JSON report, and exit",
+    )
+    p.add_argument("--clients", type=int, default=8, help="closed-loop")
+    p.add_argument("--rate", type=float, default=200.0, help="open-loop rps")
+    p.add_argument("--duration", type=float, default=5.0, help="seconds")
+    p.add_argument(
+        "--output-dir",
+        help="telemetry output dir (selfcheck defaults to a tempdir)",
+    )
+    p.add_argument("--telemetry", choices=["on", "off"], default="on")
+    # The reference's flags this port refuses (see _REFUSED).
+    p.add_argument("--workers", type=int, default=0, help=argparse.SUPPRESS)
+    p.add_argument("--shm-ingress", nargs="?", const="", default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--membership", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--host-id", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--fleet-join", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--fleet-drain", default=None, help=argparse.SUPPRESS)
+    p.add_argument("--metrics-port", type=int, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--metrics-interval-s", type=float, default=None,
+                   help=argparse.SUPPRESS)
+    p.add_argument("--tenant-report", nargs="+", default=None,
+                   help=argparse.SUPPRESS)
+    return p
+
+
+def refused_flags(args) -> list[str]:
+    """One message per given flag that this port does not serve yet."""
+    out = []
+    parser = build_arg_parser()
+    for dest, item in _REFUSED.items():
+        if getattr(args, dest) != parser.get_default(dest):
+            flag = "--" + dest.replace("_", "-")
+            tier = ("the process tier (supervisor, workers, shared-memory "
+                    "ingress, fleet)" if item == "7b" else
+                    "the telemetry ops plane and cluster packages")
+            out.append(f"{flag} needs {tier}, not ported yet (ROADMAP "
+                       f"item {item})")
+    if args.replicas > 1:
+        out.append("--replicas > 1 needs the replica supervisor, not "
+                   "ported yet (ROADMAP item 7b)")
+    return out
+
+
+def _make_service(args):
+    from photon_ml_tpu_torch.serving.batcher import BatcherConfig
+    from photon_ml_tpu_torch.serving.runtime import (
+        RuntimeConfig,
+        ScoringRuntime,
+    )
+    from photon_ml_tpu_torch.serving.service import ScoringService
+
+    rt_cfg = RuntimeConfig(
+        max_batch_size=args.max_batch_size, hot_entities=args.hot_entities,
+        device=args.device,
+    )
+    if args.synthetic:
+        from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
+
+        workload = SyntheticWorkload(n_entities=args.synthetic)
+        runtime = ScoringRuntime(workload.model, workload.index_maps, rt_cfg)
+    elif args.model_dir:
+        workload = None
+        runtime = ScoringRuntime.load(args.model_dir, rt_cfg)
+    else:
+        raise SystemExit(
+            "one of --selfcheck / --model-dir / --synthetic is required"
+        )
+    batcher_cfg = BatcherConfig(
+        max_batch_size=args.max_batch_size,
+        max_wait_us=args.max_wait_us,
+        max_queue=args.max_queue,
+        default_timeout_ms=args.timeout_ms,
+        adaptive_wait=args.adaptive_wait,
+    )
+    return ScoringService(runtime, batcher_cfg), workload
+
+
+# ---------------------------------------------------------------------------
+# Selfcheck
+# ---------------------------------------------------------------------------
+
+def run_selfcheck(out_dir: str, device=None) -> list[str]:
+    """Returns failure strings (empty = pass)."""
+    import numpy as np
+
+    from photon_ml_tpu_torch import telemetry as telemetry_mod
+    from photon_ml_tpu_torch.serving.batcher import BatcherConfig
+    from photon_ml_tpu_torch.serving.runtime import (
+        RuntimeConfig,
+        ScoringRuntime,
+    )
+    from photon_ml_tpu_torch.serving.service import (
+        ScoringService,
+        start_http_server,
+    )
+    from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
+
+    failures: list[str] = []
+    n_requests = 24
+    with telemetry_mod.Telemetry(
+        output_dir=out_dir, run_name="serving-selfcheck"
+    ) as tel:
+        with tel.span("selfcheck", subsystem="serving"):
+            # Small hot set (< entities) so BOTH the device hot-table path
+            # and the host cold-gather path serve real traffic.
+            workload = SyntheticWorkload(n_entities=64, seed=3)
+            runtime = ScoringRuntime(
+                workload.model, workload.index_maps,
+                RuntimeConfig(max_batch_size=8, hot_entities=16,
+                              device=device),
+            )
+            requests = [workload.request(i) for i in range(n_requests)]
+            rows = [runtime.parse_request(r) for r in requests]
+
+            # Single-request reference: every row alone through bucket 1.
+            reference = np.asarray(
+                [runtime.score_rows([row])[0][0] for row in rows],
+                np.float32,
+            )
+
+            service = ScoringService(runtime, BatcherConfig(
+                max_batch_size=8, max_wait_us=20_000, max_queue=64,
+            ))
+            with service:
+                server, _ = start_http_server(service, port=0)
+                port = server.server_address[1]
+                try:
+                    # Concurrent clients through the REAL HTTP endpoint,
+                    # 6 rows per POST, 4 posts in flight.
+                    got: dict[int, list] = {}
+                    errs: list[str] = []
+
+                    def client(t: int) -> None:
+                        chunk = requests[t * 6:(t + 1) * 6]
+                        body = json.dumps({"rows": chunk}).encode()
+                        req = urllib.request.Request(
+                            f"http://127.0.0.1:{port}/score",
+                            data=body,
+                            headers={"Content-Type": "application/json"},
+                        )
+                        try:
+                            with urllib.request.urlopen(
+                                req, timeout=30
+                            ) as resp:
+                                got[t] = json.loads(resp.read())["results"]
+                        except Exception as exc:  # noqa: BLE001
+                            errs.append(f"client {t}: {exc}")
+
+                    threads = [
+                        threading.Thread(
+                            target=client, args=(t,), daemon=True
+                        )
+                        for t in range(4)
+                    ]
+                    try:
+                        for t in threads:
+                            t.start()
+                    finally:
+                        for t in threads:
+                            t.join()
+                    failures.extend(errs)
+
+                    served = np.zeros(n_requests, np.float32)
+                    for t, results in got.items():
+                        for j, r in enumerate(results):
+                            if "error" in r:
+                                failures.append(
+                                    f"row {t * 6 + j} failed: {r}"
+                                )
+                            else:
+                                served[t * 6 + j] = np.float32(r["score"])
+                    if not failures and served.tobytes() != \
+                            reference.tobytes():
+                        bad = int(np.argmax(served != reference))
+                        failures.append(
+                            "batched scores are NOT bit-identical to "
+                            f"single-request scoring (first diff row "
+                            f"{bad}: {served[bad]!r} vs "
+                            f"{reference[bad]!r})"
+                        )
+
+                    # /healthz and /stats answer.
+                    for route in ("/healthz", "/stats"):
+                        with urllib.request.urlopen(
+                            f"http://127.0.0.1:{port}{route}", timeout=10
+                        ) as resp:
+                            if resp.status != 200:
+                                failures.append(
+                                    f"{route} -> HTTP {resp.status}"
+                                )
+                            json.loads(resp.read())
+                finally:
+                    server.shutdown()
+                    server.server_close()
+
+        snap = tel.snapshot()
+    # Snapshot content: request-latency histogram + nonzero occupancy.
+    hist = snap["histograms"].get("serving_request_latency_seconds", {})
+    if not hist.get("count"):
+        failures.append(
+            "metrics snapshot has no serving_request_latency_seconds "
+            "histogram observations"
+        )
+    occupancy = snap["gauges"].get("serving_batch_occupancy")
+    if not occupancy:
+        failures.append(
+            f"serving_batch_occupancy gauge is {occupancy!r}, expected "
+            "nonzero"
+        )
+    metrics_path = os.path.join(out_dir, "metrics.json")
+    if not os.path.exists(metrics_path):
+        failures.append(f"missing {metrics_path}")
+    else:
+        with open(metrics_path) as f:
+            on_disk = json.load(f)
+        if "serving_request_latency_seconds" not in on_disk.get(
+            "histograms", {}
+        ):
+            failures.append(
+                "metrics.json lacks the request-latency histogram"
+            )
+    if not failures:
+        hot = runtime.stats()["hot_sets"]["per_entity"]
+        print(
+            f"serving selfcheck ({runtime.device}): {n_requests} rows "
+            f"bit-identical over {runtime.batches - n_requests} coalesced "
+            f"batches (buckets {runtime.buckets}, hot hits {hot['hits']}, "
+            f"cold misses {hot['misses']}, mean latency "
+            f"{1e3 * hist['sum'] / hist['count']:.2f} ms), "
+            f"occupancy gauge {occupancy:.3f}"
+        )
+    return failures
+
+
+def run_selfcheck_tenancy(out_dir: str, device=None) -> list[str]:
+    """Two-tenant noisy-neighbor pass on one service: an aggressor
+    tenant bursts to ~10x its quota while a victim tenant holds steady;
+    the tenancy layer must shed the aggressor alone — victim p99 inside
+    its SLO with ZERO failed requests — and the per-tenant metric family
+    must record both sides.  Returns failure strings (empty = pass)."""
+    from photon_ml_tpu_torch import telemetry as telemetry_mod
+    from photon_ml_tpu_torch.serving import loadgen
+    from photon_ml_tpu_torch.serving.batcher import BatcherConfig
+    from photon_ml_tpu_torch.serving.runtime import (
+        RuntimeConfig,
+        ScoringRuntime,
+    )
+    from photon_ml_tpu_torch.serving.service import ScoringService
+    from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
+    from photon_ml_tpu_torch.serving.tenancy import TenancyConfig, TenantSpec
+
+    failures: list[str] = []
+    victim_slo_ms = 500.0
+    aggressor_quota = 40.0
+    workload = SyntheticWorkload(n_entities=64, seed=3)
+    rt_cfg = RuntimeConfig(max_batch_size=8, hot_entities=16, device=device)
+    tenancy = TenancyConfig(tenants=(
+        TenantSpec(
+            name="victim", max_queue=128, p99_slo_ms=victim_slo_ms,
+        ),
+        TenantSpec(
+            name="aggressor", quota_rps=aggressor_quota,
+            burst=max(aggressor_quota / 2.0, 1.0), max_queue=64,
+        ),
+    ))
+    batcher_cfg = BatcherConfig(
+        max_batch_size=8, max_wait_us=2_000, max_queue=256,
+        tenancy=tenancy,
+    )
+
+    def make_request(i: int, phase, tenant: str) -> dict:
+        obj = dict(workload.request(i))
+        obj["tenant"] = tenant
+        return obj
+
+    with telemetry_mod.Telemetry(
+        output_dir=out_dir, run_name="serving-selfcheck-tenancy"
+    ) as tel:
+        runtime = ScoringRuntime(workload.model, workload.index_maps, rt_cfg)
+        service = ScoringService(runtime, batcher_cfg)
+        with service:
+            report = loadgen.run_noisy_neighbor(
+                service.submit, make_request,
+                victim_rate_rps=40.0, aggressor_rate_rps=40.0,
+            )
+        snap = tel.snapshot()
+
+    gate = report.isolation(victim_slo_ms)
+    if not gate["pass"]:
+        failures.append(f"noisy-neighbor isolation gate FAILED: {gate}")
+    counters = snap["counters"]
+    if counters.get("serving_tenant_victim_requests_total", 0) < \
+            report.victim.completed:
+        failures.append(
+            "serving_tenant_victim_requests_total = "
+            f"{counters.get('serving_tenant_victim_requests_total', 0)}, "
+            f"expected >= {report.victim.completed}"
+        )
+    if counters.get("serving_tenant_aggressor_shed_total", 0) < 1:
+        failures.append(
+            "serving_tenant_aggressor_shed_total = "
+            f"{counters.get('serving_tenant_aggressor_shed_total', 0)}, "
+            "expected >= 1 (the burst never pressured the quota)"
+        )
+    victim_hist = snap["histograms"].get(
+        "serving_tenant_victim_request_latency_seconds", {}
+    )
+    if not victim_hist.get("count"):
+        failures.append(
+            "no serving_tenant_victim_request_latency_seconds "
+            "observations — the per-tenant latency family is dark"
+        )
+    if not failures:
+        print(
+            f"serving tenancy selfcheck: aggressor burst 10x quota shed "
+            f"{report.aggressor.shed} of its requests while victim "
+            f"completed {report.victim.completed} with 0 failures, p99 "
+            f"{gate['victim_p99_ms']} ms <= SLO {victim_slo_ms:g} ms"
+        )
+    return failures
+
+
+# ---------------------------------------------------------------------------
+# Entry point
+# ---------------------------------------------------------------------------
+
+def main(argv=None) -> int:
+    args = build_arg_parser().parse_args(argv)
+    refused = refused_flags(args)
+    if refused:
+        for msg in refused:
+            print(msg, file=sys.stderr)
+        return 2
+
+    if args.selfcheck:
+        def passes(root: str) -> list[str]:
+            # Separate output dirs: each pass owns its Telemetry hub and
+            # its metrics.json.
+            single = os.path.join(root, "single")
+            tenancy = os.path.join(root, "tenancy")
+            os.makedirs(single, exist_ok=True)
+            os.makedirs(tenancy, exist_ok=True)
+            return (run_selfcheck(single, args.device)
+                    + run_selfcheck_tenancy(tenancy, args.device))
+
+        if args.output_dir:
+            os.makedirs(args.output_dir, exist_ok=True)
+            failures = passes(args.output_dir)
+        else:
+            with tempfile.TemporaryDirectory(
+                prefix="photon_serving_selfcheck_"
+            ) as td:
+                failures = passes(td)
+        if failures:
+            print("serving selfcheck FAILED:", file=sys.stderr)
+            for f in failures:
+                print(f"  - {f}", file=sys.stderr)
+            return 1
+        print("serving selfcheck PASSED")
+        return 0
+
+    from photon_ml_tpu_torch import telemetry as telemetry_mod
+
+    tel = telemetry_mod.Telemetry(
+        output_dir=args.output_dir,
+        enabled=args.telemetry != "off",
+        run_name="serving",
+        sinks=None if args.output_dir else [],
+    )
+    with tel:
+        service, workload = _make_service(args)
+        return _run_service(args, service, workload)
+
+
+def _run_service(args, service, workload) -> int:
+    if args.loadgen:
+        from photon_ml_tpu_torch.serving import loadgen
+
+        if workload is None:
+            from photon_ml_tpu_torch.serving.synthetic import (
+                SyntheticWorkload,
+            )
+
+            workload = SyntheticWorkload(n_entities=10_000)
+        with service:
+            if args.loadgen == "closed":
+                report = loadgen.closed_loop(
+                    service.submit, workload.request,
+                    clients=args.clients, duration_s=args.duration,
+                )
+            else:
+                report = loadgen.open_loop(
+                    service.submit, workload.request,
+                    rate_rps=args.rate, duration_s=args.duration,
+                )
+        print(json.dumps({
+            "loadgen": report.snapshot(),
+            "stats": service.stats(),
+        }, indent=2))
+        return 0
+
+    from photon_ml_tpu_torch.serving.service import start_http_server
+
+    with service:
+        server, thread = start_http_server(
+            service, host=args.host, port=args.port
+        )
+        host, port = server.server_address[:2]
+        print(
+            f"serving on http://{host}:{port} "
+            f"(/score /reload /healthz /livez /readyz /stats); "
+            "Ctrl-C to stop",
+            flush=True,
+        )
+        try:
+            thread.join()
+        except KeyboardInterrupt:
+            print("shutting down")
+        finally:
+            server.shutdown()
+            server.server_close()
+    return 0
+
+
+if __name__ == "__main__":
+    sys.exit(main())

@@ -1113,3 +1113,107 @@ def test_streamed_game_fixed_effect_on_card(cuda):
     assert torch.equal(ws[0], ws[1])
     w_r = res.train(off)
     assert float((ws[0] - w_r).abs().max()) <= 5e-3
+
+
+def _serve_inputs(seed, b, d_fixed, d_re, hot, dev):
+    rng = np.random.default_rng(seed)
+
+    def f32(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev)
+
+    table = f32(hot + 1, d_re)
+    table[0] = 0.0
+    slots = torch.as_tensor(rng.integers(0, hot + 1, size=b).astype(np.int32),
+                            device=dev)
+    cold = f32(b, d_re) * (slots == 0).float()[:, None]
+    return f32(b), [(f32(b, d_fixed), f32(d_fixed))], [
+        (f32(b, d_re), table, slots, cold)]
+
+
+@pytest.mark.parametrize("b,d_fixed,d_re", [(1, 512, 8), (64, 512, 8),
+                                            (37, 64, 8), (64, 33, 1)])
+@pytest.mark.parametrize("link", ["logistic", "exp", "identity"])
+def test_serve_margins_matches_plain(cuda, b, d_fixed, d_re, link):
+    """The serving kernel against its plain version (the same summation
+    order in torch ops): margins bitwise (every add and multiply rounds
+    alone on both sides), means within 2 ulp-scale of float32 (CUDA's
+    expf against torch.exp); two launches bitwise equal."""
+    from photon_ml_tpu_torch.serving import kernels
+
+    offset, fixed, random = _serve_inputs(b + d_fixed, b, d_fixed, d_re, 16,
+                                          cuda)
+    before = _kernels.LAUNCHES["serve_margins"]
+    out = kernels.serve_margins(offset, fixed, random, link)
+    again = kernels.serve_margins(offset, fixed, random, link)
+    assert _kernels.LAUNCHES["serve_margins"] == before + 2
+    plain = kernels.serve_margins_plain(offset, fixed, random, link)
+    assert torch.equal(out, again)
+    assert torch.equal(out[0], plain[0])
+    scale = 1e-6 * plain[1].abs().clamp_min(1.0)
+    assert bool(((out[1] - plain[1]).abs() <= scale).all())
+
+
+def test_serve_margins_batched_equals_single_on_card(cuda):
+    """Every row of a full bucket is bitwise the row scored alone, and the
+    fused layout (one packed buffer) equals the composed arrays."""
+    from photon_ml_tpu_torch.serving import kernels
+
+    offset, fixed, random = _serve_inputs(5, 64, 512, 8, 32, cuda)
+    full = kernels.serve_margins(offset, fixed, random, "logistic")
+    for i in range(64):
+        one = kernels.serve_margins(
+            offset[i:i + 1], [(x[i:i + 1], w) for x, w in fixed],
+            [(x[i:i + 1], t, s[i:i + 1], c[i:i + 1])
+             for x, t, s, c in random], "logistic")
+        assert torch.equal(one[:, 0], full[:, i]), i
+    (xf, w), = fixed
+    (xr, table, slots, cold), = random
+    packed = torch.cat([offset[:, None], xf, xr, cold], dim=1).contiguous()
+    fused = kernels.build_fused_bucket_kernel("logistic")(
+        packed, slots[None, :].contiguous(), (w,), (table,))
+    assert torch.equal(fused, full)
+
+
+def test_serve_margins_refuses_bad_operands_on_the_card(cuda):
+    from photon_ml_tpu_torch.serving import kernels
+
+    offset, fixed, random = _serve_inputs(1, 4, 8, 4, 4, cuda)
+    (x, t, s, c), = random
+    with pytest.raises(ValueError, match="int32"):
+        kernels.serve_margins(offset, fixed, [(x, t, s.long(), c)],
+                              "logistic")
+    with pytest.raises(ValueError, match="one device"):
+        kernels.serve_margins(offset, [(fixed[0][0].cpu(), fixed[0][1])],
+                              random, "logistic")
+
+
+def test_serving_runtime_on_card_bitwise(cuda):
+    """The runtime on the card: batched == single at every bucket, hot ==
+    cold, fused == composed, and the CPU runtime's margins within 1e-5 of
+    Σ|x·w|."""
+    from photon_ml_tpu_torch.serving.runtime import (
+        RuntimeConfig,
+        ScoringRuntime,
+    )
+    from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
+
+    wl = SyntheticWorkload(n_entities=64, fixed_dim=512, re_dim=8, seed=9)
+    cfg = dict(max_batch_size=16, hot_entities=8)
+    rts = {name: ScoringRuntime(wl.model, wl.index_maps, RuntimeConfig(
+        **cfg, device=dev, fused=fused))
+        for name, dev, fused in (("fused", "cuda", True),
+                                 ("composed", "cuda", False),
+                                 ("cpu", "cpu", True))}
+    rows = [rts["fused"].parse_request(wl.request(i)) for i in range(16)]
+    single = np.asarray([rts["fused"].score_rows([r])[0][0] for r in rows])
+    hot_again = np.asarray([rts["fused"].score_rows([r])[0][0]
+                            for r in rows])
+    assert single.tobytes() == hot_again.tobytes()
+    for n in (1, 2, 5, 8, 16):
+        m, _ = rts["fused"].score_rows(rows[:n])
+        assert m.tobytes() == single[:n].tobytes(), n
+        mc, _ = rts["composed"].score_rows(rows[:n])
+        assert mc.tobytes() == m.tobytes(), n
+    m_cpu, _ = rts["cpu"].score_rows(rows)
+    assert m_cpu.tobytes() == single.tobytes()

@@ -88,11 +88,29 @@ def test_import_leaves_jax_out_of_sys_modules():
     "photon_ml_tpu_torch.game.distributed",
     "photon_ml_tpu_torch.game.hierarchical",
     "photon_ml_tpu_torch.experiments.multirank",
+    "photon_ml_tpu_torch.telemetry",
+    "photon_ml_tpu_torch.telemetry.core",
+    "photon_ml_tpu_torch.telemetry.sinks",
+    "photon_ml_tpu_torch.telemetry.recorder",
+    "photon_ml_tpu_torch.chaos",
+    "photon_ml_tpu_torch.chaos.breaker",
+    "photon_ml_tpu_torch.serving",
+    "photon_ml_tpu_torch.serving.runtime",
+    "photon_ml_tpu_torch.serving.service",
+    "photon_ml_tpu_torch.serving.batcher",
+    "photon_ml_tpu_torch.serving.swap",
+    "photon_ml_tpu_torch.serving.wire",
+    "photon_ml_tpu_torch.serving.tenancy",
+    "photon_ml_tpu_torch.serving.loadgen",
+    "photon_ml_tpu_torch.serving.synthetic",
+    "photon_ml_tpu_torch.serving.__main__",
+    "photon_ml_tpu_torch.convert",
 ])
 def test_solver_slice_module_imports_alone_without_jax(module):
-    """Each module of the solver, GAME, GAME-driver, out-of-core and
-    multi-device slices (GAME over a group too), imported alone in a fresh
-    process, leaves jax and the JAX package out of sys.modules."""
+    """Each module of the solver, GAME, GAME-driver, out-of-core,
+    multi-device and serving slices (GAME over a group too, the telemetry
+    hub and the breaker), imported alone in a fresh process, leaves jax
+    and the JAX package out of sys.modules."""
     code = (
         "import importlib, json, sys\n"
         f"importlib.import_module({module!r})\n"
