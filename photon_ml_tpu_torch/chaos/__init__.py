@@ -1,6 +1,17 @@
-"""Recovery primitives (port of ``photon_ml_tpu/chaos``): so far the
-circuit breaker that guards the serving runtime's re-promotion.  The
-fault-site registry (``chaos/core.py``) is not ported."""
+"""Deterministic fault injection + recovery primitives (port of
+``photon_ml_tpu/chaos``; see core.py).
+
+Public surface::
+
+    chaos.maybe_fail(site, **ctx)   # the instrumented seams' hook
+    chaos.FaultPlan / chaos.FaultSpec
+    chaos.InjectedFault / chaos.InjectedDeviceLost
+    chaos.CircuitBreaker            # closed -> open -> half-open probe
+    chaos.KNOWN_SITES               # the fault-site catalog
+
+The reference's ``python -m photon_ml_tpu.chaos --selfcheck`` (a
+training kill/resume scenario) waits for ROADMAP item 8.
+"""
 
 from photon_ml_tpu_torch.chaos.breaker import (  # noqa: F401
     CLOSED,
@@ -8,3 +19,28 @@ from photon_ml_tpu_torch.chaos.breaker import (  # noqa: F401
     OPEN,
     CircuitBreaker,
 )
+from photon_ml_tpu_torch.chaos.core import (  # noqa: F401
+    EXCEPTIONS,
+    KNOWN_SITES,
+    FaultPlan,
+    FaultSpec,
+    InjectedDeviceLost,
+    InjectedFault,
+    current_plan,
+    maybe_fail,
+)
+
+__all__ = [
+    "CLOSED",
+    "HALF_OPEN",
+    "OPEN",
+    "CircuitBreaker",
+    "EXCEPTIONS",
+    "KNOWN_SITES",
+    "FaultPlan",
+    "FaultSpec",
+    "InjectedDeviceLost",
+    "InjectedFault",
+    "current_plan",
+    "maybe_fail",
+]

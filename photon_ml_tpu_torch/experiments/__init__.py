@@ -17,7 +17,10 @@ it on the card:
                  chosen by timing the library built at each candidate R;
 - ``window_ring`` — the port's own probe: the window kernel's tile, ring
                  depth and accumulator copies, chosen the same way, with
-                 the read-only pass that gives its stream's ceiling.
+                 the read-only pass that gives its stream's ceiling;
+- ``fleet_burst`` — the port's own probe: a fleet router's 16 workers
+                 turning to one surviving HTTP host at once, repeated,
+                 at a chosen listen backlog.
 
 Run each as ``python -m photon_ml_tpu_torch.experiments.<name>``; the card
 is the default, ``--device cpu`` runs the plain PyTorch versions.

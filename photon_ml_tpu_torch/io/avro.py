@@ -222,6 +222,260 @@ def read_datum(buf: BinaryIO, schema: Any) -> Any:
 
 
 # ---------------------------------------------------------------------------
+# Compiled codecs: the same encoding as write_datum / read_datum, with the
+# schema walked once per container instead of once per value.  A GAME model
+# holds a record per coefficient, so the walk was most of a save or load.
+# ---------------------------------------------------------------------------
+
+_ONE_BYTE = [bytes([i]) for i in range(256)]
+_pack_f = struct.Struct("<f").pack
+_pack_d = struct.Struct("<d").pack
+_unpack_f = struct.Struct("<f").unpack_from
+_unpack_d = struct.Struct("<d").unpack_from
+#: encoded (length-prefixed) strings kept per compiled writer: feature
+#: names and terms repeat in every entity's record.
+_STRING_CACHE_LIMIT = 1 << 16
+
+
+def _varint(n: int) -> bytes:
+    n = _zigzag_encode(n)
+    if n < 0x80:
+        return _ONE_BYTE[n]
+    out = bytearray()
+    while n >= 0x80:
+        out.append((n & 0x7F) | 0x80)
+        n >>= 7
+    out.append(n)
+    return bytes(out)
+
+
+def _compile_writer(schema: Any) -> Any:
+    """``enc(append, datum)``: appends the bytes ``write_datum(buf, schema,
+    datum)`` would write, raising what it would raise."""
+    if isinstance(schema, list):  # union
+        branches = [(b, _compile_writer(b)) for b in schema]
+        if len(schema) == 2 and _resolve(schema[0])["type"] == "null":
+            other, enc_other = branches[1]
+
+            def enc_nullable(append, d):
+                if d is None:
+                    append(b"\x00")
+                elif _matches(other, d):
+                    append(b"\x02")
+                    enc_other(append, d)
+                else:
+                    raise TypeError(
+                        f"datum {d!r} matches no union branch in {schema}")
+            return enc_nullable
+
+        def enc_union(append, d):
+            for i, (branch, enc) in enumerate(branches):
+                if _matches(branch, d):
+                    append(_varint(i))
+                    enc(append, d)
+                    return
+            raise TypeError(f"datum {d!r} matches no union branch in {schema}")
+        return enc_union
+    s = _resolve(schema)
+    t = s["type"]
+    if t == "null":
+        return lambda append, d: None
+    if t == "boolean":
+        return lambda append, d: append(b"\x01" if d else b"\x00")
+    if t in ("int", "long"):
+        return lambda append, d: append(_varint(int(d)))
+    if t == "float":
+        return lambda append, d: append(_pack_f(float(d)))
+    if t == "double":
+        return lambda append, d: append(_pack_d(float(d)))
+    if t == "bytes":
+        def enc_bytes(append, d):
+            d = bytes(d)
+            append(_varint(len(d)))
+            append(d)
+        return enc_bytes
+    if t == "string":
+        cache: dict = {}
+
+        def enc_string(append, d):
+            if type(d) is str:
+                b = cache.get(d)
+                if b is None:
+                    raw = d.encode("utf-8")
+                    b = _varint(len(raw)) + raw
+                    if len(cache) < _STRING_CACHE_LIMIT:
+                        cache[d] = b
+                append(b)
+                return
+            raw = d.encode("utf-8")
+            append(_varint(len(raw)))
+            append(raw)
+        return enc_string
+    if t == "enum":
+        symbols = s["symbols"]
+        return lambda append, d: append(_varint(symbols.index(d)))
+    if t == "record":
+        fields = [(f["name"], _compile_writer(f["type"])) for f in s["fields"]]
+
+        def enc_record(append, d):
+            for name, enc in fields:
+                try:
+                    enc(append, d[name])
+                except (KeyError, TypeError) as e:
+                    raise TypeError(f"record field {name!r}: {e}") from e
+        return enc_record
+    if t == "array":
+        enc_item = _compile_writer(s["items"])
+
+        def enc_array(append, d):
+            items = list(d)
+            if items:
+                append(_varint(len(items)))
+                for item in items:
+                    enc_item(append, item)
+            append(b"\x00")
+        return enc_array
+    if t == "map":
+        enc_value = _compile_writer(s["values"])
+
+        def enc_map(append, d):
+            entries = dict(d)
+            if entries:
+                append(_varint(len(entries)))
+                for k, v in entries.items():
+                    raw = k.encode("utf-8")
+                    append(_varint(len(raw)))
+                    append(raw)
+                    enc_value(append, v)
+            append(b"\x00")
+        return enc_map
+
+    def enc_unsupported(append, d):
+        raise TypeError(f"unsupported Avro type {t!r}")
+    return enc_unsupported
+
+
+def _read_varint(buf, pos: int) -> tuple[int, int]:
+    if pos < len(buf) and buf[pos] < 0x80:
+        b = buf[pos]
+        return (b >> 1) ^ -(b & 1), pos + 1
+    shift = 0
+    acc = 0
+    n = len(buf)
+    while True:
+        if pos >= n:
+            raise EOFError("truncated varint")
+        b = buf[pos]
+        pos += 1
+        acc |= (b & 0x7F) << shift
+        if not b & 0x80:
+            return _zigzag_decode(acc), pos
+        shift += 7
+
+
+def _read_raw(buf, pos: int) -> tuple[bytes, int]:
+    n, pos = _read_varint(buf, pos)
+    end = pos + n
+    if n < 0 or end > len(buf):
+        raise EOFError("truncated bytes")
+    return bytes(buf[pos:end]), end
+
+
+def _compile_reader(schema: Any) -> Any:
+    """``dec(buf, pos) -> (datum, pos)`` over a bytes payload: the datum
+    ``read_datum`` would read at ``pos``."""
+    if isinstance(schema, list):  # union
+        decs = [_compile_reader(b) for b in schema]
+
+        def dec_union(buf, pos):
+            idx, pos = _read_varint(buf, pos)
+            return decs[idx](buf, pos)
+        if len(schema) == 2 and _resolve(schema[0])["type"] == "null":
+            dec_other = decs[1]
+
+            def dec_nullable(buf, pos):
+                b = buf[pos] if pos < len(buf) else None
+                if b == 0:
+                    return None, pos + 1
+                if b == 2:
+                    return dec_other(buf, pos + 1)
+                return dec_union(buf, pos)
+            return dec_nullable
+        return dec_union
+    s = _resolve(schema)
+    t = s["type"]
+    if t == "null":
+        return lambda buf, pos: (None, pos)
+    if t == "boolean":
+        return lambda buf, pos: (buf[pos:pos + 1] == b"\x01", pos + 1)
+    if t in ("int", "long"):
+        return _read_varint
+    if t == "float":
+        return lambda buf, pos: (_unpack_f(buf, pos)[0], pos + 4)
+    if t == "double":
+        return lambda buf, pos: (_unpack_d(buf, pos)[0], pos + 8)
+    if t == "bytes":
+        return _read_raw
+    if t == "string":
+        def dec_string(buf, pos):
+            n, pos = _read_varint(buf, pos)
+            end = pos + n
+            if n < 0 or end > len(buf):
+                raise EOFError("truncated bytes")
+            return str(buf[pos:end], "utf-8"), end
+        return dec_string
+    if t == "enum":
+        symbols = s["symbols"]
+
+        def dec_enum(buf, pos):
+            i, pos = _read_varint(buf, pos)
+            return symbols[i], pos
+        return dec_enum
+    if t == "record":
+        fields = [(f["name"], _compile_reader(f["type"])) for f in s["fields"]]
+
+        def dec_record(buf, pos):
+            out = {}
+            for name, dec in fields:
+                out[name], pos = dec(buf, pos)
+            return out, pos
+        return dec_record
+    if t in ("array", "map"):
+        dec_value = _compile_reader(s["items" if t == "array" else "values"])
+
+        def dec_blocks(buf, pos):
+            out = [] if t == "array" else {}
+            while True:
+                count, pos = _read_varint(buf, pos)
+                if count == 0:
+                    return out, pos
+                if count < 0:  # block with byte size prefix
+                    count = -count
+                    _, pos = _read_varint(buf, pos)
+                for _ in range(count):
+                    if t == "array":
+                        v, pos = dec_value(buf, pos)
+                        out.append(v)
+                    else:
+                        raw, pos = _read_raw(buf, pos)
+                        out[raw.decode("utf-8")], pos = dec_value(buf, pos)
+        return dec_blocks
+
+    def dec_unsupported(buf, pos):
+        raise TypeError(f"unsupported Avro type {t!r}")
+    return dec_unsupported
+
+
+def _decode_block(dec, count: int, payload: bytes) -> list:
+    out = []
+    pos = 0
+    for _ in range(count):
+        rec, pos = dec(payload, pos)
+        out.append(rec)
+    return out
+
+
+# ---------------------------------------------------------------------------
 # Object container files
 # ---------------------------------------------------------------------------
 
@@ -411,14 +665,15 @@ def write_container(
         _write_container_header(f, schema, codec)
 
         block: list[Any] = []
+        enc = _compile_writer(schema)
 
         def flush():
             if not block:
                 return
-            body = _io.BytesIO()
+            parts: list = []
             for rec in block:
-                write_datum(body, schema, rec)
-            _write_block(f, len(block), body.getvalue(), codec)
+                enc(parts.append, rec)
+            _write_block(f, len(block), b"".join(parts), codec)
             block.clear()
 
         for rec in records:
@@ -571,10 +826,13 @@ def iter_blocks(path: str) -> Iterator[tuple[Any, int, bytes]]:
 
 def iter_container(path: str) -> Iterator[Any]:
     """Yield records one at a time, holding at most one block in memory."""
+    dec = None
     for schema, count, payload in iter_blocks(path):
-        body = _io.BytesIO(payload)
+        dec = dec or _compile_reader(schema)
+        pos = 0
         for _ in range(count):
-            yield read_datum(body, schema)
+            rec, pos = dec(payload, pos)
+            yield rec
 
 
 def read_schema(path: str) -> Any:
@@ -587,11 +845,10 @@ def read_container(path: str) -> tuple[Any, list[Any]]:
     """Read an Avro object container file → (schema, records).  Convenience
     for small files; use :func:`iter_blocks` for anything large."""
     records: list[Any] = []
-    schema = None
+    schema = dec = None
     for schema, count, payload in iter_blocks(path):
-        body = _io.BytesIO(payload)
-        for _ in range(count):
-            records.append(read_datum(body, schema))
+        dec = dec or _compile_reader(schema)
+        records.extend(_decode_block(dec, count, payload))
     if schema is None:
         schema = read_schema(path)
     return schema, records

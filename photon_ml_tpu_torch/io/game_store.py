@@ -67,16 +67,16 @@ def random_effect_checksum(records) -> str:
     entries in file order — both save and load feed the raw Avro records,
     so the checksum binds to the persisted content."""
     h = hashlib.sha256()
+    pack = struct.Struct("<d").pack
     for rec in records:
-        h.update(b"\x00ENTITY\x00")
-        h.update(str(rec["entityId"]).encode())
+        # One update an entity: the digest of the concatenation.
+        parts = [b"\x00ENTITY\x00", str(rec["entityId"]).encode()]
         for e in rec["coefficients"]:
-            h.update(str(e["name"]).encode())
-            h.update(b"\x00")
-            h.update(str(e["term"]).encode())
-            h.update(struct.pack("<d", float(e["value"])))
             var = e.get("variance")
-            h.update(b"\x01" if var is None else struct.pack("<d", float(var)))
+            parts += (str(e["name"]).encode(), b"\x00",
+                      str(e["term"]).encode(), pack(float(e["value"])),
+                      b"\x01" if var is None else pack(float(var)))
+        h.update(b"".join(parts))
     return h.hexdigest()
 
 

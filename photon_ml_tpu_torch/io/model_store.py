@@ -201,6 +201,35 @@ def verify_glm_fingerprint(
     return fingerprint
 
 
+def read_fingerprints(path: str) -> dict:
+    """Read the ``<path>.meta.json`` fingerprint sidecar WITHOUT loading
+    the coefficient arrays — the cheap HEAD the delta differ
+    (``freshness/delta.py``) and ops tooling use to decide whether a
+    model changed at all before paying for an Avro parse.
+
+    Returns the fingerprint dict (``task``, ``feature_count``,
+    ``n_coefficients``, ``coefficient_checksum``).  A pre-fingerprint
+    file (no sidecar) raises a pointed error: there is nothing to diff
+    against, and quietly answering "unknown" would make a delta differ
+    treat every legacy model as unchanged."""
+    meta_path = path + ".meta.json"
+    if not os.path.exists(meta_path):
+        raise ValueError(
+            f"{path}: no .meta.json fingerprint sidecar — this model "
+            "predates fingerprinting, so its content cannot be compared "
+            "or delta-diffed; re-save it with the current writer "
+            "(save_glm_model) to attach a fingerprint"
+        )
+    with open(meta_path) as f:
+        fingerprint = json.load(f).get("fingerprint")
+    if not fingerprint:
+        raise ValueError(
+            f"{meta_path}: sidecar carries no fingerprint — re-save the "
+            "model with the current writer (save_glm_model) to attach one"
+        )
+    return fingerprint
+
+
 def load_glm_model(
     path: str, index_map: Optional[IndexMap] = None, device=None
 ) -> tuple[GeneralizedLinearModel, IndexMap]:

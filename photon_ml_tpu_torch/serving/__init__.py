@@ -1,5 +1,5 @@
 """Online serving: micro-batched low-latency GLM / GAME scoring (port of
-``photon_ml_tpu/serving``: the in-process tier).
+``photon_ml_tpu/serving``).
 
 - :mod:`~photon_ml_tpu_torch.serving.kernels` — the scoring math shared by
   batch scoring (``GameTransformer`` / ``game_scoring_driver``) and the
@@ -26,9 +26,25 @@
   :mod:`~photon_ml_tpu_torch.serving.synthetic` — load generators and the
   synthetic workload.
 
-The process and fleet tier (``supervisor``, ``procpool``, ``worker``,
-``protocol``, ``shm_model``, ``shm_ingress``, ``fleet``) and
-``freshness/`` are ROADMAP item 7b.
+The process and fleet tier:
+
+- :mod:`~photon_ml_tpu_torch.serving.supervisor` — ``ReplicaSupervisor``:
+  N replicas behind one listener, health probes, request resubmission,
+  decorrelated-jitter restarts.
+- :mod:`~photon_ml_tpu_torch.serving.procpool` /
+  :mod:`~photon_ml_tpu_torch.serving.worker` /
+  :mod:`~photon_ml_tpu_torch.serving.shm_model` /
+  :mod:`~photon_ml_tpu_torch.serving.protocol` — crash-isolated worker
+  PROCESSES (spawned, each with its own CUDA context) on one
+  shared-memory model publication, framed over a socketpair.
+- :mod:`~photon_ml_tpu_torch.serving.shm_ingress` — same-machine
+  ingress over a shared-memory slot ring.
+- :mod:`~photon_ml_tpu_torch.serving.fleet` — ``FleetRouter`` over N
+  host endpoints and ``QuotaCoordinator`` / ``LeaseClient`` fleet quota
+  leases.
+
+Model deltas (``/reload?mode=delta``) come from
+:mod:`photon_ml_tpu_torch.freshness`.
 
 ``python -m photon_ml_tpu_torch.serving --selfcheck --device cpu`` builds
 a synthetic GAME model, serves concurrent HTTP requests, and verifies
@@ -67,6 +83,25 @@ _LAZY = {
     "WireFormatError": ("photon_ml_tpu_torch.serving.wire",
                         "WireFormatError"),
     "HttpSubmitter": ("photon_ml_tpu_torch.serving.loadgen", "HttpSubmitter"),
+    "ReplicaSupervisor": (
+        "photon_ml_tpu_torch.serving.supervisor", "ReplicaSupervisor",
+    ),
+    "WorkerPool": ("photon_ml_tpu_torch.serving.procpool", "WorkerPool"),
+    "ProcessReplica": ("photon_ml_tpu_torch.serving.procpool",
+                       "ProcessReplica"),
+    "ModelMapError": ("photon_ml_tpu_torch.serving.shm_model",
+                      "ModelMapError"),
+    "FleetRouter": ("photon_ml_tpu_torch.serving.fleet", "FleetRouter"),
+    "FleetBudget": ("photon_ml_tpu_torch.serving.fleet", "FleetBudget"),
+    "QuotaCoordinator": ("photon_ml_tpu_torch.serving.fleet",
+                         "QuotaCoordinator"),
+    "LeaseClient": ("photon_ml_tpu_torch.serving.fleet", "LeaseClient"),
+    "LocalHost": ("photon_ml_tpu_torch.serving.fleet", "LocalHost"),
+    "ShmIngress": ("photon_ml_tpu_torch.serving.shm_ingress", "ShmIngress"),
+    "ShmIngressClient": ("photon_ml_tpu_torch.serving.shm_ingress",
+                         "ShmIngressClient"),
+    "ShmIngressError": ("photon_ml_tpu_torch.serving.shm_ingress",
+                        "ShmIngressError"),
     "SyntheticWorkload": ("photon_ml_tpu_torch.serving.synthetic",
                           "SyntheticWorkload"),
 }

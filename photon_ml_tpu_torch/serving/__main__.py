@@ -20,12 +20,19 @@ its token-bucket quota is shed alone while the victim tenant's p99 stays
 inside its SLO with zero failures, and the per-tenant
 ``serving_tenant_<t>_*`` metric family records both sides.
 
-The reference's high-availability (``--replicas``), process-mode
-(``--workers``), fleet and shared-memory-ingress passes and flags need
-the process tier (ROADMAP item 7b); the ops-plane flags
-(``--metrics-port``, ``--metrics-interval-s``, ``--tenant-report``,
-``--membership`` and the fleet verbs) need the rest of the telemetry and
-cluster packages (item 8).  Each is refused, naming its item.
+Process mode (``--selfcheck --workers 2``) runs the process pass
+instead: crash-isolated worker processes on one shared-memory model
+publication, bitwise parity with in-process scoring, zero failed
+requests through a real SIGKILL under open-loop load, a cross-process
+hot swap and rollback, and a leak-free shutdown.
+
+``--replicas N`` serves N supervised in-process replicas, ``--workers N``
+N worker processes, and ``--shm-ingress`` adds the same-machine
+shared-memory ingress ring beside HTTP.  The reference's HA and fleet
+selfcheck passes, and its ops-plane flags (``--metrics-port``,
+``--metrics-interval-s``, ``--tenant-report``, ``--membership`` and the
+fleet verbs), need the rest of the telemetry and cluster packages
+(ROADMAP item 8); the flags are refused, naming it.
 
 Serve a saved model (on the card unless ``--device cpu``)::
 
@@ -51,9 +58,8 @@ import urllib.request
 #: flags of the reference this port refuses, with the ROADMAP item that
 #: brings each (refused when given, i.e. off their default).
 _REFUSED = {
-    "workers": "7b", "shm_ingress": "7b", "membership": "8",
-    "fleet_join": "8", "fleet_drain": "8", "metrics_port": "8",
-    "metrics_interval_s": "8", "tenant_report": "8",
+    "membership": "8", "fleet_join": "8", "fleet_drain": "8",
+    "metrics_port": "8", "metrics_interval_s": "8", "tenant_report": "8",
 }
 
 
@@ -96,9 +102,23 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="per-coordinate LRU hot-set capacity (device-resident rows)",
     )
     p.add_argument(
+        "--shm-ingress", metavar="NAME", nargs="?", const="", default=None,
+        help="also serve same-machine clients over a shared-memory "
+        "ingress ring (skips HTTP entirely); optional segment NAME, "
+        "auto-generated when omitted",
+    )
+    p.add_argument(
         "--replicas", type=int, default=1,
-        help="supervised scoring replicas (>1 needs the process tier, "
-        "ROADMAP item 7b: refused)",
+        help="run this many supervised scoring replicas behind the "
+        "listener (>1 enables the HA path: health probes, automatic "
+        "restarts, request resubmission)",
+    )
+    p.add_argument(
+        "--workers", type=int, default=0,
+        help="score in this many crash-isolated worker PROCESSES "
+        "attached to one shared-memory model publication instead of "
+        "in-process replica threads; with --selfcheck, runs the "
+        "process-mode pass instead of the in-process passes",
     )
     p.add_argument(
         "--timeout-ms", type=float, default=None,
@@ -118,9 +138,6 @@ def build_arg_parser() -> argparse.ArgumentParser:
     )
     p.add_argument("--telemetry", choices=["on", "off"], default="on")
     # The reference's flags this port refuses (see _REFUSED).
-    p.add_argument("--workers", type=int, default=0, help=argparse.SUPPRESS)
-    p.add_argument("--shm-ingress", nargs="?", const="", default=None,
-                   help=argparse.SUPPRESS)
     p.add_argument("--membership", default=None, help=argparse.SUPPRESS)
     p.add_argument("--host-id", default=None, help=argparse.SUPPRESS)
     p.add_argument("--fleet-join", default=None, help=argparse.SUPPRESS)
@@ -141,14 +158,8 @@ def refused_flags(args) -> list[str]:
     for dest, item in _REFUSED.items():
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
-            tier = ("the process tier (supervisor, workers, shared-memory "
-                    "ingress, fleet)" if item == "7b" else
-                    "the telemetry ops plane and cluster packages")
-            out.append(f"{flag} needs {tier}, not ported yet (ROADMAP "
-                       f"item {item})")
-    if args.replicas > 1:
-        out.append("--replicas > 1 needs the replica supervisor, not "
-                   "ported yet (ROADMAP item 7b)")
+            out.append(f"{flag} needs the telemetry ops plane and cluster "
+                       f"packages, not ported yet (ROADMAP item {item})")
     return out
 
 
@@ -168,10 +179,16 @@ def _make_service(args):
         from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
 
         workload = SyntheticWorkload(n_entities=args.synthetic)
-        runtime = ScoringRuntime(workload.model, workload.index_maps, rt_cfg)
+
+        def factory() -> ScoringRuntime:
+            return ScoringRuntime(
+                workload.model, workload.index_maps, rt_cfg
+            )
     elif args.model_dir:
         workload = None
-        runtime = ScoringRuntime.load(args.model_dir, rt_cfg)
+
+        def factory() -> ScoringRuntime:
+            return ScoringRuntime.load(args.model_dir, rt_cfg)
     else:
         raise SystemExit(
             "one of --selfcheck / --model-dir / --synthetic is required"
@@ -183,7 +200,32 @@ def _make_service(args):
         default_timeout_ms=args.timeout_ms,
         adaptive_wait=args.adaptive_wait,
     )
-    return ScoringService(runtime, batcher_cfg), workload
+    if args.workers:
+        from photon_ml_tpu_torch.serving.procpool import WorkerPool
+        from photon_ml_tpu_torch.serving.supervisor import ReplicaSupervisor
+
+        if workload is not None:
+            model, index_maps, path = (
+                workload.model, workload.index_maps, None
+            )
+        else:
+            # The parent keeps a host copy to publish; the workers
+            # score on the device.
+            model, index_maps = ScoringRuntime.load_model(
+                args.model_dir, device="cpu"
+            )
+            path = args.model_dir
+        pool = WorkerPool(
+            model, index_maps, runtime_config=rt_cfg, model_path=path
+        )
+        unit = ReplicaSupervisor(pool=pool, n_replicas=args.workers)
+    elif args.replicas > 1:
+        from photon_ml_tpu_torch.serving.supervisor import ReplicaSupervisor
+
+        unit = ReplicaSupervisor(factory, n_replicas=args.replicas)
+    else:
+        unit = factory()
+    return ScoringService(unit, batcher_cfg), workload
 
 
 # ---------------------------------------------------------------------------
@@ -343,6 +385,211 @@ def run_selfcheck(out_dir: str, device=None) -> list[str]:
     return failures
 
 
+def run_selfcheck_process(
+    out_dir: str, n_workers: int = 2, device=None
+) -> list[str]:
+    """Process-mode pass: crash-isolated worker processes on a shared
+    model.  Verifies score parity with in-process scoring, zero failed
+    requests through a real SIGKILL under open-loop load, a
+    cross-process hot swap + rollback (bit-identical on both sides),
+    single-publication segment accounting, and a leak-free shutdown.
+    Returns failure strings (empty = pass)."""
+    import time
+
+    import numpy as np
+
+    from photon_ml_tpu_torch import telemetry as telemetry_mod
+    from photon_ml_tpu_torch.analysis.sanitizers import ProcessLeakSentinel
+    from photon_ml_tpu_torch.io.game_store import save_game_model
+    from photon_ml_tpu_torch.serving import loadgen, shm_model
+    from photon_ml_tpu_torch.serving.batcher import BatcherConfig
+    from photon_ml_tpu_torch.serving.procpool import WorkerPool
+    from photon_ml_tpu_torch.serving.runtime import RuntimeConfig, ScoringRuntime
+    from photon_ml_tpu_torch.serving.service import ScoringService
+    from photon_ml_tpu_torch.serving.supervisor import ReplicaSupervisor
+    from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
+
+    failures: list[str] = []
+    n_requests = 24
+    v1 = SyntheticWorkload(n_entities=64, seed=3)
+    v2 = SyntheticWorkload(n_entities=64, seed=4)
+    v2_dir = os.path.join(out_dir, "models", "v2")
+    save_game_model(v2.model, v2.index_maps, v2_dir)
+    rt_cfg = RuntimeConfig(max_batch_size=8, hot_entities=16, device=device)
+    requests = [v1.request(i) for i in range(n_requests)]
+
+    def reference(w: SyntheticWorkload) -> np.ndarray:
+        rt = ScoringRuntime(w.model, w.index_maps, rt_cfg)
+        return np.asarray(
+            [
+                rt.score_rows([rt.parse_request(r)])[0][0]
+                for r in requests
+            ],
+            np.float32,
+        )
+
+    ref_v1, ref_v2 = reference(v1), reference(v2)
+
+    def parity(tag: str, want: np.ndarray) -> None:
+        futs = [service.submit(r) for r in requests]
+        got = np.asarray(
+            [np.float32(f.result(timeout=60)["score"]) for f in futs],
+            np.float32,
+        )
+        if got.tobytes() != want.tobytes():
+            bad = int(np.argmax(got != want))
+            failures.append(
+                f"{tag}: worker scores are NOT bit-identical to "
+                f"in-process scoring (first diff row {bad}: "
+                f"{got[bad]!r} vs {want[bad]!r})"
+            )
+
+    def await_healthy(what: str, timeout_s: float = 30.0) -> None:
+        deadline = time.monotonic() + timeout_s
+        while (
+            supervisor.healthy_count < n_workers
+            and time.monotonic() < deadline
+        ):
+            time.sleep(0.05)
+        if supervisor.healthy_count < n_workers:
+            failures.append(
+                f"{what}: only {supervisor.healthy_count}/{n_workers} "
+                f"workers healthy after {timeout_s:.0f} s"
+            )
+
+    with telemetry_mod.Telemetry(
+        output_dir=out_dir, run_name="serving-selfcheck-proc"
+    ) as tel:
+        with ProcessLeakSentinel(grace_s=15.0, strict=True):
+            pool = WorkerPool(
+                v1.model, v1.index_maps, runtime_config=rt_cfg, version=1
+            )
+            supervisor = ReplicaSupervisor(
+                pool=pool, n_replicas=n_workers, probe_interval_s=0.1
+            )
+            service = ScoringService(supervisor, BatcherConfig(
+                max_batch_size=8, max_wait_us=2_000, max_queue=256,
+            ))
+            with service:
+                parity("v1", ref_v1)
+
+                # One publication, N attachments: the parent-side gauge
+                # counts mapped bytes ONCE however many workers attach.
+                published = sum(
+                    seg["nbytes"]
+                    for seg in pool.manifest["segments"].values()
+                )
+                mapped = tel.snapshot()["gauges"].get(
+                    "serving_shared_segment_bytes", 0
+                )
+                if mapped != published:
+                    failures.append(
+                        "serving_shared_segment_bytes = "
+                        f"{mapped}, expected exactly one publication "
+                        f"({published} bytes) for {n_workers} workers"
+                    )
+
+                # Real SIGKILL mid-load: a burst straight into the dying
+                # worker's queue plus an open loop across the kill, zero
+                # failed requests end to end.
+                def script() -> None:
+                    try:
+                        time.sleep(0.4)
+                        burst = [
+                            service.submit(v1.request(50_000 + j))
+                            for j in range(64)
+                        ]
+                        supervisor.kill_replica(0)
+                        for bf in burst:
+                            try:
+                                bf.result(timeout=60)
+                            except Exception as exc:  # noqa: BLE001
+                                failures.append(
+                                    "burst request failed after worker "
+                                    f"SIGKILL: {exc!r}"
+                                )
+                                break
+                        await_healthy("post-SIGKILL respawn")
+                    except Exception as exc:  # noqa: BLE001
+                        failures.append(
+                            f"process script failed: {exc!r}"
+                        )
+
+                script_thread = threading.Thread(
+                    target=script, daemon=True
+                )
+                script_thread.start()
+                report = loadgen.open_loop(
+                    service.submit, v1.request,
+                    rate_rps=120.0, duration_s=4.0,
+                )
+                script_thread.join(timeout=60)
+                if report.errors or report.rejected:
+                    failures.append(
+                        f"process load saw {report.errors} errors and "
+                        f"{report.rejected} rejections (expected 0/0) "
+                        f"across {report.completed} requests"
+                    )
+                if report.completed < 100:
+                    failures.append(
+                        f"process load completed only {report.completed}"
+                        " requests; the pass did not exercise the path"
+                    )
+
+                # Cross-process hot swap, then an operator rollback with
+                # a worker killed in between (the respawned worker has
+                # no retained previous; rollback must still converge).
+                swapped = service.reload(v2_dir)
+                if swapped.status != "swapped":
+                    failures.append(f"process swap v2 -> {swapped}")
+                parity("post-swap v2", ref_v2)
+                if service.swapper.version != 2:
+                    failures.append(
+                        "expected model_version 2 after swap, got "
+                        f"{service.swapper.version}"
+                    )
+                supervisor.kill_replica(1, "post-swap kill")
+                await_healthy("post-swap respawn")
+                rolled = service.swapper.rollback()
+                if rolled.status != "rolled_back":
+                    failures.append(f"process rollback -> {rolled}")
+                await_healthy("rollback convergence")
+                parity("post-rollback v1", ref_v1)
+            leftover = shm_model.live_segments()
+            if leftover:
+                failures.append(
+                    "shared segments still mapped after shutdown: "
+                    f"{leftover}"
+                )
+        snap = tel.snapshot()
+
+    counters = snap["counters"]
+    for name, minimum in (
+        ("serving_replica_restarts_total", 2),
+        ("serving_resubmitted_total", 1),
+        ("serving_swaps_total", 1),
+        ("serving_rollbacks_total", 1),
+    ):
+        if counters.get(name, 0) < minimum:
+            failures.append(
+                f"{name} = {counters.get(name, 0)}, expected >= {minimum}"
+            )
+    if not failures:
+        print(
+            f"serving process selfcheck: {n_workers} worker processes, "
+            f"{n_requests}-row parity x3 (v1, swapped v2, rolled-back "
+            "v1) bit-identical, SIGKILL under 120 rps with 0 failed "
+            "requests "
+            f"({report.completed} completed, restarts "
+            f"{counters.get('serving_replica_restarts_total')}, "
+            f"resubmitted "
+            f"{counters.get('serving_resubmitted_total')}), shared "
+            f"segments {published} bytes mapped once, shutdown "
+            "leak-free"
+        )
+    return failures
+
+
 def run_selfcheck_tenancy(out_dir: str, device=None) -> list[str]:
     """Two-tenant noisy-neighbor pass on one service: an aggressor
     tenant bursts to ~10x its quota while a victim tenant holds steady;
@@ -444,7 +691,10 @@ def main(argv=None) -> int:
         return 2
 
     if args.selfcheck:
-        def passes(root: str) -> list[str]:
+        def process(root: str) -> list[str]:
+            return run_selfcheck_process(root, args.workers, args.device)
+
+        def both(root: str) -> list[str]:
             # Separate output dirs: each pass owns its Telemetry hub and
             # its metrics.json.
             single = os.path.join(root, "single")
@@ -454,6 +704,7 @@ def main(argv=None) -> int:
             return (run_selfcheck(single, args.device)
                     + run_selfcheck_tenancy(tenancy, args.device))
 
+        passes = process if args.workers else both
         if args.output_dir:
             os.makedirs(args.output_dir, exist_ok=True)
             failures = passes(args.output_dir)
@@ -517,6 +768,18 @@ def _run_service(args, service, workload) -> int:
             service, host=args.host, port=args.port
         )
         host, port = server.server_address[:2]
+        ingress = None
+        if args.shm_ingress is not None:
+            from photon_ml_tpu_torch.serving.shm_ingress import ShmIngress
+
+            ingress = ShmIngress(
+                service, name=args.shm_ingress or None
+            ).start()
+            print(
+                f"shm ingress ring {ingress.name!r} "
+                f"({ingress.n_slots} slots x {ingress.slot_bytes} bytes)",
+                flush=True,
+            )
         print(
             f"serving on http://{host}:{port} "
             f"(/score /reload /healthz /livez /readyz /stats); "
@@ -528,6 +791,8 @@ def _run_service(args, service, workload) -> int:
         except KeyboardInterrupt:
             print("shutting down")
         finally:
+            if ingress is not None:
+                ingress.stop()
             server.shutdown()
             server.server_close()
     return 0

@@ -3,9 +3,7 @@
 
 The dispatch thread is the only thread that scores: it calls
 ``ScoringRuntime.score_rows``, which uploads, launches and reads back on
-the runtime's device and that thread's current CUDA stream.  The
-reference's fault sites (``serving.batch``, ``serving.tenant``) wait for
-the chaos registry (ROADMAP item 8).
+the runtime's device and that thread's current CUDA stream.
 
 One dispatch thread drains a bounded queue: it blocks for the first
 pending request, then coalesces more until ``max_batch_size`` rows are in
@@ -84,7 +82,9 @@ from concurrent.futures import Future
 from typing import Optional
 
 from photon_ml_tpu_torch import telemetry as telemetry_mod
+from photon_ml_tpu_torch.analysis import sanitizers
 from photon_ml_tpu_torch.chaos import breaker as breaker_mod
+from photon_ml_tpu_torch.chaos import core as chaos_mod
 from photon_ml_tpu_torch.serving import tenancy as tenancy_mod
 from photon_ml_tpu_torch.utils.watchdog import RetryPolicy
 
@@ -310,7 +310,9 @@ class MicroBatcher:
                 self._tenancy.default
             )
             self._capacity = self._tenancy.partition_total
-            self._tenant_lock = threading.Lock()
+            self._tenant_lock = sanitizers.tracked(
+                threading.Lock(), "serving.tenancy"
+            )
         else:
             self._tenant_states = {}
             self._default_state = None
@@ -325,7 +327,9 @@ class MicroBatcher:
         # the whole dict — GIL-atomic like the self.runtime commit.
         self._tenant_routes: dict = {}
         self._thread: Optional[threading.Thread] = None
-        self._lock = threading.Lock()
+        self._lock = sanitizers.tracked(
+            threading.Lock(), "serving.batcher"
+        )
         # Admission-control state: current tier + the cached p99 read
         # (refreshed at most every admission_interval_s).
         self._tier = TIER_ACCEPT
@@ -570,8 +574,11 @@ class MicroBatcher:
             self._tenant_counter(state, "shed_total").inc()
             raise self._shed(
                 "tenant_quota",
+                # The LIVE bucket's rate: a fleet lease re-rates a tenant
+                # whose static spec has no quota (the reference formats
+                # the spec's None there and raises TypeError instead).
                 f"tenant {name!r} over quota "
-                f"({state.spec.quota_rps:g} rps sustained)",
+                f"({state.bucket.rate_rps:g} rps sustained)",
             )
         if verdict >= TIER_REJECT:
             self._tenant_counter(state, "shed_total").inc()
@@ -856,9 +863,19 @@ class MicroBatcher:
             with tel.attach(ctx), tel.span(
                 "serving.batch", rows=len(live)
             ):
+                chaos_mod.maybe_fail("serving.batch", rows=len(live))
                 for tenant, rt, rows in groups:
                     t_score = time.perf_counter()
                     try:
+                        if tenant is not None:
+                            # The tenant-routed scoring path is its own
+                            # chaos seam: a fault here degrades exactly
+                            # one tenant (docs/robustness.md).
+                            chaos_mod.maybe_fail(
+                                "serving.tenant",
+                                tenant=tenant,
+                                rows=len(rows),
+                            )
                         margins, means = rt.score_rows(
                             [p.row for p in rows]
                         )
@@ -873,7 +890,7 @@ class MicroBatcher:
                              t_score, time.perf_counter() - t_score)
                         )
         except Exception as exc:  # noqa: BLE001 — classified + surfaced
-            # A batch-level fault (trace plumbing)
+            # A batch-level fault (serving.batch chaos, trace plumbing)
             # fails every live row, exactly like the pre-tenancy single
             # group did.
             outcomes = [
@@ -1012,6 +1029,32 @@ class MicroBatcher:
     def tenant_route(self, tenant: str):
         """The tenant's committed runtime, or None (default route)."""
         return self._tenant_routes.get(tenant)
+
+    # -- tenant quotas (fleet lease apply path, serving/fleet.py) -----------
+    def set_tenant_quota(
+        self,
+        tenant: str,
+        rate_rps: Optional[float],
+        burst: Optional[float] = None,
+    ) -> None:
+        """Re-rate one tenant's token bucket in place (a fleet quota
+        lease landing on this batcher).  The spec stays immutable — the
+        lease overrides only the live bucket, so a rebuilt batcher
+        starts back at the static spec until the next lease applies."""
+        if self._tenancy is None:
+            raise ValueError(
+                "tenancy is not enabled on this batcher; no quota to set"
+            )
+        state = self._tenant_states.get(tenant)
+        if state is None and tenant == self._tenancy.default.name:
+            state = self._default_state
+        if state is None:
+            raise ValueError(
+                f"unknown tenant {tenant!r}; declare it in TenancyConfig "
+                "before leasing it quota"
+            )
+        with self._tenant_lock:
+            state.bucket.reset_rate(rate_rps, burst)
 
     # -- observability -----------------------------------------------------
     @property

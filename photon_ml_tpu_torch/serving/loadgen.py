@@ -43,9 +43,7 @@ Per-phase and whole-run p50/p99 come from the same shared
 ``telemetry.Histogram.quantile`` the live exposition uses.
 
 Used by ``python -m photon_ml_tpu_torch.serving --loadgen ...`` and by
-``chip_smoke.py``'s serving phase.  The catalog's actions that need a
-replica supervisor, worker processes, a fleet or the freshness package
-(:data:`UNPORTED_ACTIONS`) are refused up front, naming ROADMAP item 7b.
+``chip_smoke.py``'s serving phases.
 """
 
 from __future__ import annotations
@@ -472,24 +470,22 @@ SCENARIOS = {
 }
 
 
-#: scenario actions that drive the process and fleet tier (replica
-#: supervisor, worker processes, hosts, quota coordinator, membership)
-#: or the freshness package: refused until ROADMAP item 7b ports them.
-UNPORTED_ACTIONS = frozenset({
-    "kill_replica", "kill_worker", "publish_delta", "apply_delta",
-    "kill_host", "restart_host", "join_host", "drain_host",
-    "kill_coordinator", "restart_coordinator", "partition", "heal",
+#: scenario actions that drive the cluster membership plane (the
+#: reference's ``cluster/`` package: host join/drain through a
+#: membership coordinator, and that coordinator's kill/restart): refused
+#: until ROADMAP item 8 ports it.
+MEMBERSHIP_ACTIONS = frozenset({
+    "join_host", "drain_host", "kill_coordinator", "restart_coordinator",
 })
 
 
-def _refuse_unported(scenario: "Scenario") -> None:
+def _refuse_membership(scenario: "Scenario") -> None:
     for phase in scenario.phases:
-        if phase.action in UNPORTED_ACTIONS:
+        if phase.action in MEMBERSHIP_ACTIONS:
             raise ValueError(
                 f"scenario {scenario.name!r} phase {phase.name!r} needs "
-                f"action {phase.action!r}, which drives the process and "
-                "fleet tier (supervisor, workers, fleet, freshness) that "
-                "is not ported yet (ROADMAP item 7b)"
+                f"action {phase.action!r}, which drives the cluster "
+                "membership plane, not ported yet (ROADMAP item 8)"
             )
 
 
@@ -511,8 +507,8 @@ def run_scenario(
     the swap/kill happens — that concurrency is the whole point.  An
     action named by a phase but not wired raises ValueError up front
     (silently skipping it would report a scenario that never ran); so
-    does an action of :data:`UNPORTED_ACTIONS`."""
-    _refuse_unported(scenario)
+    does an action of :data:`MEMBERSHIP_ACTIONS`."""
+    _refuse_membership(scenario)
     actions = actions or {}
     for phase in scenario.phases:
         if phase.action is not None and phase.action not in actions:
@@ -772,7 +768,133 @@ def run_noisy_neighbor(
 
 
 # ---------------------------------------------------------------------------
-# HTTP submission
+# Fleet-aware replay (host_kill / quota_partition, serving/fleet.py)
+# ---------------------------------------------------------------------------
+
+@dataclasses.dataclass
+class FleetScenarioReport:
+    """Per-phase shed/failed-classified outcomes of a fleet replay.
+
+    The host_kill gate reads the whole-run ``failed`` and ``shed``
+    (both must be zero for an in-quota tenant: a dying host may delay
+    a request, never fail or reject it); the quota_partition gate reads
+    PER-PHASE ``completed`` against budget × phase duration (admitted
+    rate within one lease window of the budget while partitioned,
+    exact enforcement after heal) with ``failed == 0`` throughout —
+    sheds there are the design working."""
+
+    scenario: str
+    tenant: str
+    phases: list  # (phase_name, duration_s, offered_rps, TenantLoadReport)
+    actions: dict  # action name -> result (or error string)
+
+    @property
+    def completed(self) -> int:
+        return sum(r.completed for _, _, _, r in self.phases)
+
+    @property
+    def shed(self) -> int:
+        return sum(r.shed for _, _, _, r in self.phases)
+
+    @property
+    def failed(self) -> int:
+        return sum(r.failed for _, _, _, r in self.phases)
+
+    def phase(self, name: str) -> TenantLoadReport:
+        for pname, _, _, report in self.phases:
+            if pname == name:
+                return report
+        raise KeyError(f"no phase {name!r} in {self.scenario}")
+
+    def snapshot(self) -> dict:
+        return {
+            "scenario": self.scenario,
+            "tenant": self.tenant,
+            "completed": self.completed,
+            "shed": self.shed,
+            "failed": self.failed,
+            "actions": self.actions,
+            "phases": {
+                name: dict(
+                    report.snapshot(),
+                    duration_s=_round(duration),
+                    offered_rps=_round(offered),
+                )
+                for name, duration, offered, report in self.phases
+            },
+        }
+
+
+def run_fleet_scenario(
+    submit: Callable,
+    make_request: Callable,
+    scenario: Scenario,
+    tenant: str = "acme",
+    base_rate_rps: float = 120.0,
+    actions: Optional[dict] = None,
+    timeout_s: float = 30.0,
+    seed: int = 0,
+) -> FleetScenarioReport:
+    """Replay a fleet scenario (host_kill / quota_partition) as ONE
+    tenant's open-loop stream with shed/failed-classified outcomes.
+
+    Same action contract as :func:`run_scenario` (unwired actions raise
+    up front; actions fire on a helper thread mid-phase), but outcomes
+    are accounted per phase through :class:`TenantLoadReport` so the
+    gates can tell admission-control sheds (RejectedError, through the
+    future or at submit) from real failures.  ``make_request(i, phase,
+    tenant)`` must build a wire request carrying the tenant id."""
+    _refuse_membership(scenario)
+    actions = actions or {}
+    for phase in scenario.phases:
+        if phase.action is not None and phase.action not in actions:
+            raise ValueError(
+                f"scenario {scenario.name!r} phase {phase.name!r} needs "
+                f"action {phase.action!r}; wire it via "
+                "run_fleet_scenario(actions={...})"
+            )
+    phase_rows: list = []
+    action_results: dict = {}
+    for pi, phase in enumerate(scenario.phases):
+        action_thread = None
+        if phase.action is not None:
+            fn = actions[phase.action]
+            delay = phase.duration_s * phase.action_at_frac
+
+            def fire(fn=fn, delay=delay, key=phase.action):
+                time.sleep(delay)
+                try:
+                    action_results[key] = fn()
+                except Exception as exc:  # noqa: BLE001 — report
+                    action_results[key] = (
+                        f"ERROR {type(exc).__name__}: {exc}"
+                    )
+
+            action_thread = threading.Thread(
+                target=fire, name=f"fleet-{phase.action}", daemon=True
+            )
+            action_thread.start()
+        acct = _TenantAcct(tenant)
+        rate = base_rate_rps * phase.rate_multiplier
+        _tenant_open_loop(
+            submit, make_request, phase, tenant, rate, acct,
+            timeout_s, seed + pi,
+        )
+        if action_thread is not None:
+            action_thread.join(timeout=timeout_s)
+        phase_rows.append(
+            (phase.name, phase.duration_s, rate, acct.report())
+        )
+    return FleetScenarioReport(
+        scenario=scenario.name,
+        tenant=tenant,
+        phases=phase_rows,
+        actions=action_results,
+    )
+
+
+# ---------------------------------------------------------------------------
+# HTTP submitter (wire A/B benchmarking)
 # ---------------------------------------------------------------------------
 
 class HttpSubmitter:

@@ -61,6 +61,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch import telemetry as telemetry_mod
+from photon_ml_tpu_torch.chaos import core as chaos_mod
 from photon_ml_tpu_torch.chaos.breaker import CircuitBreaker
 from photon_ml_tpu_torch.device import resolve_device, to_numpy
 from photon_ml_tpu_torch.game.model import (
@@ -418,6 +419,10 @@ class ScoringRuntime:
         self.rows_scored = 0
         self.warmup_compiles = 0
         self._lock = threading.Lock()  # stats snapshot vs dispatch thread
+        #: held across each score_rows call, from the kernel's launch to
+        #: the batch's count: a reader that takes it sees the launch
+        #: counts and the batch counts of the same finished batches.
+        self.score_lock = threading.Lock()
         # Graceful degradation: a transient device failure flips scoring
         # onto the host cold path; the breaker guards re-promotion
         # (module docstring).
@@ -511,6 +516,62 @@ class ScoringRuntime:
         runtime.model_path = path
         return runtime
 
+    def _kernel_geometry(self) -> tuple:
+        """Everything the warmed bucket ladder is shaped by: device, task
+        (mean link), layout, bucket sizes, fixed dims, random (dim,
+        capacity) pairs.  A runtime with equal geometry launches the same
+        library at the same shapes, so what ``base`` warmed is warm for
+        it too."""
+        return (
+            str(self.device),
+            self._loss_name,
+            bool(self.config.fused),
+            tuple(self.buckets),
+            tuple(int(c.host_means.shape[0]) for c in self.fixed),
+            tuple((c.hot.dim, c.hot.capacity) for c in self.random),
+        )
+
+    @classmethod
+    def patched(
+        cls,
+        base: "ScoringRuntime",
+        model: GameModel,
+        index_maps: Optional[dict] = None,
+        config: Optional[RuntimeConfig] = None,
+        carry_hot: bool = True,
+    ) -> "ScoringRuntime":
+        """Build a runtime around ``model`` by CLONING ``base``'s warmed
+        identity — the delta-apply fast path (serving/swap.py
+        ``swap_delta``).
+
+        A value-only delta never changes kernel geometry (same task,
+        dims, bucket ladder), so the new runtime adopts ``base``'s warm
+        bucket set: no warm-up launches.  The LRU hot sets are then
+        carried (:func:`carry_hot_sets`) — every row REBUILT from the
+        patched model and written into the new device table by one
+        ``index_copy_`` over distinct slots, never copied from the live
+        table (the dispatch thread may be mutating it mid-clone).
+        Geometry drift (a config change) falls back to a full warm-up;
+        the result is correct either way."""
+        cfg = config or base.config
+        rt = cls(
+            model,
+            base.index_maps if index_maps is None else index_maps,
+            dataclasses.replace(cfg, warmup=False),
+        )
+        # Restore the caller-visible config: warm-up was suppressed only
+        # for THIS construction; a replica restarted from this config
+        # must still warm its ladder.
+        rt.config = cfg
+        if rt._kernel_geometry() == base._kernel_geometry():
+            rt._warm = set(base._warm)
+            rt.warmup_compiles = 0
+        elif cfg.warmup:
+            rt.warm_up()
+        if carry_hot:
+            carry_hot_sets(base, rt)
+        return rt
+
     # -- warmup ------------------------------------------------------------
     def warm_up(self) -> int:
         """Build the kernel library (on the card; a build failure raises
@@ -578,19 +639,20 @@ class ScoringRuntime:
         on the CPU (a bad batch size, programming errors) — degrading on
         those would mask real faults.
         """
-        if self.degraded and not self.breaker.allow_request():
-            return self._score_rows_host(rows)
-        try:
-            margins, means = self._score_rows_device(rows)
-        except Exception as exc:  # noqa: BLE001 — classified below
-            if (self.device.type == "cuda"
-                    or not self._fault_policy.classify(exc).transient):
-                raise
-            self._note_device_failure(exc)
-            return self._score_rows_host(rows)
-        if self.degraded:
-            self._note_repromotion()
-        return margins, means
+        with self.score_lock:
+            if self.degraded and not self.breaker.allow_request():
+                return self._score_rows_host(rows)
+            try:
+                margins, means = self._score_rows_device(rows)
+            except Exception as exc:  # noqa: BLE001 — classified below
+                if (self.device.type == "cuda"
+                        or not self._fault_policy.classify(exc).transient):
+                    raise
+                self._note_device_failure(exc)
+                return self._score_rows_host(rows)
+            if self.degraded:
+                self._note_repromotion()
+            return margins, means
 
     def _note_device_failure(self, exc: BaseException) -> None:
         tel = telemetry_mod.current()
@@ -734,6 +796,10 @@ class ScoringRuntime:
         path then hands the kernel views of its per-coordinate columns
         (the reference uploads each one), so the two differ only in the
         kernel's arguments."""
+        # The device-lost seam: a scripted fault here exercises the whole
+        # degrade → breaker → re-promote machinery of a CPU runtime (a
+        # card runtime raises it, as it raises every device failure).
+        chaos_mod.maybe_fail("serving.device", rows=len(rows))
         n = len(rows)
         bucket = self.bucket_for(n)
         tel = telemetry_mod.current()

@@ -1,26 +1,30 @@
 """ScoringService: the in-process API and the stdlib HTTP endpoint (port
 of ``photon_ml_tpu/serving/service.py``).
 
-``ScoringService`` is the one object callers touch.  It composes a
-:class:`~photon_ml_tpu_torch.serving.runtime.ScoringRuntime` with a
-:class:`~photon_ml_tpu_torch.serving.batcher.MicroBatcher`:
+``ScoringService`` is the one object callers touch.  It composes either
+a single :class:`~photon_ml_tpu_torch.serving.runtime.ScoringRuntime` with a
+:class:`~photon_ml_tpu_torch.serving.batcher.MicroBatcher`, or — for
+high-availability serving — a :class:`~photon_ml_tpu_torch.serving.supervisor.
+ReplicaSupervisor` running N replicas behind the same listener:
 
-    with ScoringService(runtime) as svc:
+    with ScoringService(runtime) as svc:          # single runtime
         fut = svc.submit({"dense": {"global": [...]}, "ids": {...}})
         result = svc.score({...})            # blocking convenience
         many = svc.score_many([{...}, ...])  # coalesces naturally
 
-The reference's high-availability form (a ``ReplicaSupervisor`` running
-N replicas behind the same listener) comes with the process tier
-(ROADMAP item 7b) and is refused until then.  The service carries a
-:class:`~photon_ml_tpu_torch.serving.swap.HotSwapper` —
-``svc.reload(model_dir)`` rolls the runtime onto a new model version
-with verified rollback (see serving/swap.py).
+    sup = ReplicaSupervisor(factory, n_replicas=3)
+    with ScoringService(sup) as svc:              # HA: same API
+        ...
+
+Either way the service carries a :class:`~photon_ml_tpu_torch.serving.swap.
+HotSwapper` — ``svc.reload(model_dir)`` rolls every live runtime onto a
+new model version with verified rollback (see serving/swap.py).
 
 ``start_http_server(svc, port)`` exposes the same API over a stdlib
 ``ThreadingHTTPServer`` (one thread per connection; the handler threads
-only parse and encode — the dispatch thread owns all scoring and every
-CUDA call of it, so concurrency is safe by construction):
+only parse and encode — dispatch threads (or worker processes) own all
+scoring and every CUDA call of it, so concurrency is safe by
+construction):
 
 - ``POST /score`` — ``{"rows": [...]}`` or a single request object;
   responds ``{"results": [...]}`` with per-row ``{"score", "mean",
@@ -29,7 +33,7 @@ CUDA call of it, so concurrency is safe by construction):
 - ``POST /reload`` — ``{"model_dir": ...}`` swaps to a new model
   (``{"rollback": true}`` is the one-step manual rollback).  200 on
   swap, 409 while another swap runs, 422 when the swap rolled back,
-  503 when deferred (degraded target), 501 for ``mode=delta`` (item 7b).
+  503 when deferred (degraded target).
 - ``GET /healthz`` — the RICH health view: status ``stopped`` /
   ``not_ready`` / ``degraded`` / ``ok``, model version, replica states.
 - ``GET /livez`` — pure liveness: 200 whenever the process answers.
@@ -37,7 +41,7 @@ CUDA call of it, so concurrency is safe by construction):
   here; 503 with ``"not_ready"`` during startup warmup, mid-swap, and
   when no healthy replica exists.  Load balancers watch THIS, not
   /healthz (a warming server is alive but must not receive traffic).
-- ``GET /stats`` — runtime + batcher + swap counters.  With
+- ``GET /stats`` — runtime/supervisor + batcher + swap counters.  With
   a telemetry hub enabled the batcher block is DERIVED from the hub's
   registry (the ``"source": "telemetry"`` field says so) — one source
   of truth with the /metrics exposition.
@@ -66,7 +70,7 @@ from photon_ml_tpu_torch import telemetry as telemetry_mod
 
 
 class ScoringService:
-    """Runtime + batcher, started/stopped as one unit."""
+    """Runtime(+batcher) or supervisor, started/stopped as one unit."""
 
     def __init__(
         self,
@@ -74,32 +78,52 @@ class ScoringService:
         batcher_config: Optional[BatcherConfig] = None,
         policy=None,
     ):
-        if hasattr(runtime, "swap_targets"):
-            raise TypeError(
-                "serving replicas behind a supervisor needs the process "
-                "tier (serving/supervisor.py), not ported yet (ROADMAP "
-                "item 7b); pass one ScoringRuntime"
+        from photon_ml_tpu_torch.serving.supervisor import ReplicaSupervisor
+
+        if isinstance(runtime, ReplicaSupervisor):
+            self.supervisor: Optional[ReplicaSupervisor] = runtime
+            if batcher_config is not None:
+                self.supervisor.batcher_config = batcher_config
+            self.runtime = None
+            self.batcher = None
+        else:
+            self.supervisor = None
+            self.runtime = runtime
+            self.batcher = MicroBatcher(
+                runtime, batcher_config, policy=policy
             )
-        self.runtime = runtime
-        self.batcher = MicroBatcher(runtime, batcher_config, policy=policy)
         self.swapper = HotSwapper(
             self._swap_targets,
             on_commit=self._on_swap_commit,
+            on_kill=self._on_swap_kill,
+            on_tenant_commit=self._on_tenant_swap_commit,
         )
         #: tenant → model-version resolution view (serving/tenancy.py);
         #: the swapper owns the route state, this is the read API.
         self.router = TenantRouter(self.swapper)
+        #: tenant → offered-request count, PRE-admission (counted even
+        #: when the quota then sheds the request): the demand signal the
+        #: fleet lease client feeds the QuotaCoordinator
+        #: (serving/fleet.py).  Absent tenant ids count under None.
+        self._demand: dict = {}
+        self._demand_lock = threading.Lock()
         self._started = False
 
     # -- lifecycle ---------------------------------------------------------
     def start(self) -> "ScoringService":
-        self.batcher.start()
+        if self.supervisor is not None:
+            self.supervisor.start()
+        else:
+            self.batcher.start()
         self._started = True
         self.swapper.adopt_version(self.current_runtime)
         return self
 
     def stop(self) -> None:
-        self.batcher.stop()
+        if self.supervisor is not None:
+            self.supervisor.stop()
+        else:
+            self.batcher.stop()
         self._started = False
 
     def __enter__(self) -> "ScoringService":
@@ -114,15 +138,48 @@ class ScoringService:
     def current_runtime(self):
         """The runtime serving NOW (post-swap it differs from the one the
         service was constructed with)."""
+        if self.supervisor is not None:
+            return self.supervisor._any_runtime()
         return self.batcher.runtime
 
     def _swap_targets(self) -> list:
+        if self.supervisor is not None:
+            return self.supervisor.swap_targets()
         return [self.batcher]
 
     def _on_swap_commit(
         self, model, index_maps, config, version, path
     ) -> None:
-        self.runtime = self.batcher.runtime
+        if self.supervisor is not None:
+            self.supervisor.on_swap_commit(
+                model, index_maps, config, version, path
+            )
+        else:
+            self.runtime = self.batcher.runtime
+
+    def _on_tenant_swap_commit(
+        self, tenant, model, index_maps, config, version, path
+    ) -> None:
+        # Tenant-route durability across replica restarts: the
+        # supervisor retains enough to rebuild the route on a fresh
+        # replica (thread mode; the pool's tenant-generation registry
+        # replays routes in process mode).  Standalone batcher mode
+        # needs nothing — the route already lives on the one batcher.
+        if self.supervisor is not None:
+            self.supervisor.on_tenant_swap_commit(
+                tenant, model, index_maps, config, version, path
+            )
+
+    def _on_swap_kill(self, batcher, reason: str) -> None:
+        # Through the supervisor where there is one: kill_replica marks
+        # the replica down in the same call, so the rollback returns
+        # with supervisor state already reflecting the convergence kill.
+        if self.supervisor is not None:
+            self.supervisor.kill_batcher(batcher, reason)
+            return
+        kill = getattr(batcher, "kill", None)
+        if callable(kill):
+            kill(reason)
 
     def reload(
         self,
@@ -138,9 +195,7 @@ class ScoringService:
         ``tenant`` scopes the swap (or rollback) to ONE tenant's route
         (``POST /reload?tenant=acme``) — every other tenant and the
         default route are untouched; tenant reloads support
-        ``mode="full"`` only.  Delta reloads raise NotImplementedError
-        until the freshness package is ported (ROADMAP item 7b).
-        Returns a
+        ``mode="full"`` only.  Returns a
         :class:`~photon_ml_tpu_torch.serving.swap.SwapResult`; raises
         SwapInProgressError on concurrent reloads and ValueError on a
         missing path or unknown mode."""
@@ -178,10 +233,20 @@ class ScoringService:
         result (the opt-in ``stages`` key — docs/telemetry.md)."""
         if isinstance(request, Row):
             row = request
+        elif self.supervisor is not None:
+            row = self.supervisor.parse_request(request)
         else:
             row = self.current_runtime.parse_request(request)
         if annotate_stages:
             row.want_stages = True
+        # Offered demand, counted BEFORE admission: a shed request is
+        # still demand — exactly the signal lease rebalancing needs
+        # (a host shedding for lack of lease must report the pressure).
+        tenant = getattr(row, "tenant", None)
+        with self._demand_lock:
+            self._demand[tenant] = self._demand.get(tenant, 0) + 1
+        if self.supervisor is not None:
+            return self.supervisor.submit(row, timeout_ms=timeout_ms)
         return self.batcher.submit(row, timeout_ms=timeout_ms)
 
     def score(self, request, timeout: Optional[float] = 30.0) -> dict:
@@ -193,6 +258,8 @@ class ScoringService:
         validating this service's requests — what the binary wire path
         decodes against (shard dims; the JSON path reads the same
         object, so both paths refuse identically)."""
+        if self.supervisor is not None and self.supervisor.pool is not None:
+            return self.supervisor.pool.parser
         runtime = self.current_runtime
         parser = getattr(runtime, "_parser", None)
         if parser is None:
@@ -229,16 +296,40 @@ class ScoringService:
                 slots[i] = _error_result(exc)
         return slots
 
+    # -- fleet quota seams (serving/fleet.py) -------------------------------
+    def demand_snapshot(self) -> dict:
+        """Cumulative per-tenant offered-request counts (pre-admission).
+        The fleet LeaseClient differences successive snapshots into
+        demand rates for the QuotaCoordinator."""
+        with self._demand_lock:
+            return {t: n for t, n in self._demand.items() if t is not None}
+
+    def set_tenant_quota(
+        self, tenant: str, rate_rps, burst=None
+    ) -> None:
+        """Apply a quota lease to this host's admission buckets —
+        through the supervisor (which splits the host rate across
+        replicas and replays it on restart) or straight onto the one
+        batcher."""
+        if self.supervisor is not None:
+            self.supervisor.set_tenant_quota(tenant, rate_rps, burst)
+        else:
+            self.batcher.set_tenant_quota(tenant, rate_rps, burst)
+
     # -- observability -----------------------------------------------------
     def readiness(self) -> tuple[bool, str]:
         """The /readyz verdict: should a load balancer route traffic
-        here RIGHT NOW?  False during startup warmup and mid-swap —
-        distinct from liveness (/livez) and from degraded (still
-        serving, via the host path)."""
+        here RIGHT NOW?  False during startup warmup, mid-swap, and
+        with zero healthy replicas — distinct from liveness (/livez)
+        and from degraded (still serving, via the host path)."""
         if not self._started:
             return False, "not started"
         if self.swapper.in_progress:
             return False, "model swap in progress"
+        if self.supervisor is not None:
+            if not self.supervisor.ready:
+                return False, "no healthy ready replica"
+            return True, "ok"
         runtime = self.current_runtime
         if not getattr(runtime, "ready", True):
             return False, "runtime warming up"
@@ -251,7 +342,10 @@ class ScoringService:
         # Statuses stay distinguishable so a load balancer can shed-or-
         # keep by policy, not by guessing.
         runtime = self.current_runtime
-        degraded = getattr(runtime, "degraded", False)
+        degraded = (
+            self.supervisor.degraded if self.supervisor is not None
+            else getattr(runtime, "degraded", False)
+        )
         ready, ready_reason = self.readiness()
         out = {
             "status": (
@@ -271,6 +365,10 @@ class ScoringService:
                 self.swapper.tenant_versions().items()
             },
         }
+        if self.supervisor is not None:
+            sup = self.supervisor.stats()
+            out["replicas"] = sup["replicas"]
+            out["healthy_replicas"] = sup["healthy"]
         if runtime is not None and isinstance(runtime, ScoringRuntime):
             out.update({
                 "breaker": runtime.breaker.state,
@@ -285,8 +383,20 @@ class ScoringService:
             "swap": self.swapper.stats(),
             "tenancy": self.router.stats(),
         }
-        out["runtime"] = self.current_runtime.stats()
-        out["batcher"] = self.batcher.stats()
+        if self.supervisor is not None:
+            out["supervisor"] = self.supervisor.stats()
+            targets = self.supervisor.swap_targets()
+            if targets:
+                # NOTE with a telemetry hub the batcher block is derived
+                # from the process-wide registry — it aggregates across
+                # replicas by construction.
+                out["batcher"] = targets[0].stats()
+            runtime = self.current_runtime
+            if isinstance(runtime, ScoringRuntime):
+                out["runtime"] = runtime.stats()
+        else:
+            out["runtime"] = self.current_runtime.stats()
+            out["batcher"] = self.batcher.stats()
         return out
 
 
@@ -514,9 +624,6 @@ class _Handler(BaseHTTPRequestHandler):
         except SwapInProgressError as exc:
             self._send_json(409, {"error": str(exc)})
             return
-        except NotImplementedError as exc:
-            self._send_json(501, {"error": str(exc)})
-            return
         except (ValueError, KeyError, TypeError) as exc:
             self._send_json(400, {"error": f"bad request: {exc}"})
             return
@@ -527,6 +634,11 @@ class _Handler(BaseHTTPRequestHandler):
 
 class _Server(ThreadingHTTPServer):
     daemon_threads = True
+    #: listen backlog.  A fleet router opens one connection per request
+    #: from each of its workers (16 by default) at once, besides its
+    #: probes; the stdlib's backlog of 5 lets some network stacks reset
+    #: the excess, and a reset marks a healthy host down.
+    request_queue_size = 128
     service: ScoringService
 
 

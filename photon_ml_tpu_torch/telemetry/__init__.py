@@ -31,6 +31,7 @@ from photon_ml_tpu_torch.telemetry.core import (  # noqa: F401
     TraceContext,
     current,
     dump_flight_recorder,
+    host_identity,
     json_safe,
     set_current,
 )

@@ -973,6 +973,23 @@ def set_current(hub: Optional[Telemetry]) -> Telemetry:
         return prev
 
 
+def host_identity(host_id: Optional[str] = None) -> dict:
+    """Stable provenance block every heartbeat carries so merged metrics
+    never GUESS which host a number came from: explicit ``host_id`` >
+    ``$PHOTON_HOST_ID`` > hostname, plus the emitting pid (the
+    reference keeps this in ``telemetry/exporter.py``)."""
+    import socket
+
+    return {
+        "host_id": str(
+            host_id
+            or os.environ.get("PHOTON_HOST_ID")
+            or socket.gethostname()
+        ),
+        "pid": os.getpid(),
+    }
+
+
 def dump_flight_recorder(reason: str, path=None) -> Optional[str]:
     """Dump the process-current hub's flight recorder (see
     :meth:`Telemetry.dump_flight_recorder`).  The chaos injector and the

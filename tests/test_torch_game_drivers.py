@@ -462,6 +462,36 @@ class TestDriverResume:
         np.testing.assert_allclose(_scores(ref_res, train, ref=True),
                                    _scores(full, train), atol=FIT_TOL * 10)
 
+    def test_out_of_core_kill_and_resume_byte_equal(self, tmp_path):
+        """The fixed effect streamed and the per-user effect out of core
+        (the shape of ``chip_smoke.py`` phase 10e): a run killed after one
+        iteration and resumed writes the uninterrupted run's model files
+        byte for byte."""
+        train = str(tmp_path / "train.avro")
+        write_game_avro(train, _resume_rows(300, 2))
+
+        def config(iters):
+            coords = [dict(COORDS[0], max_iters=30, streaming_chunk_rows=128),
+                      dict(COORDS[1], max_iters=20, device_budget_mb=0.01)]
+            return _write_config(tmp_path / f"ooc{iters}.json",
+                                 iterations=iters, coordinates=coords)
+
+        full, res = str(tmp_path / "full"), str(tmp_path / "resumed")
+        game_training_driver.run(["--train-data", train, "--config",
+                                  config(3), "--output-dir", full, *CPU])
+        game_training_driver.run(["--train-data", train, "--config",
+                                  config(1), "--output-dir", res, *CPU])
+        result = game_training_driver.run([
+            "--train-data", train, "--config", config(3),
+            "--output-dir", res, "--resume", *CPU])
+        assert [h["iteration"] for h in result["history"]] == \
+            [0, 0, 1, 1, 2, 2]
+        for rel in ("fixed-effect/fixed/coefficients.avro",
+                    "random-effect/per_user/coefficients.avro"):
+            with open(os.path.join(full, "models", rel), "rb") as a, \
+                    open(os.path.join(res, "models", rel), "rb") as b:
+                assert a.read() == b.read(), rel
+
     def test_game_driver_incremental(self, tmp_path):
         """The reference's incremental-training flow and data: a warm start
         from a saved model does not regress the train metric."""

@@ -9,6 +9,7 @@ files both write from the same input.
 """
 
 import json
+import struct
 import os
 
 import numpy as np
@@ -454,3 +455,115 @@ class TestScoringWriterAndIndexMaps:
                 assert len(bm) == 200
                 assert all(bm.get_index(k) == v for k, v in imap.items())
                 assert bm.get_index("missing") == -1
+
+
+_ALL_TYPES = {
+    "type": "record", "name": "AllTypes", "fields": [
+        {"name": "flag", "type": "boolean"},
+        {"name": "count", "type": "long"},
+        {"name": "small", "type": "int"},
+        {"name": "ratio", "type": "float"},
+        {"name": "blob", "type": "bytes"},
+        {"name": "color", "type": {"type": "enum", "name": "Color",
+                                   "symbols": ["RED", "GREEN", "BLUE"]}},
+        {"name": "tags", "type": {"type": "map", "values": "long"}},
+        {"name": "either", "type": ["null", "string", "long", "double"]},
+        {"name": "nested", "type": {"type": "array", "items": {
+            "type": "record", "name": "Inner", "fields": [
+                {"name": "x", "type": ["null", "double"]},
+                {"name": "s", "type": "string"}]}}},
+    ]}
+
+
+def _random_datum(schema, rng):
+    if isinstance(schema, list):
+        return _random_datum(schema[int(rng.integers(len(schema)))], rng)
+    s = {"type": schema} if isinstance(schema, str) else schema
+    t = s["type"]
+    if t == "null":
+        return None
+    if t == "boolean":
+        return bool(rng.integers(2))
+    if t in ("int", "long"):
+        return int(rng.integers(-2**40, 2**40)) >> int(rng.integers(41))
+    if t == "float":
+        return float(np.float32(rng.normal()))
+    if t == "double":
+        return float(rng.normal() * 10.0 ** int(rng.integers(-5, 6)))
+    if t == "bytes":
+        return rng.bytes(int(rng.integers(0, 300)))
+    if t == "string":
+        return "".join(rng.choice(list("abcé€\x01 ")) for _ in
+                       range(int(rng.integers(0, 200))))
+    if t == "enum":
+        return s["symbols"][int(rng.integers(len(s["symbols"])))]
+    if t == "record":
+        return {f["name"]: _random_datum(f["type"], rng) for f in s["fields"]}
+    if t == "array":
+        return [_random_datum(s["items"], rng)
+                for _ in range(int(rng.integers(0, 4)))]
+    if t == "map":
+        return {f"k{i}": _random_datum(s["values"], rng)
+                for i in range(int(rng.integers(0, 4)))}
+    raise AssertionError(t)
+
+
+class TestCompiledCodec:
+    """The containers' compiled codecs write and read what the schema walk
+    (``write_datum`` / ``read_datum``) does, byte for byte."""
+
+    @pytest.mark.parametrize("name", [
+        "BAYESIAN_LINEAR_MODEL", "SCORING_RESULT", "FEATURE_SUMMARY",
+        "RANDOM_EFFECT_MODEL_SCHEMA", "GAME_EXAMPLE_SCHEMA", "all types"])
+    def test_same_bytes_and_records_as_the_schema_walk(self, name, tmp_path):
+        import io as _io
+
+        from photon_ml_tpu_torch.io import schemas
+
+        schema = {"all types": _ALL_TYPES,
+                  "RANDOM_EFFECT_MODEL_SCHEMA":
+                      game_store.RANDOM_EFFECT_MODEL_SCHEMA,
+                  "GAME_EXAMPLE_SCHEMA": game_reader.GAME_EXAMPLE_SCHEMA,
+                  }.get(name) or getattr(schemas, name)
+        rng = np.random.default_rng(11)
+        data = [_random_datum(schema, rng) for _ in range(300)]
+        walked = _io.BytesIO()
+        for d in data:
+            avro.write_datum(walked, schema, d)
+        parts = []
+        enc = avro._compile_writer(schema)
+        for d in data:
+            enc(parts.append, d)
+        assert b"".join(parts) == walked.getvalue()
+        avro.write_container(str(tmp_path / "c.avro"), schema, data,
+                             records_per_block=64)
+        _, got = avro.read_container(str(tmp_path / "c.avro"))
+        body = _io.BytesIO(walked.getvalue())
+        assert got == [avro.read_datum(body, schema) for _ in data] == data
+        assert list(avro.iter_container(str(tmp_path / "c.avro"))) == data
+
+    @pytest.mark.parametrize("bad", [
+        {"flag": True},                                   # missing field
+        dict(_random_datum(_ALL_TYPES, np.random.default_rng(1)),
+             either=[1]),                                 # no union branch
+        dict(_random_datum(_ALL_TYPES, np.random.default_rng(2)),
+             nested=[{"x": "s", "s": "t"}]),              # nested union
+    ])
+    def test_same_errors_as_the_schema_walk(self, bad):
+        import io as _io
+
+        with pytest.raises(TypeError) as walked:
+            avro.write_datum(_io.BytesIO(), _ALL_TYPES, bad)
+        with pytest.raises(TypeError) as compiled:
+            avro._compile_writer(_ALL_TYPES)([].append, bad)
+        assert str(compiled.value) == str(walked.value)
+
+    def test_truncated_payload_raises_eof(self):
+        enc = avro._compile_writer(_ALL_TYPES)
+        parts = []
+        enc(parts.append, _random_datum(_ALL_TYPES, np.random.default_rng(3)))
+        payload = b"".join(parts)
+        dec = avro._compile_reader(_ALL_TYPES)
+        assert dec(payload, 0)[1] == len(payload)
+        with pytest.raises((EOFError, IndexError, struct.error)):
+            dec(payload[:len(payload) // 2], 0)

@@ -1217,3 +1217,56 @@ def test_serving_runtime_on_card_bitwise(cuda):
         assert mc.tobytes() == m.tobytes(), n
     m_cpu, _ = rts["cpu"].score_rows(rows)
     assert m_cpu.tobytes() == single.tobytes()
+
+
+def test_worker_pool_on_card_bitwise(cuda):
+    """Two spawned workers on the card score bitwise the in-process card
+    runtime, and each worker's kernel launches fold into the parent's
+    count: its batches plus its warm-up buckets."""
+    import time
+
+    from photon_ml_tpu_torch.serving import shm_model
+    from photon_ml_tpu_torch.serving.batcher import BatcherConfig
+    from photon_ml_tpu_torch.serving.procpool import WorkerPool
+    from photon_ml_tpu_torch.serving.runtime import (
+        RuntimeConfig,
+        ScoringRuntime,
+    )
+    from photon_ml_tpu_torch.serving.service import ScoringService
+    from photon_ml_tpu_torch.serving.supervisor import ReplicaSupervisor
+    from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
+
+    wl = SyntheticWorkload(n_entities=64, fixed_dim=512, re_dim=8, seed=9)
+    cfg = RuntimeConfig(max_batch_size=16, hot_entities=8, device="cuda")
+    rt = ScoringRuntime(wl.model, wl.index_maps, cfg)
+    requests = [wl.request(i) for i in range(64)]
+    want = np.asarray([rt.score_rows([rt.parse_request(r)])[0][0]
+                       for r in requests], np.float32)
+    before = _kernels.LAUNCHES["serve_margins"]
+    pool = WorkerPool(wl.model, wl.index_maps, runtime_config=cfg)
+    sup = ReplicaSupervisor(pool=pool, n_replicas=2, probe_interval_s=60.0)
+    with ScoringService(sup, BatcherConfig(max_batch_size=16,
+                                           max_wait_us=500)) as service:
+        got = np.asarray([np.float32(f.result(timeout=120)["score"])
+                          for f in [service.submit(r) for r in requests]],
+                         np.float32)
+        stats = [rep.batcher.stats() for rep in sup.replicas]
+    assert got.tobytes() == want.tobytes()
+    assert shm_model.live_segments() == []
+    for st in stats:
+        assert st["device"] == "cuda" and st["jax_imported"] is False
+    deadline = time.monotonic() + 10
+    while time.monotonic() < deadline and sum(
+            n.get("serve_margins", 0)
+            for n in pool.worker_launches.values()) == 0:
+        time.sleep(0.1)
+    folded = {rid: n.get("serve_margins", 0)
+              for rid, n in pool.worker_launches.items()}
+    counts = pool.launch_counts()
+    for st in stats:
+        rid = st["replica"]
+        assert folded[rid] == st["runtime"]["batches"] + len(rt.buckets)
+        assert counts[rid]["batches"] == st["runtime"]["batches"]
+        assert counts[rid]["processes"] == 1
+    assert _kernels.LAUNCHES["serve_margins"] - before == \
+        sum(folded.values())

@@ -105,11 +105,21 @@ def test_import_leaves_jax_out_of_sys_modules():
     "photon_ml_tpu_torch.serving.synthetic",
     "photon_ml_tpu_torch.serving.__main__",
     "photon_ml_tpu_torch.convert",
+    "photon_ml_tpu_torch.serving.procpool",
+    "photon_ml_tpu_torch.serving.supervisor",
+    "photon_ml_tpu_torch.serving.fleet",
+    "photon_ml_tpu_torch.serving.shm_ingress",
+    "photon_ml_tpu_torch.serving.worker",
+    "photon_ml_tpu_torch.freshness",
+    "photon_ml_tpu_torch.freshness.__main__",
+    "photon_ml_tpu_torch.chaos",
+    "photon_ml_tpu_torch.analysis.sanitizers",
 ])
 def test_solver_slice_module_imports_alone_without_jax(module):
     """Each module of the solver, GAME, GAME-driver, out-of-core,
     multi-device and serving slices (GAME over a group too, the telemetry
-    hub and the breaker), imported alone in a fresh process, leaves jax
+    hub and the breaker, the process and fleet tier, freshness and the
+    fault-site registry), imported alone in a fresh process, leaves jax
     and the JAX package out of sys.modules."""
     code = (
         "import importlib, json, sys\n"

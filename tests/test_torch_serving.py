@@ -691,12 +691,21 @@ class TestScoringService:
         assert 0.0 < means[0] < 1.0
 
     def test_supervisor_refused_naming_item_7b(self, workload):
-        class _Supervisor:
-            def swap_targets(self):
-                return []
+        """A service over a supervisor of two in-process replicas scores
+        bitwise a single runtime."""
+        from photon_ml_tpu_torch.serving.supervisor import ReplicaSupervisor
 
-        with pytest.raises(TypeError, match="item 7b"):
-            ScoringService(_Supervisor())
+        requests = [workload.request(i) for i in range(12)]
+        single = _runtime(workload)
+        want = np.asarray([single.score_rows([single.parse_request(r)])[0][0]
+                           for r in requests], np.float32)
+        sup = ReplicaSupervisor(lambda: _runtime(workload), n_replicas=2,
+                                probe_interval_s=0.05)
+        with ScoringService(sup) as service:
+            got = np.asarray([np.float32(service.submit(r).result(
+                timeout=30)["score"]) for r in requests], np.float32)
+            assert service.stats()["supervisor"]["healthy"] == 2
+        assert got.tobytes() == want.tobytes()
 
 
 class TestSelfcheckAndLoadGen:
@@ -709,6 +718,17 @@ class TestSelfcheckAndLoadGen:
         assert snap["histograms"]["serving_request_latency_seconds"][
             "count"] >= 24
         assert snap["gauges"]["serving_batch_occupancy"] > 0
+
+    def test_process_selfcheck_passes(self, tmp_path):
+        """``--selfcheck --workers 2``'s pass: parity x3, a SIGKILL under
+        load, a cross-process swap and rollback, a leak-free shutdown.
+        (Here, not beside the pool tests: its segment gauge counts every
+        publication of the process, and that module keeps a pool up.)"""
+        from photon_ml_tpu_torch.serving.__main__ import (
+            run_selfcheck_process,
+        )
+
+        assert run_selfcheck_process(str(tmp_path), 2, device="cpu") == []
 
     def test_cli_selfcheck_exits_zero(self, tmp_path):
         out = subprocess.run(
@@ -728,9 +748,19 @@ class TestSelfcheckAndLoadGen:
         (["--membership", "http://127.0.0.1:1"], "item 8"),
     ])
     def test_cli_refuses_unported_flags(self, argv, item, capsys):
-        from photon_ml_tpu_torch.serving.__main__ import main
+        """Item 8's flags are refused naming it; the process tier's
+        (item 7b) are ported and accepted."""
+        from photon_ml_tpu_torch.serving.__main__ import (
+            build_arg_parser,
+            main,
+            refused_flags,
+        )
 
-        assert main(["--selfcheck", "--device", "cpu", *argv]) == 2
+        full = ["--selfcheck", "--device", "cpu", *argv]
+        if item == "7b":
+            assert refused_flags(build_arg_parser().parse_args(full)) == []
+            return
+        assert main(full) == 2
         assert item in capsys.readouterr().err
 
     def test_closed_loop_loadgen(self, workload):

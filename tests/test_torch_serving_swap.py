@@ -8,6 +8,8 @@ a model directory that the port hot-swaps in; the tenancy primitives are
 held against the reference's on the same inputs.
 """
 
+import concurrent.futures
+import dataclasses
 import json
 import os
 import shutil
@@ -263,12 +265,31 @@ class TestHotSwap:
                 service.swapper._swap_lock.release()
 
     def test_delta_reload_refused_naming_item_7b(self, workload,
-                                                 model_dirs):
-        _v1, v2_dir = model_dirs
-        service = ScoringService(_runtime(workload))
+                                                 model_dirs, tmp_path):
+        """A delta from v1 to v2 applies in process and serves v2's
+        scores bitwise; a delta for a tenant or an unknown mode is
+        refused."""
+        from photon_ml_tpu_torch.freshness.delta import (
+            diff_model_dirs,
+            write_delta,
+        )
+
+        v1_dir, v2_dir = model_dirs
+        delta_dir = str(tmp_path / "delta")
+        write_delta(diff_model_dirs(v1_dir, v2_dir), delta_dir)
+        v2 = ScoringRuntime.load(v2_dir, RuntimeConfig(
+            max_batch_size=8, hot_entities=8, device="cpu"))
+        requests = [workload.request(i) for i in range(12)]
+        want = np.asarray([v2.score_rows([v2.parse_request(r)])[0][0]
+                           for r in requests], np.float32)
+        service = ScoringService(ScoringRuntime.load(v1_dir, RuntimeConfig(
+            max_batch_size=8, hot_entities=8, device="cpu")))
         with service:
-            with pytest.raises(NotImplementedError, match="item 7b"):
-                service.reload(v2_dir, mode="delta")
+            assert service.reload(delta_dir, mode="delta").status == \
+                "swapped"
+            assert _scores(service, requests).tobytes() == want.tobytes()
+            assert service.swapper.version == 2
+            assert service.swapper.rollback().status == "rolled_back"
             with pytest.raises(ValueError, match="mode='full' only"):
                 service.reload(v2_dir, mode="delta", tenant="acme")
             with pytest.raises(ValueError, match="unknown reload mode"):
@@ -438,9 +459,12 @@ class TestHealthSplit:
                 status, body = _post(port, "/reload", {"rollback": True})
                 assert (status, body["status"]) == (422, "rolled_back")
                 assert _post(port, "/reload", {})[0] == 400
+                # A full model directory is no delta artifact: the
+                # delta reload answers it as a rolled-back load.
                 status, body = _post(port, "/reload?mode=delta",
                                      {"model_dir": v2_dir})
-                assert status == 501 and "7b" in body["error"]
+                assert (status, body["status"]) == (422, "rolled_back")
+                assert "delta" in body["reason"]
             finally:
                 server.shutdown()
                 server.server_close()
@@ -768,12 +792,35 @@ class TestScenarios:
                                       "coordinator_failover",
                                       "quota_partition"])
     def test_process_tier_actions_refused_naming_7b(self, name):
+        """A scenario of the process and fleet tier runs every phase and
+        fires every action wired to it; one that needs the cluster
+        membership plane is refused up front, naming item 8."""
         scenario = loadgen.SCENARIOS[name]
-        actions = {p.action: (lambda: "ok") for p in scenario.phases
-                   if p.action}
-        with pytest.raises(ValueError, match="item 7b"):
-            loadgen.run_scenario(lambda row: None, lambda *a: {}, scenario,
-                                 actions=actions)
+        fired = []
+        actions = {p.action: (lambda a=p.action: fired.append(a) or "ok")
+                   for p in scenario.phases if p.action}
+
+        def submit(row):
+            fut = concurrent.futures.Future()
+            fut.set_result({"score": 0.0})
+            return fut
+
+        if not loadgen.MEMBERSHIP_ACTIONS.isdisjoint(actions):
+            with pytest.raises(ValueError, match="item 8"):
+                loadgen.run_scenario(submit, lambda *a: {}, scenario,
+                                     actions=actions)
+            assert fired == []
+            return
+        short = loadgen.Scenario(scenario.name, scenario.description, [
+            dataclasses.replace(p, duration_s=0.05)
+            for p in scenario.phases])
+        report = loadgen.run_scenario(submit, lambda *a: {}, short,
+                                      base_rate_rps=200.0, actions=actions)
+        assert [n for n, _ in report.phases] == \
+            [p.name for p in scenario.phases]
+        assert sorted(fired) == sorted(actions)
+        assert report.actions == {a: "ok" for a in actions}
+        assert report.errors == 0 and report.rejected == 0
 
     def test_unwired_action_raises_up_front(self):
         with pytest.raises(ValueError, match="swap"):
