@@ -103,7 +103,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    ``game_scoring_driver.run`` on the validation file with the host and the
    device metric, and ``feature_indexing_driver.run``.  Checks: the native
    decoder read every file of the training and scoring runs (their
-   results' ``decoders``/``decoder``); the scoring driver's scores equal a float64 host
+   results' ``decoders``/``decoder``), and the native score encoder wrote
+   both scoring files (their ``encoder``); the host run's 80,000 rows
+   written again through the native encoder and through the Python path
+   (``PHOTON_NO_NATIVE=1``) give the scoring driver's file byte for byte,
+   each write timed; the scoring driver's scores equal a float64 host
    re-score of the saved model (loaded back with ``load_game_model``) within
    1e-5 of Σ|x·w|, unseen users contributing 0; its AUC equals the training
    driver's validation metric and the device AUC within 1e-6; every
@@ -220,11 +224,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    resident run's), and ``game_scoring_driver --stream-block-rows 65536``
    on the validation file (2 blocks): scores equal to the whole-file
    run's, the same AUC, and the per-block device logistic loss within 1e-6
-   of the host one.  (Since phase 14 came, 10e no longer trains an
-   uninterrupted out-of-core run to hold the resumed files against, nor
-   scores the training file: the script must stay inside its time limit.
-   ``tests/test_torch_game_drivers.py`` and
-   ``tests/test_torch_game_stream_io.py`` hold both on the CPU.)
+   of the host one; every scoring file written by the native encoder; an
+   uninterrupted out-of-core run's model files byte-equal to the resumed
+   run's.  (Since phase 14 came, 10e no longer scores the training file:
+   the script must stay inside its time limit.
+   ``tests/test_torch_game_stream_io.py`` holds it on the CPU.)
 
 11. Multi-device GLM (``parallel/``, ``solvers/{admm,block_cd,sharded}.py``)
    on one card.  11a, right after 9b on phase 3's matrix: consensus ADMM
@@ -311,22 +315,49 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    fresh runtime on the patched model; seconds beside 13c's full reload),
    and a delta with a flipped segment byte rolled back at its load stage.
 
+15. Tensor parallelism and tuning, last (phase 4's and phase 7's files).
+   15a: phase 4's training matrix (2^17 x 8193 binary with the intercept),
+   parsed once, as 2 x 2 logical tiles of 2^16 x 4097 (``parallel/
+   tensor.py``; each tile its own kernel layout): phase 4's three
+   configurations (L2 L-BFGS, elastic-net OWL-QN with the intercept
+   exempt, L2 TRON) at each one's selected λ, value summed in float64,
+   against the resident solve of the same problem: objective within 1e-5,
+   padded column exactly 0, a repeat bitwise, 1 x 1 tiles bitwise the
+   resident solve, OWL-QN's solution passing 3b's KKT test on the resident
+   problem; one evaluation launches one matvec and one rmatvec a tile; tile
+   (0, 0) against its plain version (phase 2's checks, bound, cuSPARSE).
+   15b: ``python -m photon_ml_tpu_torch.tuning --driver glm`` (its
+   ``main``) on phase 4's files, 8 trials, 4 workers, GP with ASHA: every
+   trial's SpMV launches, tallied on its own thread, add up to the global
+   count; the best trial's AUC equals a host re-score of its stored
+   coefficients within 1e-6; the same search killed at the middle journal
+   record and resumed gives the same trial history and decisions; a 6-λ
+   grid with warm starts off gives bitwise equal coefficients with 4
+   workers and with 1.  15c: ``--selfcheck`` on the card, then the GAME
+   training driver's tuning mode on phase 7's files (Bayesian, 4
+   evaluations of one CD iteration): 4 evaluations, the coordinates' reg
+   weights, and the tuned metric equal to the final model's validation
+   metric within 1e-6.
+
 Phase 7's GAME Avro files are written by a spawned process that starts
 after phase 1 and runs beside phases 2-6; phase 7 waits for it.
 
 Launch counts are zeroed just before each main-path run of phases 3, 3b,
-4, 5, 6, 7, 8, 9, 10, 11, 12, 13 (13b, 13d) and 14 (14a-14b's pool,
+4, 5, 6, 7, 8, 9, 10, 11, 12, 13 (13b, 13d), 14 (14a-14b's pool,
 14b's in-process replicas, 14d's hosts, 14c's pool; each once its
-runtimes have warmed up) and read just after; every kernel those
+runtimes have warmed up) and 15 (each 15a solve, 15b's searches and grid,
+15c's selfcheck and driver run) and read just after; every kernel those
 paths run must have launched.  A kernel record's ``launches`` sums its
 main-path runs (phases 3, 3b, 9a, 9b and 11c's group runs for the valued
 instances, 11a's for the ``.shard`` ones, phase 4's three runs, 11b's and
-11c's driver runs and 9c's and 12a's GLM driver runs for the binary ones,
+11c's driver runs, 9c's and 12a's GLM driver runs and 15a's resident
+solves and 15b's searches for the binary ones, 15a's tiled solves for the
+``.tile`` ones,
 phase 6's descents and estimator fits, phases 7's, 8's, 9c's and 12a's
-training runs and phase 10's descents, streamed solves and training runs
-for the ``.game`` records, phases 7's, 8's and 10e's validation scoring
-for ``.game_val``, 12b's four ranks for ``.game_shard`` and
-``.chunk_shard``; 13b's and 14c's for ``serve_margins``, 13d's, 14a's,
+training runs, phase 10's descents, streamed solves and training runs and
+15c's tuning run for the ``.game`` records, phases 7's, 8's, 10e's and
+15c's validation scoring for ``.game_val``, 12b's four ranks for
+``.game_shard`` and ``.chunk_shard``; 13b's and 14c's for ``serve_margins``, 13d's, 14a's,
 14b's and 14d's for ``serve_margins.bench_serving``, every bucket).  The
 serving counts must equal the batches scored in their window: a
 worker's launches and batches fold into the parent's from its
@@ -348,6 +379,7 @@ import sys
 import tempfile
 import threading
 import time
+import types
 import warnings
 
 import numpy as np
@@ -963,21 +995,28 @@ def pseudo_gradient_host(w, g, l1):
                     np.sign(g) * np.maximum(np.abs(g) - l1, 0.0))
 
 
-def kkt_residuals(res, obj, d, l1, l2):
+def kkt_residuals(res, obj, d, l1, l2, mask=None):
     """(max |g_j|/λ1 over the zeros, max |g_j + λ1·sign(w_j)|/λ1 over the
     support, Σ_j pg_j²/(2·H_jj) / |F|) at res.w: pg is the pseudo-gradient
     and H_jj = Σ_i x_ij²·ℓ''_i + l2 the smooth part's diagonal curvature,
     so the last is the objective decrease that a diagonal Newton step on
-    the residual would buy, relative to F."""
+    the residual would buy, relative to F.  ``mask`` (host, 0 at exempt
+    coordinates such as the intercept) scales λ1 per coordinate."""
     f, g = obj.value_and_grad(res.w, d, l2)
     hdiag = d.features.sq_rmatvec(obj.d2_weights(res.w, d)) + l2
-    f_all = float(f) + l1 * float(res.w.double().abs().sum())
     w, g = res.w.double().cpu().numpy(), g.double().cpu().numpy()
+    if mask is None:
+        f_all = float(f) + l1 * float(res.w.double().abs().sum())
+        l1v = l1
+    else:
+        l1v = l1 * np.asarray(mask, np.float64)
+        f_all = float(f) + float((l1v * np.abs(w)).sum())
     hdiag = hdiag.double().cpu().numpy()
-    pg = pseudo_gradient_host(res.w, torch.as_tensor(g), l1)
+    pg = pseudo_gradient_host(res.w, torch.as_tensor(g), l1v)
     zero = w == 0
     at_zero = float((np.abs(g[zero]) / l1).max(initial=0.0))
-    support = float((np.abs(g[~zero] + l1 * np.sign(w[~zero])) / l1)
+    l1s = l1v if mask is None else l1v[~zero]
+    support = float((np.abs(g[~zero] + l1s * np.sign(w[~zero])) / l1)
                     .max(initial=0.0))
     dec = float((pg * pg / (2 * np.maximum(hdiag, 1e-30))).sum()
                 / abs(f_all))
@@ -2640,6 +2679,46 @@ def validation_rescore(coord, state, v_shards, v_ids):
     return (X * W).sum(1)
 
 
+def encoder_rewrite(glog, path, td):
+    """5c: the rows of the scoring file ``path`` written again through the
+    native encoder and through the Python path (``PHOTON_NO_NATIVE=1``, the
+    writer before the encoder); both files must be byte-equal to
+    ``path``.  Returns each write's host seconds."""
+    from photon_ml_tpu_torch.io import avro
+
+    _, recs = avro.read_container(path)
+    keys = list(dict.fromkeys(k for r in recs for k in r["ids"]))
+    block = ([r["uid"] for r in recs],
+             [r["predictionScore"] for r in recs],
+             [r["label"] for r in recs],
+             {k: [r["ids"].get(k) for r in recs] for k in keys})
+    want = open(path, "rb").read()
+    out = {}
+    for name, env in (("native", None), ("python", "1")):
+        old = os.environ.pop("PHOTON_NO_NATIVE", None)
+        if env is not None:
+            os.environ["PHOTON_NO_NATIVE"] = env
+        try:
+            stats = {}
+            dst = os.path.join(td, f"rewrite_{name}.avro")
+            t0 = time.perf_counter()
+            avro.write_scoring_blocks(dst, [block], stats=stats)
+            out[f"{name}_s"] = time.perf_counter() - t0
+        finally:
+            os.environ.pop("PHOTON_NO_NATIVE", None)
+            if old is not None:
+                os.environ["PHOTON_NO_NATIVE"] = old
+        check(stats["encoder"] == name, f"5c: the {name} write ran the "
+              f"{stats['encoder']} encoder")
+        check(open(dst, "rb").read() == want, f"5c: the {name} encoder's "
+              f"file differs from the scoring driver's")
+        os.remove(dst)
+    glog(f"5c: {len(recs)} scoring rows rewritten byte-equal by the native "
+         f"encoder in {out['native_s']:.3f} s and by the Python path in "
+         f"{out['python_s']:.3f} s")
+    return out
+
+
 def phase_game_drivers(smi, td, writer):
     """Phase 7: the GAME drivers at ``bench_game_cd``'s width, on the GAME
     Avro files that ``writer`` (:func:`start_game_files`) writes into ``td``
@@ -2768,6 +2847,12 @@ def phase_game_drivers(smi, td, writer):
     glog(f"GAME decoders of the drivers' reads: {decoders}")
     check(decoders and set(decoders) == {"native"},
           f"a GAME file was not decoded natively: {decoders}")
+    encoders = [scoring[label]["encoder"] for label in scoring]
+    glog(f"score encoders of the drivers' writes: {encoders}")
+    check(set(encoders) == {"native"},
+          f"a scoring file was not encoded natively: {encoders}")
+    metrics["encoder"] = encoder_rewrite(
+        glog, os.path.join(td, "score_host", "scores.avro"), td)
 
     # The scoring driver's scores against a float64 host re-score of
     # the saved model, loaded back with the port's load_game_model.
@@ -4526,9 +4611,10 @@ def ooc_drivers(glog, td, train, val):
     per-update validation, killed after iteration 1 and resumed; the
     resumed model against phase 7's resident run; the scoring driver's
     ``--stream-block-rows 65536`` on the validation file against its
-    whole-file run.  (An uninterrupted out-of-core run to hold the resumed
-    files against, and the training file's scoring pair, left the script
-    to keep it inside its time limit; the CPU tests hold both.)  Returns
+    whole-file run; an uninterrupted out-of-core run whose model files the
+    resumed run's must equal byte for byte.  (The training file's scoring
+    pair left the script to keep it inside its time limit; the CPU tests
+    hold it.)  Returns
     (training SpMV launches, validation-scoring matvec launches,
     metrics)."""
     from photon_ml_tpu_torch.data.game_reader import read_game_avro
@@ -4583,7 +4669,18 @@ def ooc_drivers(glog, td, train, val):
         glog("10e: the run was killed after iteration 1's checkpoint")
         full = training("resume to 3", common + [
             "--config", cfg3, "--output-dir", resumed, "--resume"])
+        uninterrupted = os.path.join(td, "ooc_uninterrupted")
+        training("uninterrupted", common + ["--config", cfg3,
+                                            "--output-dir", uninterrupted])
     val_launches = sum(m["val_matvec"] for m in metrics.values())
+    for rel in ("fixed-effect/fixed/coefficients.avro",
+                "random-effect/per_user/coefficients.avro"):
+        a, b = (open(os.path.join(k, "models", rel), "rb").read()
+                for k in (uninterrupted, resumed))
+        check(a == b, f"ooc 10e: the resumed model's {rel} differs from "
+              "the uninterrupted run's")
+    glog("10e: the resumed run's model files equal the uninterrupted "
+         "run's byte for byte")
     f_ooc = driver_objective(resumed, shards, ids, y, w, off)
     f_res = driver_objective(os.path.join(td, "full"), shards, ids, y, w,
                              off)
@@ -4603,6 +4700,9 @@ def ooc_drivers(glog, td, train, val):
             os.path.join(td, f"ooc_score_{label}"), "--device", DEVICE,
             *flags])
         torch.cuda.synchronize()
+        check(res["encoder"] == "native",
+              f"ooc 10e: {label} scores written by the {res['encoder']} "
+              "encoder")
         glog(f"10e scoring {label}: wall {time.perf_counter() - t0:.2f} s, "
              f"{res['n_rows']} rows"
              + (f" in {res['blocks']} blocks" if "blocks" in res else "")
@@ -6350,6 +6450,512 @@ def phase_process_fleet(smi, td, handoff):
     return launches, metrics
 
 
+# -- phase 15: tensor parallel and tuning ----------------------------------
+
+TP_DP, TP_TP = 2, 2
+TP_MAX_ITERS = 100
+TP_OWLQN_ITERS = 200  # 3b's OWL-QN budget, for its KKT test
+# At phase 4's elastic-net λ both the resident and the tiled OWL-QN stop
+# short of 3b's KKT decrement at 3b's 1e-7 (2.9e-7 of F on the card);
+# at 1e-9 they run on to the float32 gradient's noise floor.
+TP_OWLQN_TOL = 1e-9
+TP_TRON_ITERS = 50
+TP_TOL = 1e-7
+TP_OBJ_TOL = 1e-5
+TUNE_TRIALS = 8
+TUNE_WORKERS = 4
+TUNE_GRID = 6
+GAME_TUNE_EVALS = 4
+
+
+@contextlib.contextmanager
+def patched(obj, name, value):
+    """``obj.name = value`` for the block's duration."""
+    old = getattr(obj, name)
+    setattr(obj, name, value)
+    try:
+        yield
+    finally:
+        setattr(obj, name, old)
+
+
+def parse_once():
+    """A memoizing stand-in for ``data.libsvm.read_libsvm``: each file is
+    parsed once for the whole phase (15a's arrays and every tuning CLI run
+    of 15b read the same copy)."""
+    from photon_ml_tpu_torch.data import libsvm
+
+    inner, cache = libsvm.read_libsvm, {}
+
+    def read(path, **kw):
+        key = (path, tuple(sorted(kw.items())))
+        if key not in cache:
+            t0 = time.perf_counter()
+            cache[key] = inner(path, **kw)
+            log(f"phase 15: parsed {os.path.basename(path)} in "
+                f"{time.perf_counter() - t0:.2f} s")
+        return cache[key]
+
+    return read
+
+
+def tp_config(kind):
+    """Phase 4's configuration ``kind`` as a resident problem (its value
+    summed in float64, as 3b's are) and the λ1/λ2 the problem splits λ
+    into, as functions of λ."""
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        GlmOptimizationProblem,
+        OptimizerConfig,
+        OptimizerType,
+    )
+    from photon_ml_tpu_torch.optim.regularization import (
+        RegularizationContext,
+    )
+
+    reg = (RegularizationContext.elastic_net(0.5) if kind == "elastic_net"
+           else RegularizationContext.l2())
+    opt = OptimizerConfig(
+        optimizer=OptimizerType.TRON if kind == "tron"
+        else OptimizerType.LBFGS,
+        max_iters={"tron": TP_TRON_ITERS, "elastic_net": TP_OWLQN_ITERS}.get(
+            kind, TP_MAX_ITERS),
+        tolerance=TP_OWLQN_TOL if kind == "elastic_net" else TP_TOL)
+    return GlmOptimizationProblem("logistic", GlmOptimizationConfig(
+        optimizer=opt, regularization=reg), accumulate="f64")
+
+
+def tp_solve(kind, data, mesh, lam, mask):
+    """``kind``'s solve over the tiles ``data`` at λ, split as
+    :func:`tp_config`'s problem splits it."""
+    from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig
+    from photon_ml_tpu_torch.optim.owlqn import OWLQNConfig
+    from photon_ml_tpu_torch.optim.tron import TRONConfig
+    from photon_ml_tpu_torch.parallel import tensor
+
+    if kind == "elastic_net":
+        half = float(np.float32(0.5) * np.float32(lam))
+        return tensor.tp_owlqn_solve(
+            "logistic", data, mesh, half, half, accumulate="f64",
+            config=OWLQNConfig(max_iters=TP_OWLQN_ITERS,
+                               tolerance=TP_OWLQN_TOL),
+            l1_mask=mask)
+    if kind == "tron":
+        return tensor.tp_tron_solve(
+            "logistic", data, mesh, lam, accumulate="f64",
+            config=TRONConfig(max_iters=TP_TRON_ITERS, tolerance=TP_TOL))
+    return tensor.tp_lbfgs_solve(
+        "logistic", data, mesh, lam, accumulate="f64",
+        config=LBFGSConfig(max_iters=TP_MAX_ITERS, tolerance=TP_TOL))
+
+
+def phase_tensor_parallel(X, y, drv_runs, gen):
+    """15a: phase 4's three configurations at their selected λ over 2 × 2
+    logical tiles of phase 4's training matrix, against the resident solve
+    (objective within 1e-5, OWL-QN's KKT test), a bitwise repeat, and 1 × 1
+    tiles bitwise the resident solve.  Returns (resident launches, tile
+    launches, the tile instance's kernel records, metrics)."""
+    from photon_ml_tpu_torch.data.dataset import make_glm_data
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.parallel import tensor
+
+    n, d = X.shape
+    t0 = time.perf_counter()
+    resident = make_glm_data(X, y, device=DEVICE)
+    mesh = tensor.dp_tp_mesh(TP_DP, TP_TP)
+    tiles = tensor.shard_glm_data_dp_tp(X, y, mesh, device=DEVICE)
+    one = tensor.shard_glm_data_dp_tp(X, y, tensor.dp_tp_mesh(1, 1),
+                                      device=DEVICE)
+    torch.cuda.synchronize()
+    build_s = time.perf_counter() - t0
+    M = tiles.tiles[(0, 0)].features
+    log(f"15a: {n} x {d} as {TP_DP} x {TP_TP} tiles of {tiles.rows_per} x "
+        f"{tiles.cols_per} (padded width {tiles.padded_width}; tile (0, 0) "
+        f"{M.nnz} entries, value-free {M.unit_vals}); builds {build_s:.2f} s")
+    check(M.unit_vals, "15a: the binary tiles did not take the value-free "
+          "layout")
+    # One evaluation's launches: a matvec and an rmatvec a tile.
+    tobj = tensor.TileObjective(tp_config("l2").objective, tiles, mesh)
+    w = torch.zeros(tiles.padded_width, device=DEVICE)
+    _kernels.reset_launches()
+    tobj.value_and_grad(w, 1.0)
+    torch.cuda.synchronize()
+    per_eval = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    log(f"15a: one evaluation's tile launches {json.dumps(per_eval)}")
+    check(per_eval == {"matvec_unit": TP_DP * TP_TP,
+                       "rmatvec_unit": TP_DP * TP_TP},
+          f"15a: an evaluation launched {per_eval}, expected one matvec "
+          "and one rmatvec a tile")
+
+    res_launches, tile_launches = {}, {}
+    metrics = {"build_s": build_s}
+
+    def counted(into, fn):
+        _kernels.reset_launches()
+        t = time.perf_counter()
+        out = fn()
+        torch.cuda.synchronize()
+        for k, v in _kernels.LAUNCHES.items():
+            into[k] = into.get(k, 0) + v
+        return out, time.perf_counter() - t
+
+    for kind, _ in DRIVER_RUNS:
+        lam = float(drv_runs[kind][1]["best_lambda"])
+        prob = tp_config(kind)
+        mask_d = mask_p = None
+        if kind == "elastic_net":
+            # The driver's intercept (the last column) takes no L1.
+            mask_d = torch.ones(d, device=DEVICE)
+            mask_d[d - 1] = 0.0
+            mask_p = np.ones(tiles.padded_width, np.float32)
+            mask_p[d - 1] = 0.0
+        ref, ref_s = counted(res_launches, lambda: prob.solve(
+            resident, lam, l1_mask=mask_d))
+        got, tile_s = counted(tile_launches, lambda: tp_solve(
+            kind, tiles, mesh, lam, mask_p))
+        again, _ = counted(tile_launches, lambda: tp_solve(
+            kind, tiles, mesh, lam, mask_p))
+        single, _ = counted(res_launches, lambda: tp_solve(
+            kind, one, tensor.dp_tp_mesh(1, 1), lam,
+            None if mask_d is None else mask_d.cpu().numpy()))
+        f_ref, f_tp = float(ref.value), float(got.value)
+        gap = abs(f_tp - f_ref) / abs(f_ref)
+        pad = got.w[d:]
+        log(f"15a {kind} λ={lam:g}: resident {f_ref!r} in {ref.iterations} "
+            f"iterations ({ref_s:.2f} s); tiles {f_tp!r} in "
+            f"{got.iterations} ({tile_s:.2f} s), gap {gap:.3g}; padded "
+            f"columns {pad.tolist()}")
+        check(gap <= TP_OBJ_TOL, f"15a {kind}: tiles' objective {f_tp!r} vs "
+              f"the resident {f_ref!r} ({gap:.3g})")
+        check(bool((pad == 0).all()), f"15a {kind}: a padded column moved")
+        check(torch.equal(got.w, again.w) and torch.equal(got.value,
+                                                          again.value),
+              f"15a {kind}: a repeat of the tiled solve differs")
+        check(torch.equal(single.w, ref.w)
+              and torch.equal(single.value, ref.value)
+              and single.iterations == ref.iterations,
+              f"15a {kind}: 1 x 1 tiles differ from the resident solve")
+        rec = {"lambda": lam, "resident": f_ref, "tiles": f_tp, "gap": gap,
+               "iterations": [ref.iterations, got.iterations],
+               "seconds": [ref_s, tile_s]}
+        if kind == "elastic_net":
+            l1 = float(np.float32(0.5) * np.float32(lam))
+            kkt = kkt_residuals(types.SimpleNamespace(w=got.w[:d]),
+                                prob.objective, resident, l1, l1,
+                                mask=mask_d.cpu().numpy())
+            kkt_ref = kkt_residuals(ref, prob.objective, resident, l1, l1,
+                                    mask=mask_d.cpu().numpy())
+            zeros = int((got.w[:d] == 0).sum())
+            log(f"15a elastic_net KKT (zeros, support, decrement): tiles "
+                f"{kkt}, resident {kkt_ref}; {zeros} of {d} coefficients "
+                f"zero")
+            check(kkt_holds(kkt), f"15a elastic_net: KKT fails {kkt}")
+            rec["kkt"] = kkt
+        metrics[kind] = rec
+    for what, counts in (("resident", res_launches), ("tiles",
+                                                      tile_launches)):
+        log(f"15a {what} launches: "
+            f"{json.dumps({k: v for k, v in counts.items() if v})}")
+    for op in ("matvec_unit", "rmatvec_unit"):
+        check(tile_launches.get(op, 0) > 0, f"15a: {op} never launched "
+              "on a tile")
+    log("15a: tile (0, 0) against its plain version")
+    kern = kernel_vs_plain("tile", M, gen)
+    return res_launches, tile_launches, kern, metrics
+
+
+class TrialLaunches:
+    """Per-thread launch counts: ``ops/_kernels.count_launch`` also adds to
+    the calling thread's tally while a trial runs, and each trial's tally
+    is kept by its (params, resource)."""
+
+    def __init__(self):
+        self.tls = threading.local()
+        self.trials = []
+        self._lock = threading.Lock()
+
+    def count_launch(self, inner):
+        def count(key, n=1):
+            inner(key, n)
+            tally = getattr(self.tls, "tally", None)
+            if tally is not None:
+                tally[key] = tally.get(key, 0) + n
+        return count
+
+    def wrap(self, fit_once):
+        def fit(params, resource=0, warm_start=None):
+            self.tls.tally = {}
+            try:
+                return fit_once(params, resource, warm_start)
+            finally:
+                with self._lock:
+                    self.trials.append((float(np.asarray(params)[0]),
+                                        int(resource), self.tls.tally))
+                self.tls.tally = None
+        fit.suite = fit_once.suite
+        fit.larger_is_better = fit_once.larger_is_better
+        return fit
+
+
+def journal_decisions(directory):
+    from photon_ml_tpu_torch.tuning.state import (
+        STATE_RECORD_TYPES,
+        TuningJournal,
+    )
+
+    return [{k: v for k, v in r.items() if k not in ("wall", "wall_epoch")}
+            for r in TuningJournal(directory).read()
+            if r.get("type") in STATE_RECORD_TYPES]
+
+
+def phase_tuning_glm(files, td, train_xy, val_xy):
+    """15b: the tuning CLI on phase 4's files (8 trials, 4 workers, GP with
+    ASHA), the same search killed at a journal record boundary and resumed,
+    a 6-λ grid with 4 workers and with 1 (bitwise per trial), the best
+    trial's AUC against a host re-score, and every trial's launches
+    against the global count."""
+    from photon_ml_tpu_torch.drivers import glm_driver
+    from photon_ml_tpu_torch.evaluation.evaluators import (
+        AreaUnderROCCurveEvaluator,
+    )
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.tuning import __main__ as tune_cli
+    from photon_ml_tpu_torch.tuning import state as tune_state
+    from photon_ml_tpu_torch.tuning.executor import (
+        TuningConfig,
+        TuningOrchestrator,
+    )
+    from photon_ml_tpu_torch.tuning.scheduler import GridProposer, SearchSpace
+
+    train, val = files
+    argv = ["--driver", "glm", "--train-data", train, "--validate-data",
+            val, "--trials", str(TUNE_TRIALS), "--workers",
+            str(TUNE_WORKERS), "--asha", "--proposer", "gp",
+            "--n-features", str(N_FEATURES), "--device", DEVICE]
+    trials = TrialLaunches()
+    inner_make = glm_driver.make_fit_once
+    metrics = {}
+    launches = {}
+
+    def make(*a, **kw):
+        return trials.wrap(inner_make(*a, **kw))
+
+    def cli(out, *extra):
+        t = time.perf_counter()
+        with patched(glm_driver, "make_fit_once", make):
+            rc = tune_cli.main(argv + ["--output-dir", out, *extra])
+        torch.cuda.synchronize()
+        check(rc == 0, f"15b: the tuning CLI exited {rc}")
+        with open(os.path.join(out, "tuning_result.json")) as f:
+            return json.load(f), time.perf_counter() - t
+
+    out_a, out_b = (os.path.join(td, f"tune_{k}") for k in "ab")
+    with patched(_kernels, "count_launch",
+                 trials.count_launch(_kernels.count_launch)):
+        _kernels.reset_launches()
+        res_a, wall_a = cli(out_a)
+        total = dict(_kernels.LAUNCHES)
+    per_trial = {}
+    for _, _, tally in trials.trials:
+        for k, v in tally.items():
+            per_trial[k] = per_trial.get(k, 0) + v
+    log(f"15b: {res_a['n_trials']} trials ({res_a['completed']} completed, "
+        f"{res_a['pruned']} pruned, {res_a['failed']} failed) in "
+        f"{wall_a:.2f} s, best λ {res_a['best_params']} AUC "
+        f"{res_a['best_metric']!r}; {len(trials.trials)} trial rungs; "
+        f"launches {json.dumps({k: v for k, v in total.items() if v})}, "
+        f"summed over the trials' threads "
+        f"{json.dumps({k: v for k, v in per_trial.items() if v})}")
+    check(res_a["n_trials"] == TUNE_TRIALS and res_a["failed"] == 0
+          and res_a["pruned"] > 0, f"15b: search {res_a}")
+    for params, rung, tally in trials.trials:
+        for op in ("matvec_unit", "rmatvec_unit"):
+            check(tally.get(op, 0) > 0, f"15b: the trial at λ={params:g}, "
+                  f"resource {rung} launched no {op}")
+    check({k: v for k, v in total.items() if v}
+          == {k: v for k, v in per_trial.items() if v},
+          "15b: the trials' launches do not add up to the global count")
+    for k, v in total.items():
+        launches[k] = launches.get(k, 0) + v
+
+    # The best trial's AUC against a host re-score of its coefficients.
+    best = res_a["best_trial"]
+    w = tune_state.TrialStore(out_a).load(best)[1].astype(np.float64)
+    X_val, y_val = val_xy
+    host = AreaUnderROCCurveEvaluator().evaluate(X_val @ w, y_val)
+    log(f"15b: best trial {best} AUC {res_a['best_metric']!r}, host "
+        f"re-score {host!r}")
+    check(abs(host - res_a["best_metric"]) <= 1e-6,
+          f"15b: best AUC {res_a['best_metric']!r} vs host {host!r}")
+
+    # Killed at a journal record boundary, then resumed.
+    n_records = len(tune_state.TuningJournal(out_a).read())
+    cut = n_records // 2
+
+    class Killing(tune_state.TuningJournal):
+        def __init__(self, directory, fsync=True, abort_after=None):
+            super().__init__(directory, fsync, abort_after=cut)
+
+    _kernels.reset_launches()
+    try:
+        with patched(tune_state, "TuningJournal", Killing):
+            cli(out_b)
+        check(False, "15b: the abort hook never fired")
+    except tune_state.SearchAborted:
+        pass
+    res_b, wall_b = cli(out_b, "--resume")
+    for k, v in _kernels.LAUNCHES.items():
+        launches[k] = launches.get(k, 0) + v
+    same = res_b["trials"] == res_a["trials"]
+    dec = journal_decisions(out_a) == journal_decisions(out_b)
+    log(f"15b: killed at record {cut} of {n_records} and resumed "
+        f"({wall_b:.2f} s): trial history "
+        + ("equal" if same else "DIFFERS") + ", decisions "
+        + ("equal" if dec else "DIFFER"))
+    check(same and dec, "15b: the resumed search differs from the "
+          "uninterrupted one")
+
+    # A 6-λ grid, warm starts off: every trial's coefficients bitwise equal
+    # between 4 workers and 1.
+    X_train, y_train = train_xy
+    fit_once = glm_driver.make_fit_once(
+        X_train, y_train, X_val, y_val, task="logistic", reg_type="l2",
+        max_iters=50, device=DEVICE)
+    space = SearchSpace.create([(1e-3, 1e3)], log_scale=True,
+                               names=["lambda"])
+    grid = [[lam] for lam in np.geomspace(1e-2, 1e2, TUNE_GRID)]
+    coefs = {}
+    _kernels.reset_launches()
+    for workers in (TUNE_WORKERS, 1):
+        out = os.path.join(td, f"tune_grid_{workers}")
+        journal = tune_state.TuningJournal(out)
+        t = time.perf_counter()
+        res = TuningOrchestrator(
+            space, fit_once, GridProposer(space, grid),
+            TuningConfig(max_trials=TUNE_GRID, workers=workers,
+                         maximize=True, warm_start=False), journal).run()
+        journal.close()
+        torch.cuda.synchronize()
+        store = tune_state.TrialStore(out)
+        coefs[workers] = [store.load(i)[1] for i in range(TUNE_GRID)]
+        log(f"15b: the {TUNE_GRID}-λ grid over {workers} worker(s) in "
+            f"{time.perf_counter() - t:.2f} s, best λ {res.best_params} "
+            f"AUC {res.best_metric!r}")
+        metrics[f"grid_{workers}_workers_s"] = time.perf_counter() - t
+    for k, v in _kernels.LAUNCHES.items():
+        launches[k] = launches.get(k, 0) + v
+    check(all(np.array_equal(a, b) for a, b in zip(coefs[TUNE_WORKERS],
+                                                  coefs[1])),
+          f"15b: a grid trial's coefficients differ between "
+          f"{TUNE_WORKERS} workers and 1")
+    log(f"15b: all {TUNE_GRID} grid trials bitwise equal between "
+        f"{TUNE_WORKERS} workers and 1")
+    metrics.update(trials=res_a["n_trials"], wall_s=wall_a,
+                   resume_wall_s=wall_b, best_auc=res_a["best_metric"],
+                   host_auc=host)
+    return launches, metrics
+
+
+def phase_tuning_game(td, game_files):
+    """15c: the tuning CLI's selfcheck on the card, then the GAME training
+    driver's tuning mode on phase 7's files (Bayesian, 4 evaluations of one
+    CD iteration each).  Returns (training launches, validation-scorer
+    matvec launches, metrics)."""
+    from photon_ml_tpu_torch.drivers import game_training_driver
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.tuning import __main__ as tune_cli
+
+    metrics = {}
+    _kernels.reset_launches()
+    t = time.perf_counter()
+    rc = tune_cli.main(["--selfcheck", "--device", DEVICE])
+    torch.cuda.synchronize()
+    metrics["selfcheck_s"] = time.perf_counter() - t
+    sc = {k: v for k, v in _kernels.LAUNCHES.items() if v}
+    log(f"15c: tuning --selfcheck on the card exited {rc} in "
+        f"{metrics['selfcheck_s']:.2f} s; launches {json.dumps(sc)}")
+    check(rc == 0, "15c: the tuning selfcheck failed on the card")
+    for op in ("matvec", "rmatvec"):
+        check(sc.get(op, 0) > 0, f"15c: the selfcheck's GAME fits never "
+              f"launched {op}")
+
+    train, val = game_files
+    cfg_path = os.path.join(td, "tune.json")
+    game_driver_config(cfg_path, 1)
+    with open(cfg_path) as f:
+        cfg = json.load(f)
+    cfg["tuning"] = {"mode": "bayesian", "iterations": GAME_TUNE_EVALS,
+                     "range": [1e-2, 1e2]}
+    with open(cfg_path, "w") as f:
+        json.dump(cfg, f)
+    _kernels.reset_launches()
+    t = time.perf_counter()
+    with ScorerRecorder() as scorers:
+        res = game_training_driver.run([
+            "--train-data", train, "--validate-data", val, "--config",
+            cfg_path, "--output-dir", os.path.join(td, "tuned"),
+            "--device", DEVICE])
+        torch.cuda.synchronize()
+    metrics["driver_s"] = time.perf_counter() - t
+    launches = {op: _kernels.LAUNCHES[op] for op in ("matvec", "rmatvec")}
+    val_matvec = scorers.val_matvec
+    launches["matvec"] -= val_matvec
+    tun = res["tuning"]
+    log(f"15c: GAME tuning mode ({GAME_TUNE_EVALS} Bayesian evaluations "
+        f"of 1 CD iteration) {metrics['driver_s']:.2f} s: best "
+        f"{tun['best_reg_weights']} metric {tun['best_metric']!r}, final "
+        f"validation {res['validation_metric']!r}; stages (host s): "
+        f"{stage_summary(res['stage_seconds'])}; training launches "
+        f"{json.dumps(launches)}, validation scorer matvecs {val_matvec}")
+    check(tun["n_evaluations"] == GAME_TUNE_EVALS,
+          f"15c: {tun['n_evaluations']} evaluations")
+    check(set(tun["best_reg_weights"]) == {"fixed", "per_user"},
+          f"15c: tuned {sorted(tun['best_reg_weights'])}")
+    check(abs(tun["best_metric"] - res["validation_metric"]) <= 1e-6,
+          f"15c: tuned metric {tun['best_metric']!r} vs the final model's "
+          f"{res['validation_metric']!r}")
+    for op, n in launches.items():
+        check(n > 0, f"15c: GAME tuning never launched {op}")
+    metrics.update(best=tun, validation=res["validation_metric"])
+    return launches, val_matvec, metrics
+
+
+def phase_tuning(smi, drv_files, drv_runs, drv_td, game_td, game_files,
+                 gen):
+    """Phase 15: tensor parallel (15a), GLM tuning through the CLI (15b)
+    and GAME tuning (15c)."""
+    from photon_ml_tpu_torch.data import libsvm
+
+    t_phase = time.perf_counter()
+    with patched(libsvm, "read_libsvm", parse_once()):
+        train, val = drv_files
+        X, y = libsvm.read_libsvm(train, n_features=N_FEATURES,
+                                  add_intercept=True)
+        X_val, y_val = libsvm.read_libsvm(
+            val, n_features=X.shape[1] - 1, add_intercept=True,
+            drop_out_of_range=True)
+        log("phase 15a: tensor-parallel GLM over logical tiles")
+        res_launches, tile_launches, tile_kern, tp_metrics = \
+            phase_tensor_parallel(X, y, drv_runs, gen)
+        torch.cuda.empty_cache()
+        log("phase 15b: GLM tuning through the CLI")
+        glm_launches, tune_metrics = phase_tuning_glm(
+            drv_files, drv_td, (X, y), (X_val, y_val))
+    torch.cuda.empty_cache()
+    log("phase 15c: GAME tuning")
+    game_launches, game_val, game_metrics = phase_tuning_game(
+        game_td, game_files)
+    torch.cuda.empty_cache()
+    binary = {k: res_launches.get(k, 0) + glm_launches.get(k, 0)
+              for k in set(res_launches) | set(glm_launches)}
+    metrics = {"tensor_parallel": tp_metrics, "glm": tune_metrics,
+               "game": game_metrics,
+               "seconds": time.perf_counter() - t_phase}
+    log(f"phase 15 [{smi}]: {metrics['seconds']:.1f} s")
+    return binary, tile_launches, tile_kern, game_launches, game_val, \
+        metrics
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -6468,6 +7074,13 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
     proc_launches, proc_metrics = phase_process_fleet(smi, td, handoff)
     del handoff
     torch.cuda.empty_cache()
+    log("phase 15: tensor parallel and tuning")
+    (tp_binary, tile_launches, tile_kern, tune_game, tune_game_val,
+     tune_metrics) = phase_tuning(
+        smi, drv_files, drv_runs, drv_td, td, (train, val),
+        torch.Generator(device=DEVICE).manual_seed(15))
+    for k, n in tp_binary.items():
+        drv_launches[k] = drv_launches.get(k, 0) + n
     # The serving records count phase 13's and phase 14's launches of
     # their geometry (phase 14's workers' folded in).
     for r in serve_records:
@@ -6481,9 +7094,9 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
     # The .game records count phase 6's, 7's, 8's, 9c's and 10's training
     # launches; .game_val phase 7's, 8's and 10e's validation scoring.
     game_launches = {op: game_launches[op] + drv_train[op] + fb_train[op]
-                     + sd_game[op] + ooc_launches[op]
+                     + sd_game[op] + ooc_launches[op] + tune_game[op]
                      for op in ("matvec", "rmatvec")}
-    drv_val += fb_val + ooc_val
+    drv_val += fb_val + ooc_val + tune_game_val
 
     log("not on the main path (no caller in the GLM slice), checked in "
         "phase 2: " + json.dumps({
@@ -6551,6 +7164,18 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
                 "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
                 "bound_by": r["bound_by"], "library_ms": r["library_ms"],
             })
+    # Phase 15a's tiles (2^16 x 4097 of phase 4's binary matrix), with the
+    # tiled solves' launches.
+    for op in ("matvec", "rmatvec"):
+        r = tile_kern[op]
+        records.append({
+            "name": f"spmv.{op}_unit.tile", "route": "cuda",
+            "source": KERNEL_SOURCE, "replaces": TPU_KERNEL,
+            "launches": tile_launches[op + "_unit"],
+            "max_abs_err": r["max_abs_err"], "ms": r["ms"],
+            "plain_ms": r["plain_ms"], "bound_ms": r["bound_ms"],
+            "bound_by": r["bound_by"], "library_ms": r["library_ms"],
+        })
     # The validation matrix's shape (80,000 x 512, 8 values a row): the
     # fixed-effect validation scorer's matvec in phase 7's training runs.
     r = kern_val["matvec"]
@@ -6587,6 +7212,8 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
         f"{json.dumps({k: multi[k] for k in MULTI_KEYS}, default=float)}"
         f"; serving: {json.dumps(serve_metrics, default=float)}"
         f"; process tier: {json.dumps(proc_metrics, default=float)}"
+        f"; tensor parallel and tuning: "
+        f"{json.dumps(tune_metrics, default=float)}"
         f"; total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))

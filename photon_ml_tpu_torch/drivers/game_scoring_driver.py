@@ -9,8 +9,9 @@ records to ``scores.avro`` and ``scoring_result.json``.  With
 on ``--device`` (CUDA by default), from which only the scalar comes back.
 Beside the reference's keys, the result holds ``stage_seconds`` (host
 seconds of the model load, the read, the transform, the streamed write and
-the metric), ``decoder`` (the GAME decoder that read the file) and, when
-streaming, ``blocks``.
+the metric), ``decoder`` (the GAME decoder that read the file),
+``encoder`` (the scoring writer's: native or Python, the same bytes) and,
+when streaming, ``blocks``.
 
 ``--stream-block-rows N`` scores files larger than host memory: the data
 is decoded, scored and written block by block (``iter_game_avro``, about N
@@ -100,7 +101,7 @@ def _score_block(uids, scores, labels, ids):
 def _run_impl(args, logger) -> dict:
     timer = Timer().start()
     device = resolve_device(args.device)
-    stages, read_stats = {}, {}
+    stages, read_stats, write_stats = {}, {}, {}
     stage = Timer().start()
     model, index_maps = load_game_model(
         os.path.join(args.model_dir, "models"), device=device)
@@ -117,7 +118,7 @@ def _run_impl(args, logger) -> dict:
     if args.stream_block_rows > 0:
         scores, response, weight, partial, n_rows, extra["blocks"] = _stream(
             args, logger, model, index_maps, transform, ev, device,
-            out_path, stages, read_stats)
+            out_path, stages, read_stats, write_stats)
     else:
         stage.start()
         shards, ids, response, weight, offset, uids, _ = read_game_avro(
@@ -127,8 +128,11 @@ def _run_impl(args, logger) -> dict:
         stage.start()
         scores = transform(shards, ids, offset)
         stages["transform"] = stage.stop()
+        stage.start()
         avro.write_scoring_blocks(
-            out_path, [_score_block(uids, scores, response, ids)])
+            out_path, [_score_block(uids, scores, response, ids)],
+            stats=write_stats)
+        stages["write"] = stage.stop()
         n_rows = len(scores)
     result = {"n_rows": int(n_rows), "wall_seconds": timer.stop(), **extra}
     if ev is not None:
@@ -163,6 +167,7 @@ def _run_impl(args, logger) -> dict:
         logger.info("%s = %.6f", type(ev).__name__, result["metric"])
     result["stage_seconds"] = stages
     result["decoder"] = read_stats["decoder"]
+    result["encoder"] = write_stats["encoder"]
     with open(os.path.join(args.output_dir, "scoring_result.json"), "w") as f:
         json.dump(result, f, indent=2)
     logger.info("scored %d rows in %.2fs", result["n_rows"],
@@ -171,7 +176,7 @@ def _run_impl(args, logger) -> dict:
 
 
 def _stream(args, logger, model, index_maps, transform, ev, device,
-            out_path, stages, read_stats):
+            out_path, stages, read_stats, write_stats):
     """Decode → score → write a bounded block at a time.  Returns the kept
     (scores, labels, weights) columns (None without a global metric), the
     pointwise partial (num, den, kind) (None unless the metric accumulates
@@ -231,7 +236,7 @@ def _stream(args, logger, model, index_maps, transform, ev, device,
             yield _score_block(uids, scores, response, ids)
             stages["write"] += clock.stop()
 
-    avro.write_scoring_blocks(out_path, blocks())
+    avro.write_scoring_blocks(out_path, blocks(), stats=write_stats)
     columns = ((None, None, None) if not keep_columns else tuple(
         np.concatenate(c) if c else np.zeros(0, np.float32) for c in kept))
     partial = (None if kind is None

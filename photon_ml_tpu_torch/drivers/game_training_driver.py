@@ -46,9 +46,13 @@ Over a group (``COORDINATOR_ADDRESS``/``NUM_PROCESSES``/``PROCESS_ID``, or
 ``PHOTON_MULTIHOST=1`` under ``torchrun``) every rank reads the same files
 and places only its own shards on its card (``game/estimator.py``: the
 reference's one-host mesh, the whole dataset in each process's RAM); rank
-0 writes the checkpoints, the model and the results.  Tuning mode raises
-``NotImplementedError`` naming its ROADMAP item (PyTorch/CUDA port, Queue 1
-item 8).  ``--max-retries`` re-enters the fit
+0 writes the checkpoints, the model and the results.  A config with
+``"tuning": {"mode": "bayesian"|"random", "iterations": N, "range": [lo,
+hi]}`` first searches the per-coordinate regularization weights (Photon-ML's
+BAYESIAN|RANDOM tuning): the datasets are built once, each point only sets
+the coordinates' ``reg_weight`` and refits without variances, and the best
+point's weights train the final model; ``training_result.json`` carries
+the search under ``"tuning"``.  ``--max-retries`` re-enters the fit
 after a transient failure (``utils/watchdog.py``), resuming from the CD
 checkpoint (or, for a config grid, from the grid checkpoint), so a retry
 repeats no finished iteration or grid point.
@@ -77,10 +81,11 @@ from typing import Optional, Sequence
 
 import numpy as np
 
+from photon_ml_tpu_torch import telemetry
+from photon_ml_tpu_torch.analysis import sanitizers
 from photon_ml_tpu_torch.data.game_reader import read_game_avro
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.evaluation.suite import EvaluationSuite
-from photon_ml_tpu_torch.game.coordinates import not_ported
 from photon_ml_tpu_torch.game.estimator import (
     FactoredRandomEffectCoordinateConfig,
     FixedEffectCoordinateConfig,
@@ -213,7 +218,7 @@ def parse_coordinate_config(spec: dict):
 def make_fit_once(task: str, coordinate_configs: dict, shards: dict,
                   ids: dict, response, validation, *, weight=None,
                   offset=None, suite=None, device_metrics: bool = False,
-                  device=None):
+                  device=None, mesh=None):
     """Reusable single-fit entry for a tuning loop: ``fit_once(params,
     resource, warm_start) -> (metric, metrics, None)``.
 
@@ -223,7 +228,8 @@ def make_fit_once(task: str, coordinate_configs: dict, shards: dict,
     state does not warm-start across trials.  Trials mutate each
     coordinate's ``reg_weight``, so one coordinate build serves many trials
     (never two at once: builds live in a checkout pool per iteration
-    budget)."""
+    budget).  The coordinates are built on ``device``, over ``mesh`` when
+    one is given (as ``GameEstimator`` builds them)."""
     if suite is None:
         suite = EvaluationSuite.for_task(losses_lib.get(task).name)
     evaluator = suite.primary_evaluator
@@ -238,7 +244,7 @@ def make_fit_once(task: str, coordinate_configs: dict, shards: dict,
     v_groups = (np.asarray(v_ids[suite.group_column])
                 if suite.group_column is not None else None)
     pools: dict[int, list] = {}
-    pool_lock = threading.Lock()
+    pool_lock = sanitizers.tracked(threading.Lock(), "game.checkout_pool")
 
     def _checkout(resource: int):
         n_iter = int(resource) if resource else 1
@@ -247,7 +253,8 @@ def make_fit_once(task: str, coordinate_configs: dict, shards: dict,
             if free:
                 return n_iter, free.pop()
         est = GameEstimator(task, base_configs, n_iterations=n_iter,
-                            device_metrics=device_metrics, device=device)
+                            device_metrics=device_metrics, device=device,
+                            mesh=mesh)
         coords = est.build_coordinates(shards, ids, response, weight, offset)
         return n_iter, (est, coords)
 
@@ -403,9 +410,6 @@ def _run_impl(args, logger, mesh=None) -> dict:
     with open(args.config) as f:
         config = json.load(f)
     task = config.get("task", "logistic")
-    if config.get("tuning"):
-        raise not_ported("tuning mode (the config's \"tuning\")", 8,
-                         "tuning/ and hyperparameter/")
     config_grid = expand_config_grid(config["coordinates"])
     coordinate_configs = config_grid[0]
     suite = _suite_from_config(config, task)
@@ -473,6 +477,24 @@ def _run_impl(args, logger, mesh=None) -> dict:
         logger.info("read %d validation rows in %.3fs",
                     len(validation[2]), stages["read validation"])
     result = {"task": task, "n_rows": int(len(response))}
+
+    tuning = config.get("tuning")
+    if tuning:
+        if locked:
+            # A search refits every coordinate per point: a locked one would
+            # be retrained during the search and locked only in the final
+            # fit.
+            raise SystemExit(
+                "--locked-coordinates is incompatible with tuning mode")
+        if validation is None:
+            raise ValueError("hyperparameter tuning requires --validate-data")
+        tune_timer = Timer().start()
+        coordinate_configs, result["tuning"] = _tune(
+            task, coordinate_configs, tuning, n_cd_iterations, suite,
+            shards, ids, response, weight, offset, validation, args, device,
+            mesh, logger)
+        config_grid = [coordinate_configs]  # tuning supersedes any grid
+        stages["tuning"] = tune_timer.stop()
 
     val_tuple = None
     if validation is not None:
@@ -597,6 +619,47 @@ def _run_impl(args, logger, mesh=None) -> dict:
             json.dump(result, f, indent=2)
     logger.info("GAME training done in %.2fs", result["wall_seconds"])
     return result
+
+
+def _tune(task, coordinate_configs, tuning, n_cd_iterations, suite, shards,
+          ids, response, weight, offset, validation, args, device, mesh,
+          logger):
+    """The tuning mode's search over :func:`make_fit_once` (datasets built
+    once, no variances a point): ``(configs at the best point, the
+    result's "tuning" entry)``."""
+    from photon_ml_tpu_torch.hyperparameter.search import (
+        GaussianProcessSearch,
+        RandomSearch,
+    )
+
+    names = list(coordinate_configs)
+    lo, hi = tuning.get("range", [1e-3, 1e3])
+    fit_once = make_fit_once(
+        task, coordinate_configs, shards, ids, response, validation[:5],
+        weight=weight, offset=offset, suite=suite,
+        device_metrics=args.device_metrics, device=device, mesh=mesh)
+
+    def evaluate(x):
+        metric = fit_once(x, n_cd_iterations)[0]
+        logger.info("tuning: reg=%s -> %.6f", list(map(float, x)), metric)
+        return metric
+
+    mode = tuning.get("mode", "bayesian")
+    search_cls = GaussianProcessSearch if mode == "bayesian" else RandomSearch
+    search = search_cls([(lo, hi)] * len(names), log_scale=True, seed=0)
+    iterations = int(tuning.get("iterations", 10))
+    with telemetry.current().span("tuning", mode=mode,
+                                  iterations=iterations):
+        found = search.find(evaluate, iterations,
+                            maximize=fit_once.larger_is_better)
+    best = {nm: float(xi) for nm, xi in zip(names, found.best_params)}
+    logger.info("tuning selected %s", best)
+    configs = {nm: dataclasses.replace(coordinate_configs[nm],
+                                       reg_weight=best[nm])
+               for nm in names}
+    return configs, {"best_reg_weights": best,
+                     "best_metric": found.best_value,
+                     "n_evaluations": len(found.history)}
 
 
 def main() -> None:

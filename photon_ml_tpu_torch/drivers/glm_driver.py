@@ -279,6 +279,122 @@ def build_arg_parser() -> argparse.ArgumentParser:
     return p
 
 
+def make_fit_once(
+    X_train,
+    y_train,
+    X_val,
+    y_val,
+    *,
+    task: str = "logistic",
+    reg_type: str = "l2",
+    elastic_net_alpha: float = 0.5,
+    optimizer: str = "lbfgs",
+    max_iters: int = 100,
+    tolerance: float = 1e-8,
+    suite=None,
+    val_weights=None,
+    solver: Optional[str] = None,
+    solver_options: tuple = (),
+    device=None,
+):
+    """Reusable single-fit entry for the tuning orchestrator
+    (``tuning/``): ``fit_once(params, resource, warm_start) -> (metric,
+    metrics, coefficients)``.
+
+    ``params[0]`` is the regularization weight λ.  ``resource`` > 0 caps
+    the optimizer's iteration budget (an ASHA rung's resource; 0 uses
+    ``max_iters``), and ``warm_start`` seeds the solve (the λ-path warm
+    start of this driver's own grid).  The data goes to ``device`` (the
+    card by default) once; trials solve there from their own threads, one
+    problem per iteration budget shared under a lock, and the validation
+    rows are scored on the host.  A host-kind ``solver`` (admm, block_cd)
+    runs over logical shards of the same data.
+
+    Exposes ``fit_once.suite`` and ``fit_once.larger_is_better`` so
+    callers wire the orchestrator's direction without re-deriving it.
+    """
+    import threading
+
+    from photon_ml_tpu_torch.analysis import sanitizers
+    from photon_ml_tpu_torch.evaluation.suite import EvaluationSuite
+    from photon_ml_tpu_torch.ops import losses as losses_lib
+    from photon_ml_tpu_torch.solvers import registry as solver_registry
+
+    if suite is None:
+        suite = EvaluationSuite.for_task(losses_lib.get(task).name)
+    dev = resolve_device(device)
+    host_kind = (solver is not None
+                 and solver_registry.get(solver).kind == "host")
+    if host_kind and hasattr(X_train, "todense"):
+        # Host-kind solvers shard dense row blocks; tuning-scale designs
+        # densify cheaply.
+        X_train = np.asarray(X_train.todense(), np.float32)
+    data = make_glm_data(X_train, y_train, device=dev)
+    y_val = np.asarray(y_val)
+    problems: dict[int, GlmOptimizationProblem] = {}
+    sharded_solves: dict[int, object] = {}
+    lock = sanitizers.tracked(threading.Lock(), "glm.problem_cache")
+
+    def _problem(iters: int) -> GlmOptimizationProblem:
+        # One problem per distinct iteration budget, shared across trials
+        # and threads.
+        with lock:
+            p = problems.get(iters)
+            if p is None:
+                p = problems[iters] = GlmOptimizationProblem(
+                    task,
+                    GlmOptimizationConfig(
+                        optimizer=OptimizerConfig(
+                            optimizer=OptimizerType(optimizer),
+                            max_iters=iters,
+                            tolerance=tolerance,
+                            solver=solver,
+                            solver_options=tuple(solver_options),
+                        ),
+                        regularization=RegularizationContext(
+                            RegularizationType(reg_type), elastic_net_alpha
+                        ),
+                    ),
+                )
+            return p
+
+    def _sharded_solve(iters: int):
+        # The host-kind counterpart of the problem cache: one bound solver
+        # (logical shards) per iteration budget.
+        from photon_ml_tpu_torch.solvers import sharded as solvers_sharded
+
+        problem = _problem(iters)
+        with lock:
+            solve = sharded_solves.get(iters)
+            if solve is None:
+                n_shards = solvers_sharded.resolve_shard_count(
+                    problem.config.optimizer)
+                dist = solvers_sharded.stack_resident(data, n_shards)
+                solve = sharded_solves[iters] = solver_registry.get(
+                    solver).sharded(problem, dist, None, None)
+            return solve
+
+    def fit_once(params, resource=0, warm_start=None):
+        iters = int(resource) if resource else max_iters
+        w0 = (None if warm_start is None else torch.as_tensor(
+            np.asarray(warm_start, np.float32), device=dev))
+        lam = float(np.asarray(params).ravel()[0])
+        if host_kind:
+            res = _sharded_solve(iters)(lam, w0)
+        else:
+            res = _problem(iters).solve_single_device(data, reg_weight=lam,
+                                                      w0=w0)
+        w = to_numpy(res.w).astype(np.float32)
+        scores = np.asarray(X_val @ w).ravel()
+        metric, all_metrics = suite.evaluate_primary(scores, y_val,
+                                                     val_weights)
+        return metric, all_metrics, w
+
+    fit_once.suite = suite
+    fit_once.larger_is_better = suite.primary_evaluator.larger_is_better
+    return fit_once
+
+
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_arg_parser().parse_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)

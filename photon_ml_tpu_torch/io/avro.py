@@ -699,11 +699,67 @@ def write_scoring_container(
                                 records_per_block=records_per_block)
 
 
+def _encode_scoring_block_native(lib, uids, scores, labels, ids_cols):
+    """One columnar ScoringResultAvro block body through the native encoder
+    (``native/score_encoder.cpp``); None when the call cannot proceed."""
+    import ctypes
+
+    import numpy as np
+
+    n = len(scores)
+    uid_b = [b"" if u is None else str(u).encode("utf-8") for u in uids]
+    uid_off = np.zeros(n + 1, np.int64)
+    np.cumsum([len(b) for b in uid_b], out=uid_off[1:])
+    uid_null = np.frombuffer(bytes(1 if u is None else 0 for u in uids),
+                             np.uint8)
+    scores64 = np.ascontiguousarray(scores, np.float64)
+    label_null = np.frombuffer(bytes(1 if v is None else 0 for v in labels),
+                               np.uint8)
+    labels64 = np.asarray([0.0 if v is None else float(v) for v in labels],
+                          np.float64)
+    keys = list(ids_cols)
+    key_b = [k.encode("utf-8") for k in keys]
+    keys_off = np.zeros(len(keys) + 1, np.int64)
+    np.cumsum([len(b) for b in key_b], out=keys_off[1:])
+    # Column-major, as se_encode reads them.
+    val_b: list[bytes] = []
+    null_cols: list[bytes] = []
+    for k in keys:
+        col = ids_cols[k]
+        val_b.extend(b"" if v is None else str(v).encode("utf-8")
+                     for v in col)
+        null_cols.append(bytes(1 if v is None else 0 for v in col))
+    val_null = np.frombuffer(b"".join(null_cols), np.uint8)
+    vals_off = np.zeros(len(val_b) + 1, np.int64)
+    np.cumsum([len(b) for b in val_b], out=vals_off[1:])
+
+    p_i64 = ctypes.POINTER(ctypes.c_int64)
+    p_u8 = ctypes.POINTER(ctypes.c_uint8)
+    p_f64 = ctypes.POINTER(ctypes.c_double)
+    cap = int(uid_off[-1] + vals_off[-1] + (keys_off[-1] + 40) * n
+              + 60 * n + 64)
+    for _ in range(2):
+        out = ctypes.create_string_buffer(cap)
+        wrote = lib.se_encode(
+            n, b"".join(uid_b), uid_off.ctypes.data_as(p_i64),
+            uid_null.ctypes.data_as(p_u8), scores64.ctypes.data_as(p_f64),
+            labels64.ctypes.data_as(p_f64), label_null.ctypes.data_as(p_u8),
+            len(keys), b"".join(val_b), vals_off.ctypes.data_as(p_i64),
+            val_null.ctypes.data_as(p_u8), b"".join(key_b),
+            keys_off.ctypes.data_as(p_i64), out, cap,
+        )
+        if wrote >= 0:
+            return out.raw[:wrote]
+        cap = -int(wrote)  # the size the encoder asked for
+    return None
+
+
 def write_scoring_blocks(
     path: str,
     blocks: Iterable[tuple],
     codec: str = "deflate",
     records_per_block: int = 4096,
+    stats: Optional[dict] = None,
 ) -> int:
     """Write ``ScoringResultAvro`` records from an iterable of column blocks
     ``(uids, scores, labels, ids)``, consumed one block at a time (the
@@ -715,10 +771,17 @@ def write_scoring_blocks(
     input blocks is None there; the map keys keep the first block's order,
     and once a new column appears the columns are sorted.  The bytes are
     those of the reference's ``write_scoring_container`` given the same
-    blocks.  Returns the rows written."""
+    blocks.  A block body is encoded by the native encoder
+    (``native/__init__.py::load_score_encoder``) when it builds, else by
+    the per-record Python path, with the same bytes; ``stats["encoder"]``
+    says which ran ("native", "python", or "mixed" if a native call gave
+    up on a block).  Returns the rows written."""
     from photon_ml_tpu_torch.io.schemas import SCORING_RESULT
+    from photon_ml_tpu_torch.native import load_score_encoder
 
     assert codec in ("null", "deflate", "snappy")
+    lib = load_score_encoder()
+    used: set = set()
     os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
     pend_u: list = []
     pend_s: list = []
@@ -730,6 +793,12 @@ def write_scoring_blocks(
         return col.tolist() if hasattr(col, "tolist") else list(col)
 
     def body_bytes(u, sc, lb, ids) -> bytes:
+        if lib is not None:
+            enc = _encode_scoring_block_native(lib, u, sc, lb, ids)
+            if enc is not None:
+                used.add("native")
+                return enc
+        used.add("python")
         out = _io.BytesIO()
         for i in range(len(sc)):
             write_datum(out, SCORING_RESULT, {
@@ -784,6 +853,10 @@ def write_scoring_blocks(
                 flush(records_per_block)
         if pend_s:
             flush(len(pend_s))
+    if stats is not None:
+        if not used:  # no rows: the encoder that would have run
+            used.add("python" if lib is None else "native")
+        stats["encoder"] = used.pop() if len(used) == 1 else "mixed"
     return total
 
 

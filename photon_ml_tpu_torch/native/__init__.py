@@ -1,16 +1,19 @@
-"""Native (C++) host ingest, loaded via ctypes (port of
-``photon_ml_tpu/native/__init__.py``'s game decoder).
+"""Native (C++) host ingest and scoring output, loaded via ctypes (port of
+``photon_ml_tpu/native/__init__.py``'s game decoder and score encoder).
 
-``game_decoder.cpp`` (the port's own copy of the reference's source) builds
-lazily with the system ``g++`` the first time it is needed, into
-``photon_ml_tpu_torch/_build/`` (git-ignored), keyed by a hash of the
-source; a build never lands next to either package's sources.
-:func:`load_game_decoder` returns None when no compiler is available or the
-build fails, and ``data/game_reader.py`` then decodes in Python.  Set
-``PHOTON_NO_NATIVE=1`` to force the Python path (the parity tests do).
+``game_decoder.cpp`` and ``score_encoder.cpp`` (the port's own copies of
+the reference's sources) build lazily with the system ``g++`` the first
+time each is needed, into ``photon_ml_tpu_torch/_build/`` (git-ignored),
+keyed by a hash of the source; a build never lands next to either
+package's sources.  :func:`load_game_decoder` and
+:func:`load_score_encoder` return None when no compiler is available or
+the build fails, and ``data/game_reader.py`` then decodes, and
+``io/avro.py::write_scoring_blocks`` encodes, in Python (the same bytes).
+Set ``PHOTON_NO_NATIVE=1`` to force the Python paths (the parity tests
+do).
 
-This is host code: the decoder fills numpy columns, nothing touches a
-device.
+This is host code: the decoder fills numpy columns and the encoder reads
+them, nothing touches a device.
 """
 
 from __future__ import annotations
@@ -26,6 +29,7 @@ from typing import Optional
 
 _DIR = Path(__file__).resolve().parent
 _SRC = _DIR / "game_decoder.cpp"
+_ENC_SRC = _DIR / "score_encoder.cpp"
 BUILD_DIR = _DIR.parent / "_build"
 _LOCK = threading.Lock()
 _CACHE: dict = {}
@@ -120,4 +124,43 @@ def load_game_decoder() -> Optional[ctypes.CDLL]:
             except OSError as e:
                 logger.warning("native game decoder load failed: %s", e)
         _CACHE["lib"] = lib
+        return lib
+
+
+def _bind_encoder(lib: ctypes.CDLL) -> ctypes.CDLL:
+    i64 = ctypes.c_int64
+    p_i64 = ctypes.POINTER(i64)
+    p_u8 = ctypes.POINTER(ctypes.c_uint8)
+    p_f64 = ctypes.POINTER(ctypes.c_double)
+    lib.se_encode.argtypes = [
+        i64,
+        ctypes.c_char_p, p_i64, p_u8,
+        p_f64,
+        p_f64, p_u8,
+        i64,
+        ctypes.c_char_p, p_i64, p_u8,
+        ctypes.c_char_p, p_i64,
+        ctypes.c_char_p, i64,
+    ]
+    lib.se_encode.restype = i64
+    return lib
+
+
+def load_score_encoder() -> Optional[ctypes.CDLL]:
+    """The bound scoring-result encoder library, building it if needed;
+    None on failure or when ``PHOTON_NO_NATIVE=1`` (the Python path writes
+    the same bytes)."""
+    if os.environ.get("PHOTON_NO_NATIVE") == "1":
+        return None
+    with _LOCK:
+        if "encoder" in _CACHE:
+            return _CACHE["encoder"]
+        so_path = _compile_cached(_ENC_SRC, "_score_encoder", "score encoder")
+        lib = None
+        if so_path is not None:
+            try:
+                lib = _bind_encoder(ctypes.CDLL(str(so_path)))
+            except OSError as e:
+                logger.warning("native score encoder load failed: %s", e)
+        _CACHE["encoder"] = lib
         return lib

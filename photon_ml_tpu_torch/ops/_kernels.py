@@ -36,6 +36,7 @@ import hashlib
 import os
 import shutil
 import subprocess
+import threading
 import time
 from pathlib import Path
 
@@ -101,7 +102,8 @@ COL_GROUP_MAX = 16
 #: the ablation modes of the SpMV kernel, in their C enumeration order.
 ABLATE_MODES = ("full", "nogather", "stream")
 ABLATE_OPS = ("matvec", "rmatvec")
-#: launches per kernel and operation since the last :func:`reset_launches`.
+#: launches per kernel and operation since the last :func:`reset_launches`
+#: (written under :data:`_COUNT_LOCK` only: see :func:`count_launch`).
 LAUNCHES: dict[str, int] = {
     **{op + sfx: 0 for op in OPS for sfx in ("", "_unit")},
     "ell_matvec": 0,
@@ -119,9 +121,21 @@ BUILD_INFO: dict[str, dict] = {}
 _LIBS: dict[str, ctypes.CDLL] = {}
 
 
+_COUNT_LOCK = threading.Lock()
+
+
+def count_launch(key: str, n: int = 1) -> None:
+    """Add ``n`` to ``LAUNCHES[key]``.  ``+=`` on a dict entry is a
+    read-modify-write, and trials of a tuning search launch from several
+    threads at once, so every count goes through this lock."""
+    with _COUNT_LOCK:
+        LAUNCHES[key] += n
+
+
 def reset_launches() -> None:
-    for k in LAUNCHES:
-        LAUNCHES[k] = 0
+    with _COUNT_LOCK:
+        for k in LAUNCHES:
+            LAUNCHES[k] = 0
 
 
 def _nvcc() -> str:
@@ -164,10 +178,20 @@ def _artifacts(key: str) -> tuple[Path, Path]:
     return BUILD_DIR / f"lib{name}_{tag}.so", BUILD_DIR / f"lib{name}_{tag}.log"
 
 
+#: Serializes builds and loads: threads that reach a missing library at
+#: once (tuning trials) would share one temporary file name.
+_BUILD_LOCK = threading.RLock()
+
+
 def build_libraries(*names: str) -> None:
     """Build (once per hash) and load the named libraries (all by default;
     a name may be a :func:`variant` key): one ``nvcc`` per missing library,
     all started together."""
+    with _BUILD_LOCK:
+        _build_libraries(names)
+
+
+def _build_libraries(names) -> None:
     todo = [n for n in dict.fromkeys(names or SOURCES) if n not in _LIBS]
     missing = [n for n in todo if not _artifacts(n)[0].exists()]
     builds = {}
@@ -226,7 +250,9 @@ def build_libraries(*names: str) -> None:
 def load_library(name: str = "spmv") -> ctypes.CDLL:
     """The loaded library ``name``, built first if it is missing."""
     if name not in _LIBS:
-        build_libraries(name)
+        with _BUILD_LOCK:
+            if name not in _LIBS:
+                build_libraries(name)
     return _LIBS[name]
 
 
@@ -244,7 +270,7 @@ def launch(name: str, fn: str, key: str, device: torch.device,
             f"{key} launch failed: CUDA error {rc} "
             f"({lib.photon_cuda_error_string(rc).decode()})"
         )
-    LAUNCHES[key] += 1
+    count_launch(key)
 
 
 def need(ok: bool, what: str, kernel: str) -> None:

@@ -13,7 +13,9 @@ safeguard, the two-loop recursion, the steepest-descent fallback, the
 Breeze-style first step (1/‖g‖, capped at 1), the relative convergence
 tests (‖g‖ ≤ tol·max(1, ‖g₀‖), or relative decrease ≤ tol·1e-2), the
 stall rule (a failed, non-improving line search keeps the incumbent), and
-every ``SolveResult`` field.
+every ``SolveResult`` field.  ``w_space`` (``linesearch.WSpace``, the
+reference's ``w_axis``) sums every inner product and norm over the slices
+of a feature-sharded coefficient vector.
 """
 
 from __future__ import annotations
@@ -28,8 +30,10 @@ from photon_ml_tpu_torch.optim.linesearch import (
     LineSearchConfig,
     ValueAndGrad,
     ValueAndGradBatch,
+    WSpace,
     host_scalars,
     np_dtype,
+    w_ops,
     wolfe_line_search,
 )
 
@@ -83,29 +87,32 @@ class _History:
         return [(newest - o) % m for o in range(min(self.n_pairs, m))]
 
 
-def _two_loop(grad: Tensor, h: _History) -> Tensor:
+def _two_loop(grad: Tensor, h: _History, w_space: Optional[WSpace] = None
+              ) -> Tensor:
     """Two-loop recursion over the stored pairs (newest → oldest, then
     back).  Stays on the device: no host reads."""
+    dot = w_ops(w_space)[0]
     slots = h.valid_slots()
     q = grad
     alphas = []
     for i in slots:
-        alpha = float(h.rho[i]) * torch.dot(h.S[i], q)
+        alpha = float(h.rho[i]) * dot(h.S[i], q)
         q = q - alpha * h.Y[i]
         alphas.append(alpha)
     r = float(h.gamma) * q
     for i, alpha in zip(reversed(slots), reversed(alphas)):
-        beta = float(h.rho[i]) * torch.dot(h.Y[i], r)
+        beta = float(h.rho[i]) * dot(h.Y[i], r)
         r = r + (alpha - beta) * h.S[i]
     return r
 
 
-def update_history(h: _History, s_vec: Tensor, y_vec: Tensor) -> None:
+def update_history(h: _History, s_vec: Tensor, y_vec: Tensor,
+                   w_space: Optional[WSpace] = None) -> None:
     """Insert a curvature pair, skipping it when <s, y> is not safely
     positive (standard safeguard)."""
+    dot, norm = w_ops(w_space)
     sy, ns, ny, yy = host_scalars(
-        torch.dot(s_vec, y_vec), torch.linalg.vector_norm(s_vec),
-        torch.linalg.vector_norm(y_vec), torch.dot(y_vec, y_vec),
+        dot(s_vec, y_vec), norm(s_vec), norm(y_vec), dot(y_vec, y_vec),
     )
     wt = type(sy)
     if not sy > wt(1e-10) * ns * ny:
@@ -123,18 +130,21 @@ def lbfgs_solve(
     w0: Tensor,
     config: LBFGSConfig = LBFGSConfig(),
     value_and_grad_batch: Optional[ValueAndGradBatch] = None,
+    w_space: Optional[WSpace] = None,
 ) -> SolveResult:
     """Minimize ``value_and_grad`` from ``w0`` by L-BFGS.
 
     ``value_and_grad_batch`` evaluates a bracket of line-search trials a
     call (``linesearch.wolfe_line_search``): the same trajectory in fewer
-    calls, for objectives where a call is a pass over a chunk store."""
+    calls, for objectives where a call is a pass over a chunk store.
+    ``w_space`` reduces w-space inner products over feature slices."""
+    dot, norm = w_ops(w_space)
     m = config.history
     d = w0.shape[0]
     wt = np_dtype(w0)
 
     f0, g0 = value_and_grad(w0)
-    f0_h, g0_norm = host_scalars(f0, torch.linalg.vector_norm(g0))
+    f0_h, g0_norm = host_scalars(f0, norm(g0))
     tol = wt(config.tolerance)
     tol_scale = max(wt(1.0), g0_norm)
     rel_tol = np_dtype(f0)(config.tolerance * 1e-2)
@@ -156,13 +166,13 @@ def lbfgs_solve(
     done = converged
     k = 0
     while not done and k < config.max_iters:
-        direction = -_two_loop(grad, hist)
-        (dg,) = host_scalars(torch.dot(direction, grad))
+        direction = -_two_loop(grad, hist, w_space)
+        (dg,) = host_scalars(dot(direction, grad))
         if dg >= 0.0:
             # Non-descent direction (possible after skipped updates):
             # fall back to steepest descent.
             direction = -grad
-            (dg,) = host_scalars(torch.dot(direction, grad))
+            (dg,) = host_scalars(dot(direction, grad))
         # First iteration: scale the initial step like Breeze (1 / ||g||,
         # capped at 1) so the unit quasi-Newton step is sane later.
         init_step = (
@@ -171,9 +181,9 @@ def lbfgs_solve(
         ls = wolfe_line_search(
             value_and_grad, w, value_h, dg, direction,
             initial_step=init_step, config=config.line_search,
-            value_and_grad_batch=value_and_grad_batch,
+            value_and_grad_batch=value_and_grad_batch, w_space=w_space,
         )
-        update_history(hist, ls.w - w, ls.grad - grad)
+        update_history(hist, ls.w - w, ls.grad - grad, w_space)
 
         k += 1
         rel_impr = abs(value_h - ls.value_host) / max(

@@ -20,12 +20,19 @@ bracket before the trial's result is, so a pass resolves two levels of the
 search.  Every candidate is built by the same expression as a single trial
 and a batched row is bitwise its single evaluation, so the trials, the
 accepted step and ``n_evals`` are those of the one-trial-per-pass search.
+
+``w_space`` is the reference's ``w_axis``: a :class:`WSpace` whose ``dot``
+and ``norm`` sum per-slice partials, for a coefficient vector that lives
+in feature slices (``parallel/tensor.py``).  Without it every inner
+product is ``torch.dot`` and every norm ``torch.linalg.vector_norm``, as
+they always were; the solvers (``lbfgs.py``, ``owlqn.py``, ``tron.py``)
+take the same hook.
 """
 
 from __future__ import annotations
 
 import dataclasses
-from typing import Callable, NamedTuple, Optional
+from typing import Callable, NamedTuple, Optional, Protocol
 
 import numpy as np
 import torch
@@ -36,6 +43,22 @@ Tensor = torch.Tensor
 ValueAndGrad = Callable[[Tensor], tuple[Tensor, Tensor]]
 # (K, d) candidates -> ((K,), (K, d)), row i bitwise f(ws[i]).
 ValueAndGradBatch = Callable[[Tensor], tuple[Tensor, Tensor]]
+
+
+class WSpace(Protocol):
+    """Inner products over coefficient space, summed over its slices."""
+
+    def dot(self, a: Tensor, b: Tensor) -> Tensor: ...
+
+    def norm(self, a: Tensor) -> Tensor: ...
+
+
+def w_ops(w_space: Optional[WSpace]):
+    """``(dot, norm)`` over coefficient space: the hook's, else the plain
+    ``torch.dot`` and ``torch.linalg.vector_norm``."""
+    if w_space is None:
+        return torch.dot, torch.linalg.vector_norm
+    return w_space.dot, w_space.norm
 
 
 def np_dtype(t: Tensor):
@@ -80,6 +103,7 @@ def wolfe_line_search(
     initial_step=1.0,
     config: LineSearchConfig = LineSearchConfig(),
     value_and_grad_batch: Optional[ValueAndGradBatch] = None,
+    w_space: Optional[WSpace] = None,
 ) -> LineSearchResult:
     """Find t satisfying the weak Wolfe conditions along ``direction``.
 
@@ -88,6 +112,7 @@ def wolfe_line_search(
     last evaluated point; ``success`` reports whether the Wolfe conditions
     held there.  ``value_and_grad_batch`` evaluates each trial with its
     successors in one call (see the module docstring)."""
+    dot, norm = w_ops(w_space)
     wt = np_dtype(w0)
     c1, c2 = wt(config.c1), wt(config.c2)
     min_step, max_step = wt(config.min_step), wt(config.max_step)
@@ -100,9 +125,7 @@ def wolfe_line_search(
         return w0 + float(t) * direction
 
     def scalars(value, grad):
-        return host_scalars(
-            value, torch.dot(direction, grad), torch.linalg.vector_norm(grad)
-        )
+        return host_scalars(value, dot(direction, grad), norm(grad))
 
     cache: dict = {}  # step → evaluated trial (batched search)
 
@@ -121,9 +144,8 @@ def wolfe_line_search(
             ws = [trial_point(tc) for tc in steps]
             values, grads = value_and_grad_batch(torch.stack(ws))
             grads = [g.clone() for g in grads]
-            hs = host_scalars(*values, *(torch.dot(direction, g)
-                                         for g in grads),
-                              *(torch.linalg.vector_norm(g) for g in grads))
+            hs = host_scalars(*values, *(dot(direction, g) for g in grads),
+                              *(norm(g) for g in grads))
             n = len(steps)
             for i, tc in enumerate(steps):
                 cache[tc] = (ws[i], values[i], grads[i], hs[i], hs[n + i],

@@ -29,6 +29,10 @@ one-trial loop does), for objectives where a call is a pass over an
 out-of-core chunk store (``optim/streaming.py``).  Each candidate goes
 through the same expressions as a single trial and a batched row is
 bitwise its single evaluation, so the search visits the same trials.
+
+``w_space`` (``linesearch.WSpace``, the reference's ``w_axis``) sums every
+inner product and norm, and the L1 term of the value, over the slices of
+a feature-sharded coefficient vector.
 """
 
 from __future__ import annotations
@@ -48,8 +52,10 @@ from photon_ml_tpu_torch.optim.lbfgs import (
 from photon_ml_tpu_torch.optim.linesearch import (
     ValueAndGrad,
     ValueAndGradBatch,
+    WSpace,
     host_scalars,
     np_dtype,
+    w_ops,
 )
 
 Tensor = torch.Tensor
@@ -88,12 +94,14 @@ def owlqn_solve(
     config: OWLQNConfig = OWLQNConfig(),
     l1_mask: Optional[Tensor] = None,
     value_and_grad_batch: Optional[ValueAndGradBatch] = None,
+    w_space: Optional[WSpace] = None,
 ) -> SolveResult:
     """Minimize ``f(w) + l1_weight·Σ_i mask_i·|w_i|``.
 
     ``value_and_grad`` evaluates only the smooth part f.  The returned
     ``SolveResult.grad`` is the final *pseudo-gradient* (its norm is the
     convergence quantity, as Breeze's OWLQN ``adjustedGradient``)."""
+    dot, norm = w_ops(w_space)
     m = config.history
     d = w0.shape[0]
     wt = np_dtype(w0)
@@ -105,10 +113,10 @@ def owlqn_solve(
     c1, backtrack = wt(config.armijo_c1), wt(config.backtrack)
 
     def full_value(w, smooth_value):
-        return smooth_value + l1 * torch.dot(mask, w.abs())
+        return smooth_value + l1 * dot(mask, w.abs())
 
     def pg_norm_of(w, g):
-        return torch.linalg.vector_norm(_pseudo_gradient(w, g, l1, mask))
+        return norm(_pseudo_gradient(w, g, l1, mask))
 
     f0_smooth, g0 = value_and_grad(w0)
     f0 = full_value(w0, f0_smooth)
@@ -135,13 +143,12 @@ def owlqn_solve(
     k = 0
     while not done and k < config.max_iters:
         pg = _pseudo_gradient(w, grad, l1, mask)
-        direction = -_two_loop(pg, hist)
+        direction = -_two_loop(pg, hist, w_space)
         # Project the direction onto the descent orthant of -pg: zero any
         # coordinate whose sign disagrees (Andrew & Gao §3.2 "alignment").
         direction = torch.where(direction * (-pg) > 0, direction,
                                 torch.zeros_like(direction))
-        dd, pg_norm = host_scalars(torch.dot(direction, direction),
-                                   torch.linalg.vector_norm(pg))
+        dd, pg_norm = host_scalars(dot(direction, direction), norm(pg))
         if dd == 0.0:
             # Degenerate (all-zero) direction → steepest descent on pg.
             direction = -pg
@@ -167,7 +174,7 @@ def owlqn_solve(
                 smooth, g_t = value_and_grad(w_t)
                 f_t = full_value(w_t, smooth)
                 f_h, dg_proj, pgn = host_scalars(
-                    f_t, torch.dot(pg, w_t - w), pg_norm_of(w_t, g_t))
+                    f_t, dot(pg, w_t - w), pg_norm_of(w_t, g_t))
                 return w_t, f_t, g_t, f_h, dg_proj, pgn
             if t not in cache:
                 steps = [t]
@@ -179,7 +186,7 @@ def owlqn_solve(
                 grads = [g.clone() for g in grads]
                 f_ts = [full_value(w_t, sm) for w_t, sm in zip(w_ts, smooths)]
                 hs = host_scalars(
-                    *f_ts, *(torch.dot(pg, w_t - w) for w_t in w_ts),
+                    *f_ts, *(dot(pg, w_t - w) for w_t in w_ts),
                     *(pg_norm_of(w_t, g) for w_t, g in zip(w_ts, grads)))
                 n = len(steps)
                 for i, tc in enumerate(steps):
@@ -199,7 +206,7 @@ def owlqn_solve(
             n += 1
 
         # History pairs use the SMOOTH gradient (standard OWL-QN).
-        update_history(hist, w_new - w, g_new - grad)
+        update_history(hist, w_new - w, g_new - grad, w_space)
 
         k += 1
         rel_impr = abs(value_h - f_new_h) / np.maximum(

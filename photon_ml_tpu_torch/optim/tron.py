@@ -19,7 +19,10 @@ The reference runs both loops as ``lax.while_loop``s; the port runs them on
 the host over device tensors.  Each CG step reads ``pᵀHp``, ‖s + αp‖ and
 ‖r − αHp‖² in one device→host copy (the boundary step τ stays on the
 device); each outer iteration reads the trial value, its three inner
-products and ‖∇f‖ at the trial point in one more.
+products and ‖∇f‖ at the trial point in one more.  ``w_space``
+(``linesearch.WSpace``, the reference's ``w_axis``) sums every inner
+product and norm over the slices of a feature-sharded coefficient
+vector.
 """
 
 from __future__ import annotations
@@ -33,8 +36,10 @@ import torch
 from photon_ml_tpu_torch.optim.lbfgs import SolveResult
 from photon_ml_tpu_torch.optim.linesearch import (
     ValueAndGrad,
+    WSpace,
     host_scalars,
     np_dtype,
+    w_ops,
 )
 
 Tensor = torch.Tensor
@@ -66,6 +71,7 @@ def _steihaug_cg(
     delta,
     max_iters: int,
     tol,
+    w_space: Optional[WSpace] = None,
 ) -> tuple[Tensor, Tensor, bool]:
     """Approximately minimize g·s + ½ sᵀHs subject to ‖s‖ ≤ delta.
 
@@ -74,30 +80,31 @@ def _steihaug_cg(
     recoverable without another HVP.  Negative curvature and radius
     crossings move to the trust-region boundary along the current
     direction.  ``delta`` and ``tol`` are host scalars of ``g``'s dtype."""
+    dot, norm = w_ops(w_space)
     delta_t = torch.tensor(float(delta), dtype=g.dtype, device=g.device)
     one = torch.ones((), dtype=g.dtype, device=g.device)
     tiny = torch.tensor(1e-30, dtype=g.dtype, device=g.device)
     s = torch.zeros_like(g)
     r = -g
     p = -g
-    rr_t = torch.dot(g, g)
-    (g_norm,) = host_scalars(torch.linalg.vector_norm(g))
+    rr_t = dot(g, g)
+    (g_norm,) = host_scalars(norm(g))
     done = bool(g_norm <= tol)
     hit_boundary = False
     i = 0
     while not done and i < max_iters:
         Hp = hvp(p)
-        pHp_t = torch.dot(p, Hp)
+        pHp_t = dot(p, Hp)
         alpha = rr_t / torch.where(pHp_t > 0, pHp_t, one)
         s_next = s + alpha * p
         r_next = r - alpha * Hp
         # τ ≥ 0 with ‖s + τp‖ = delta.
-        pp, sp, ss = torch.dot(p, p), torch.dot(s, p), torch.dot(s, s)
+        pp, sp, ss = dot(p, p), dot(s, p), dot(s, s)
         disc = torch.clamp(sp * sp + pp * (delta_t * delta_t - ss), min=0.0)
         tau_t = (-sp + torch.sqrt(disc)) / torch.maximum(pp, tiny)
-        rr_next_t = torch.dot(r_next, r_next)
+        rr_next_t = dot(r_next, r_next)
         pHp, s_next_norm, rr_next = host_scalars(
-            pHp_t, torch.linalg.vector_norm(s_next), rr_next_t)
+            pHp_t, norm(s_next), rr_next_t)
 
         take_boundary = bool(pHp <= 0.0) or bool(s_next_norm >= delta)
         i += 1
@@ -121,17 +128,20 @@ def tron_solve(
     w0: Tensor,
     config: TRONConfig = TRONConfig(),
     d2_fn: Optional[D2Fn] = None,
+    w_space: Optional[WSpace] = None,
 ) -> SolveResult:
     """Minimize by trust-region Newton-CG.
 
     ``hvp_fn(w, v, aux)`` returns the (regularized) Hessian-vector product;
     ``d2_fn(w)`` produces the per-iterate cache passed as ``aux`` (None:
-    ``aux`` is None and ``hvp_fn`` recomputes what it needs)."""
+    ``aux`` is None and ``hvp_fn`` recomputes what it needs).  ``w_space``
+    reduces w-space inner products over feature slices."""
+    dot, norm = w_ops(w_space)
     wt = np_dtype(w0)
     make_aux = d2_fn if d2_fn is not None else (lambda w: None)
 
     f0, g0 = value_and_grad(w0)
-    f0_h, g0_norm = host_scalars(f0, torch.linalg.vector_norm(g0))
+    f0_h, g0_norm = host_scalars(f0, norm(g0))
     vt = type(f0_h)
     tol = wt(config.tolerance)
     tol_scale = np.maximum(wt(1.0), g0_norm)
@@ -154,13 +164,13 @@ def tron_solve(
     while not done and k < config.max_iters:
         step, residual, _ = _steihaug_cg(
             lambda v: hvp_fn(w, v, aux), grad, delta, config.max_cg_iters,
-            wt(config.cg_tol) * gnorm_h,
+            wt(config.cg_tol) * gnorm_h, w_space,
         )
         w_try = w + step
         f_try, g_try = value_and_grad(w_try)
         f_try_h, gs, s_r, snorm, g_try_norm = host_scalars(
-            f_try, torch.dot(grad, step), torch.dot(step, residual),
-            torch.linalg.vector_norm(step), torch.linalg.vector_norm(g_try))
+            f_try, dot(grad, step), dot(step, residual), norm(step),
+            norm(g_try))
         # r = −g − H·s  ⇒  sᵀHs = −s·r − s·g: no extra HVP (LIBLINEAR).
         sHs = -s_r - gs
         pred = -(gs + wt(0.5) * sHs)

@@ -46,6 +46,7 @@ the card copies an all-gather's buffer through host memory explicitly;
 from __future__ import annotations
 
 import dataclasses
+import threading
 from typing import Callable, Optional, Sequence
 
 import numpy as np
@@ -69,17 +70,27 @@ GATHERS: dict[str, int] = {"count": 0, "bytes": 0}
 HOST_STAGED: dict[str, int] = {}
 
 
+#: Guards the three tallies: fits of a tuning search run in threads.
+_COUNT_LOCK = threading.Lock()
+
+
 def reset_allreduces() -> None:
-    for k in ALLREDUCES:
-        ALLREDUCES[k] = 0
-    for k in GATHERS:
-        GATHERS[k] = 0
-    HOST_STAGED.clear()
+    with _COUNT_LOCK:
+        for k in ALLREDUCES:
+            ALLREDUCES[k] = 0
+        for k in GATHERS:
+            GATHERS[k] = 0
+        HOST_STAGED.clear()
+
+
+def _tally(table: dict, key: str, n: int) -> None:
+    with _COUNT_LOCK:
+        table[key] = table.get(key, 0) + n
 
 
 def _count(buf: Tensor) -> None:
-    ALLREDUCES["count"] += 1
-    ALLREDUCES["bytes"] += buf.numel() * buf.element_size()
+    _tally(ALLREDUCES, "count", 1)
+    _tally(ALLREDUCES, "bytes", buf.numel() * buf.element_size())
 
 
 @dataclasses.dataclass(frozen=True)
@@ -124,7 +135,7 @@ class DataGroup:
         src = buf.contiguous()
         staged = src.device.type == "cuda" and self.backend == "gloo"
         if staged:
-            HOST_STAGED["all_gather"] = HOST_STAGED.get("all_gather", 0) + 1
+            _tally(HOST_STAGED, "all_gather", 1)
             src = src.cpu()
         parts = [torch.empty_like(src) for _ in range(self.size)]
         dist.all_gather(parts, src, group=self.group)
@@ -147,8 +158,9 @@ class DataGroup:
     def all_gather(self, buf: Tensor) -> Tensor:
         """``(size, *buf.shape)``: every rank's ``buf`` stacked in rank
         order (one all-gather, counted in :data:`GATHERS`)."""
-        GATHERS["count"] += 1
-        GATHERS["bytes"] += buf.numel() * buf.element_size() * self.size
+        _tally(GATHERS, "count", 1)
+        _tally(GATHERS, "bytes",
+               buf.numel() * buf.element_size() * self.size)
         return torch.stack(self._all_gather(buf))
 
     def gather_rows(self, block: Tensor, n_rows: int) -> Tensor:

@@ -848,7 +848,7 @@ class WorkerPool:
                     continue
                 mine[key] = mine.get(key, 0) + delta
                 if key in _kernels.LAUNCHES:
-                    _kernels.LAUNCHES[key] += delta
+                    _kernels.count_launch(key, delta)
 
     def launch_counts(self, reset: bool = False) -> Dict[int, dict]:
         """rid → its folded ``launches`` (by kernel), ``batches`` and

@@ -37,7 +37,7 @@ from photon_ml_tpu_torch.drivers import (
 from photon_ml_tpu_torch.game.estimator import GameTransformer
 from photon_ml_tpu_torch.io import avro, checkpoint
 from photon_ml_tpu_torch.io.game_store import load_game_model, save_game_model
-from photon_ml_tpu_torch.native import load_game_decoder
+from photon_ml_tpu_torch.native import load_game_decoder, load_score_encoder
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_game_drivers import _make_game_rows  # noqa: E402
@@ -47,6 +47,7 @@ FIT_TOL = 2e-3
 
 #: The decoder read_game_avro runs on GAME files here.
 DECODER = "native" if load_game_decoder() is not None else "python"
+ENCODER = "native" if load_score_encoder() is not None else "python"
 
 COORDS = [
     {"name": "fixed", "type": "fixed", "feature_shard": "global",
@@ -163,10 +164,13 @@ class TestGameDrivers:
             "--data", val, "--model-dir", str(root / "port"),
             "--output-dir", ref_out, "--evaluator", "auc"])
         assert rresult["metric"] == sresult["metric"]
-        assert set(sresult) == set(rresult) | {"stage_seconds", "decoder"}
+        assert set(sresult) == set(rresult) | {"stage_seconds", "decoder",
+                                               "encoder"}
         assert sresult["decoder"] == DECODER
+        assert sresult["encoder"] == ENCODER
         assert set(sresult["stage_seconds"]) == {"model load", "read",
-                                                 "transform", "metric"}
+                                                 "transform", "write",
+                                                 "metric"}
         assert open(os.path.join(out, "scores.avro"), "rb").read() == \
             open(os.path.join(ref_out, "scores.avro"), "rb").read()
         # And the port's scoring of the reference's model agrees with the
@@ -317,6 +321,78 @@ def test_make_fit_once_matches_reference(game_files):
         rm, rall, _ = ref(params, resource)
         assert m == pytest.approx(rm, abs=FIT_TOL)
         assert all_m.keys() == rall.keys()
+
+
+class TestTuningMode:
+    """The training driver's tuning mode (the reference's
+    ``test_bayesian_tuning_mode`` and its no-validation case), through both
+    packages on the same files."""
+
+    @staticmethod
+    def _config(game_files, tmp_path, tuning, name="tuned.json"):
+        with open(game_files[2]) as f:
+            cfg = json.load(f)
+        cfg["tuning"] = tuning
+        cfg["iterations"] = 1
+        path = str(tmp_path / name)
+        with open(path, "w") as f:
+            json.dump(cfg, f)
+        return path
+
+    def test_bayesian_tuning_mode_matches_reference(self, game_files,
+                                                    tmp_path):
+        train, val, _ = game_files
+        cfg = self._config(game_files, tmp_path, {
+            "mode": "bayesian", "iterations": 5, "range": [1e-2, 1e2]})
+        args = ["--train-data", train, "--validate-data", val, "--config",
+                cfg]
+        port = game_training_driver.run(
+            args + ["--output-dir", str(tmp_path / "port"), *CPU])
+        ref = ref_training.run(args + ["--output-dir", str(tmp_path / "ref")])
+        tun = port["tuning"]
+        assert tun["n_evaluations"] == 5
+        assert set(tun["best_reg_weights"]) == {"fixed", "per_user"}
+        # The final fit used the tuned weights and reached the tuned metric.
+        assert port["validation_metric"] == pytest.approx(
+            tun["best_metric"], abs=1e-6)
+        for nm, w in ref["tuning"]["best_reg_weights"].items():
+            assert tun["best_reg_weights"][nm] == pytest.approx(w, rel=1e-6)
+        assert tun["best_metric"] == pytest.approx(
+            ref["tuning"]["best_metric"], abs=1e-6)
+        with open(tmp_path / "port" / "training_result.json") as f:
+            assert json.load(f)["tuning"] == tun
+
+    def test_random_mode(self, game_files, tmp_path):
+        train, val, _ = game_files
+        cfg = self._config(game_files, tmp_path, {
+            "mode": "random", "iterations": 3, "range": [1e-2, 1e2]})
+        port = game_training_driver.run([
+            "--train-data", train, "--validate-data", val, "--config", cfg,
+            "--output-dir", str(tmp_path / "o"), *CPU])
+        assert port["tuning"]["n_evaluations"] == 3
+        assert port["validation_metric"] == pytest.approx(
+            port["tuning"]["best_metric"], abs=1e-6)
+
+    def test_tuning_without_validation_fails_cleanly(self, game_files,
+                                                     tmp_path):
+        train, _, _ = game_files
+        cfg = self._config(game_files, tmp_path, {"iterations": 2})
+        with pytest.raises(ValueError, match="requires --validate-data"):
+            game_training_driver.run([
+                "--train-data", train, "--config", cfg,
+                "--output-dir", str(tmp_path / "x"), *CPU])
+
+    def test_tuning_refuses_locked_coordinates(self, game_files, trained,
+                                               tmp_path):
+        train, val, _ = game_files
+        root = trained[0]
+        cfg = self._config(game_files, tmp_path, {"iterations": 2})
+        with pytest.raises(SystemExit, match="incompatible with tuning"):
+            game_training_driver.run([
+                "--train-data", train, "--validate-data", val,
+                "--config", cfg, "--output-dir", str(tmp_path / "x"),
+                "--initial-model", str(root / "port" / "models"),
+                "--locked-coordinates", "fixed", *CPU])
 
 
 class TestPartialRetrainingDriver:
@@ -713,14 +789,15 @@ class TestRefusals:
     process."""
 
     def test_refusal_names_its_item(self, game_files, trained, tmp_path):
-        train, val, _ = game_files
-        cfg = _write_config(tmp_path / "c.json",
-                            tuning={"mode": "random", "iterations": 2})
+        """A GAME search asked to mount the live ops plane."""
+        from photon_ml_tpu_torch.tuning.__main__ import main as tune
+
+        train, val, config = game_files
         with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            game_training_driver.run([
-                "--train-data", train, "--validate-data", val,
-                "--config", cfg, "--output-dir", str(tmp_path / "o"),
-                *CPU])
+            tune(["--driver", "game", "--train-data", train,
+                  "--validate-data", val, "--config", config,
+                  "--output-dir", str(tmp_path / "o"), "--metrics-port",
+                  "0", *CPU])
 
     @pytest.mark.parametrize("case", ["data_parallel", "split_factor",
                                       "solver_options"])

@@ -508,6 +508,98 @@ def _random_datum(schema, rng):
     raise AssertionError(t)
 
 
+class TestScoringEncoder:
+    """The native score encoder (``native/score_encoder.cpp``): the native
+    path, the columnar Python path (``PHOTON_NO_NATIVE=1``), the record
+    path and the reference's file are byte-equal (the reference's
+    ``TestScoringContainerWriter``)."""
+
+    @staticmethod
+    def _data(n=3000, seed=0):
+        rng = np.random.default_rng(seed)
+        uids = [None if i % 17 == 0 else f"row{i}" for i in range(n)]
+        scores = rng.normal(size=n).astype(np.float32)
+        labels = [None if i % 23 == 0 else float(i % 2) for i in range(n)]
+        ids = {"songId": [None if i % 5 == 0 else f"s{i % 41}"
+                          for i in range(n)],
+               "userId": [f"u{i % 97}" for i in range(n)]}
+        return uids, scores, labels, ids
+
+    @staticmethod
+    def _blocks(uids, scores, labels, ids, cut=1234):
+        # An uneven cut: the writer re-chunks to records_per_block, so the
+        # bytes do not depend on the input blocking.
+        ids = {k: ids[k] for k in sorted(ids)}
+        return [(uids[:cut], scores[:cut], labels[:cut],
+                 {k: v[:cut] for k, v in ids.items()}),
+                (uids[cut:], scores[cut:], labels[cut:],
+                 {k: v[cut:] for k, v in ids.items()})]
+
+    def _write(self, path, blocks, no_native, monkeypatch):
+        if no_native:
+            monkeypatch.setenv("PHOTON_NO_NATIVE", "1")
+        else:
+            monkeypatch.delenv("PHOTON_NO_NATIVE", raising=False)
+        stats = {}
+        n = avro.write_scoring_blocks(str(path), blocks, stats=stats)
+        return n, stats["encoder"]
+
+    def test_native_python_record_and_reference_bytes(self, tmp_path,
+                                                      monkeypatch):
+        from photon_ml_tpu.io.schemas import SCORING_RESULT
+
+        assert native.load_score_encoder() is not None, "g++ builds it here"
+        uids, scores, labels, ids = self._data()
+        blocks = self._blocks(uids, scores, labels, ids)
+        n_nat, enc_nat = self._write(tmp_path / "nat.avro", blocks, False,
+                                     monkeypatch)
+        n_py, enc_py = self._write(tmp_path / "py.avro", blocks, True,
+                                   monkeypatch)
+        assert n_nat == n_py == len(scores)
+        assert (enc_nat, enc_py) == ("native", "python")
+        records = [{"uid": uids[i], "predictionScore": float(scores[i]),
+                    "label": labels[i],
+                    "ids": {k: str(ids[k][i]) for k in sorted(ids)
+                            if ids[k][i] is not None}}
+                   for i in range(len(scores))]
+        avro.write_container(str(tmp_path / "rec.avro"), SCORING_RESULT,
+                             records)
+        # The reference's writer with its own native encoder.
+        monkeypatch.delenv("PHOTON_NO_NATIVE", raising=False)
+        ref_avro.write_scoring_container(str(tmp_path / "ref.avro"), blocks)
+        nat = (tmp_path / "nat.avro").read_bytes()
+        for other in ("py", "rec", "ref"):
+            assert (tmp_path / f"{other}.avro").read_bytes() == nat, other
+
+    def test_no_native_env_forces_python(self, tmp_path, monkeypatch):
+        monkeypatch.setenv("PHOTON_NO_NATIVE", "1")
+        assert native.load_score_encoder() is None
+        uids, scores, labels, ids = self._data(n=50)
+        stats = {}
+        avro.write_scoring_blocks(str(tmp_path / "a.avro"),
+                                  self._blocks(uids, scores, labels, ids, 20),
+                                  stats=stats)
+        assert stats["encoder"] == "python"
+
+    def test_small_first_capacity_retries(self, tmp_path, monkeypatch):
+        """Long uids overflow the first buffer guess; the encoder reports
+        the size it needs and the second call writes the same bytes."""
+        monkeypatch.delenv("PHOTON_NO_NATIVE", raising=False)
+        lib = native.load_score_encoder()
+        uids = ["x" * 5000, None, "y" * 3]
+        body = avro._encode_scoring_block_native(
+            lib, uids, [0.5, -1.0, 2.0], [1.0, None, 0.0],
+            {"k": ["a" * 4000, None, "b"]})
+        monkeypatch.setenv("PHOTON_NO_NATIVE", "1")
+        stats = {}
+        avro.write_scoring_blocks(
+            str(tmp_path / "py.avro"),
+            [(uids, [0.5, -1.0, 2.0], [1.0, None, 0.0],
+              {"k": ["a" * 4000, None, "b"]})], codec="null", stats=stats)
+        assert stats["encoder"] == "python"
+        assert body is not None and body in (tmp_path / "py.avro").read_bytes()
+
+
 class TestCompiledCodec:
     """The containers' compiled codecs write and read what the schema walk
     (``write_datum`` / ``read_datum``) does, byte for byte."""

@@ -114,12 +114,20 @@ def test_import_leaves_jax_out_of_sys_modules():
     "photon_ml_tpu_torch.freshness.__main__",
     "photon_ml_tpu_torch.chaos",
     "photon_ml_tpu_torch.analysis.sanitizers",
+    "photon_ml_tpu_torch.parallel.tensor",
+    "photon_ml_tpu_torch.hyperparameter",
+    "photon_ml_tpu_torch.hyperparameter.search",
+    "photon_ml_tpu_torch.tuning",
+    "photon_ml_tpu_torch.tuning.state",
+    "photon_ml_tpu_torch.tuning.scheduler",
+    "photon_ml_tpu_torch.tuning.executor",
+    "photon_ml_tpu_torch.tuning.__main__",
 ])
 def test_solver_slice_module_imports_alone_without_jax(module):
     """Each module of the solver, GAME, GAME-driver, out-of-core,
     multi-device and serving slices (GAME over a group too, the telemetry
     hub and the breaker, the process and fleet tier, freshness and the
-    fault-site registry), imported alone in a fresh process, leaves jax
+    fault-site registry, tensor parallelism and tuning), imported alone in a fresh process, leaves jax
     and the JAX package out of sys.modules."""
     code = (
         "import importlib, json, sys\n"

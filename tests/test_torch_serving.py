@@ -690,7 +690,7 @@ class TestScoringService:
         assert margins[0] == pytest.approx(float(np.sum(x * w)), rel=1e-5)
         assert 0.0 < means[0] < 1.0
 
-    def test_supervisor_refused_naming_item_7b(self, workload):
+    def test_service_over_supervisor_scores_like_a_runtime(self, workload):
         """A service over a supervisor of two in-process replicas scores
         bitwise a single runtime."""
         from photon_ml_tpu_torch.serving.supervisor import ReplicaSupervisor

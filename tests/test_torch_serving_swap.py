@@ -264,7 +264,7 @@ class TestHotSwap:
             finally:
                 service.swapper._swap_lock.release()
 
-    def test_delta_reload_refused_naming_item_7b(self, workload,
+    def test_delta_reload_serves_v2_bitwise(self, workload,
                                                  model_dirs, tmp_path):
         """A delta from v1 to v2 applies in process and serves v2's
         scores bitwise; a delta for a tenant or an unknown mode is
@@ -791,7 +791,7 @@ class TestScenarios:
                                       "host_join_drain",
                                       "coordinator_failover",
                                       "quota_partition"])
-    def test_process_tier_actions_refused_naming_7b(self, name):
+    def test_process_tier_scenarios_run_their_actions(self, name):
         """A scenario of the process and fleet tier runs every phase and
         fires every action wired to it; one that needs the cluster
         membership plane is refused up front, naming item 8."""

@@ -484,3 +484,111 @@ def game_rank_main(rank, world, init_file, out_dir, driver_runs):
         np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **saved)
     finally:
         dist.destroy_process_group()
+
+
+# -- tensor parallel (tests/test_torch_tensor_parallel.py) ---------------------
+
+
+def tp_xy(n=480, d=397, seed=7):
+    """A wide sparse logistic problem with row weights and offsets; d is
+    not a multiple of the grid's tp, so the padded columns are real."""
+    import scipy.sparse as sp
+
+    rng = np.random.default_rng(seed)
+    X = sp.random(n, d, density=0.05, random_state=seed, format="csr",
+                  dtype=np.float32)
+    w_true = (rng.normal(size=d) * (rng.uniform(size=d) < 0.2))
+    m = np.asarray(X @ w_true).ravel()
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-m))).astype(np.float32)
+    weights = rng.uniform(0.5, 2.0, size=n).astype(np.float32)
+    offsets = (0.3 * rng.normal(size=n)).astype(np.float32)
+    return X, y, weights, offsets
+
+
+def tp_cases(mesh):
+    """L-BFGS (L2), OWL-QN (elastic net, the intercept column exempt) and
+    TRON over the (data × feature) grid ``mesh`` of the port's
+    ``parallel/tensor.py``: each case's whole w, value and iterations."""
+    from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig
+    from photon_ml_tpu_torch.optim.owlqn import OWLQNConfig
+    from photon_ml_tpu_torch.optim.tron import TRONConfig
+    from photon_ml_tpu_torch.parallel import tensor
+
+    X, y, weights, offsets = tp_xy()
+    data = tensor.shard_glm_data_dp_tp(X, y, mesh, weights=weights,
+                                       offsets=offsets, device="cpu")
+    mask = np.ones(data.padded_width, np.float32)
+    mask[0] = 0.0
+    runs = {
+        "lbfgs": lambda: tensor.tp_lbfgs_solve(
+            "logistic", data, mesh, reg_weight=0.7,
+            config=LBFGSConfig(max_iters=60)),
+        "owlqn": lambda: tensor.tp_owlqn_solve(
+            "logistic", data, mesh, l1_weight=0.75, l2_weight=0.75,
+            config=OWLQNConfig(max_iters=60), l1_mask=mask),
+        "tron": lambda: tensor.tp_tron_solve(
+            "logistic", data, mesh, reg_weight=0.8,
+            config=TRONConfig(max_iters=30)),
+    }
+    out = {}
+    for name, run in runs.items():
+        res = run()
+        out[f"{name}/w"] = res.w.numpy()
+        out[f"{name}/value"] = np.asarray(res.value.item())
+        out[f"{name}/iterations"] = np.asarray(res.iterations)
+    return out
+
+
+def variance_case(mesh):
+    """The reference's ``TestMeshVariancesFixedEffect``: a GAME fixed
+    effect with coefficient variances, over ``mesh`` (a data group) or on
+    one process (``mesh=None``)."""
+    import scipy.sparse as sp
+
+    from photon_ml_tpu_torch.game.estimator import (
+        FixedEffectCoordinateConfig,
+        GameEstimator,
+    )
+    from photon_ml_tpu_torch.optim.problem import (
+        GlmOptimizationConfig,
+        OptimizerConfig,
+    )
+    from photon_ml_tpu_torch.optim.regularization import (
+        RegularizationContext,
+    )
+
+    rng = np.random.default_rng(20260729)
+    n = 320
+    Xg = rng.normal(size=(n, 5)).astype(np.float32)
+    y = (rng.uniform(size=n) < 1 / (1 + np.exp(-Xg[:, 0]))).astype(
+        np.float32)
+    opt = GlmOptimizationConfig(
+        optimizer=OptimizerConfig(max_iters=40),
+        regularization=RegularizationContext.l2(), compute_variances=True)
+    configs = {"fixed": FixedEffectCoordinateConfig("global", opt, 0.6)}
+    model, _ = GameEstimator("logistic", configs, 1, device="cpu",
+                             mesh=mesh).fit({"global": sp.csr_matrix(Xg)},
+                                            {}, y)
+    return model["fixed"].model.coefficients.variances.numpy()
+
+
+def tp_rank_main(rank, world, init_file, out_dir, dp, tp):
+    """One rank of a dp × tp grid: :func:`tp_cases` over the group, then
+    :func:`variance_case` over the whole group as one data mesh."""
+    import torch.distributed as dist
+
+    torch.set_num_threads(1)
+    dist.init_process_group("gloo", init_method=f"file://{init_file}",
+                            rank=rank, world_size=world)
+    try:
+        from photon_ml_tpu_torch.parallel import distributed, multihost
+        from photon_ml_tpu_torch.parallel import tensor
+
+        mesh = tensor.dp_tp_mesh(dp, tp, distributed=True)
+        distributed.reset_allreduces()
+        saved = tp_cases(mesh)
+        saved["gathers"] = np.asarray(distributed.ALLREDUCES["count"])
+        saved["variances"] = variance_case(multihost.global_data_mesh())
+        np.savez(os.path.join(out_dir, f"rank{rank}.npz"), **saved)
+    finally:
+        dist.destroy_process_group()
