@@ -276,11 +276,15 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    file); it trains nothing.  13a, the serving kernel
    (``csrc/serve_margins.cu``) against its plain version at every bucket
    of the 1..64 ladder for phase 7's geometry (fixed 512 + per-user 8)
-   and ``bench_serving``'s (fixed 64 + per-entity 8): margins within 1e-5
-   of Σ|x·w|, two launches bitwise, every row of the full bucket bitwise
-   the row alone, fused == composed, a hot row == the same row cold;
-   times at buckets 1 and 64 beside the byte bound, the plain version and
-   the same function as composed torch ops.  13b, ``ScoringRuntime`` with
+   and ``bench_serving``'s (fixed 64 + per-entity 8), with the request
+   side in HBM and read in place from page-locked host memory (the
+   runtime's placement): margins bitwise the plain version's (and within
+   1e-5 of Σ|x·w|), the two placements bitwise, two launches bitwise,
+   every row of the full bucket bitwise the row alone, fused == composed,
+   a hot row == the same row cold; times at buckets 1 and 64 in both
+   placements beside the byte bound, the plain version and the same
+   function as composed torch ops, and an empty kernel's (the launch
+   floor).  13b, ``ScoringRuntime`` with
    a 4,096-row hot set over 100,000 users behind ``ScoringService`` and
    ``start_http_server``: all 80,000 validation rows in process, features
    named through the saved index maps, margins within 1e-5 of Σ|x·w| of
@@ -293,7 +297,11 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    13d, a 5 s closed loop of 16 clients on ``bench_serving``'s model
    (50,000 entities, seed 9): requests/s, p50/p99, mean batch rows,
    hot-hit rate, zero errors.  No batch may score degraded; every
-   breaker stays closed.
+   breaker stays closed.  For both models, a bucket's round trip
+   (``ScoringRuntime._launch`` on all-hot batches, host clock, median of
+   200) at buckets 1, 8 and 64, and a ``torch.profiler`` trace of 100
+   all-hot ``score_rows`` batches on ``bench_serving``'s model: exactly
+   100 kernel launches, no memcpy.
 14. The process and fleet tier and model freshness, after phase 13 (it
    reuses 13's model and requests; every process it starts is stopped,
    under a strict process-leak sentinel).  14a, a ``WorkerPool`` of two
@@ -367,6 +375,7 @@ The second-to-last line is the kernels' JSON record and the last line
 ``{"ok": true, "device": {...}}``.
 """
 
+import collections
 import contextlib
 import dataclasses
 import functools
@@ -629,13 +638,16 @@ def phase_environment():
           f"window_matvec build, found {len(window)}")
     check(window[0][2] == 0, "window_matvec_kernel spills")
     log(f"window_matvec_kernel: {window[0][1]} registers, no spill")
+    # One instance per register tier KF (fixed columns a lane holds).
     serve = [k for k in ptxas_kernels(
         _kernels.BUILD_INFO["serve_margins"]["ptxas"])
         if "serve_margins_kernel" in k[0]]
-    check(len(serve) == 1 and serve[0][2] == 0,
-          f"serve_margins_kernel: expected one instance without spill, "
-          f"found {serve}")
-    log(f"serve_margins_kernel: {serve[0][1]} registers, no spill")
+    check(len(serve) == len(SERVE_TIERS) and all(k[2] == 0 for k in serve),
+          f"serve_margins_kernel: expected {len(SERVE_TIERS)} instances "
+          f"without spill, found {serve}")
+    log(f"serve_margins_kernel: registers "
+        f"{[(p, r) for (_, r, _), p in zip(serve, demangle([k[0] for k in serve]))]}"
+        f", no spill")
     return smi
 
 
@@ -5402,6 +5414,10 @@ SERVE_CHUNK = 2048
 SERVE_HTTP_ROWS = 512
 SERVE_LOAD_SECONDS = 5.0
 SERVE_LOAD_CLIENTS = 16
+#: the kernel's register tiers (fixed columns a lane holds):
+#: ``serve_margins_kernel<KF>`` instances in ``csrc/serve_margins.cu``.
+SERVE_TIERS = (1, 2, 4, 8, 16)
+SERVE_TRIP_ROUNDS = 200
 
 
 def serve_inputs(x_f, w, x_r, coefs, hot_mask, seed):
@@ -5434,22 +5450,37 @@ def serve_inputs(x_f, w, x_r, coefs, hot_mask, seed):
 
 def serve_kernel_checks(label, ops, task):
     """13a: the serving kernel against its plain version at every bucket
-    of the ladder, bitwise repeats, every row of the full bucket bitwise
-    the row alone, fused == composed, a hot row == the same row cold;
-    times at buckets 1 and the top against the byte bound and the same
-    function as composed torch ops (no single PyTorch call computes it).
-    Returns {bucket: record}."""
+    of the ladder, with the request side in HBM and read in place from
+    page-locked host memory: margins bitwise the plain version's, the two
+    placements bitwise, bitwise repeats, every row of the full bucket
+    bitwise the row alone, fused == composed, a hot row == the same row
+    cold; times at buckets 1 and the top in both placements against the
+    byte bound and the same function as composed torch ops (no single
+    PyTorch call computes it).  Returns {bucket: record}."""
+    from photon_ml_tpu_torch.experiments import serve_launch
     from photon_ml_tpu_torch.serving import kernels as sk
 
     off, xf, w, xr, table, slots, cold = ops
     top = off.shape[0]
+    dev = torch.device(DEVICE)
     link = sk.link_for_task(task)
+    # The request side again in page-locked host memory.
+    h_off, h_xf, h_xr, h_slots, h_cold = (
+        t.cpu().pin_memory() for t in (off, xf, xr, slots, cold))
 
     def args(lo, hi, slots_=None, cold_=None):
         s = slots[lo:hi] if slots_ is None else slots_
         c = cold[lo:hi] if cold_ is None else cold_
         return (off[lo:hi], [(xf[lo:hi], w)], [(xr[lo:hi], table, s, c)],
                 link)
+
+    def pinned(lo, hi, slots_=None, cold_=None):
+        s = h_slots[lo:hi] if slots_ is None else slots_
+        c = h_cold[lo:hi] if cold_ is None else cold_
+        out = torch.full((2, hi - lo), float("nan"), pin_memory=True)
+        return sk.serve_margins_mapped(
+            h_off[lo:hi], [(h_xf[lo:hi], w)], [(h_xr[lo:hi], table, s, c)],
+            link, out, dev)
 
     def scale(lo, hi):
         coefs = table.index_select(0, slots[lo:hi].long()) + cold[lo:hi]
@@ -5471,6 +5502,8 @@ def serve_kernel_checks(label, ops, task):
         plain = sk.serve_margins_plain(*args(0, b))
         check(torch.equal(out, again), f"{label} bucket {b}: two launches "
               "differ")
+        check(torch.equal(out[0], plain[0]), f"{label} bucket {b}: margins "
+              "not bitwise the plain version's")
         err = float(((out[0] - plain[0]).double().abs()
                      / scale(0, b).clamp_min(1e-30)).max())
         mean_err = float((out[1] - plain[1]).double().abs().max())
@@ -5478,35 +5511,55 @@ def serve_kernel_checks(label, ops, task):
               f"{err:.3g} of Σ|x·w|")
         check(mean_err <= 1e-6, f"{label} bucket {b}: means vs plain "
               f"{mean_err:.3g}")
+        host = pinned(0, b)
+        check(torch.equal(host, out.cpu()) and torch.equal(host, pinned(0, b)),
+              f"{label} bucket {b}: the pinned placement differs from HBM "
+              "or between two launches")
         packed = torch.cat([off[:b, None], xf[:b], xr[:b], cold[:b]],
                            1).contiguous()
         fused = sk.build_fused_bucket_kernel(task)(
             packed, slots[None, :b].contiguous(), (w,), (table,))
-        check(torch.equal(fused, out), f"{label} bucket {b}: fused != "
-              "composed")
+        fused_pin = sk.serve_margins_mapped(
+            *sk.fused_operands(packed.cpu().pin_memory(),
+                               h_slots[None, :b].clone().pin_memory(),
+                               (w,), (table,)),
+            link, torch.zeros((2, b), pin_memory=True), dev)
+        check(torch.equal(fused, out) and torch.equal(fused_pin, host),
+              f"{label} bucket {b}: fused != composed")
         records[b] = {"max_abs_err": float((out[0] - plain[0]).abs().max()),
                       "rel_err": err}
         if b == top:
             full = out
-    # Every row of the full bucket alone; a hot row cold.
+    # Every row of the full bucket alone; a hot row cold; both placements.
     hot_rows = 0
+    full_host = full.cpu()
     for i in range(top):
         one = sk.serve_margins(*args(i, i + 1))
-        check(torch.equal(one[:, 0], full[:, i]), f"{label}: row {i} of the "
-              f"full bucket differs from the row scored alone")
+        one_pin = pinned(i, i + 1)
+        check(torch.equal(one[:, 0], full[:, i])
+              and torch.equal(one_pin[:, 0], full_host[:, i]),
+              f"{label}: row {i} of the full bucket differs from the row "
+              f"scored alone")
         s = int(slots[i])
         if s:
             hot_rows += 1
             as_cold = sk.serve_margins(*args(
                 i, i + 1, torch.zeros(1, dtype=torch.int32, device=DEVICE),
                 table[s:s + 1].clone()))
-            check(torch.equal(as_cold, one), f"{label}: row {i} hot != cold")
+            as_cold_pin = pinned(
+                i, i + 1, torch.zeros(1, dtype=torch.int32).pin_memory(),
+                table[s:s + 1].cpu().pin_memory())
+            check(torch.equal(as_cold, one)
+                  and torch.equal(as_cold_pin, one_pin),
+                  f"{label}: row {i} hot != cold")
     torch.cuda.synchronize()
     check(hot_rows > 0, f"{label}: no hot row to compare")
     d_f, d_r = xf.shape[1], xr.shape[1]
     for b in (1, top):
         a = args(0, b)
         ms = median_ms(lambda: sk.serve_margins(*a))
+        blk, _, _ = serve_launch.pinned_block(a[:3], link, dev)
+        pinned_ms = median_ms(lambda: sk.launch(blk, dev))
         plain_ms = median_ms(lambda: sk.serve_margins_plain(*a))
         ops_ms = median_ms(lambda: torch_ops(off[:b], xf[:b], w, xr[:b],
                                              table, slots[:b], cold[:b]))
@@ -5518,18 +5571,66 @@ def serve_kernel_checks(label, ops, task):
                       + b + 2 * b)
         flops = b * (2 * d_f + 3 * d_r + 4)
         bound_ms, bound_by = bytes_bound(nbytes, flops)
-        records[b].update(ms=ms, plain_ms=plain_ms, torch_ops_ms=ops_ms,
-                          bound_ms=bound_ms, bound_by=bound_by)
-        log(f"serving [13a {label}] bucket {b}: kernel {ms:.4f} ms, plain "
-            f"{plain_ms:.4f} ms, composed torch ops {ops_ms:.4f} ms, bound "
-            f"{bound_ms:.6f} ms ({bound_by}, {nbytes} bytes); margins vs "
-            f"plain {records[b]['max_abs_err']:.3g} abs, {err:.3g} of "
+        records[b].update(ms=ms, pinned_ms=pinned_ms, plain_ms=plain_ms,
+                          torch_ops_ms=ops_ms, bound_ms=bound_ms,
+                          bound_by=bound_by)
+        log(f"serving [13a {label}] bucket {b}: kernel {ms:.4f} ms (HBM "
+            f"inputs), {pinned_ms:.4f} ms (pinned inputs read in place), "
+            f"plain {plain_ms:.4f} ms, composed torch ops {ops_ms:.4f} ms, "
+            f"bound {bound_ms:.7f} ms ({bound_by}, {nbytes} bytes); margins "
+            f"vs plain {records[b]['max_abs_err']:.3g} abs, {err:.3g} of "
             f"Σ|x·w|")
-    log(f"serving [13a {label}]: every bucket {sorted(records)} within "
-        f"{RTOL} of Σ|x·w| of the plain version, launches bitwise "
-        f"repeatable, {top} rows bitwise alone, fused == composed, "
-        f"{hot_rows} hot rows == cold")
+    log(f"serving [13a {label}]: every bucket {sorted(records)} bitwise the "
+        f"plain version's margins (means within 1e-6) with HBM and pinned "
+        f"inputs, launches bitwise repeatable, {top} rows bitwise alone, "
+        f"fused == composed, {hot_rows} hot rows == cold")
     return records
+
+
+def serve_round_trips(label, rt, rows):
+    """(b): the host clock around ``rt._launch`` on all-hot batches of the
+    first 1, 8 and 64 of ``rows`` (their entities known), median of
+    :data:`SERVE_TRIP_ROUNDS` after a warm-up.  {bucket: ms}."""
+    from photon_ml_tpu_torch.experiments import serve_launch
+
+    trips = {b: serve_launch.round_trip_ms(rt, rows, b, SERVE_TRIP_ROUNDS)
+             for b in serve_launch.TRIP_BUCKETS}
+    log(f"serving [13 {label}] round trip (_launch, all-hot, median of "
+        f"{SERVE_TRIP_ROUNDS}): " + ", ".join(
+            f"bucket {b} {ms:.4f} ms" for b, ms in trips.items()))
+    return trips
+
+
+def serve_profile(label, rt, rows):
+    """A ``torch.profiler`` trace of 100 all-hot ``score_rows`` batches:
+    the trace must hold exactly 100 ``serve_margins_kernel`` launches and
+    no memcpy (the request side is read in place, nothing is copied)."""
+    from torch.profiler import ProfilerActivity, profile
+
+    rt.score_rows(rows)  # promote: the batches below are all hot
+    misses = sum(c.hot.misses for c in rt.random)
+    torch.cuda.synchronize()
+    with profile(activities=[ProfilerActivity.CUDA]) as prof:
+        for _ in range(100):
+            rt.score_rows(rows)
+        torch.cuda.synchronize()
+    check(sum(c.hot.misses for c in rt.random) == misses,
+          f"13 {label}: a profiled batch was not all hot")
+    names = collections.Counter(
+        e.name for e in prof.events()
+        if e.device_type == torch.autograd.DeviceType.CUDA)
+    kernels = sum(n for k, n in names.items() if "serve_margins_kernel" in k)
+    copies = {k: n for k, n in names.items() if "memcpy" in k.lower()}
+    api_copies = sum(1 for e in prof.events()
+                     if e.name.startswith("cudaMemcpy"))
+    log(f"serving [13 {label}] profiler: 100 all-hot batches of {len(rows)}"
+        f" rows -> {kernels} serve_margins_kernel launches, device events "
+        f"{dict(names)}, {api_copies} cudaMemcpy calls")
+    check(kernels == 100, f"13 {label}: the trace holds {kernels} "
+          "serve_margins_kernel launches for 100 batches")
+    check(not copies and not api_copies, f"13 {label}: the trace holds "
+          f"copies {copies}, {api_copies} cudaMemcpy calls")
+    return {"kernels": kernels, "device_events": dict(names)}
 
 
 def serving_requests(shards, ids, offsets, imaps, rows):
@@ -5717,6 +5818,12 @@ def phase_serving(smi, td):
         np.arange(b) % 2 == 0, 14)
     recb = serve_kernel_checks("bench_serving's model", ops_b, "logistic")
     del ops7, ops_b
+    from photon_ml_tpu_torch.experiments import serve_launch
+
+    metrics["launch_floor_ms"] = serve_launch.launch_floor_ms(
+        torch.device(DEVICE))
+    slog(f"13a: an empty one-warp kernel (the launch floor) "
+         f"{metrics['launch_floor_ms']:.4f} ms")
 
     # -- 13b: phase 7's model served on the card --------------------------
     t0 = time.perf_counter()
@@ -5836,9 +5943,9 @@ def phase_serving(smi, td):
             launches = {"phase 7's model": _kernels.LAUNCHES["serve_margins"]}
             check(launches["phase 7's model"] == rt.batches - b0,
                   f"13b: {launches} launches for {rt.batches - b0} batches")
-            # One batch's host-to-result time: the pinned upload, the
-            # kernel and the readback of a full bucket; and the whole
-            # score_rows call (host packing included).
+            # One batch's host-to-result time: filling the page-locked
+            # staging buffer, the launch and the wait of a full bucket;
+            # and the whole score_rows call (host packing included).
             rows64 = [rt.parse_request(r) for r in sub[:SERVE_MAX_BATCH]]
             packed = np.zeros((SERVE_MAX_BATCH, rt._packed_width),
                               np.float32)
@@ -5847,9 +5954,14 @@ def phase_serving(smi, td):
             launch_ms = wall_ms(lambda: rt._launch(SERVE_MAX_BATCH, packed,
                                                    slots), n=50)
             batch_ms = wall_ms(lambda: rt.score_rows(rows64), n=50)
+            known = [r for r in requests
+                     if r["ids"].get("userId") in re.coefficients]
+            metrics["round_trip_ms"] = {"phase7": serve_round_trips(
+                "phase 7's model", rt, [rt.parse_request(r) for r in
+                                        known[:SERVE_MAX_BATCH]])}
             service.start()
-            slog(f"13b: one {SERVE_MAX_BATCH}-row batch: pinned upload + "
-                 f"kernel + readback {launch_ms:.4f} ms; score_rows (host "
+            slog(f"13b: one {SERVE_MAX_BATCH}-row batch: staging fill + "
+                 f"launch + wait {launch_ms:.4f} ms; score_rows (host "
                  f"packing, hot lookups included) {batch_ms:.4f} ms")
             metrics["batch_host_to_result_ms"] = launch_ms
             metrics["score_rows_ms"] = batch_ms
@@ -5936,6 +6048,11 @@ def phase_serving(smi, td):
         launches["bench_serving's model"] = _kernels.LAUNCHES["serve_margins"]
         batches, rows = brt.batches - b0, brt.rows_scored - r0
         occ = hub.snapshot()["gauges"].get("serving_batch_occupancy")
+    brows = [brt.parse_request(bench.request(i))
+             for i in range(SERVE_MAX_BATCH)]
+    metrics["round_trip_ms"]["bench_serving"] = serve_round_trips(
+        "bench_serving's model", brt, brows)
+    metrics["profile"] = serve_profile("bench_serving's model", brt, brows)
     snap = report.snapshot()
     hot = brt.stats()["hot_sets"]["per_entity"]
     mean_rows = rows / max(batches, 1)

@@ -20,7 +20,11 @@ it on the card:
                  the read-only pass that gives its stream's ceiling;
 - ``fleet_burst`` — the port's own probe: a fleet router's 16 workers
                  turning to one surviving HTTP host at once, repeated,
-                 at a chosen listen backlog.
+                 at a chosen listen backlog;
+- ``serve_launch`` — the port's own probe: the serving kernel with its
+                 request side in HBM and in page-locked host memory, a
+                 bucket's round trip, the launch floor, a design sweep
+                 (card only).
 
 Run each as ``python -m photon_ml_tpu_torch.experiments.<name>``; the card
 is the default, ``--device cpu`` runs the plain PyTorch versions.

@@ -18,7 +18,8 @@ The libraries and the TPU kernels they replace:
 - ``serve_margins`` — not a TPU kernel: the serving runtime's padded-bucket
   margin program (``photon_ml_tpu/serving/kernels.py``'s
   ``build_bucket_kernel`` / ``build_fused_bucket_kernel``), wrapped by
-  ``serving/kernels.py::serve_margins``.
+  ``serving/kernels.py::serve_margins`` and, from a prebuilt argument
+  block, ``serving/kernels.py::launch_block`` (the runtime's bucket path).
 
 :func:`spmv_rows` and :func:`spmv_cols` are the SpMV wrappers; the others
 live with their experiments under ``photon_ml_tpu_torch/experiments/`` and launch through
@@ -78,6 +79,10 @@ SIGNATURES = {
     "serve_margins": {
         "photon_serve_margins": ([_P, _LL, _I, _P, _P, _P, _P, _I, _P, _P,
                                   _P, _P, _P, _P, _P, _I, _P, _LL, _P], _I),
+        "photon_serve_launch": ([_P, _I, _P], _I),
+        "photon_serve_coords_layout": ([_P, _I], _I),
+        "photon_serve_mapped": ([_P, _I, _P], _I),
+        "photon_serve_empty": ([_P], _I),
     },
 }
 
@@ -110,6 +115,7 @@ LAUNCHES: dict[str, int] = {
     "window_matvec": 0,
     "window_ring_probe": 0,
     "serve_margins": 0,
+    "serve_empty_probe": 0,
     "spmv_row_block_probe": 0,
     **{f"spmv_ablate_{mode}_{op}": 0
        for mode in ABLATE_MODES for op in ABLATE_OPS},

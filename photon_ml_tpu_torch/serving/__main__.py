@@ -491,10 +491,15 @@ def run_selfcheck_process(
 
                 # Real SIGKILL mid-load: a burst straight into the dying
                 # worker's queue plus an open loop across the kill, zero
-                # failed requests end to end.
+                # failed requests end to end.  The worker is paused
+                # first, so the rows routed to it (every other one) are
+                # still in flight when the kill lands, however late this
+                # thread reaches it: otherwise a worker that finished its
+                # share first left nothing to resubmit.
                 def script() -> None:
                     try:
                         time.sleep(0.4)
+                        supervisor.replicas[0].batcher.pause()
                         burst = [
                             service.submit(v1.request(50_000 + j))
                             for j in range(64)

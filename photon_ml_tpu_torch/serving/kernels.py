@@ -33,6 +33,12 @@ depends only on a coordinate's width and keeps it on both sides:
 
 :func:`serve_margins` launches the kernel on CUDA tensors (or raises) and
 runs the plain version on CPU tensors; nothing falls back from the card.
+The runtime's card path launches from a prebuilt argument block instead
+(:class:`Coords`, :func:`launch_block`, :func:`launch`): built once per
+(runtime, bucket) over the bucket's page-locked staging buffers, which the
+kernel reads and writes in place (:func:`mapped_pointer` refuses memory
+the card cannot address), so a batch is one ctypes call and one launch,
+with no copy.
 """
 
 from __future__ import annotations
@@ -192,10 +198,15 @@ def serve_margins_plain(offset: Tensor, fixed: Sequence, random: Sequence,
     return torch.stack([total, mean_link_plain(total, link)])
 
 
-def _check(offset, fixed, random, link) -> torch.device:
+def _check(offset, fixed, random, link, model_device=None) -> torch.device:
+    """Refuse operands the kernel does not take.  The request side
+    (offsets, features, slots, cold rows) lives on the offsets' device, the
+    model side (fixed means, hot tables) on ``model_device`` (default the
+    same)."""
     need = _kernels.need
     need(link in LINKS, f"unknown link {link!r}", "serve_margins")
     dev = offset.device
+    model_dev = dev if model_device is None else model_device
     _kernels.check_device(dev, "serve_margins")
     need(offset.dtype == torch.float32 and offset.dim() == 1,
          "offset must be a 1-D float32 tensor", "serve_margins")
@@ -214,15 +225,15 @@ def _check(offset, fixed, random, link) -> torch.device:
 
     for x, w in fixed:
         need(w.dtype == torch.float32 and w.dim() == 1 and w.is_contiguous()
-             and w.device == dev,
+             and w.device == model_dev,
              "a fixed coefficient vector must be a contiguous 1-D float32 "
-             "tensor on the offsets' device", "serve_margins")
+             "tensor on the model's device", "serve_margins")
         block(x, w.shape[0], "fixed features")
     for x, table, slots, cold in random:
         need(table.dtype == torch.float32 and table.dim() == 2
-             and table.is_contiguous() and table.device == dev,
+             and table.is_contiguous() and table.device == model_dev,
              "a hot table must be a contiguous (H+1, D) float32 tensor on "
-             "the offsets' device", "serve_margins")
+             "the model's device", "serve_margins")
         need(slots.dtype == torch.int32 and slots.shape == (b,)
              and slots.is_contiguous() and slots.device == dev,
              f"slots must be a contiguous ({b},) int32 tensor",
@@ -260,6 +271,7 @@ def serve_margins(offset: Tensor, fixed: Sequence, random: Sequence,
         return serve_margins_plain(offset, fixed, random, link)
     out = torch.empty((2, offset.shape[0]), dtype=torch.float32,
                       device=dev)
+    _library()
     _kernels.launch("serve_margins", "photon_serve_margins", "serve_margins",
                     dev, *launch_args(offset, fixed, random, link, out))
     return out
@@ -284,6 +296,194 @@ def launch_args(offset: Tensor, fixed: Sequence, random: Sequence,
     )
 
 
+# ---------------------------------------------------------------------------
+# Prebuilt launches: the runtime's bucket path
+# ---------------------------------------------------------------------------
+
+_VP, _LL, _I = ctypes.c_void_p, ctypes.c_longlong, ctypes.c_int
+
+
+class Coords(ctypes.Structure):
+    """The kernel's argument block, field for field the ``Coords`` of
+    ``csrc/serve_margins.cu`` (the library's reported layout is checked
+    against this one when it loads)."""
+
+    _fields_ = [
+        ("offset", _VP), ("offset_stride", _LL),
+        ("n_fixed", _I), ("n_random", _I), ("link", _I),
+        ("n", _LL), ("out", _VP),
+        ("fx", _VP * MAX_FIXED), ("fx_stride", _LL * MAX_FIXED),
+        ("fw", _VP * MAX_FIXED), ("fd", _I * MAX_FIXED),
+        ("rx", _VP * MAX_RANDOM), ("rx_stride", _LL * MAX_RANDOM),
+        ("rcold", _VP * MAX_RANDOM), ("rcold_stride", _LL * MAX_RANDOM),
+        ("rtable", _VP * MAX_RANDOM), ("rslot", _VP * MAX_RANDOM),
+        ("rd", _I * MAX_RANDOM),
+    ]
+
+
+#: the fields whose offsets ``photon_serve_coords_layout`` reports, after
+#: ``sizeof(Coords)``, in its order.
+_LAYOUT_FIELDS = ("offset", "n", "out", "fx", "fd", "rx", "rslot", "rd")
+
+_CHECKED: set = set()
+
+
+def _library(name: str = "serve_margins"):
+    """The ``serve_margins`` library (or a :func:`_kernels.variant` of it),
+    its ``Coords`` layout checked against :class:`Coords` at first use (a
+    mismatch would hand the kernel wrong pointers)."""
+    lib = _kernels.load_library(name)
+    if name not in _CHECKED:
+        vals = (ctypes.c_longlong * 16)()
+        n = lib.photon_serve_coords_layout(vals, 16)
+        want = [ctypes.sizeof(Coords)] + [getattr(Coords, f).offset
+                                          for f in _LAYOUT_FIELDS]
+        if list(vals[:n]) != want:
+            raise RuntimeError(
+                f"serve_margins: the library's Coords layout {list(vals[:n])}"
+                f" differs from serving/kernels.py's {want}")
+        _CHECKED.add(name)
+    return lib
+
+
+def _index(device: torch.device) -> int:
+    return (torch.cuda.current_device() if device.index is None
+            else device.index)
+
+
+def mapped_pointer(t: Tensor, what: str, device: torch.device) -> int:
+    """The address at which ``device`` reads the host tensor ``t``: ``t``
+    must lie in page-locked host memory that the card can address (under
+    unified addressing, any ``pin_memory`` tensor).  Raises ``ValueError``
+    naming ``what`` for anything else (pageable memory has no device
+    address, and nothing falls back to a copy)."""
+    _kernels.need(t.device.type == "cpu", f"{what} is on {t.device}, not "
+                  "in host memory", "serve_margins")
+    if t.numel() == 0:
+        return t.data_ptr()  # never read
+    base = t.untyped_storage().data_ptr()
+    dev_base = ctypes.c_void_p()
+    rc = _library().photon_serve_mapped(base, _index(device),
+                                        ctypes.byref(dev_base))
+    _kernels.need(rc == 0, f"{what} is not page-locked host memory that "
+                  f"{device} can address (cudaPointerGetAttributes: "
+                  f"{'not mapped host memory' if rc == 1 else rc}); allocate "
+                  "it with pin_memory=True", "serve_margins")
+    return dev_base.value + (t.data_ptr() - base)
+
+
+def launch_block(offset: Tensor, fixed: Sequence, random: Sequence,
+                 link: str, out: Tensor, address=None) -> Coords:
+    """The kernel's argument block for these operands (as
+    :func:`serve_margins` takes them, plus the ``(2, B)`` output): the
+    fields :func:`launch_args` passes, in one :class:`Coords`.
+    ``address(tensor)`` gives the pointer the card reads each operand at
+    (default ``data_ptr``)."""
+    address = address or (lambda t: t.data_ptr())
+    c = Coords()
+    c.offset, c.offset_stride = address(offset), offset.stride(0)
+    c.n_fixed, c.n_random = len(fixed), len(random)
+    c.link, c.n, c.out = LINKS[link], offset.shape[0], address(out)
+    for i, (x, w) in enumerate(fixed):
+        c.fx[i], c.fx_stride[i] = address(x), x.stride(0)
+        c.fw[i], c.fd[i] = address(w), w.shape[0]
+    for j, (x, table, slots, cold) in enumerate(random):
+        c.rx[j], c.rx_stride[j] = address(x), x.stride(0)
+        c.rcold[j], c.rcold_stride[j] = address(cold), cold.stride(0)
+        c.rtable[j], c.rslot[j] = address(table), address(slots)
+        c.rd[j] = table.shape[1]
+    return c
+
+
+def launch(block: Coords, device: torch.device,
+           library: str = "serve_margins", stream=None) -> None:
+    """One launch of the kernel from a prebuilt block on ``stream`` (default
+    the current stream of ``device``), counted under
+    ``LAUNCHES["serve_margins"]`` (``library`` may be a
+    :func:`_kernels.variant` of it, for design probes)."""
+    lib = _library(library)
+    if stream is None:
+        stream = torch.cuda.current_stream(device)
+    rc = lib.photon_serve_launch(ctypes.addressof(block), _index(device),
+                                 stream.cuda_stream)
+    if rc != 0:
+        raise RuntimeError(
+            f"serve_margins launch failed: CUDA error {rc} "
+            f"({lib.photon_cuda_error_string(rc).decode()})")
+    _kernels.count_launch("serve_margins")
+
+
+def mapped_block(offset: Tensor, fixed: Sequence, random: Sequence,
+                 link: str, out: Tensor, device: torch.device) -> Coords:
+    """The argument block for the runtime's placement: the request side
+    (offsets, features, slots, cold rows) and the ``(2, B)`` ``out`` in
+    page-locked host memory that the kernel on ``device`` reads and writes
+    in place, the model side (fixed means, hot tables) on ``device``."""
+    device = torch.device("cuda", _index(device))
+    _check(offset, fixed, random, link, model_device=device)
+    _kernels.need(out.dtype == torch.float32 and out.is_contiguous()
+                  and out.shape == (2, offset.shape[0]),
+                  "out must be a contiguous (2, B) float32 tensor",
+                  "serve_margins")
+
+    def address(t):
+        if t.device.type == "cuda":
+            return t.data_ptr()
+        return mapped_pointer(t, "a request-side operand", device)
+
+    return launch_block(offset, fixed, random, link, out, address)
+
+
+def serve_margins_mapped(offset: Tensor, fixed: Sequence, random: Sequence,
+                         link: str, out: Tensor,
+                         device: torch.device) -> Tensor:
+    """:func:`serve_margins` in the runtime's placement
+    (:func:`mapped_block`): one launch on ``device``'s current stream, a
+    wait for it, and ``out`` holds the margins and means."""
+    launch(mapped_block(offset, fixed, random, link, out, device), device)
+    torch.cuda.current_stream(device).synchronize()
+    return out
+
+
+def launch_empty(device: torch.device) -> None:
+    """One launch of an empty one-warp kernel (the launch floor of a
+    latency-bound kernel), counted under ``LAUNCHES["serve_empty_probe"]``."""
+    lib = _library()
+    rc = lib.photon_serve_empty(torch.cuda.current_stream(device).cuda_stream)
+    if rc != 0:
+        raise RuntimeError(f"empty kernel launch failed: CUDA error {rc}")
+    _kernels.count_launch("serve_empty_probe")
+
+
+# ---------------------------------------------------------------------------
+# The reference's bucket programs
+# ---------------------------------------------------------------------------
+
+def composed_operands(offsets, fixed_x, fixed_w, re_x, re_tables, re_slots,
+                      re_cold) -> tuple:
+    """``(offset, fixed, random)`` of the composed layout's per-coordinate
+    arrays (:func:`build_bucket_kernel`'s arguments)."""
+    return (offsets, list(zip(fixed_x, fixed_w)),
+            list(zip(re_x, re_tables, re_slots, re_cold)))
+
+
+def fused_operands(packed, slots, fixed_w, re_tables) -> tuple:
+    """``(offset, fixed, random)`` as views of the fused layout's packed
+    buffer (:func:`build_fused_bucket_kernel`'s arguments)."""
+    fixed, random = [], []
+    off = 1
+    for w in fixed_w:
+        d = w.shape[0]
+        fixed.append((packed[:, off:off + d], w))
+        off += d
+    for j, table in enumerate(re_tables):
+        d = table.shape[1]
+        random.append((packed[:, off:off + d], table, slots[j],
+                       packed[:, off + d:off + 2 * d]))
+        off += 2 * d
+    return packed[:, 0], fixed, random
+
+
 def build_bucket_kernel(task: str):
     """The composed padded-batch program of one model structure.
 
@@ -298,11 +498,8 @@ def build_bucket_kernel(task: str):
     """
     link = link_for_task(task)
 
-    def kernel(offsets, fixed_x, fixed_w, re_x, re_tables, re_slots,
-               re_cold):
-        out = serve_margins(offsets, list(zip(fixed_x, fixed_w)),
-                            list(zip(re_x, re_tables, re_slots, re_cold)),
-                            link)
+    def kernel(*args):
+        out = serve_margins(*composed_operands(*args), link)
         return out[0], out[1]
 
     return kernel
@@ -314,22 +511,11 @@ def build_fused_bucket_kernel(task: str):
     laid out as the offset column, each fixed coordinate's features, then
     per random coordinate its features followed by its cold rows, and
     ``slots`` the ``(n_random, B)`` int32 hot slots.  Returns the stacked
-    ``(2, B)`` margins and means: two uploads and one readback a batch,
-    whatever the model's structure."""
+    ``(2, B)`` margins and means."""
     link = link_for_task(task)
 
     def kernel(packed, slots, fixed_w, re_tables):
-        fixed, random = [], []
-        off = 1
-        for w in fixed_w:
-            d = w.shape[0]
-            fixed.append((packed[:, off:off + d], w))
-            off += d
-        for j, table in enumerate(re_tables):
-            d = table.shape[1]
-            random.append((packed[:, off:off + d], table, slots[j],
-                           packed[:, off + d:off + 2 * d]))
-            off += 2 * d
-        return serve_margins(packed[:, 0], fixed, random, link)
+        return serve_margins(*fused_operands(packed, slots, fixed_w,
+                                             re_tables), link)
 
     return kernel

@@ -47,7 +47,9 @@ from __future__ import annotations
 
 import dataclasses
 import multiprocessing
+import os
 import queue
+import signal
 import socket
 import threading
 import time
@@ -432,6 +434,14 @@ class ProcessReplica:
                 f"{exc}"
             ) from exc
         future.result(timeout=timeout)
+
+    def pause(self) -> None:
+        """Freeze the worker (SIGSTOP), as a wedged process freezes: it
+        keeps every row it was sent and answers nothing until it is
+        killed.  A fault script pauses a worker before it loads it, so
+        that the kill that follows finds those rows in flight."""
+        if self._proc.is_alive():
+            os.kill(self._proc.pid, signal.SIGSTOP)
 
     def kill(self, reason: str = "scripted kill") -> None:
         """SIGKILL the worker — no drain, no goodbye: the real crash.

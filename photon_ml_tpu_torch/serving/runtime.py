@@ -25,10 +25,16 @@ card unless the caller asks for the CPU):
 
 All mutation (LRU order, hot-table updates) happens on the dispatch
 thread — the MicroBatcher owns scoring — so the runtime needs no locks;
-``parse_request`` is read-only and safe from any request thread.  A batch
-uploads through pinned host buffers, launches and reads back on the
-runtime's device and the calling thread's current CUDA stream, and waits
-for that stream alone.
+``parse_request`` is read-only and safe from any request thread.  On the
+card a batch is ONE launch and no copy: the host packs the bucket into
+page-locked staging buffers that the kernel reads in place (unified
+addressing), the kernel writes the margins and means into a page-locked
+output buffer, and the batch waits for the calling thread's current CUDA
+stream alone.  Each bucket's kernel argument block (staging addresses,
+fixed means, hot tables, widths) is built once, when its buffers are
+allocated; every pointer in it is fixed for the runtime's life (the hot
+tables are written in place), and a swapped or patched runtime, or a
+spawned worker, builds its own.
 
 **Graceful degradation** (CPU runtimes only): a device-path failure the
 port's watchdog classifies as transient (``UNAVAILABLE``/device
@@ -90,11 +96,11 @@ class RuntimeConfig:
     breaker_cooldown_s: float = 5.0
     #: consecutive device-path failures before the breaker trips.
     breaker_failure_threshold: int = 1
-    #: score through the fused single-round-trip layout (two uploads +
-    #: one readback per batch, any model structure) instead of the
-    #: composed per-coordinate arrays.  Scores are bitwise identical
-    #: either way (one kernel serves both, serving/kernels.py); the
-    #: composed layout stays for parity with the reference's API.
+    #: hand the kernel the fused layout (views of one packed buffer, any
+    #: model structure) instead of the composed per-coordinate arrays.
+    #: Scores are bitwise identical either way (one kernel serves both,
+    #: serving/kernels.py); the composed layout stays for parity with the
+    #: reference's API.
     fused: bool = True
     #: the device the runtime scores on: None is the CUDA card (raises
     #: without one); "cpu" runs the kernel's plain version.
@@ -257,7 +263,8 @@ class _HotTable:
     writes the staged rows into the device table in place, one
     ``index_copy_`` over distinct slots (the last row staged for a slot
     wins, so a slot reused within one batch is written once, with the
-    entity that holds it).
+    entity that holds it).  ``table`` is never reallocated: the runtime's
+    launch blocks hold its address.
     """
 
     def __init__(self, capacity: int, dim: int, device: torch.device):
@@ -318,6 +325,17 @@ class _HotTable:
     def hot_keys(self) -> list:
         """LRU→MRU order (test/diagnostic view)."""
         return list(self._slots)
+
+
+@dataclasses.dataclass
+class _Staging:
+    """One bucket's host buffers (packed request rows, ``(n_random, B)``
+    slots, the ``(2, B)`` output), their numpy views, and the kernel's
+    launch block over them."""
+
+    tensors: tuple
+    arrays: tuple
+    block: kernels_lib.Coords
 
 
 @dataclasses.dataclass
@@ -398,20 +416,15 @@ class ScoringRuntime:
             )
         self._parser = RequestParser(self.shard_dims, self.index_maps)
         self.buckets = self._bucket_ladder(self.config.max_batch_size)
-        if self.config.fused:
-            self._kernel = kernels_lib.build_fused_bucket_kernel(
-                self._loss_name)
-        else:
-            self._kernel = kernels_lib.build_bucket_kernel(self._loss_name)
-        #: packed-buffer width for the fused kernel: offset column +
-        #: fixed feature blocks + (features, cold) block pairs per
-        #: random coordinate (kernels.build_fused_bucket_kernel).
+        self._link = kernels_lib.link_for_task(self._loss_name)
+        #: packed-buffer width: offset column + fixed feature blocks +
+        #: (features, cold) block pairs per random coordinate
+        #: (kernels.build_fused_bucket_kernel's layout).
         self._packed_width = 1 + sum(
             int(c.host_means.shape[0]) for c in self.fixed
         ) + sum(2 * c.hot.dim for c in self.random)
-        #: bucket → pinned host (packed, slots, out) buffers on the card
-        #: (reused batch after batch: each batch waits for its readback
-        #: before the next one fills them).
+        #: bucket → its :class:`_Staging` (reused batch after batch: each
+        #: batch waits for its kernel before the next one fills them).
         self._staging: dict = {}
         #: buckets the kernel has run at (warm_up's bookkeeping).
         self._warm: set = set()
@@ -724,67 +737,82 @@ class ScoringRuntime:
         tel.counter("serving_degraded_batches_total").inc()
         return margins, means
 
-    def _staging_buffers(self, bucket: int) -> tuple:
-        """The bucket's host (packed, slots, out) arrays: pinned tensors'
-        numpy views on the card, plain numpy on the CPU."""
-        bufs = self._staging.get(bucket)
-        if bufs is None:
-            pin = self.device.type == "cuda"
+    def _staging_buffers(self, bucket: int) -> "_Staging":
+        """The bucket's host buffers and launch block, allocated on first
+        use: page-locked on the card, each checked once that the card can
+        address it (a buffer it cannot raises: nothing falls back to a
+        copy), plain on the CPU."""
+        st = self._staging.get(bucket)
+        if st is None:
+            cuda = self.device.type == "cuda"
+            tensors = tuple(
+                torch.zeros(shape, dtype=dtype, pin_memory=cuda)
+                for shape, dtype in (
+                    ((bucket, self._packed_width), torch.float32),
+                    ((len(self.random), bucket), torch.int32),
+                    ((2, bucket), torch.float32)))
+            operands = (*self._operands(*tensors[:2]), self._link,
+                        tensors[2])
+            if cuda:
+                for name, t in zip(("packed", "slots", "out"), tensors):
+                    kernels_lib.mapped_pointer(
+                        t, f"the {name} staging buffer of bucket {bucket}",
+                        self.device)
+                block = kernels_lib.mapped_block(*operands, self.device)
+            else:
+                block = kernels_lib.launch_block(*operands)
+            st = _Staging(tensors, tuple(t.numpy() for t in tensors), block)
+            self._staging[bucket] = st
+        return st
 
-            def host(shape, dtype):
-                return torch.empty(shape, dtype=dtype, pin_memory=pin)
-
-            bufs = (host((bucket, self._packed_width), torch.float32),
-                    host((len(self.random), bucket), torch.int32),
-                    host((2, bucket), torch.float32))
-            self._staging[bucket] = bufs
-        return bufs
+    def _operands(self, packed: torch.Tensor, slots: torch.Tensor) -> tuple:
+        """``(offset, fixed, random)``: the kernel's operands as views of
+        the packed and slot buffers, in the configured layout."""
+        fixed_w = tuple(c.means for c in self.fixed)
+        tables = tuple(c.hot.table for c in self.random)
+        if self.config.fused:
+            return kernels_lib.fused_operands(packed, slots, fixed_w,
+                                              tables)
+        fixed_x, re_x, re_cold = [], [], []
+        off = 1
+        for c in self.fixed:
+            d = int(c.host_means.shape[0])
+            fixed_x.append(packed[:, off:off + d])
+            off += d
+        for c in self.random:
+            d = c.hot.dim
+            re_x.append(packed[:, off:off + d])
+            re_cold.append(packed[:, off + d:off + 2 * d])
+            off += 2 * d
+        return kernels_lib.composed_operands(
+            packed[:, 0], tuple(fixed_x), fixed_w, tuple(re_x), tables,
+            tuple(slots), tuple(re_cold))
 
     def _launch(self, bucket: int, packed: np.ndarray,
                 slots: np.ndarray) -> np.ndarray:
-        """Upload one bucket's request-side arrays, run the kernel, read
-        the ``(2, bucket)`` margins and means back.  On the card: pinned
-        uploads, the launch and the readback all on this thread's current
-        stream of the runtime's device, then a wait on that stream."""
-        dev = self.device
-        fixed_w = tuple(c.means for c in self.fixed)
-        tables = tuple(c.hot.table for c in self.random)
-        cuda = dev.type == "cuda"
-        if cuda:
-            pk, sl, out_host = self._staging_buffers(bucket)
-            pk.numpy()[...] = packed
-            sl.numpy()[...] = slots
-            d_packed = pk.to(dev, non_blocking=True)
-            d_slots = sl.to(dev, non_blocking=True)
-        else:
-            d_packed = torch.from_numpy(packed)
-            d_slots = torch.from_numpy(slots)
-        if self.config.fused:
-            out = self._kernel(d_packed, d_slots, fixed_w, tables)
-        else:
-            fixed_x, re_x, re_cold = [], [], []
-            off = 1
-            for c in self.fixed:
-                d = int(c.host_means.shape[0])
-                fixed_x.append(d_packed[:, off:off + d])
-                off += d
-            for c in self.random:
-                d = c.hot.dim
-                re_x.append(d_packed[:, off:off + d])
-                re_cold.append(d_packed[:, off + d:off + 2 * d])
-                off += 2 * d
-            margins, means = self._kernel(
-                d_packed[:, 0], tuple(fixed_x), fixed_w, tuple(re_x),
-                tables, tuple(d_slots), tuple(re_cold),
-            )
-            out = torch.stack([margins, means])
-        if not cuda:
+        """Score one bucket's request-side arrays (copied into the
+        bucket's staging buffers unless they are those buffers) and return
+        the ``(2, bucket)`` margins and means.  On the card: one launch
+        from the bucket's prebuilt block on this thread's current stream
+        of the runtime's device, then a wait on that stream; the result is
+        the page-locked output buffer itself.  On the CPU: the plain
+        version."""
+        st = self._staging_buffers(bucket)
+        pk, sl, out = st.arrays
+        if packed is not pk:
+            pk[...] = packed
+        if slots is not sl:
+            sl[...] = slots
+        if self.device.type == "cuda":
+            stream = torch.cuda.current_stream(self.device)
+            kernels_lib.launch(st.block, self.device, stream=stream)
+            stream.synchronize()
             self._warm.add(bucket)
-            return out.numpy()
-        out_host.copy_(out, non_blocking=True)
-        torch.cuda.current_stream(dev).synchronize()
+            return out
+        res = kernels_lib.serve_margins(*self._operands(*st.tensors[:2]),
+                                        self._link)
         self._warm.add(bucket)
-        return out_host.numpy()
+        return res.numpy()
 
     def _score_rows_device(
         self, rows: Sequence[Row]
@@ -792,10 +820,10 @@ class ScoringRuntime:
         """The healthy path: the padded bucket kernel (bit-parity
         contract).  Dispatch-thread only (mutates the LRU hot sets).
 
-        Both layouts gather into one packed host buffer; the composed
-        path then hands the kernel views of its per-coordinate columns
-        (the reference uploads each one), so the two differ only in the
-        kernel's arguments."""
+        Both layouts gather into the bucket's packed staging buffer; the
+        composed path then hands the kernel views of its per-coordinate
+        columns (the reference uploads each one), so the two differ only
+        in how the kernel's arguments are named."""
         # The device-lost seam: a scripted fault here exercises the whole
         # degrade → breaker → re-promote machinery of a CPU runtime (a
         # card runtime raises it, as it raises every device failure).
@@ -843,8 +871,9 @@ class ScoringRuntime:
             )
 
         promotions: list[tuple[_RandomCoord, object, np.ndarray]] = []
-        packed = np.zeros((bucket, self._packed_width), np.float32)
-        all_slots = np.zeros((len(self.random), bucket), np.int32)
+        packed, all_slots, _ = self._staging_buffers(bucket).arrays
+        packed.fill(0.0)
+        all_slots.fill(0)
         for i, row in enumerate(rows):
             packed[i, 0] = row.offset
         off = 1

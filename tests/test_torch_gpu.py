@@ -1188,6 +1188,141 @@ def test_serve_margins_refuses_bad_operands_on_the_card(cuda):
                               random, "logistic")
 
 
+def _serve_width_inputs(d, dev):
+    """One 64-row bucket at width ``d`` for both coordinates (the fixed
+    one's columns past the register cap of 16 a lane, and a random one
+    wider than 32, take the kernel's loops), half its rows hot."""
+    rng = np.random.default_rng(d)
+
+    def f32(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=dev)
+
+    b = 64
+    table = f32(b + 1, d)
+    table[0] = 0.0
+    slots = torch.as_tensor(np.where(np.arange(b) % 2 == 0,
+                                     np.arange(b) + 1, 0).astype(np.int32),
+                            device=dev)
+    cold = f32(b, d) * (slots == 0).float()[:, None]
+    return f32(b), [(f32(b, d), f32(d))], [(f32(b, d), table, slots, cold)]
+
+
+@pytest.mark.parametrize("d", [1, 31, 33, 512, 1000])
+def test_serve_margins_redesign_bitwise_plain_in_both_placements(cuda, d):
+    """At every bucket of the ladder the kernel's margins are bitwise the
+    plain version's with the request side in HBM and with it read in
+    place from page-locked host memory (a prebuilt block), and the two
+    placements give the same bits; the means within 1e-6 of
+    max(|mean|, 1) of the plain version's."""
+    from photon_ml_tpu_torch.serving import kernels
+
+    ops = _serve_width_inputs(d, cuda)
+    for b in (1, 2, 4, 8, 16, 32, 64):
+        off, fixed, random = ops
+        part = (off[:b], [(x[:b], w) for x, w in fixed],
+                [(x[:b], t, s[:b], c[:b]) for x, t, s, c in random])
+        before = _kernels.LAUNCHES["serve_margins"]
+        hbm = kernels.serve_margins(*part, "logistic")
+        host = (part[0].cpu().pin_memory(),
+                [(x.cpu().pin_memory(), w) for x, w in part[1]],
+                [(x.cpu().pin_memory(), t, s.cpu().pin_memory(),
+                  c.cpu().pin_memory()) for x, t, s, c in part[2]])
+        out = torch.full((2, b), float("nan"), pin_memory=True)
+        pinned = kernels.serve_margins_mapped(*host, "logistic", out, cuda)
+        assert _kernels.LAUNCHES["serve_margins"] == before + 2
+        plain = kernels.serve_margins_plain(*part, "logistic")
+        assert torch.equal(hbm[0], plain[0]), b
+        assert torch.equal(pinned[0], hbm[0].cpu()), b
+        assert torch.equal(pinned[1], hbm[1].cpu()), b
+        scale = 1e-6 * plain[1].abs().clamp_min(1.0)
+        assert bool(((hbm[1] - plain[1]).abs() <= scale).all()), b
+
+
+def test_serve_margins_many_coordinates_bitwise_plain(cuda):
+    """Two fixed coordinates (the second loaded in its own round trip, one
+    past 16 columns a lane) and three random ones (one wider than 32, one
+    past the kernel's register slots): margins bitwise the plain
+    version's in both placements at every bucket."""
+    from photon_ml_tpu_torch.serving import kernels
+
+    rng = np.random.default_rng(7)
+
+    def f32(*shape):
+        return torch.as_tensor(rng.normal(size=shape).astype(np.float32),
+                               device=cuda)
+
+    b = 64
+    fixed = [(f32(b, d), f32(d)) for d in (20, 600)]
+    random = []
+    for d in (8, 40, 8):
+        table = f32(b + 1, d)
+        table[0] = 0.0
+        slots = torch.as_tensor(
+            np.where(np.arange(b) % 3 == 0, np.arange(b) + 1, 0).astype(
+                np.int32), device=cuda)
+        random.append((f32(b, d), table, slots,
+                       f32(b, d) * (slots == 0).float()[:, None]))
+    offset = f32(b)
+    for n in (1, 7, 64):
+        part = (offset[:n], [(x[:n], w) for x, w in fixed],
+                [(x[:n], t, s[:n], c[:n]) for x, t, s, c in random])
+        hbm = kernels.serve_margins(*part, "exp")
+        host = (part[0].cpu().pin_memory(),
+                [(x.cpu().pin_memory(), w) for x, w in part[1]],
+                [(x.cpu().pin_memory(), t, s.cpu().pin_memory(),
+                  c.cpu().pin_memory()) for x, t, s, c in part[2]])
+        pinned = kernels.serve_margins_mapped(
+            *host, "exp", torch.zeros((2, n), pin_memory=True), cuda)
+        plain = kernels.serve_margins_plain(*part, "exp")
+        assert torch.equal(hbm[0], plain[0]), n
+        assert torch.equal(pinned, hbm.cpu()), n
+
+
+def test_serve_margins_refuses_pageable_host_memory(cuda):
+    """A request-side buffer in pageable host memory has no device
+    address: it is refused by name, with no copy to fall back on."""
+    from photon_ml_tpu_torch.serving import kernels
+
+    with pytest.raises(ValueError, match="the probe buffer is not "
+                       "page-locked"):
+        kernels.mapped_pointer(torch.zeros(64), "the probe buffer", cuda)
+    off, fixed, random = _serve_width_inputs(8, cuda)
+    with pytest.raises(ValueError, match="request-side operand is not "
+                       "page-locked"):
+        kernels.serve_margins_mapped(
+            off.cpu(), [(x.cpu(), w) for x, w in fixed],
+            [(x.cpu(), t, s.cpu(), c.cpu()) for x, t, s, c in random],
+            "logistic", torch.zeros((2, 64), pin_memory=True), cuda)
+    assert kernels.mapped_pointer(torch.zeros(64, pin_memory=True), "a "
+                                  "pinned buffer", cuda) != 0
+
+
+def test_serving_runtime_launches_one_prebuilt_block_a_batch(cuda):
+    """A card runtime's staging buffers are page-locked and checked, its
+    blocks point into them and at its own hot table, a batch is one launch,
+    and the library's Coords layout is the mirror's."""
+    from photon_ml_tpu_torch.serving import kernels
+    from photon_ml_tpu_torch.serving.runtime import (
+        RuntimeConfig,
+        ScoringRuntime,
+    )
+    from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
+
+    wl = SyntheticWorkload(n_entities=64, fixed_dim=512, re_dim=8, seed=9)
+    rt = ScoringRuntime(wl.model, wl.index_maps, RuntimeConfig(
+        max_batch_size=16, hot_entities=8, device="cuda"))
+    for b in rt.buckets:
+        st = rt._staging_buffers(b)
+        assert all(t.is_pinned() for t in st.tensors)
+        assert st.block.rtable[0] == rt.random[0].hot.table.data_ptr()
+        assert st.block.n == b
+    rows = [rt.parse_request(wl.request(i)) for i in range(5)]
+    before = _kernels.LAUNCHES["serve_margins"]
+    rt.score_rows(rows)
+    assert _kernels.LAUNCHES["serve_margins"] == before + 1
+
+
 def test_serving_runtime_on_card_bitwise(cuda):
     """The runtime on the card: batched == single at every bucket, hot ==
     cold, fused == composed, and the CPU runtime's margins within 1e-5 of

@@ -122,6 +122,7 @@ def test_import_leaves_jax_out_of_sys_modules():
     "photon_ml_tpu_torch.tuning.scheduler",
     "photon_ml_tpu_torch.tuning.executor",
     "photon_ml_tpu_torch.tuning.__main__",
+    "photon_ml_tpu_torch.experiments.serve_launch",
 ])
 def test_solver_slice_module_imports_alone_without_jax(module):
     """Each module of the solver, GAME, GAME-driver, out-of-core,

@@ -183,6 +183,31 @@ class TestWorkerPool:
         assert sum(r["restarts"] for r in sup.stats()["replicas"]) == \
             restarts_before + 1
 
+    def test_paused_worker_holds_its_rows_for_the_kill_to_resubmit(
+            self, proc, workload, hub):
+        """The process selfcheck's kill made deterministic: rows routed to
+        a paused worker stay in flight however long the script takes to
+        reach the kill, so the kill always resubmits some (the selfcheck
+        once found none when its worker had finished its share first),
+        and every row still scores bitwise."""
+        sup = proc.supervisor
+        assert _wait_until(lambda: sup.healthy_count == 2), sup.stats()
+        before = hub.snapshot()["counters"].get(
+            "serving_resubmitted_total", 0)
+        requests = [workload.request(50_000 + j) for j in range(16)]
+        sup.replicas[0].batcher.pause()
+        futures = [proc.service.submit(r) for r in requests]
+        time.sleep(0.5)  # a slow script: the peer finishes its share
+        held = [f for f in futures if not f.done()]
+        assert held, "the paused worker answered"
+        sup.kill_replica(0)
+        got = np.asarray([np.float32(f.result(timeout=60)["score"])
+                          for f in futures], np.float32)
+        assert got.tobytes() == _reference(workload, requests).tobytes()
+        assert hub.snapshot()["counters"].get(
+            "serving_resubmitted_total", 0) - before >= 1
+        assert _wait_until(lambda: sup.healthy_count == 2), sup.stats()
+
     def test_sigkill_under_open_loop_load_zero_errors(self, proc, workload):
         sup = proc.supervisor
         assert _wait_until(lambda: sup.healthy_count == 2), sup.stats()
