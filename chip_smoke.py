@@ -346,20 +346,41 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    evaluations of one CD iteration): 4 evaluations, the coordinates' reg
    weights, and the tuned metric equal to the final model's validation
    metric within 1e-6.
+16. The ops plane and the fault sites on the card, after phase 15.  (a)
+   phase 4's L2 driver run twice more under
+   ``torch.cuda.set_sync_debug_mode("warn")``: once with ``--telemetry
+   off``, once with the default ``--telemetry on`` and the live plane
+   (``--metrics-port 0 --metrics-interval-s 0.25``); both
+   write phase 4's model files byte for byte and make the same number of
+   synchronizing calls (the telemetry reads nothing from the device); the
+   two walls are logged side by side.  (b) During the second run a thread scrapes ``/metrics``
+   (its port from the run's log) every 10 ms until the run ends:
+   at least two scrapes parse, ``solver_iterations`` rises between them,
+   ``metrics_ts.jsonl`` holds at least 2 monotone records and no
+   exporter or sampler thread outlives the run.  (c) Phase 9c's streamed
+   L2 run's ``metrics.json`` carries ``h2d_bytes_total`` and
+   ``h2d_chunks_total`` equal to that run's transfer statistics.  (d)
+   ``python -m photon_ml_tpu_torch.chaos --selfcheck`` (on the card) and
+   ``python -m photon_ml_tpu_torch.telemetry --selfcheck``, side by side
+   as subprocesses started before phase 15 (they run beside it): both
+   exit 0, and each scenario's verdict and seconds are printed.
 
 Phase 7's GAME Avro files are written by a spawned process that starts
-after phase 1 and runs beside phases 2-6; phase 7 waits for it.
+after phase 1 and runs beside phases 2-6; phase 7 waits for it.  Phase 4's
+LIBSVM files are parsed by its own runs; every later driver run on them
+(11b, 11c, 9c, 12a, 15, 16) reads the copies parsed once after phase 4.
 
 Launch counts are zeroed just before each main-path run of phases 3, 3b,
 4, 5, 6, 7, 8, 9, 10, 11, 12, 13 (13b, 13d), 14 (14a-14b's pool,
 14b's in-process replicas, 14d's hosts, 14c's pool; each once its
-runtimes have warmed up) and 15 (each 15a solve, 15b's searches and grid,
-15c's selfcheck and driver run) and read just after; every kernel those
+runtimes have warmed up), 15 (each 15a solve, 15b's searches and grid,
+15c's selfcheck and driver run) and 16 (each of 16a's driver runs) and
+read just after; every kernel those
 paths run must have launched.  A kernel record's ``launches`` sums its
 main-path runs (phases 3, 3b, 9a, 9b and 11c's group runs for the valued
 instances, 11a's for the ``.shard`` ones, phase 4's three runs, 11b's and
-11c's driver runs, 9c's and 12a's GLM driver runs and 15a's resident
-solves and 15b's searches for the binary ones, 15a's tiled solves for the
+11c's driver runs, 9c's and 12a's GLM driver runs, 15a's resident
+solves, 15b's searches and 16a's driver runs for the binary ones, 15a's tiled solves for the
 ``.tile`` ones,
 phase 6's descents and estimator fits, phases 7's, 8's, 9c's and 12a's
 training runs, phase 10's descents, streamed solves and training runs and
@@ -6596,22 +6617,28 @@ def patched(obj, name, value):
         setattr(obj, name, old)
 
 
+#: phase 4's LIBSVM files as parsed by :func:`parse_once`, by path and
+#: arguments: every driver run after phase 4 reads the same copies.
+_PARSED: dict = {}
+
+
 def parse_once():
     """A memoizing stand-in for ``data.libsvm.read_libsvm``: each file is
-    parsed once for the whole phase (15a's arrays and every tuning CLI run
-    of 15b read the same copy)."""
+    parsed once for the driver runs after phase 4 (11b's, 11c's, 9c's and
+    12a's runs, 15a's arrays, every tuning CLI run of 15b and 16a's runs
+    read the same copy)."""
     from photon_ml_tpu_torch.data import libsvm
 
-    inner, cache = libsvm.read_libsvm, {}
+    inner = libsvm.read_libsvm
 
     def read(path, **kw):
         key = (path, tuple(sorted(kw.items())))
-        if key not in cache:
+        if key not in _PARSED:
             t0 = time.perf_counter()
-            cache[key] = inner(path, **kw)
-            log(f"phase 15: parsed {os.path.basename(path)} in "
-                f"{time.perf_counter() - t0:.2f} s")
-        return cache[key]
+            _PARSED[key] = inner(path, **kw)
+            log(f"parsed {os.path.basename(path)} once for the driver runs "
+                f"after phase 4 in {time.perf_counter() - t0:.2f} s")
+        return _PARSED[key]
 
     return read
 
@@ -7073,6 +7100,274 @@ def phase_tuning(smi, drv_files, drv_runs, drv_td, game_td, game_files,
         metrics
 
 
+# -- phase 16: the ops plane and the fault sites -------------------------
+
+
+def count_syncs(fn):
+    """``fn()`` under ``torch.cuda.set_sync_debug_mode("warn")``: (its
+    result, the synchronizing CUDA calls it made by the Python line that
+    made them, as a Counter of "file:line")."""
+    with warnings.catch_warnings(record=True) as caught:
+        warnings.simplefilter("always")
+        torch.cuda.set_sync_debug_mode("warn")
+        try:
+            out = fn()
+        finally:
+            torch.cuda.set_sync_debug_mode(0)
+    return out, collections.Counter(
+        f"{os.path.relpath(w.filename)}:{w.lineno}" for w in caught
+        if "synchroniz" in str(w.message))
+
+
+def scrape_until_done(out, done, scrapes, errors):
+    """The live plane's client: read the exporter's port from the run's
+    log, then GET /metrics every 10 ms until ``done`` is set or the
+    exporter stops answering; each parsed scrape is appended to
+    ``scrapes``."""
+    import urllib.error
+    import urllib.request
+
+    from photon_ml_tpu_torch.telemetry import parse_prometheus_text
+
+    port = None
+    log_path = os.path.join(out, "photon.log")
+    while not done.is_set() and port is None:
+        if os.path.exists(log_path):
+            with open(log_path) as f:
+                m = re.search(r"metrics exporter on http://127\.0\.0\.1:"
+                              r"(\d+)", f.read())
+            if m:
+                port = int(m.group(1))
+                break
+        time.sleep(0.01)
+    while port is not None and not done.is_set():
+        try:
+            with urllib.request.urlopen(
+                    f"http://127.0.0.1:{port}/metrics", timeout=5) as r:
+                body = r.read().decode()
+        except (urllib.error.URLError, ConnectionError, OSError):
+            break  # the run closed its exporter
+        try:
+            scrapes.append((time.perf_counter(),
+                            parse_prometheus_text(body)))
+        except ValueError as e:
+            errors.append(str(e))
+        time.sleep(0.01)
+
+
+def stage_spans(out):
+    """Seconds of a driver run's top-level stage spans, from its
+    events.jsonl."""
+    spans = {}
+    with open(os.path.join(out, "events.jsonl")) as f:
+        for line in f:
+            rec = json.loads(line)
+            if rec.get("type") == "span" and rec["name"] in (
+                    "run", "read", "summarize", "train", "validate",
+                    "write"):
+                spans[rec["name"]] = round(rec["dur"], 3)
+    return spans
+
+
+def selfcheck_process(module, args=()):
+    """``python -m module --selfcheck`` from the repository root, started
+    now (the caller reads it with :func:`selfcheck_result`)."""
+    return subprocess.Popen(
+        [sys.executable, "-m", module, "--selfcheck", *args],
+        cwd=os.path.dirname(os.path.abspath(__file__)),
+        stdout=subprocess.PIPE, stderr=subprocess.PIPE, text=True)
+
+
+def start_selfchecks():
+    """Phase 16d's two selfchecks, started side by side: (start time, the
+    processes by label).  The caller stops any still running when it
+    ends."""
+    return time.perf_counter(), {
+        "chaos selfcheck": selfcheck_process(
+            "photon_ml_tpu_torch.chaos", ("--device", DEVICE)),
+        "telemetry selfcheck": selfcheck_process(
+            "photon_ml_tpu_torch.telemetry"),
+    }
+
+
+def stop_processes(procs):
+    for proc in procs:
+        if proc.poll() is None:
+            proc.kill()
+            proc.communicate()
+
+
+def selfcheck_result(label, proc, t0, timeout=300):
+    """Wait for ``proc`` (killed at ``timeout``), print its scenario
+    lines, and check it exited 0."""
+    try:
+        out, err = proc.communicate(timeout=timeout)
+    except subprocess.TimeoutExpired:
+        proc.kill()
+        out, err = proc.communicate()
+        check(False, f"{label}: no exit in {timeout} s")
+    wall = time.perf_counter() - t0
+    for line in out.splitlines():
+        if line.startswith(("chaos scenario ", "telemetry selfcheck pass ")):
+            log(f"phase 16d {label}: {line}")
+    log(f"phase 16d {label}: exit {proc.returncode} in {wall:.1f} s")
+    check(proc.returncode == 0,
+          f"{label} failed (exit {proc.returncode}): {err[-2000:]}")
+    return wall
+
+
+def phase_ops_plane(smi, drv_files, drv_runs, selfchecks):
+    """Phase 16: the ops plane and the fault sites on the card (see the
+    module docstring); ``selfchecks`` is :func:`start_selfchecks`' result,
+    started beside phase 15.  Returns (the binary kernels' launches of
+    16a's driver runs, metrics)."""
+    from photon_ml_tpu_torch.drivers import glm_driver
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.telemetry import read_series
+
+    from photon_ml_tpu_torch.data import libsvm
+
+    t_phase = time.perf_counter()
+    train, val = drv_files
+    ref_out, ref_result = drv_runs["l2"]
+    td = os.path.dirname(ref_out)
+    total = {}
+    runs = {}
+    # The process's first synchronize under the debug mode warns once
+    # more than later ones do: spend it here, before the compared runs.
+    _, first = count_syncs(torch.cuda.synchronize)
+    log(f"phase 16a: a synchronize under the debug mode, first in the "
+        f"process: {sum(first.values())} warning(s)")
+    for label, flags in (
+            ("off", ("--telemetry", "off")),
+            ("on", ("--metrics-port", "0", "--metrics-interval-s", "0.25"))):
+        out = os.path.join(td, f"ops_plane_{label}")
+        done = threading.Event()
+        scrapes, errors = [], []
+        scraper = threading.Thread(
+            target=scrape_until_done, args=(out, done, scrapes, errors),
+            name="ops-plane-scraper", daemon=True)
+        if label == "on":
+            scraper.start()
+        torch.cuda.synchronize()
+        _kernels.reset_launches()
+        t0 = time.perf_counter()
+        try:
+            # The files as parsed once after phase 4: both runs skip the
+            # parse, which makes no synchronizing call.
+            with patched(libsvm, "read_libsvm", parse_once()):
+                result, syncs = count_syncs(lambda: glm_driver.run([
+                    "--train-data", train, "--validate-data", val,
+                    "--output-dir", out, "--task", "logistic",
+                    *DRIVER_RUNS[0][1], "--reg-weights", "0.1,1,10",
+                    "--max-iters", "50", "--n-features", str(N_FEATURES),
+                    "--device", DEVICE, *flags]))
+            torch.cuda.synchronize()
+            wall = time.perf_counter() - t0
+        finally:
+            done.set()
+            if label == "on":
+                scraper.join(timeout=30)
+        launches = dict(_kernels.LAUNCHES)
+        for k, n in launches.items():
+            total[k] = total.get(k, 0) + n
+        for op in ("matvec_unit", "rmatvec_unit", "sq_rmatvec_unit"):
+            check(launches[op] > 0, f"phase 16a {label}: {op} never "
+                  "launched")
+        check(result["best_lambda"] == ref_result["best_lambda"]
+              and result["metrics"] == ref_result["metrics"],
+              f"phase 16a {label}: result {result['metrics']} vs phase 4's "
+              f"{ref_result['metrics']}")
+        runs[label] = dict(out=out, wall_s=wall, syncs=syncs,
+                           scrapes=scrapes, errors=errors)
+        log(f"phase 16a telemetry {label}: {wall:.2f} s end to end, "
+            f"{sum(syncs.values())} synchronizing CUDA calls; launches "
+            f"{json.dumps({k: v for k, v in launches.items() if v})}")
+
+    # (a) Telemetry changes nothing: the same files, the same syncs.
+    ref_files = _files(ref_out, "model_lambda_")
+    ref_files["index_map.json"] = _files(ref_out, "index_map")[
+        "index_map.json"]
+    check(bool(ref_files), "phase 16a: phase 4's L2 run wrote no model")
+    for label in ("on", "off"):
+        got = _files(runs[label]["out"], "model_lambda_")
+        got["index_map.json"] = _files(runs[label]["out"], "index_map")[
+            "index_map.json"]
+        check(got == ref_files,
+              f"phase 16a {label}: model files differ from phase 4's L2 "
+              f"run ({sorted(got)} vs {sorted(ref_files)})")
+    on, off = runs["on"], runs["off"]
+    check(on["syncs"] == off["syncs"],
+          f"phase 16a: {sum(on['syncs'].values())} synchronizing calls "
+          f"with telemetry on, {sum(off['syncs'].values())} off; on only "
+          f"{dict(on['syncs'] - off['syncs'])}, off only "
+          f"{dict(off['syncs'] - on['syncs'])}")
+    check(not os.path.exists(os.path.join(off["out"], "events.jsonl")),
+          "phase 16a: --telemetry off wrote events.jsonl")
+    log(f"phase 16a: stage spans (s) of the run with the plane "
+        f"{json.dumps(stage_spans(on['out']))}, of phase 4's L2 run "
+        f"{json.dumps(stage_spans(ref_out))}")
+    log(f"phase 16a [{smi}]: walls telemetry on {on['wall_s']:.3f} s / off "
+        f"{off['wall_s']:.3f} s; synchronizing calls "
+        f"{sum(on['syncs'].values())} / {sum(off['syncs'].values())}, at "
+        f"the same lines; model files byte-equal to phase 4's L2 run")
+
+    # (b) The live plane scraped mid-run.
+    scrapes = on["scrapes"]
+    check(not on["errors"], f"phase 16b: unparseable scrapes "
+          f"{on['errors'][:2]}")
+    iters = [p.get(("solver_iterations", ""), 0.0) for _, p in scrapes]
+    check(len(scrapes) >= 2, f"phase 16b: {len(scrapes)} scrapes of "
+          "/metrics during the run")
+    check(iters == sorted(iters) and iters[-1] > iters[0],
+          f"phase 16b: solver_iterations did not rise between scrapes "
+          f"({iters[0] if iters else None} → "
+          f"{iters[-1] if iters else None})")
+    series = read_series(os.path.join(on["out"], "metrics_ts.jsonl"))
+    monos = [r["t_mono"] for r in series]
+    check(len(series) >= 2 and all(b > a for a, b in zip(monos,
+                                                             monos[1:])),
+          f"phase 16b: metrics_ts.jsonl {len(series)} records, t_mono "
+          f"{monos[:4]}")
+    alive = [t.name for t in threading.enumerate()
+             if t.name.startswith("telemetry-")]
+    check(not alive, f"phase 16b: threads outlived the run: {alive}")
+    log(f"phase 16b [{smi}]: {len(scrapes)} scrapes of /metrics during "
+        f"the run, solver_iterations {iters[0]:g} → {iters[-1]:g}; "
+        f"{len(series)} time-series records; exporter joined")
+
+    # (c) 9c's counters, then (d) the selfchecks' results.
+    t0, procs = selfchecks
+    try:
+        stream_out = os.path.join(td, "stream_l2")
+        with open(os.path.join(stream_out, "metrics.json")) as f:
+            counters = json.load(f)["counters"]
+        with open(os.path.join(stream_out, "training_result.json")) as f:
+            transfer = json.load(f)["streaming"]["transfer"]
+        check(counters.get("h2d_bytes_total") == transfer["bytes"]
+              and counters.get("h2d_chunks_total") == transfer["chunks"],
+              f"phase 16c: metrics.json h2d "
+              f"{counters.get('h2d_bytes_total')} B / "
+              f"{counters.get('h2d_chunks_total')} chunks vs the run's "
+              f"transfer statistics {transfer['bytes']} B / "
+              f"{transfer['chunks']} chunks")
+        log(f"phase 16c: 9c's streamed L2 run: h2d_bytes_total "
+            f"{counters['h2d_bytes_total']}, h2d_chunks_total "
+            f"{counters['h2d_chunks_total']} = its transfer statistics")
+        walls = {label: selfcheck_result(label, proc, t0)
+                 for label, proc in procs.items()}
+    finally:
+        stop_processes(procs.values())
+    metrics = {"wall_on_s": on["wall_s"], "wall_off_s": off["wall_s"],
+               "syncs": sum(on["syncs"].values()),
+               "scrapes": len(scrapes),
+               "chaos_selfcheck_s": walls["chaos selfcheck"],
+               "telemetry_selfcheck_s": walls["telemetry selfcheck"],
+               "seconds": time.perf_counter() - t_phase}
+    log(f"phase 16 [{smi}]: {metrics['seconds']:.1f} s")
+    return total, metrics
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
@@ -7137,12 +7432,29 @@ def _main_from_phase2(smi, t_start, td, writer):
         shutil.rmtree(drv_td, ignore_errors=True)
 
 
-def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
-                      stream_metrics, val_launches, drv_td, td, writer,
-                      multi):
+def _main_from_phase4(*args):
+    """The phases from 4 on, with ``read_libsvm`` put back at the end (the
+    driver runs after phase 4 read its files through :func:`parse_once`)."""
+    from photon_ml_tpu_torch.data import libsvm
+
+    original = libsvm.read_libsvm
+    try:
+        return _phases_from_4(*args)
+    finally:
+        libsvm.read_libsvm = original
+
+
+def _phases_from_4(smi, t_start, kern, lib_metrics, sol_records,
+                   stream_metrics, val_launches, drv_td, td, writer, multi):
+    from photon_ml_tpu_torch.data import libsvm
+
     log("phase 4: driver")
     drv_launches, drv_files, drv_runs = phase_driver(drv_td)
     torch.cuda.empty_cache()
+    # Every later driver run on phase 4's files (11b, 11c, 9c, 12a, 15,
+    # 16) reads them as parsed once, here: the parse is phase 4's check,
+    # not theirs.
+    libsvm.read_libsvm = parse_once()
     log("phase 11b: block coordinate descent (run here, on phase 4's "
         "files)")
     bcd_launches, multi["block_cd"] = phase_block_cd(drv_files, drv_td)
@@ -7191,12 +7503,26 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
     proc_launches, proc_metrics = phase_process_fleet(smi, td, handoff)
     del handoff
     torch.cuda.empty_cache()
-    log("phase 15: tensor parallel and tuning")
-    (tp_binary, tile_launches, tile_kern, tune_game, tune_game_val,
-     tune_metrics) = phase_tuning(
-        smi, drv_files, drv_runs, drv_td, td, (train, val),
-        torch.Generator(device=DEVICE).manual_seed(15))
-    for k, n in tp_binary.items():
+    # Phase 16d's selfchecks are processes of their own: they run beside
+    # phase 15 (each is mostly its interpreter's start and imports).
+    log("phase 16d: the chaos and telemetry selfchecks start, beside "
+        "phase 15")
+    selfchecks = start_selfchecks()
+    try:
+        log("phase 15: tensor parallel and tuning")
+        (tp_binary, tile_launches, tile_kern, tune_game, tune_game_val,
+         tune_metrics) = phase_tuning(
+            smi, drv_files, drv_runs, drv_td, td, (train, val),
+            torch.Generator(device=DEVICE).manual_seed(15))
+        for k, n in tp_binary.items():
+            drv_launches[k] = drv_launches.get(k, 0) + n
+        torch.cuda.empty_cache()
+        log("phase 16: the ops plane and the fault sites on the card")
+        ops_launches, ops_metrics = phase_ops_plane(smi, drv_files, drv_runs,
+                                                    selfchecks)
+    finally:
+        stop_processes(selfchecks[1].values())
+    for k, n in ops_launches.items():
         drv_launches[k] = drv_launches.get(k, 0) + n
     # The serving records count phase 13's and phase 14's launches of
     # their geometry (phase 14's workers' folded in).
@@ -7204,8 +7530,8 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
         r["launches"] += proc_launches[
             "bench_serving's model" if ".bench_serving." in r["name"]
             else "phase 7's model"]
-    # The binary records count phase 4's, 11b's, 11c's and 9c's GLM driver
-    # launches.
+    # The binary records count phase 4's, 11b's, 11c's, 9c's and 16a's GLM
+    # driver launches.
     drv_launches = {k: drv_launches.get(k, 0) + sd_launches.get(k, 0)
                     for k in set(drv_launches) | set(sd_launches)}
     # The .game records count phase 6's, 7's, 8's, 9c's and 10's training
@@ -7331,6 +7657,7 @@ def _main_from_phase4(smi, t_start, kern, lib_metrics, sol_records,
         f"; process tier: {json.dumps(proc_metrics, default=float)}"
         f"; tensor parallel and tuning: "
         f"{json.dumps(tune_metrics, default=float)}"
+        f"; ops plane: {json.dumps(ops_metrics, default=float)}"
         f"; total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))

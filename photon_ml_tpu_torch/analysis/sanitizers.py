@@ -5,7 +5,7 @@ framework-neutral, copied).
 These police what only execution can see — the ORDER locks are actually
 taken in, and the threads and processes actually left behind.  The
 reference's static rules (``engine.py``, ``rules_*.py``) are ROADMAP
-item 8.
+item 8d.
 
 **Lock-order sanitizer** (the lockdep idea, witness-style): every
 tracked lock carries a witness NAME (a class of locks, not an

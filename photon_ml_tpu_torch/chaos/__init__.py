@@ -9,8 +9,8 @@ Public surface::
     chaos.CircuitBreaker            # closed -> open -> half-open probe
     chaos.KNOWN_SITES               # the fault-site catalog
 
-The reference's ``python -m photon_ml_tpu.chaos --selfcheck`` (a
-training kill/resume scenario) waits for ROADMAP item 8.
+``python -m photon_ml_tpu_torch.chaos --selfcheck`` runs the scripted
+kill/resume/degrade scenarios end to end (see ``__main__.py``).
 """
 
 from photon_ml_tpu_torch.chaos.breaker import (  # noqa: F401

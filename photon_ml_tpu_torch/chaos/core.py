@@ -10,10 +10,14 @@ EXACTLY: occurrence counters are plan-local and thread-safe, so the same
 plan against the same workload kills at the same boundary every time.
 
 The port wires the serving and freshness sites (``serving.*``,
-``publish.*``, ``online.step``, ``quota.lease``).  The training-side
-sites (``prefetch.*``, ``staging.*``, ``checkpoint.*``, ``grid.point``,
-``game.bucket_shard`` and the rest) stay in the catalog with no caller
-until ROADMAP item 8 wires them.
+``publish.*``, ``online.step``, ``quota.lease``), the ten training sites
+(``prefetch.pack``/``transfer``, ``staging.put``/``decode``,
+``streaming.carry_sync``/``cache_evict``, ``checkpoint.save``/``restore``,
+``cd.iteration``, ``grid.point``) at the reference's places, and the fleet
+aggregator's ``telemetry.scrape``.  The rest of the catalog (the
+``cluster.*`` sites, ``game.repack``, ``game.bucket_shard``,
+``admm.consensus`` and ``distributed.allreduce``) has no caller in the
+port yet (ROADMAP Queue 1).
 
 Cost contract (mirrors the telemetry hub): with no plan installed,
 every instrumented seam pays ONE module-global read + one branch

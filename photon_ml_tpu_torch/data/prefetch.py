@@ -47,6 +47,13 @@ for the pack's wait on a free pinned slot, which ``pack_seconds`` leaves
 out so that it is the host copy alone; on the card
 ``h2d_device_seconds`` is the copies' time between their CUDA events on
 the copy stream, and :attr:`TransferStats.gbps` is measured against it.
+
+Each pass publishes its :class:`TransferStats` DELTAS to the process
+telemetry hub (``h2d_bytes_total``, ``h2d_chunks_total``, the stage
+seconds and stalls, a ``prefetch.pass`` event) and keeps the
+``hbm_live_bytes`` / ``prefetch_ring_occupancy_ratio`` gauges current,
+all from host bookkeeping (no device read).  The ``prefetch.pack`` and
+``prefetch.transfer`` fault sites fire before each item's pack and put.
 """
 
 from __future__ import annotations
@@ -61,6 +68,8 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import chaos as chaos_mod
+from photon_ml_tpu_torch import telemetry as telemetry_mod
 from photon_ml_tpu_torch.data.staging import torch_dtype
 
 #: how long the caller waits for the background threads after a pass (a
@@ -312,6 +321,69 @@ class _ProducerFailure:
         self.exc = exc
 
 
+def _publish_pass(stats: TransferStats, before: tuple, run_max: int,
+                  run_max_bytes: int = 0) -> None:
+    """Feed this pass's TransferStats DELTAS into the process telemetry
+    registry: counters accumulate across every stream of the process
+    because each pass adds only its own delta; gauges carry the LAST
+    pass's rates.  One call a pass, nothing a chunk."""
+    tel = telemetry_mod.current()
+    if not tel.enabled:
+        return
+    (bytes0, h2d0, chunks0, cs0, css0, ps0, pss0,
+     pack0, disp0, cons0, logical0) = before
+    d_bytes = stats.bytes - bytes0
+    d_logical = stats.logical_bytes - logical0
+    d_h2d = stats.h2d_seconds - h2d0
+    d_chunks = stats.chunks - chunks0
+    d_pack = stats.pack_seconds - pack0
+    d_disp = stats.dispatch_seconds - disp0
+    d_cons = stats.consume_seconds - cons0
+    tel.counter("h2d_bytes_total").inc(d_bytes)
+    # Wire vs logical split (compressed chunk formats): h2d_bytes_total
+    # and h2d_gbps stay wire-denominated, the link's own measurement.
+    tel.counter("stream_wire_bytes_total").inc(d_bytes)
+    tel.counter("stream_logical_bytes_total").inc(d_logical)
+    tel.counter("h2d_chunks_total").inc(d_chunks)
+    tel.counter("h2d_seconds").inc(d_h2d)
+    tel.counter("prefetch_pack_seconds").inc(d_pack)
+    tel.counter("prefetch_dispatch_seconds").inc(d_disp)
+    tel.counter("prefetch_consume_seconds").inc(d_cons)
+    tel.counter("consumer_stalls").inc(stats.consumer_stalls - cs0)
+    tel.counter("consumer_stall_seconds").inc(
+        stats.consumer_stall_seconds - css0)
+    tel.counter("producer_stalls").inc(stats.producer_stalls - ps0)
+    tel.counter("producer_stall_seconds").inc(
+        stats.producer_stall_seconds - pss0)
+    tel.counter("prefetch_passes").inc()
+    if d_h2d > 0.0:
+        tel.gauge("h2d_gbps").set(d_bytes / d_h2d / 1e9)
+    if d_bytes > 0:
+        tel.gauge("stream_compression_ratio").set(d_logical / d_bytes)
+    if d_chunks > 0:
+        tel.gauge("h2d_chunk_seconds").set(d_h2d / d_chunks)
+        tel.gauge("prefetch_pack_chunk_seconds").set(d_pack / d_chunks)
+        tel.gauge("prefetch_dispatch_chunk_seconds").set(d_disp / d_chunks)
+        tel.gauge("prefetch_consume_chunk_seconds").set(d_cons / d_chunks)
+    tel.gauge("prefetch_max_live").set(run_max)
+    # The pass's high-water of transferred-not-yet-consumed device bytes.
+    tel.gauge("hbm_live_peak_bytes").set(run_max_bytes)
+    tel.event(
+        "prefetch.pass",
+        chunks=d_chunks,
+        bytes=d_bytes,
+        h2d_seconds=round(d_h2d, 6),
+        pack_seconds=round(d_pack, 6),
+        dispatch_seconds=round(d_disp, 6),
+        consume_seconds=round(d_cons, 6),
+        logical_bytes=d_logical,
+        consumer_stalls=stats.consumer_stalls - cs0,
+        producer_stalls=stats.producer_stalls - ps0,
+        max_live=run_max,
+        max_live_bytes=run_max_bytes,
+    )
+
+
 def run_prefetched(
     n_items: int,
     get_item: Callable[[int], object],
@@ -346,6 +418,13 @@ def run_prefetched(
     if n_items == 0:
         stats.passes += 1
         return 0
+    stats_before = (
+        stats.bytes, stats.h2d_seconds, stats.chunks,
+        stats.consumer_stalls, stats.consumer_stall_seconds,
+        stats.producer_stalls, stats.producer_stall_seconds,
+        stats.pack_seconds, stats.dispatch_seconds, stats.consume_seconds,
+        stats.logical_bytes,
+    )
 
     handoff: queue.Queue = queue.Queue(maxsize=depth)
     q: queue.Queue = queue.Queue()
@@ -355,6 +434,12 @@ def run_prefetched(
     live_lock = threading.Lock()
     live = [0, 0]  # items, bytes
     run_max = [0, 0]
+    # Gauges resolved once a pass (no-op metrics on a disabled hub): the
+    # device bytes this pipeline pins and how full the ring is.
+    tel = telemetry_mod.current()
+    ctx = tel.current_context()
+    g_live = tel.gauge("hbm_live_bytes")
+    g_occ = tel.gauge("prefetch_ring_occupancy_ratio")
 
     def _bump(delta: int, nbytes: int) -> None:
         with live_lock:
@@ -362,6 +447,9 @@ def run_prefetched(
             live[1] += nbytes
             run_max[0] = max(run_max[0], live[0])
             run_max[1] = max(run_max[1], live[1])
+            lb, occ = live[1], live[0] / depth
+        g_live.set(lb)
+        g_occ.set(occ)
 
     def _handoff_put(item) -> bool:
         while not abort.is_set():
@@ -373,22 +461,27 @@ def run_prefetched(
         return False
 
     def _packer() -> None:
+        # The attached context parents this thread's span under the
+        # caller's, so the trace nests the pack track inside the solve.
         try:
-            for k in range(n_items):
-                if abort.is_set():
-                    return
-                t0 = time.perf_counter()
-                host = get_item(k)
-                stall = getattr(host, "stall_seconds", 0.0)
-                stats.pack_seconds += time.perf_counter() - t0 - stall
-                if stall:
-                    stats.pack_stalls += 1
-                    stats.pack_stall_seconds += stall
-                nbytes = item_nbytes(host)
-                lb = logical_nbytes(k) if logical_nbytes else nbytes
-                if not _handoff_put((k, host, nbytes, lb)):
-                    return
-                del host
+            with tel.attach(ctx), tel.span("prefetch.pack_stage",
+                                           items=n_items):
+                for k in range(n_items):
+                    if abort.is_set():
+                        return
+                    chaos_mod.maybe_fail("prefetch.pack", item=k)
+                    t0 = time.perf_counter()
+                    host = get_item(k)
+                    stall = getattr(host, "stall_seconds", 0.0)
+                    stats.pack_seconds += time.perf_counter() - t0 - stall
+                    if stall:
+                        stats.pack_stalls += 1
+                        stats.pack_stall_seconds += stall
+                    nbytes = item_nbytes(host)
+                    lb = logical_nbytes(k) if logical_nbytes else nbytes
+                    if not _handoff_put((k, host, nbytes, lb)):
+                        return
+                    del host
         except BaseException as exc:  # surfaced on the caller's thread
             # In order: the failure rides the hand-off queue behind the
             # items that packed, so the consumer sees 0..k-1, then it.
@@ -396,42 +489,46 @@ def run_prefetched(
 
     def _transfer() -> None:
         try:
-            for _ in range(n_items):
-                item = None
-                while not abort.is_set():
-                    try:
-                        item = handoff.get(timeout=_POLL_SECONDS)
-                        break
-                    except queue.Empty:
-                        pass
-                if item is None:
-                    return
-                if isinstance(item, _ProducerFailure):
-                    q.put(item)
-                    return
-                k, host, nbytes, lb = item
-                if not permits.acquire(blocking=False):
+            with tel.attach(ctx), tel.span("prefetch.transfer_stage",
+                                           items=n_items):
+                for _ in range(n_items):
+                    item = None
+                    while not abort.is_set():
+                        try:
+                            item = handoff.get(timeout=_POLL_SECONDS)
+                            break
+                        except queue.Empty:
+                            pass
+                    if item is None:
+                        return
+                    if isinstance(item, _ProducerFailure):
+                        q.put(item)
+                        return
+                    k, host, nbytes, lb = item
+                    if not permits.acquire(blocking=False):
+                        t0 = time.perf_counter()
+                        while not permits.acquire(timeout=_POLL_SECONDS):
+                            if abort.is_set():
+                                return
+                        stats.producer_stalls += 1
+                        stats.producer_stall_seconds += (
+                            time.perf_counter() - t0)
+                    if abort.is_set():
+                        return
+                    chaos_mod.maybe_fail("prefetch.transfer", item=k)
                     t0 = time.perf_counter()
-                    while not permits.acquire(timeout=_POLL_SECONDS):
-                        if abort.is_set():
-                            return
-                    stats.producer_stalls += 1
-                    stats.producer_stall_seconds += time.perf_counter() - t0
-                if abort.is_set():
-                    return
-                t0 = time.perf_counter()
-                dev = put(host)
-                stats.dispatch_seconds += time.perf_counter() - t0
-                wait = getattr(dev, "wait", None)
-                if wait is not None:
-                    stats.h2d_device_seconds += wait()
-                stats.h2d_seconds += time.perf_counter() - t0
-                stats.bytes += nbytes
-                stats.logical_bytes += lb
-                stats.chunks += 1
-                _bump(+1, nbytes)
-                q.put((k, dev, nbytes))
-                del dev, host, item
+                    dev = put(host)
+                    stats.dispatch_seconds += time.perf_counter() - t0
+                    wait = getattr(dev, "wait", None)
+                    if wait is not None:
+                        stats.h2d_device_seconds += wait()
+                    stats.h2d_seconds += time.perf_counter() - t0
+                    stats.bytes += nbytes
+                    stats.logical_bytes += lb
+                    stats.chunks += 1
+                    _bump(+1, nbytes)
+                    q.put((k, dev, nbytes))
+                    del dev, host, item
         except BaseException as exc:  # surfaced on the caller's thread
             q.put(_ProducerFailure(exc))
 
@@ -467,6 +564,12 @@ def run_prefetched(
         packer.join(timeout=JOIN_TIMEOUT_SECONDS)
         transfer.join(timeout=JOIN_TIMEOUT_SECONDS)
         leaked = [t.name for t in (packer, transfer) if t.is_alive()]
+        if leaked:
+            # A wedged thread outliving its pass pins chunk buffers: count
+            # it, and raise when the pass was otherwise about to succeed
+            # (a failure already propagating keeps priority).
+            tel.counter("prefetch_thread_leak").inc(len(leaked))
+            tel.event("prefetch.thread_leak", threads=leaked)
         if leaked and sys.exc_info()[0] is None:
             raise RuntimeError(
                 f"prefetch pipeline thread(s) {leaked} still alive after "
@@ -482,4 +585,5 @@ def run_prefetched(
     stats.passes += 1
     stats.max_live = max(stats.max_live, run_max[0])
     stats.max_live_bytes = max(stats.max_live_bytes, run_max[1])
+    _publish_pass(stats, stats_before, run_max[0], run_max[1])
     return run_max[0]

@@ -19,8 +19,10 @@ rows a block), every block carrying the model's entity-id columns.  The
 score, label and weight columns are kept across blocks only when the
 metric is global (AUC); a pointwise metric with ``--device-metrics``
 accumulates a (sum, weight) pair a block on the device
-(``device_pointwise_partial``).  Telemetry and the compile cache are left
-out, as in the port's GLM driver.
+(``device_pointwise_partial``).  ``--telemetry on`` (the default) writes
+``events.jsonl``, ``trace.json`` and ``metrics.json`` with a ``run`` span
+and the ``scored_rows`` and ``run_wall_seconds`` gauges, as the reference
+does; the compile cache has no counterpart in the port.
 
 Usage:
     python -m photon_ml_tpu_torch.drivers.game_scoring_driver \\
@@ -41,6 +43,10 @@ import torch
 
 from photon_ml_tpu_torch.data.game_reader import iter_game_avro, read_game_avro
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.drivers.ops_plane import (
+    add_telemetry_args,
+    driver_telemetry,
+)
 from photon_ml_tpu_torch.evaluation.evaluators import get_evaluator
 from photon_ml_tpu_torch.game.estimator import GameTransformer
 from photon_ml_tpu_torch.io import avro
@@ -80,14 +86,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device for the model and the device metric "
                    "(cuda | cpu)")
+    add_telemetry_args(p, ops_plane=False)
     return p
 
 
 def run(argv: Optional[Sequence[str]] = None) -> dict:
     args = build_arg_parser().parse_args(argv)
     os.makedirs(args.output_dir, exist_ok=True)
-    with PhotonLogger(args.output_dir) as logger:
-        return _run_impl(args, logger)
+    with PhotonLogger(args.output_dir) as logger, driver_telemetry(
+            args, logger, "game_scoring_driver") as tel:
+        return _run_impl(args, logger, tel)
 
 
 def _score_block(uids, scores, labels, ids):
@@ -98,7 +106,7 @@ def _score_block(uids, scores, labels, ids):
             np.asarray(labels, np.float32), {k: ids[k] for k in sorted(ids)})
 
 
-def _run_impl(args, logger) -> dict:
+def _run_impl(args, logger, tel) -> dict:
     timer = Timer().start()
     device = resolve_device(args.device)
     stages, read_stats, write_stats = {}, {}, {}
@@ -135,6 +143,8 @@ def _run_impl(args, logger) -> dict:
         stages["write"] = stage.stop()
         n_rows = len(scores)
     result = {"n_rows": int(n_rows), "wall_seconds": timer.stop(), **extra}
+    tel.gauge("scored_rows").set(int(n_rows))
+    tel.gauge("run_wall_seconds").set(result["wall_seconds"])
     if ev is not None:
         stage.start()
         if partial is not None:

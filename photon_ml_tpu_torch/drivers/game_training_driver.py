@@ -85,6 +85,10 @@ from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.analysis import sanitizers
 from photon_ml_tpu_torch.data.game_reader import read_game_avro
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.drivers.ops_plane import (
+    add_telemetry_args,
+    driver_telemetry,
+)
 from photon_ml_tpu_torch.evaluation.suite import EvaluationSuite
 from photon_ml_tpu_torch.game.estimator import (
     FactoredRandomEffectCoordinateConfig,
@@ -348,6 +352,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="torch device for the datasets, the descent and the "
         "validation scorers (cuda | cpu)",
     )
+    add_telemetry_args(p)
     return p
 
 
@@ -361,7 +366,9 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         # The reference forms a mesh only over more than one device.
         mesh = (multihost.global_data_mesh()
                 if args.data_parallel == "auto" and world > 1 else None)
-        return _run_impl(args, logger, mesh)
+        with driver_telemetry(args, logger, "game_training_driver",
+                              writer=mesh is None or mesh.rank == 0) as tel:
+            return _run_impl(args, logger, mesh, tel)
 
 
 class _ReadOnly:
@@ -399,7 +406,8 @@ def _suite_from_config(config: dict, task: str) -> EvaluationSuite:
     return suite
 
 
-def _run_impl(args, logger, mesh=None) -> dict:
+def _run_impl(args, logger, mesh=None, tel=None) -> dict:
+    tel = telemetry.current() if tel is None else tel
     timer = Timer().start()
     device = resolve_device(args.device)
     writer = mesh is None or mesh.rank == 0
@@ -432,17 +440,18 @@ def _run_impl(args, logger, mesh=None) -> dict:
     stages: dict = {}
     decoders = {"train": {}}
     read_timer = Timer().start()
-    if args.initial_model:
-        initial_model, initial_imaps = load_game_model(args.initial_model,
-                                                       device=device)
-        shards, ids, response, weight, offset, _, _ = read_game_avro(
-            args.train_data, index_maps=initial_imaps, logger=logger,
-            stats=decoders["train"])
-        index_maps = initial_imaps
-        logger.info("incremental training from %s", args.initial_model)
-    else:
-        shards, ids, response, weight, offset, _, index_maps = (
-            read_game_avro(args.train_data, stats=decoders["train"]))
+    with tel.span("read", path=args.train_data):
+        if args.initial_model:
+            initial_model, initial_imaps = load_game_model(args.initial_model,
+                                                           device=device)
+            shards, ids, response, weight, offset, _, _ = read_game_avro(
+                args.train_data, index_maps=initial_imaps, logger=logger,
+                stats=decoders["train"])
+            index_maps = initial_imaps
+            logger.info("incremental training from %s", args.initial_model)
+        else:
+            shards, ids, response, weight, offset, _, index_maps = (
+                read_game_avro(args.train_data, stats=decoders["train"]))
     stages["read train"] = read_timer.stop()
     logger.info(
         "read %d rows in %.3fs; shards: %s; id columns: %s", len(response),
@@ -470,9 +479,10 @@ def _run_impl(args, logger, mesh=None) -> dict:
     if args.validate_data:
         read_timer = Timer().start()
         decoders["validation"] = {}
-        validation = read_game_avro(args.validate_data,
-                                    index_maps=index_maps, logger=logger,
-                                    stats=decoders["validation"])
+        with tel.span("read", path=args.validate_data, validation=True):
+            validation = read_game_avro(args.validate_data,
+                                        index_maps=index_maps, logger=logger,
+                                        stats=decoders["validation"])
         stages["read validation"] = read_timer.stop()
         logger.info("read %d validation rows in %.3fs",
                     len(validation[2]), stages["read validation"])
@@ -545,15 +555,17 @@ def _run_impl(args, logger, mesh=None) -> dict:
     retry_stats = RetryStats()
     fit_timer = Timer().start()
     if len(config_grid) > 1:
-        model, grid_results = run_with_retries(
-            lambda attempt: estimator.fit_grid(
-                config_grid, shards, ids, response, weight=weight,
-                offset=offset, validation=val_tuple, suite=suite,
-                initial_model=initial_model,
-                grid_checkpointer=grid_checkpointer,
-            ),
-            retry_policy, logger, stats=retry_stats,
-        )
+        with tel.span("train", grid_points=len(config_grid),
+                      cd_iterations=n_cd_iterations):
+            model, grid_results = run_with_retries(
+                lambda attempt: estimator.fit_grid(
+                    config_grid, shards, ids, response, weight=weight,
+                    offset=offset, validation=val_tuple, suite=suite,
+                    initial_model=initial_model,
+                    grid_checkpointer=grid_checkpointer,
+                ),
+                retry_policy, logger, stats=retry_stats,
+            )
         best = next(r for r in grid_results if r["best"])
         history = best["history"]
         result["grid"] = [
@@ -571,15 +583,16 @@ def _run_impl(args, logger, mesh=None) -> dict:
                     len(grid_results), best["grid_index"],
                     best["selected_by"], best["metric"])
     else:
-        model, history = run_with_retries(
-            lambda attempt: estimator.fit(
-                shards, ids, response, weight=weight, offset=offset,
-                validation=val_tuple, suite=suite,
-                initial_model=initial_model, checkpointer=checkpointer,
-                locked_coordinates=locked,
-            ),
-            retry_policy, logger, stats=retry_stats,
-        )
+        with tel.span("train", cd_iterations=n_cd_iterations):
+            model, history = run_with_retries(
+                lambda attempt: estimator.fit(
+                    shards, ids, response, weight=weight, offset=offset,
+                    validation=val_tuple, suite=suite,
+                    initial_model=initial_model, checkpointer=checkpointer,
+                    locked_coordinates=locked,
+                ),
+                retry_policy, logger, stats=retry_stats,
+            )
     stages["fit"] = fit_timer.stop()
     logger.info("fit %.3fs (%d coordinate updates)", stages["fit"],
                 len(history))
@@ -592,19 +605,22 @@ def _run_impl(args, logger, mesh=None) -> dict:
 
     if validation is not None:
         final_timer = Timer().start()
-        v_scores = GameTransformer(model).transform(v_shards, v_ids, v_offset)
-        v_groups = (np.asarray(v_ids[suite.group_column])
-                    if suite.group_column is not None else None)
-        result["validation_metric"] = evaluator.evaluate(
-            v_scores, v_resp, v_weight, group_ids=v_groups)
+        with tel.span("validate", rows=int(len(v_resp))):
+            v_scores = GameTransformer(model).transform(v_shards, v_ids,
+                                                        v_offset)
+            v_groups = (np.asarray(v_ids[suite.group_column])
+                        if suite.group_column is not None else None)
+            result["validation_metric"] = evaluator.evaluate(
+                v_scores, v_resp, v_weight, group_ids=v_groups)
         stages["final validation transform and metric"] = final_timer.stop()
         logger.info("validation %s = %.6f", type(evaluator).__name__,
                     result["validation_metric"])
 
     save_timer = Timer().start()
-    if writer:
-        save_game_model(model, index_maps,
-                        os.path.join(args.output_dir, "models"))
+    with tel.span("write"):
+        if writer:
+            save_game_model(model, index_maps,
+                            os.path.join(args.output_dir, "models"))
     stages["model save"] = save_timer.stop()
     if retry_stats.retries or retry_stats.failures:
         result["retry"] = retry_stats.snapshot()
@@ -617,6 +633,7 @@ def _run_impl(args, logger, mesh=None) -> dict:
         with open(os.path.join(args.output_dir, "training_result.json"),
                   "w") as f:
             json.dump(result, f, indent=2)
+    tel.gauge("run_wall_seconds").set(result["wall_seconds"])
     logger.info("GAME training done in %.2fs", result["wall_seconds"])
     return result
 

@@ -36,8 +36,18 @@ With ``--stream-chunk-rows`` each rank streams its shard of every chunk
 (one all-reduce a pass; ``--stream-chunk-fuse > 1`` and
 ``--stream-hot-budget-mb`` are refused, as the reference refuses them).
 With one rank the flag changes nothing, as in the reference, which forms
-a mesh only over more than one device.  Telemetry, the ops plane and the
-compile cache come with ROADMAP Queue 1 item 8.
+a mesh only over more than one device.
+
+``--telemetry on`` (the default) writes ``events.jsonl``, ``trace.json``
+and ``metrics.json`` into the output directory: a ``run`` span over the
+stages' spans (read, summarize, train with a ``solver`` span a λ,
+validate, write), checkpoint and grid events, and the solvers' and the
+streamed passes' counters, all from host values.  ``--metrics-port``
+serves the live ops plane (``/metrics``, ``/snapshot``, ``/healthz``)
+while the run is in flight and ``--metrics-interval-s`` paces the
+``metrics_ts.jsonl`` sampler.  Under a process group rank 0 writes them;
+the other ranks keep their hub in memory.  ``--telemetry off`` leaves
+every instrumented site one branch and writes the same model files.
 
 Multi-rank usage (one process a card):
     PHOTON_MULTIHOST=1 torchrun --nproc-per-node 4 \\
@@ -61,6 +71,7 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import telemetry as telemetry_mod
 from photon_ml_tpu_torch.data import libsvm
 from photon_ml_tpu_torch.data.dataset import make_glm_data
 from photon_ml_tpu_torch.data.index_map import IndexMap
@@ -69,6 +80,10 @@ from photon_ml_tpu_torch.data.normalization import (
     build_normalization,
 )
 from photon_ml_tpu_torch.data.stats import summarize, summarize_host
+from photon_ml_tpu_torch.drivers.ops_plane import (
+    add_telemetry_args,
+    driver_telemetry,
+)
 from photon_ml_tpu_torch.device import resolve_device, to_numpy
 from photon_ml_tpu_torch.evaluation.evaluators import (
     default_evaluator_for_task,
@@ -276,6 +291,7 @@ def build_arg_parser() -> argparse.ArgumentParser:
         default="cuda",
         help="torch device for data, objective and solver (cuda | cpu)",
     )
+    add_telemetry_args(p)
     return p
 
 
@@ -405,7 +421,10 @@ def run(argv: Optional[Sequence[str]] = None) -> dict:
         # The reference forms a mesh only over more than one device.
         mesh = (multihost.global_data_mesh()
                 if args.data_parallel == "auto" and world > 1 else None)
-        return _run_impl(args, logger, mesh)
+        with driver_telemetry(args, logger, "glm_driver",
+                              writer=mesh is None or mesh.rank == 0,
+                              task=args.task) as tel:
+            return _run_impl(args, logger, mesh, tel)
 
 
 def _check_stream_flags(args, data_parallel: bool) -> bool:
@@ -435,9 +454,11 @@ def _check_stream_flags(args, data_parallel: bool) -> bool:
     return args.stream_chunk_rows > 0
 
 
-def _run_impl(args, logger, mesh=None) -> dict:
+def _run_impl(args, logger, mesh=None, tel=None) -> dict:
     """The driver's stages; ``mesh`` is the process group a
-    ``--data-parallel auto`` run trains over (None: one process)."""
+    ``--data-parallel auto`` run trains over (None: one process); ``tel``
+    the run's hub (None: the process-current one)."""
+    tel = telemetry_mod.current() if tel is None else tel
     timer = Timer().start()
     device = resolve_device(args.device)
     data_parallel = mesh is not None
@@ -445,10 +466,11 @@ def _run_impl(args, logger, mesh=None) -> dict:
     writer = not data_parallel or mesh.rank == 0
 
     # Stage 1: read ---------------------------------------------------------
-    X_train, y_train = libsvm.read_libsvm(
-        args.train_data, n_features=args.n_features,
-        add_intercept=args.intercept,
-    )
+    with tel.span("read", path=args.train_data):
+        X_train, y_train = libsvm.read_libsvm(
+            args.train_data, n_features=args.n_features,
+            add_intercept=args.intercept,
+        )
     d = X_train.shape[1]
     logger.info(
         "read %d rows x %d features from %s", X_train.shape[0], d,
@@ -459,14 +481,15 @@ def _run_impl(args, logger, mesh=None) -> dict:
     index_map = IndexMap.build(names, add_intercept=args.intercept)
 
     # Stage 2: summarize + normalization ------------------------------------
-    if streaming or data_parallel:
-        # The streamed run never puts the whole matrix on the card, and a
-        # rank keeps only its own row block there.
-        train_data = None
-        summary = summarize_host(X_train)
-    else:
-        train_data = make_glm_data(X_train, y_train, device=device)
-        summary = summarize(train_data)
+    with tel.span("summarize", rows=int(X_train.shape[0]), features=int(d)):
+        if streaming or data_parallel:
+            # The streamed run never puts the whole matrix on the card,
+            # and a rank keeps only its own row block there.
+            train_data = None
+            summary = summarize_host(X_train)
+        else:
+            train_data = make_glm_data(X_train, y_train, device=device)
+            summary = summarize(train_data)
     norm_type = NormalizationType(args.normalization)
     normalization = (
         None
@@ -663,12 +686,14 @@ def _run_impl(args, logger, mesh=None) -> dict:
                                 bounds=bounds)
 
     retry_stats = RetryStats()
-    grid = run_with_retries(
-        train,
-        RetryPolicy(max_retries=args.max_retries,
-                    backoff_seconds=args.retry_backoff),
-        logger, stats=retry_stats,
-    )
+    with tel.span("train", grid_points=len(reg_weights),
+                  streaming=streaming, data_parallel=data_parallel):
+        grid = run_with_retries(
+            train,
+            RetryPolicy(max_retries=args.max_retries,
+                        backoff_seconds=args.retry_backoff),
+            logger, stats=retry_stats,
+        )
     grid_walls = problem.grid_wall_seconds
     for lam, _, res in grid:
         tracker = OptimizationStatesTracker.from_solve_result(
@@ -722,52 +747,55 @@ def _run_impl(args, logger, mesh=None) -> dict:
     metrics = {}
     best = None
     best_metric = None
-    for lam, model, res in grid:
-        if streaming:
-            scores = np.asarray(
-                X_val @ to_numpy(model.coefficients.means).astype(np.float32)
-            ).ravel()
-            val_weights = None
-        else:
-            scores = to_numpy(model.compute_score(val_data))
-            val_weights = to_numpy(val_data.weights)
-        m = evaluator.evaluate(scores, y_val, val_weights)
-        metrics[lam] = m
-        logger.info("lambda=%g: %s=%.6f", lam, type(evaluator).__name__, m)
-        if best_metric is None or evaluator.better_than(m, best_metric):
-            best_metric, best = m, (lam, model)
-        if report is not None:
-            if res is not None:
-                report.add_convergence(lam, to_numpy(res.values),
-                                       to_numpy(res.grad_norms))
-            report.add_metric(
-                type(evaluator).__name__, lam,
-                bootstrap_metric_ci(
-                    lambda s, l: evaluator.evaluate(s, l, None),
-                    scores, np.asarray(y_val)),
-            )
-            if problem.task == "logistic":
-                report.add_calibration(
-                    lam, hosmer_lemeshow(scores, np.asarray(y_val)))
-            report.add_importance(lam, feature_importance(
-                to_numpy(model.coefficients.means), feature_std=report_std,
-                name_fn=index_map.index_to_name,
-            ))
+    with tel.span("validate", rows=int(len(y_val)),
+                  evaluator=type(evaluator).__name__):
+        for lam, model, res in grid:
+            if streaming:
+                w_host = to_numpy(model.coefficients.means)
+                scores = np.asarray(X_val @ w_host.astype(np.float32)).ravel()
+                val_weights = None
+            else:
+                scores = to_numpy(model.compute_score(val_data))
+                val_weights = to_numpy(val_data.weights)
+            m = evaluator.evaluate(scores, y_val, val_weights)
+            metrics[lam] = m
+            logger.info("lambda=%g: %s=%.6f", lam,
+                        type(evaluator).__name__, m)
+            if best_metric is None or evaluator.better_than(m, best_metric):
+                best_metric, best = m, (lam, model)
+            if report is not None:
+                if res is not None:
+                    report.add_convergence(lam, to_numpy(res.values),
+                                           to_numpy(res.grad_norms))
+                report.add_metric(
+                    type(evaluator).__name__, lam,
+                    bootstrap_metric_ci(
+                        lambda s, l: evaluator.evaluate(s, l, None),
+                        scores, np.asarray(y_val)),
+                )
+                if problem.task == "logistic":
+                    report.add_calibration(
+                        lam, hosmer_lemeshow(scores, np.asarray(y_val)))
+                report.add_importance(lam, feature_importance(
+                    to_numpy(model.coefficients.means),
+                    feature_std=report_std, name_fn=index_map.index_to_name,
+                ))
 
     # Stage 5: write --------------------------------------------------------
     if best is None:
         raise ValueError("empty --reg-weights grid: nothing was trained")
     best_lam, _ = best
-    to_write = grid if args.output_mode == "all" else [
-        (lam, mdl, res) for lam, mdl, res in grid if lam == best_lam
-    ]
-    if not writer:
-        to_write = []
-    for lam, model, _ in to_write:
-        out = os.path.join(args.output_dir, f"model_lambda_{lam:g}.avro")
-        save_glm_model(model, index_map, out, model_id=f"lambda={lam:g}")
-    if writer:
-        index_map.save(args.output_dir)
+    with tel.span("write", output_mode=args.output_mode):
+        to_write = grid if args.output_mode == "all" else [
+            (lam, mdl, res) for lam, mdl, res in grid if lam == best_lam
+        ]
+        if not writer:
+            to_write = []
+        for lam, model, _ in to_write:
+            out = os.path.join(args.output_dir, f"model_lambda_{lam:g}.avro")
+            save_glm_model(model, index_map, out, model_id=f"lambda={lam:g}")
+        if writer:
+            index_map.save(args.output_dir)
     result = {
         "best_lambda": best_lam,
         "metrics": {str(k): v for k, v in metrics.items()},
@@ -794,6 +822,7 @@ def _run_impl(args, logger, mesh=None) -> dict:
         with open(os.path.join(args.output_dir, "training_result.json"),
                   "w") as f:
             json.dump(result, f, indent=2)
+    tel.gauge("run_wall_seconds").set(result["wall_seconds"])
     logger.info(
         "selected lambda=%g (%s=%.6f) in %.2fs",
         best_lam, type(evaluator).__name__, best_metric,

@@ -15,6 +15,7 @@ from typing import Optional, Sequence, Union
 
 import numpy as np
 
+from photon_ml_tpu_torch import telemetry as telemetry_mod
 from photon_ml_tpu_torch.evaluation.evaluators import (
     Evaluator,
     default_evaluator_for_task,
@@ -76,10 +77,16 @@ class EvaluationSuite:
 
     def evaluate(self, scores, labels, weights=None, group_ids=None) -> dict:
         """name → metric value, every evaluator on one host score pass."""
-        return {
-            name: ev.evaluate(scores, labels, weights, group_ids)
-            for name, ev in self.evaluators
-        }
+        with telemetry_mod.current().span(
+            "evaluation",
+            evaluators=[n for n, _ in self.evaluators],
+            grouped=group_ids is not None,
+            rows=len(scores),
+        ):
+            return {
+                name: ev.evaluate(scores, labels, weights, group_ids)
+                for name, ev in self.evaluators
+            }
 
     def evaluate_primary(self, scores, labels, weights=None,
                          group_ids=None) -> tuple[float, dict]:
@@ -102,21 +109,30 @@ class EvaluationSuite:
             )
         from photon_ml_tpu_torch.evaluation.device import device_evaluator_fn
 
-        out = {}
-        host_pull = None
-        for name, ev in self.evaluators:
-            fn = device_evaluator_fn(ev)
-            if fn is not None:
-                m = fn(scores, labels, weights)
-                out[name] = float(m) if materialize else m
-                continue
-            if host_pull is None:
-                host_pull = tuple(
-                    None if a is None else a.detach().cpu().numpy()
-                    for a in (scores, labels, weights)
-                )
-            out[name] = ev.evaluate(*host_pull)
-        return out
+        # The span covers the DISPATCH wall when materialize=False (the
+        # device metrics are read back later, in the descent's batched
+        # flush).
+        with telemetry_mod.current().span(
+            "evaluation",
+            evaluators=[n for n, _ in self.evaluators],
+            device=True,
+            materialize=materialize,
+        ):
+            out = {}
+            host_pull = None
+            for name, ev in self.evaluators:
+                fn = device_evaluator_fn(ev)
+                if fn is not None:
+                    m = fn(scores, labels, weights)
+                    out[name] = float(m) if materialize else m
+                    continue
+                if host_pull is None:
+                    host_pull = tuple(
+                        None if a is None else a.detach().cpu().numpy()
+                        for a in (scores, labels, weights)
+                    )
+                out[name] = ev.evaluate(*host_pull)
+            return out
 
     def better_than(self, a: Optional[float], b: Optional[float]) -> bool:
         """Compare two PRIMARY metric values; None/NaN always loses."""

@@ -76,15 +76,6 @@ def _state_to_device(st, device):
     return torch.as_tensor(np.asarray(st), device=device)
 
 
-def not_ported(what: str, item, name: str) -> NotImplementedError:
-    """The refusal of a branch the port does not have yet, naming the
-    ROADMAP item that brings it."""
-    return NotImplementedError(
-        f"{what} is not ported to photon_ml_tpu_torch yet (ROADMAP.md, "
-        f"PyTorch/CUDA port, Queue 1 item {item}: {name})"
-    )
-
-
 class Coordinate:
     """Protocol: train against offsets, score into the global row space."""
 

@@ -589,4 +589,9 @@ def build_random_effect_dataset(
         padded_flops=padded_flops,
         exact_flops=exact_flops,
     )
+    from photon_ml_tpu_torch import telemetry as telemetry_mod
+
+    telemetry_mod.current().gauge("game_bucket_padding_ratio").set(
+        ds.padding_ratio
+    )
     return ds

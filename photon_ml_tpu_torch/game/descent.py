@@ -11,6 +11,10 @@ Device scalars in the history (each update's ``score_norm`` and whatever an
 ``eval_fn`` returns unmaterialized) are read back in ONE batched host copy
 a flush: once at the end of the run, or once an iteration when a logger or
 checkpointer needs the values then.
+
+Each iteration runs under a ``cd_iteration`` telemetry span with a
+``coordinate`` and a ``solver`` span per update, and ends at the
+``cd.iteration`` fault site once it is checkpointed.
 """
 
 from __future__ import annotations
@@ -21,6 +25,8 @@ from typing import Callable, Optional, Sequence
 
 import torch
 
+from photon_ml_tpu_torch import chaos as chaos_mod
+from photon_ml_tpu_torch import telemetry as telemetry_mod
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.game.coordinates import Coordinate, _state_to_device
 
@@ -45,6 +51,16 @@ def _walk_scalars(obj, pred, fn):
         vals = [_walk_scalars(v, pred, fn) for v in obj]
         return tuple(vals) if isinstance(obj, tuple) else vals
     return obj
+
+
+def _optimizer_name(coord) -> Optional[str]:
+    """Best-effort optimizer label for a coordinate's solver span (the
+    config lives at different depths across coordinate flavors)."""
+    cfg = getattr(coord, "config", None)
+    if cfg is None:
+        cfg = getattr(getattr(coord, "problem", None), "config", None)
+    opt = getattr(getattr(cfg, "optimizer", None), "optimizer", None)
+    return getattr(opt, "value", None)
 
 
 @dataclasses.dataclass
@@ -218,36 +234,56 @@ class CoordinateDescent:
                     "resumed checkpoint"
                 )
 
+        tel = telemetry_mod.current()
         flush_per_iteration = logger is not None or checkpointer is not None
         trainable = [c for c in self.coordinates if c.name not in locked]
         for it in range(start_it, n_iterations):
-            for ci, coord in enumerate(trainable):
-                offsets = total - scores[coord.name]
-                if self.pipeline and ci + 1 < len(trainable):
-                    nxt = trainable[ci + 1]
-                    nxt.prestage(states[nxt.name])
-                upd_t0 = time.perf_counter()
-                state = coord.train(offsets, warm_state=states[coord.name])
-                new_score = coord.score(state)
-                states[coord.name] = state
-                total = offsets + new_score
-                scores[coord.name] = new_score
+            it_t0 = time.perf_counter()
+            with tel.span("cd_iteration", iteration=it):
+                for ci, coord in enumerate(trainable):
+                    offsets = total - scores[coord.name]
+                    if self.pipeline and ci + 1 < len(trainable):
+                        nxt = trainable[ci + 1]
+                        nxt.prestage(states[nxt.name])
+                    upd_t0 = time.perf_counter()
+                    # The coordinate and solver spans cover the HOST wall
+                    # of the update (the solver's own host reads included,
+                    # not the scoring still queued on the device); the
+                    # iteration's achieved wall rides cd_iteration_seconds,
+                    # measured across the flush below.
+                    with tel.span("coordinate", coordinate=coord.name,
+                                  iteration=it):
+                        with tel.span("solver", coordinate=coord.name,
+                                      optimizer=_optimizer_name(coord)):
+                            state = coord.train(
+                                offsets, warm_state=states[coord.name])
+                        new_score = coord.score(state)
+                    states[coord.name] = state
+                    total = offsets + new_score
+                    scores[coord.name] = new_score
 
-                entry = {"iteration": it, "coordinate": coord.name}
-                if eval_fn is not None:
-                    entry.update(eval_fn(it, coord.name, scores, states))
-                entry["score_norm"] = torch.linalg.vector_norm(new_score)
-                # Host wall of the update: it includes the solver's own host
-                # reads, not the scoring still queued on the device.
-                entry["wall_seconds"] = time.perf_counter() - upd_t0
-                pending.append(entry)
-            if flush_per_iteration:
-                flush()
-            if checkpointer is not None:
-                checkpointer.save(
-                    it, total, scores, states, history,
-                    locked=sorted(locked),
-                )
+                    entry = {"iteration": it, "coordinate": coord.name}
+                    if eval_fn is not None:
+                        entry.update(eval_fn(it, coord.name, scores, states))
+                    entry["score_norm"] = torch.linalg.vector_norm(new_score)
+                    entry["wall_seconds"] = time.perf_counter() - upd_t0
+                    pending.append(entry)
+                if flush_per_iteration:
+                    flush()
+                if checkpointer is not None:
+                    checkpointer.save(
+                        it, total, scores, states, history,
+                        locked=sorted(locked),
+                    )
+                # The CD outer-iteration boundary: iteration ``it`` is
+                # complete AND checkpointed; a kill here must resume at
+                # it+1 bit-identically.
+                chaos_mod.maybe_fail("cd.iteration", iteration=it)
+            if flush_per_iteration and tel.enabled:
+                # The flush read the iteration's device scalars back, so
+                # this wall is achieved wall-clock, not dispatch rate.
+                tel.histogram("cd_iteration_seconds").observe(
+                    time.perf_counter() - it_t0)
         flush()
         return CoordinateDescentResult(states=states, scores=scores,
                                        history=history)

@@ -23,8 +23,8 @@ use per-lane reductions only, so the plan changes where a lane is solved,
 never its bits: the sharded coordinate gives the one-process coordinate's
 state and scores bitwise (``tests/test_torch_game_mesh.py``).
 
-The reference's ``game_shard_imbalance_ratio`` gauge comes with the
-telemetry of ROADMAP Queue 1 item 8; the plan carries the ratio.
+The plan's ``imbalance_ratio`` is published as the reference's
+``game_shard_imbalance_ratio`` telemetry gauge.
 """
 
 from __future__ import annotations
@@ -34,6 +34,7 @@ from typing import Optional
 
 import numpy as np
 
+from photon_ml_tpu_torch import telemetry as telemetry_mod
 from photon_ml_tpu_torch.game.data import EntityBlock, RandomEffectDataset
 from photon_ml_tpu_torch.game.distributed import (
     LaneShardedRandomEffectCoordinate,
@@ -128,6 +129,8 @@ class ShardedBucketRandomEffectCoordinate(LaneShardedRandomEffectCoordinate):
         k = shard_count(mesh, n_shards)
         self.plan = plan_bucket_shards(dataset.blocks, k,
                                        split_factor=split_factor)
+        telemetry_mod.current().gauge("game_shard_imbalance_ratio").set(
+            self.plan.imbalance_ratio)
         self.split_factor = float(split_factor)
         super().__init__(name, dataset, mesh, task, config,
                          self.plan.placements, reg_weight,

@@ -49,8 +49,10 @@ every rank holds the whole host state; a score is each rank's scatter of
 its own parts summed over the group.  The reference's single-host guard is
 kept: a group that spans more than one host is refused.
 
-Not ported: the reference's telemetry gauge and counter and its
-``game.bucket_shard`` chaos site (ROADMAP Queue 1 item 8).
+The reference's telemetry is kept: the plan's
+``game_shard_imbalance_ratio`` gauge and the prestage's
+``game_coordinate_overlap_seconds`` counter.  Its ``game.bucket_shard``
+fault site has no caller in the port yet (ROADMAP Queue 1).
 """
 
 from __future__ import annotations
@@ -58,11 +60,13 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
+import time
 from typing import Optional
 
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import telemetry as telemetry_mod
 from photon_ml_tpu_torch.data.prefetch import (
     HostToDevice,
     TransferStats,
@@ -248,6 +252,10 @@ class OutOfCoreRandomEffectCoordinate(RandomEffectCoordinate):
         self.bucket_plan = (
             plan_bucket_shards(dataset.blocks, k, split_factor=split_factor)
             if k > 1 and self._supports_packed else None)
+        if self.bucket_plan is not None:
+            telemetry_mod.current().gauge(
+                "game_shard_imbalance_ratio"
+            ).set(self.bucket_plan.imbalance_ratio)
         self.slice_plan = self._build_plan()
         # Each shard's parts, group by group (aligned with slice_plan).
         self._parts_of = {r: [self._parts(group, r)
@@ -524,13 +532,17 @@ class OutOfCoreRandomEffectCoordinate(RandomEffectCoordinate):
         if not self.pass_plan:
             return
         n = min(self.prefetch_depth, len(self.pass_plan))
-        rec = {"warm": warm_state, "buf": {}}
+        rec = {"warm": warm_state, "buf": {}, "t0": time.perf_counter(),
+               "t_end": None}
 
         def work():
-            state = self._train_state_init(warm_state)
-            for gi in range(n):
-                rec["buf"][gi] = self._train_host_group(self.pass_plan[gi],
-                                                        state)
+            try:
+                state = self._train_state_init(warm_state)
+                for gi in range(n):
+                    rec["buf"][gi] = self._train_host_group(
+                        self.pass_plan[gi], state)
+            finally:
+                rec["t_end"] = time.perf_counter()
 
         rec["thread"] = threading.Thread(target=work,
                                          name="game-ooc-prestage",
@@ -547,10 +559,16 @@ class OutOfCoreRandomEffectCoordinate(RandomEffectCoordinate):
         rec, self._prestage_rec = self._prestage_rec, None
         if rec is None:
             return {}
+        t_take = time.perf_counter()
         rec["thread"].join()
         if rec["warm"] is not warm_state:
             # A stale hint: its payloads carry other warm-start lanes.
             return {}
+        # Host seconds of packing that overlapped the foreground solve.
+        overlap = max(0.0, min(rec["t_end"], t_take) - rec["t0"])
+        telemetry_mod.current().counter(
+            "game_coordinate_overlap_seconds"
+        ).inc(overlap)
         return rec["buf"]
 
     # -- coordinate surface ------------------------------------------------

@@ -26,7 +26,11 @@ complete checkpoint or the new one.  Every save embeds a sha256 digest of
 the payload (``__checksum__``), checked at restore: a torn or bit-rotted
 file raises :class:`CheckpointCorruptError` naming the path.  Saves keep
 the last ``keep_last`` generations (``path``, ``path.1``, ...), and restore
-falls back to the newest one that verifies.
+falls back to the newest one that verifies.  Each save and restore is a
+``checkpoint.save``/``checkpoint.restore`` telemetry event and counter
+(corruptions and fallbacks too), and the ``checkpoint.save`` (between the
+temp write and the rename) and ``checkpoint.restore`` fault sites sit
+where the reference has them.
 """
 
 from __future__ import annotations
@@ -39,6 +43,8 @@ from typing import Optional
 
 import numpy as np
 
+from photon_ml_tpu_torch import chaos as chaos_mod
+from photon_ml_tpu_torch import telemetry as telemetry_mod
 from photon_ml_tpu_torch.device import to_numpy
 
 #: retained checkpoint generations per path (newest + K-1 fallbacks).
@@ -92,6 +98,9 @@ def _atomic_savez(path: str, arrays: dict, keep_last: int = 1) -> None:
         # fsync BEFORE the rename: os.replace is atomic in the namespace
         # but not a data barrier.
         fsync_file(f)
+    # Mid-save crash boundary: tmp is complete but unpublished — a kill
+    # here must leave the previous checkpoint (and its fallbacks) intact.
+    chaos_mod.maybe_fail("checkpoint.save", path=path)
     # Keep-last-K rotation (newest -> .1 -> .2 ...), each shift its own
     # atomic replace, so every retained slot is always a complete file.
     for i in range(max(keep_last, 1) - 1, 0, -1):
@@ -99,6 +108,21 @@ def _atomic_savez(path: str, arrays: dict, keep_last: int = 1) -> None:
         if os.path.exists(src):
             os.replace(src, f"{path}.{i}")
     os.replace(tmp, path)
+
+
+def _checkpoint_event(kind: str, path: str, **attrs) -> None:
+    """One telemetry event + counter per checkpoint save/restore, with
+    the on-disk size when the file exists (a host stat, never a device
+    touch)."""
+    tel = telemetry_mod.current()
+    if not tel.enabled:
+        return
+    try:
+        attrs["bytes"] = os.path.getsize(path)
+    except OSError:
+        pass
+    tel.event(f"checkpoint.{kind}", path=path, **attrs)
+    tel.counter(f"checkpoint_{kind}s").inc()
 
 
 def _verified_load(path: str) -> tuple[dict, dict]:
@@ -143,17 +167,26 @@ def _load_npz_with_meta(
     generation with a warning; when every existing candidate is corrupt the
     newest one's error propagates (returning None would restart the run
     from scratch as if no checkpoint had been written)."""
+    chaos_mod.maybe_fail("checkpoint.restore", path=path)
     first_error: Optional[CheckpointCorruptError] = None
+    tel = telemetry_mod.current()
     for p in _retained_paths(path, keep_last):
         if not os.path.exists(p):
             continue
         try:
-            return _verified_load(p)
+            result = _verified_load(p)
         except CheckpointCorruptError as exc:
             first_error = first_error or exc
+            tel.counter("checkpoint_corruptions").inc()
+            tel.event("checkpoint.corrupt", path=p, reason=exc.reason)
             logging.getLogger(__name__).warning(
                 "%s; trying the previous retained checkpoint", exc
             )
+            continue
+        if p != path:
+            tel.counter("checkpoint_fallbacks").inc()
+            tel.event("checkpoint.fallback", path=p, wanted=path)
+        return result
     if first_error is not None:
         raise first_error
     return None
@@ -239,6 +272,7 @@ class CoordinateDescentCheckpointer:
             "padding_gen": self.PADDING_GEN,
         }))
         _atomic_savez(self.path, arrays, keep_last=self.keep_last)
+        _checkpoint_event("save", self.path, store="cd", iteration=iteration)
 
     def load(self) -> Optional[dict]:
         """{iteration, total, scores, states, history, locked} or None.
@@ -271,16 +305,19 @@ class CoordinateDescentCheckpointer:
                 self.path, meta.get("padding_gen", 1), self.PADDING_GEN,
             )
             return None
+        states = {
+            name: _unflatten_state(f"state__{name}", specs.get(name), arrays)
+            for name in meta["coordinates"]
+        }
+        _checkpoint_event(
+            "restore", self.path, store="cd", iteration=int(meta["iteration"])
+        )
         return {
             "iteration": int(meta["iteration"]),
             "total": arrays["total"],
             "scores": {name: arrays[f"score__{name}"]
                        for name in meta["coordinates"]},
-            "states": {
-                name: _unflatten_state(f"state__{name}", specs.get(name),
-                                       arrays)
-                for name in meta["coordinates"]
-            },
+            "states": states,
             "history": meta["history"],
             "locked": meta.get("locked", []),
         }
@@ -320,6 +357,9 @@ class GridCheckpointer:
             meta.update(extra_meta)
         arrays["__meta__"] = np.asarray(json.dumps(meta))
         _atomic_savez(self.path, arrays, keep_last=self.keep_last)
+        _checkpoint_event(
+            "save", self.path, store="grid", solved=len(solved)
+        )
 
     def load(self) -> dict:
         """λ → coefficient vector (insertion order = solve order)."""
@@ -327,6 +367,9 @@ class GridCheckpointer:
         if loaded is None:
             return {}
         meta, arrays = loaded
+        _checkpoint_event(
+            "restore", self.path, store="grid", solved=len(meta["lambdas"])
+        )
         return {lam: arrays[f"w__{i}"] for i, lam in enumerate(meta["lambdas"])}
 
     def load_meta(self) -> dict:
@@ -421,6 +464,10 @@ class GameGridCheckpointer:
         # complete model and its metadata.
         shutil.rmtree(d, ignore_errors=True)
         os.replace(tmp, d)
+        telemetry_mod.current().event(
+            "checkpoint.save", store="game_grid", grid_index=gi, path=d
+        )
+        telemetry_mod.current().counter("checkpoint_saves").inc()
 
     def load_point(self, gi: int, configs: dict, metric_key: str):
         """``(model, metric, history)`` for a completed matching point, else
@@ -439,4 +486,9 @@ class GameGridCheckpointer:
         if meta.get("metric_key") != metric_key:
             return None
         model, _ = load_game_model(self._point_dir(gi), device=self.device)
+        telemetry_mod.current().event(
+            "checkpoint.restore", store="game_grid", grid_index=gi,
+            path=self._point_dir(gi),
+        )
+        telemetry_mod.current().counter("checkpoint_restores").inc()
         return model, meta["metric"], meta.get("history", [])

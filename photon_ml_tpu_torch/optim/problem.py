@@ -28,6 +28,8 @@ from typing import Optional, Sequence
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import chaos as chaos_mod
+from photon_ml_tpu_torch import telemetry as telemetry_mod
 from photon_ml_tpu_torch.data.dataset import GlmData
 from photon_ml_tpu_torch.data.normalization import NormalizationContext
 from photon_ml_tpu_torch.device import resolve_device
@@ -220,9 +222,14 @@ class GlmOptimizationProblem:
         after each fresh solve (the driver persists the checkpoint there).
         ``variance_fn(w, lam)`` runs for every grid point, restored ones
         included, when variances are requested.  Each fresh solve is
-        wall-clocked to completion into ``self.grid_wall_seconds``."""
+        wall-clocked to completion into ``self.grid_wall_seconds``, under a
+        ``solver`` telemetry span carrying the host loop's iteration count
+        (``solver_iterations``, ``solver_wall_seconds``: host values, no
+        device read).  The ``grid.point`` fault site fires after a fresh
+        point is solved and persisted, before the next λ starts."""
         from photon_ml_tpu_torch.utils.timer import Timer
 
+        tel = telemetry_mod.current()
         self.grid_wall_seconds = {}
         results = []
         w_prev = w0
@@ -234,13 +241,30 @@ class GlmOptimizationProblem:
                        else resolve_device(None))
                 w = torch.as_tensor(solved[lam], device=dev)
                 res = None
+                tel.event("grid.restored", reg_weight=float(lam))
             else:
-                timer = Timer().start()
-                res = solve_fn(lam, w_prev)
-                self.grid_wall_seconds[lam] = timer.stop_blocking(res.w)
+                with tel.span(
+                    "solver",
+                    reg_weight=float(lam),
+                    optimizer=self.config.optimizer.optimizer.value,
+                ) as sp:
+                    timer = Timer().start()
+                    res = solve_fn(lam, w_prev)
+                    wall = timer.stop_blocking(res.w)
+                    if tel.enabled:
+                        iters = int(res.iterations)
+                        sp.set(iterations=iters,
+                               converged=bool(res.converged),
+                               wall_seconds=wall)
+                        tel.counter("solver_iterations").inc(iters)
+                        tel.histogram("solver_wall_seconds").observe(wall)
+                self.grid_wall_seconds[lam] = wall
                 w = res.w
                 if on_solved is not None:
                     on_solved(lam, w)
+                # The warm-start chain's crash/resume boundary: the point
+                # is solved AND persisted, nothing of the next λ started.
+                chaos_mod.maybe_fail("grid.point", reg_weight=float(lam))
             variances = variance_fn(w, lam) if variance_fn else None
             results.append((lam, self.make_model(w, variances), res))
             if warm_start:

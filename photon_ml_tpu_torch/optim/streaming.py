@@ -50,8 +50,13 @@ so there a batched trial's row equals its single pass to rounding only.
 Under a group that spans several hosts a rank streams a store of its own
 ``host_local_rows`` instead (``row_block``).
 
-Not ported here: the reference's telemetry and chaos sites (ROADMAP Queue 1
-item 8).
+Every pass publishes the reference's per-pass telemetry (one logical
+all-reduce round, the staged-window and hot-cache gauges, the effective
+ingest rate) from host bookkeeping only, and the reference's fault sites
+sit at its places: ``staging.put`` before each transfer,
+``staging.decode`` (compressed items) and ``streaming.carry_sync`` before
+each item's dispatch, ``streaming.cache_evict`` at the cache's replan
+(which clears the cache before the fault propagates).
 """
 
 from __future__ import annotations
@@ -59,11 +64,14 @@ from __future__ import annotations
 import collections
 import dataclasses
 import threading
+import time
 from typing import Callable, Optional, Sequence
 
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import chaos as chaos_mod
+from photon_ml_tpu_torch import telemetry as telemetry_mod
 from photon_ml_tpu_torch.data.prefetch import (
     HostToDevice,
     TransferStats,
@@ -174,10 +182,27 @@ class HotChunkCache:
             self.admissions += 1
             return True
 
+    def clear(self) -> None:
+        """Drop every resident item and the wanted set."""
+        with self._lock:
+            dropped = list(self._entries.values())
+            self._entries.clear()
+            self._want = set()
+            self._bytes = 0
+        del dropped  # device references released outside the lock
+
     def replan(self, scores: dict, item_nbytes: Callable[[int], int]):
         """Recompute the wanted set from this pass's scores (greedy by
         descending score, ties by ascending index, until the budget is
-        spent) and evict residents that fell out of it."""
+        spent) and evict residents that fell out of it.  On an injected
+        eviction fault the cache is CLEARED before the fault propagates:
+        a half-applied plan never survives into the next pass (which then
+        streams everything; results are unaffected)."""
+        try:
+            chaos_mod.maybe_fail("streaming.cache_evict")
+        except BaseException:
+            self.clear()
+            raise
         dropped = []
         with self._lock:
             want: set = set()
@@ -402,7 +427,12 @@ class StreamingObjective:
         return dataclasses.replace(data, offsets=data.offsets + off)
 
     # -- the pass ------------------------------------------------------------
-    def _stream(self, fn, scoring: bool = False) -> None:
+    def _put(self, packed):
+        chaos_mod.maybe_fail("staging.put")
+        return self._mover.put(packed)
+
+    def _stream(self, fn, scoring: bool = False,
+                batch: Optional[int] = None) -> None:
         """One pass: ``fn(k, data)`` for every chunk k in order, on the
         caller's (compute) stream; ``fn`` returns a 0-d tensor (the chunk's
         value, the hot cache's importance) on value passes.
@@ -411,7 +441,9 @@ class StreamingObjective:
         dispatched at their exact global positions before the next cold
         item, so the accumulation order is always 0..n-1.  After each item
         the caller records an event on the compute stream and waits for
-        the one ``prefetch_depth`` items back (every item at depth 1)."""
+        the one ``prefetch_depth`` items back (every item at depth 1).
+        ``batch``: the candidates a batched trial carries (the size of the
+        pass's all-reduce round in the telemetry)."""
         n_items = len(self._groups)
         cache = self._hot_cache
         mover = self._mover
@@ -428,8 +460,17 @@ class StreamingObjective:
                     hot[i] = dev
         cold = [i for i in range(n_items) if i not in hot]
         next_i = [0]
+        stats = self.transfer_stats
+        bytes0, chunks0 = stats.bytes, stats.chunks
+        hot0 = ((cache.hits, cache.misses, cache.admissions, cache.evictions)
+                if cache is not None else None)
+        ring_peak = [0]
+        t_pass0 = time.perf_counter()
 
         def dispatch(i, tensors) -> None:
+            if self._codecs is not None:
+                chaos_mod.maybe_fail("staging.decode", item=i)
+            chaos_mod.maybe_fail("streaming.carry_sync", item=i)
             pos = 0
             for k in self._groups[i]:
                 nb = len(self._host_buffers(k))
@@ -443,6 +484,7 @@ class StreamingObjective:
                 pending.append(ev)
                 if len(pending) > window:
                     pending.popleft().synchronize()
+                ring_peak[0] = max(ring_peak[0], len(pending))
 
         def advance_hot(upto: int) -> None:
             while next_i[0] < upto:
@@ -466,9 +508,9 @@ class StreamingObjective:
 
         abort = threading.Event()
         mover.begin_pass(abort)
-        run_prefetched(
+        run_max = run_prefetched(
             len(cold), lambda ci: mover.pack(self._host_item(cold[ci])),
-            mover.put, consume, depth=self.prefetch_depth,
+            self._put, consume, depth=self.prefetch_depth,
             stats=self.transfer_stats,
             logical_nbytes=(
                 (lambda ci: self._item_logical(cold[ci]))
@@ -485,6 +527,54 @@ class StreamingObjective:
             for (i, _), v in zip(flat, vals.tolist()):
                 totals[i] = totals.get(i, 0.0) + v
             cache.replan(totals, self._item_wire)
+        self._publish_pass(batch, n_items, bytes0, chunks0, hot0,
+                           run_max + ring_peak[0], t_pass0)
+
+    def _publish_pass(self, batch, n_items, bytes0, chunks0, hot0,
+                      window_peak, t_pass0) -> None:
+        """The pass's telemetry, once a pass and from host bookkeeping
+        only: one logical all-reduce round (the carry a pass folds), the
+        staged-buffer residency peak (live transfers + the compute window,
+        times the pass's mean item bytes), the effective ingest rate under
+        compression or the hot cache, and the cache's counters."""
+        tel = telemetry_mod.current()
+        if not tel.enabled:
+            return
+        stats = self.transfer_stats
+        cache = self._hot_cache
+        tel.counter("solver_allreduce_count").inc(1)
+        tel.counter("solver_allreduce_bytes_total").inc(
+            (batch or 1) * (self.stream.n_features + 1) * 4)
+        d_chunks = stats.chunks - chunks0
+        if d_chunks > 0:
+            chunk_bytes = (stats.bytes - bytes0) / d_chunks
+            tel.gauge("hbm_stream_chunk_bytes").set(int(chunk_bytes))
+            tel.gauge("hbm_stream_window_peak_bytes").set(
+                int(window_peak * chunk_bytes))
+        if self._codecs is not None or cache is not None:
+            # Logical bytes of every item the pass processed (a hot hit
+            # moves no wire bytes but stands for its decoded size) over
+            # the pass wall; h2d_gbps reports the link alone.
+            wall = time.perf_counter() - t_pass0
+            if wall > 0.0:
+                tel.gauge("stream_effective_gbps").set(
+                    sum(self._item_logical(i) for i in range(n_items))
+                    / wall / 1e9)
+        if cache is not None:
+            d_hit = cache.hits - hot0[0]
+            d_miss = cache.misses - hot0[1]
+            tel.counter("stream_hot_hits_total").inc(d_hit)
+            tel.counter("stream_hot_misses_total").inc(d_miss)
+            tel.counter("stream_hot_admissions_total").inc(
+                cache.admissions - hot0[2])
+            tel.counter("stream_hot_evictions_total").inc(
+                cache.evictions - hot0[3])
+            if d_hit + d_miss:
+                tel.gauge("stream_hot_hit_ratio").set(
+                    d_hit / (d_hit + d_miss))
+            tel.gauge("hbm_hot_bytes").set(cache.resident_bytes)
+            tel.gauge("hbm_hot_budget_bytes").set(cache.budget_bytes)
+            tel.gauge("hbm_hot_chunk_count").set(len(cache))
 
     def _zeros(self, shape, dtype=torch.float32) -> Tensor:
         return torch.zeros(shape, dtype=dtype, device=self.device)
@@ -567,7 +657,7 @@ class StreamingObjective:
                 first = v if first is None else first
             return first
 
-        self._stream(step, scoring=True)
+        self._stream(step, scoring=True, batch=K)
         red = self._reduce(accs)
         vaccs, gaccs = red[:K], red[K:]
         vals = torch.stack([v + 0.5 * l2_weight * torch.dot(w, w)

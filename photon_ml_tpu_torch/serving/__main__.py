@@ -28,11 +28,15 @@ hot swap and rollback, and a leak-free shutdown.
 
 ``--replicas N`` serves N supervised in-process replicas, ``--workers N``
 N worker processes, and ``--shm-ingress`` adds the same-machine
-shared-memory ingress ring beside HTTP.  The reference's HA and fleet
-selfcheck passes, and its ops-plane flags (``--metrics-port``,
-``--metrics-interval-s``, ``--tenant-report``, ``--membership`` and the
-fleet verbs), need the rest of the telemetry and cluster packages
-(ROADMAP item 8); the flags are refused, naming it.
+shared-memory ingress ring beside HTTP.  ``--metrics-port`` mounts the
+live ops plane (``/metrics``, ``/snapshot``, ``/healthz``, and ``/readyz``
+on the service's readiness) and ``--metrics-interval-s`` paces the
+``metrics_ts.jsonl`` sampler when ``--output-dir`` is set.
+``--tenant-report metrics_ts.jsonl ...`` prints per-tenant accounting
+(rps, shed, latency percentiles) from the ``serving_tenant_*`` family of
+recorded time series and exits.  The reference's HA and fleet selfcheck
+passes, ``--membership`` and the fleet verbs need its cluster package
+(ROADMAP item 8c); those flags are refused, naming it.
 
 Serve a saved model (on the card unless ``--device cpu``)::
 
@@ -50,6 +54,7 @@ from __future__ import annotations
 import argparse
 import json
 import os
+import re
 import sys
 import tempfile
 import threading
@@ -57,10 +62,7 @@ import urllib.request
 
 #: flags of the reference this port refuses, with the ROADMAP item that
 #: brings each (refused when given, i.e. off their default).
-_REFUSED = {
-    "membership": "8", "fleet_join": "8", "fleet_drain": "8",
-    "metrics_port": "8", "metrics_interval_s": "8", "tenant_report": "8",
-}
+_REFUSED = {"membership": "8c", "fleet_join": "8c", "fleet_drain": "8c"}
 
 
 def build_arg_parser() -> argparse.ArgumentParser:
@@ -137,17 +139,29 @@ def build_arg_parser() -> argparse.ArgumentParser:
         help="telemetry output dir (selfcheck defaults to a tempdir)",
     )
     p.add_argument("--telemetry", choices=["on", "off"], default="on")
+    p.add_argument(
+        "--metrics-port", type=int, default=None,
+        help="expose the live ops plane on this port (/metrics "
+        "Prometheus exposition, /snapshot JSON, /healthz); 0 binds an "
+        "ephemeral port; omit to disable",
+    )
+    p.add_argument(
+        "--metrics-interval-s", type=float, default=1.0,
+        help="metrics_ts.jsonl sampling interval when --output-dir is "
+        "set (0 disables the time series)",
+    )
+    p.add_argument(
+        "--tenant-report", metavar="METRICS_TS_JSONL", nargs="+",
+        help="summarize per-tenant rps/shed/p99 from one or more "
+        "metrics_ts.jsonl files (the serving_tenant_* family) as JSON "
+        "and exit; several files — one per host — merge into per-host "
+        "sections plus a fleet-wide fold",
+    )
     # The reference's flags this port refuses (see _REFUSED).
     p.add_argument("--membership", default=None, help=argparse.SUPPRESS)
     p.add_argument("--host-id", default=None, help=argparse.SUPPRESS)
     p.add_argument("--fleet-join", default=None, help=argparse.SUPPRESS)
     p.add_argument("--fleet-drain", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--metrics-port", type=int, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--metrics-interval-s", type=float, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--tenant-report", nargs="+", default=None,
-                   help=argparse.SUPPRESS)
     return p
 
 
@@ -158,8 +172,8 @@ def refused_flags(args) -> list[str]:
     for dest, item in _REFUSED.items():
         if getattr(args, dest) != parser.get_default(dest):
             flag = "--" + dest.replace("_", "-")
-            out.append(f"{flag} needs the telemetry ops plane and cluster "
-                       f"packages, not ported yet (ROADMAP item {item})")
+            out.append(f"{flag} needs the cluster package, not ported "
+                       f"yet (ROADMAP item {item})")
     return out
 
 
@@ -687,6 +701,121 @@ def run_selfcheck_tenancy(out_dir: str, device=None) -> list[str]:
 # Entry point
 # ---------------------------------------------------------------------------
 
+def tenant_report(ts_path: str) -> dict:
+    """Summarize the ``serving_tenant_*`` family from a metrics_ts.jsonl
+    into per-tenant accounting: request rate, shed/rejected totals, and
+    latency percentiles (the reference's, byte for byte).
+
+    Rates are counter deltas over the sampled ``t_mono`` span; p50/p99
+    come from the LAST record's latency-histogram summary (cumulative
+    over the run).  Returns the JSON-able report dict."""
+    from photon_ml_tpu_torch.telemetry.timeseries import read_series
+
+    records = read_series(ts_path)
+    if not records:
+        raise ValueError(f"no time-series records in {ts_path}")
+    first, last = records[0], records[-1]
+    span_s = max(float(last["t_mono"]) - float(first["t_mono"]), 1e-9)
+    slug_re = re.compile(
+        r"^serving_tenant_([a-z0-9_]+?)_requests_total$"
+    )
+    tenants = sorted(
+        m.group(1)
+        for name in last.get("counters", {})
+        for m in [slug_re.match(name)]
+        if m is not None
+    )
+
+    def delta(name: str) -> float:
+        return float(last["counters"].get(name, 0)) - float(
+            first["counters"].get(name, 0)
+        )
+
+    report = {
+        "path": ts_path,
+        "span_seconds": round(span_s, 3),
+        "records": len(records),
+        "tenants": {},
+    }
+    for slug in tenants:
+        prefix = f"serving_tenant_{slug}_"
+        hist = last.get("histograms", {}).get(
+            prefix + "request_latency_seconds"
+        ) or {}
+        requests = delta(prefix + "requests_total")
+        shed = delta(prefix + "shed_total")
+        report["tenants"][slug] = {
+            "requests": int(requests),
+            "rps": round(requests / span_s, 2),
+            "shed": int(shed),
+            "shed_rps": round(shed / span_s, 2),
+            "rejected": int(delta(prefix + "rejected_total")),
+            "completed": int(hist.get("count") or 0),
+            "latency_p50_ms": (
+                None if hist.get("p50") is None
+                else round(hist["p50"] * 1e3, 3)
+            ),
+            "latency_p99_ms": (
+                None if hist.get("p99") is None
+                else round(hist["p99"] * 1e3, 3)
+            ),
+        }
+    return report
+
+
+def tenant_report_multi(ts_paths) -> dict:
+    """Fleet-grain tenant accounting: one :func:`tenant_report` per
+    metrics_ts.jsonl (one file per host), keyed by the host identity the
+    sampler recorded (falling back to the file name when two hosts
+    collide or a file carries none), plus a fleet-wide fold —
+    additive columns sum, latency percentiles report the WORST host
+    (the number a fleet SLO is judged on).  A single path keeps the
+    original single-host report shape."""
+    paths = list(ts_paths)
+    if len(paths) == 1:
+        return tenant_report(paths[0])
+    from photon_ml_tpu_torch.telemetry.timeseries import read_series
+
+    hosts: dict = {}
+    for path in paths:
+        rep = tenant_report(path)
+        records = read_series(path)
+        host_id = None
+        for rec in reversed(records):
+            identity = rec.get("host")
+            if isinstance(identity, dict) and identity.get("host_id"):
+                host_id = str(identity["host_id"])
+                break
+        key = host_id or os.path.basename(os.path.dirname(path)) or path
+        if key in hosts:
+            key = f"{key}:{path}"
+        hosts[key] = rep
+
+    fleet: dict = {}
+    for rep in hosts.values():
+        for slug, row in rep["tenants"].items():
+            agg = fleet.setdefault(slug, {
+                "requests": 0, "rps": 0.0, "shed": 0, "shed_rps": 0.0,
+                "rejected": 0, "completed": 0, "hosts": 0,
+                "latency_p50_ms": None, "latency_p99_ms": None,
+            })
+            agg["hosts"] += 1
+            for col in ("requests", "shed", "rejected", "completed"):
+                agg[col] += row[col]
+            for col in ("rps", "shed_rps"):
+                agg[col] = round(agg[col] + row[col], 2)
+            for col in ("latency_p50_ms", "latency_p99_ms"):
+                if row[col] is not None:
+                    agg[col] = (
+                        row[col] if agg[col] is None
+                        else max(agg[col], row[col])
+                    )
+    return {
+        "hosts": hosts,
+        "fleet": {"tenants": fleet},
+    }
+
+
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
     refused = refused_flags(args)
@@ -694,6 +823,15 @@ def main(argv=None) -> int:
         for msg in refused:
             print(msg, file=sys.stderr)
         return 2
+
+    if args.tenant_report:
+        try:
+            report = tenant_report_multi(args.tenant_report)
+        except (OSError, ValueError) as exc:
+            print(f"tenant report failed: {exc}", file=sys.stderr)
+            return 1
+        print(json.dumps(report, indent=2))
+        return 0
 
     if args.selfcheck:
         def process(root: str) -> list[str]:
@@ -736,7 +874,19 @@ def main(argv=None) -> int:
     )
     with tel:
         service, workload = _make_service(args)
-        return _run_service(args, service, workload)
+        plane_ctx = telemetry_mod.mount_ops_plane(
+            tel, port=args.metrics_port,
+            interval_s=args.metrics_interval_s,
+            readiness=service.readiness,
+        )
+        with plane_ctx as plane:
+            if plane.port is not None:
+                print(
+                    f"metrics on http://127.0.0.1:{plane.port} "
+                    "(/metrics /snapshot /healthz /livez /readyz)",
+                    flush=True,
+                )
+            return _run_service(args, service, workload)
 
 
 def _run_service(args, service, workload) -> int:

@@ -473,7 +473,7 @@ SCENARIOS = {
 #: scenario actions that drive the cluster membership plane (the
 #: reference's ``cluster/`` package: host join/drain through a
 #: membership coordinator, and that coordinator's kill/restart): refused
-#: until ROADMAP item 8 ports it.
+#: until ROADMAP item 8c ports it.
 MEMBERSHIP_ACTIONS = frozenset({
     "join_host", "drain_host", "kill_coordinator", "restart_coordinator",
 })
@@ -485,7 +485,7 @@ def _refuse_membership(scenario: "Scenario") -> None:
             raise ValueError(
                 f"scenario {scenario.name!r} phase {phase.name!r} needs "
                 f"action {phase.action!r}, which drives the cluster "
-                "membership plane, not ported yet (ROADMAP item 8)"
+                "membership plane, not ported yet (ROADMAP item 8c)"
             )
 
 

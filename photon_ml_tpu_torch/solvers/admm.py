@@ -42,6 +42,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import telemetry as telemetry_mod
 from photon_ml_tpu_torch.optim.lbfgs import (
     LBFGSConfig,
     SolveResult,
@@ -293,6 +294,7 @@ def make_sharded_solver(problem, dist, mesh, l1_mask=None):
         values, rnorms = [], []
         rounds = 0
         converged = False
+        r = float("inf")
         for k in range(max_outer):
             x, u, z_new, stats = step(dd, prep, x, u, z, rho, l1, l2)
             (obj_proxy, r2, dz, sum_x2, sum_u2, _iters,
@@ -323,6 +325,17 @@ def make_sharded_solver(problem, dist, mesh, l1_mask=None):
 
         val, grad = shard_values_and_grads(obj, dd, z, mesh)
         value, pg = regularized(val, grad, z, l1, l2, mask)
+        tel = telemetry_mod.current()
+        if tel.enabled:
+            # Host numbers only: the rounds of the host loop and the
+            # residual it already read back for its stopping test.
+            tel.counter("solver_outer_iterations_total").inc(rounds)
+            # One reduce per outer round + the final exact evaluation.
+            tel.counter("solver_allreduce_count").inc(rounds + 1)
+            tel.counter("solver_allreduce_bytes_total").inc(
+                rounds * (2 * d + 4) * 4 + (d + 1) * 4)
+            tel.gauge("solver_consensus_residual").set(r)
+            tel.counter("solvers_sharded_solves_total").inc()
         return SolveResult(
             w=z,
             value=value,

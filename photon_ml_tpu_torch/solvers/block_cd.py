@@ -37,6 +37,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch import telemetry as telemetry_mod
 from photon_ml_tpu_torch.optim.lbfgs import SolveResult
 from photon_ml_tpu_torch.parallel.distributed import sum_shards
 from photon_ml_tpu_torch.solvers import registry
@@ -116,6 +117,10 @@ def make_sharded_solver(problem, dist, mesh, l1_mask=None):
     # The static block partition of the reference (np.array_split).
     blocks = [torch.as_tensor(s.astype(np.int64), device=dev)
               for s in np.array_split(np.arange(d), n_blocks)]
+    # The reference's reduce payload a round (telemetry only): first
+    # [g_blk, h_blk, f], then the block delta, at the widest block.
+    blk = -(-d // n_blocks)
+    payload_bytes = (2 * blk + 1) * 4 + blk * 4
     X = dist.dense  # (k, rows, d); the features never change per solve
     XT = X.transpose(1, 2).contiguous()  # (k, d, rows): contiguous columns
 
@@ -189,6 +194,14 @@ def make_sharded_solver(problem, dist, mesh, l1_mask=None):
 
         val, grad = shard_values_and_grads(obj, dd, w, mesh)
         value, pg = regularized(val, grad, w, l1, l2, mask)
+        tel = telemetry_mod.current()
+        if tel.enabled:
+            tel.counter("solver_outer_iterations_total").inc(rounds)
+            # Two fused reduces per round + the final exact evaluation.
+            tel.counter("solver_allreduce_count").inc(2 * rounds + 1)
+            tel.counter("solver_allreduce_bytes_total").inc(
+                rounds * payload_bytes + (d + 1) * 4)
+            tel.counter("solvers_sharded_solves_total").inc()
         return SolveResult(
             w=w,
             value=value,

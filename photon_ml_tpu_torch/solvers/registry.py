@@ -32,6 +32,8 @@ from typing import Any, Callable, NamedTuple, Optional
 
 import torch
 
+from photon_ml_tpu_torch import telemetry as telemetry_mod
+
 Tensor = torch.Tensor
 
 class ResidentSolve(NamedTuple):
@@ -95,6 +97,9 @@ def register(defn: SolverDef, replace: bool = False) -> SolverDef:
                 "(pass replace=True to override)"
             )
         _REGISTRY[defn.name] = defn
+    tel = telemetry_mod.current()
+    if tel.enabled:
+        tel.counter("solvers_registered_total").inc()
     return defn
 
 

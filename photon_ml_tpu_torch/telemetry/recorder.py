@@ -12,8 +12,8 @@ when something goes wrong:
 - a driver crash (``Telemetry.__exit__`` with an exception),
 - a watchdog-fatal failure (``utils/watchdog.run_with_retries`` giving
   up or classifying non-transient),
-- an injected chaos fault, in the reference (``chaos/core.FaultPlan``
-  firing a "raise" action; the port has no fault sites yet).
+- an injected chaos fault (``chaos/core.FaultPlan`` firing a "raise"
+  action) — so every fault-injection test doubles as a forensics test.
 
 The ring is a ``collections.deque(maxlen=capacity)``: appends are
 atomic under CPython's GIL (no lock on the hot path) and the oldest

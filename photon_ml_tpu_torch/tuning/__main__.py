@@ -34,8 +34,9 @@ space or configuration changed).  Results land in
 ``tuning_result.json``; the journal, per-trial coefficient files,
 events.jsonl / metrics.json all live in the output dir.  Every fit runs
 on ``--device`` (the card unless ``cpu`` is asked for), trials sharing
-it from their threads.  The live ops plane (``--metrics-port``,
-``--metrics-interval-s``) is not ported yet and is refused.
+it from their threads.  ``--metrics-port`` mounts the live ops plane
+(``/metrics``, ``/snapshot``, ``/healthz``) beside the search, and
+``--metrics-interval-s`` paces its ``metrics_ts.jsonl`` sampler.
 """
 
 from __future__ import annotations
@@ -103,11 +104,16 @@ def build_arg_parser() -> argparse.ArgumentParser:
     p.add_argument("--device", default="cuda",
                    help="torch device of every fit (default: the card; "
                    "'cpu' runs the kernels' plain versions)")
-    # The reference's ops-plane flags, refused until it is ported.
-    p.add_argument("--metrics-port", type=int, default=None,
-                   help=argparse.SUPPRESS)
-    p.add_argument("--metrics-interval-s", type=float, default=None,
-                   help=argparse.SUPPRESS)
+    p.add_argument(
+        "--metrics-port", type=int, default=None,
+        help="expose the live ops plane on this port (/metrics "
+        "Prometheus exposition, /snapshot JSON); 0 = ephemeral; omit "
+        "to disable",
+    )
+    p.add_argument(
+        "--metrics-interval-s", type=float, default=1.0,
+        help="metrics_ts.jsonl sampling interval (0 disables)",
+    )
     return p
 
 
@@ -494,7 +500,12 @@ def run_search(args) -> dict:
             logger=logger,
             enabled=args.telemetry != "off",
         )
-        with tel, tel.span("run", driver="tuning", mode=args.driver):
+        with tel, tel.span(
+            "run", driver="tuning", mode=args.driver
+        ), telemetry_mod.mount_ops_plane(
+            tel, port=args.metrics_port,
+            interval_s=args.metrics_interval_s, logger=logger,
+        ):
             fit_once, space = _build_search(args)
             asha = None
             if args.asha:
@@ -551,12 +562,6 @@ def run_search(args) -> dict:
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
-    for flag in ("metrics_port", "metrics_interval_s"):
-        if getattr(args, flag) is not None:
-            from photon_ml_tpu_torch.game.coordinates import not_ported
-
-            raise not_ported("--" + flag.replace("_", "-"), 8,
-                             "the telemetry ops plane")
     from photon_ml_tpu_torch.device import resolve_device
 
     # Refuse a missing card here, not as one failed trial after another.

@@ -20,8 +20,11 @@ non-transient: they propagate, and a fresh process resumes from the
 checkpoint.  Transport-style failures (``UNAVAILABLE``, a dropped
 connection, a preemption) are retried as in the reference.
 
-The reference's telemetry events come with the telemetry slice (ROADMAP
-Queue 1 item 8); the log lines and :class:`RetryStats` are kept.
+Each classify/backoff/give-up decision is a ``watchdog.attempt``
+telemetry event, each retry counts on ``watchdog_retries``, and a fatal
+failure (a CUDA error or ``torch.OutOfMemoryError`` included: both are
+non-transient here) dumps the flight recorder before it propagates, as in
+the reference.
 """
 
 from __future__ import annotations
@@ -30,6 +33,8 @@ import dataclasses
 import random
 import time
 from typing import Callable, Optional, Sequence, TypeVar
+
+from photon_ml_tpu_torch import telemetry as telemetry_mod
 
 T = TypeVar("T")
 
@@ -192,6 +197,7 @@ def run_with_retries(
     jitter (a fresh RNG when the policy enables jitter and none is given).
     ``KeyboardInterrupt``/``SystemExit`` are not ``Exception``s: they
     propagate without reaching classification."""
+    tel = telemetry_mod.current()
     if stats is None:
         stats = RetryStats()
     if rng is None and policy.jitter != "none":
@@ -219,11 +225,33 @@ def run_with_retries(
                 "source": verdict.source,
                 "backoff_seconds": delay,
             })
+            tel.event(
+                "watchdog.attempt",
+                attempt=attempt,
+                outcome=(
+                    "retry" if retrying
+                    else "gave_up" if verdict.transient
+                    else "non_transient"
+                ),
+                exception=type(exc).__name__,
+                matched=verdict.matched,
+                source=verdict.source,
+                backoff_seconds=delay,
+            )
             if not retrying:
+                # Watchdog-fatal: freeze the event window before the run
+                # dies (a no-op without a recorder-equipped hub).
+                telemetry_mod.dump_flight_recorder(
+                    reason=(
+                        "watchdog-fatal: "
+                        f"{type(exc).__name__}: {exc}"
+                    )[:300]
+                )
                 raise
             stats.retries += 1
             stats.sleep_seconds += delay
             prev_delay = delay
+            tel.counter("watchdog_retries").inc()
             if logger is not None:
                 logger.warning(
                     "transient failure (attempt %d/%d), retrying in %.1fs: "
@@ -235,4 +263,9 @@ def run_with_retries(
             attempt += 1
         else:
             stats.succeeded = True
+            if stats.retries or stats.failures:
+                tel.event(
+                    "watchdog.recovered",
+                    attempts=stats.attempts, retries=stats.retries,
+                )
             return result

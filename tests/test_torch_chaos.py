@@ -22,6 +22,7 @@ from photon_ml_tpu_torch.serving.runtime import RuntimeConfig, ScoringRuntime
 from photon_ml_tpu_torch.serving.service import ScoringService
 from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
 from photon_ml_tpu_torch.serving.tenancy import TenancyConfig, TenantSpec
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

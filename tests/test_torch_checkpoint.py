@@ -22,6 +22,7 @@ from photon_ml_tpu.io import checkpoint as jax_checkpoint
 from photon_ml_tpu_torch.drivers import glm_driver
 from photon_ml_tpu_torch.io import checkpoint
 from photon_ml_tpu_torch.io.model_store import load_glm_model
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 D = 123
 

@@ -19,6 +19,7 @@ import jax.numpy as jnp
 from photon_ml_tpu.evaluation import device as ref_device
 from photon_ml_tpu_torch.evaluation import device, evaluators
 from photon_ml_tpu_torch.evaluation.suite import EvaluationSuite
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 KINDS = [("logistic_loss", evaluators.LogisticLossEvaluator()),
          ("poisson_loss", evaluators.PoissonLossEvaluator()),

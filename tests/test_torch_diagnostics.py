@@ -17,6 +17,7 @@ from photon_ml_tpu_torch.diagnostics import (
     feature_importance,
     hosmer_lemeshow,
 )
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 
 def _auc(s, l):

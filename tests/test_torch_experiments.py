@@ -36,6 +36,7 @@ from photon_ml_tpu_torch.experiments import (
 )
 from photon_ml_tpu_torch.ops import _kernels
 from photon_ml_tpu_torch.ops.sparse_cuda import build_cuda_matrix
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 ROOT = pathlib.Path(__file__).resolve().parent.parent
 RTOL = 1e-5

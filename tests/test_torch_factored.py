@@ -58,6 +58,7 @@ from photon_ml_tpu_torch.optim.regularization import RegularizationContext
 sys.path.insert(0, os.path.dirname(__file__))
 from test_factored import _rank1_problem  # noqa: E402
 from test_torch_game import _game_problem  # noqa: E402
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 CPU = "cpu"
 FIT_TOL = 2e-3

@@ -61,6 +61,7 @@ from photon_ml_tpu_torch.serving.runtime import RuntimeConfig, ScoringRuntime
 from photon_ml_tpu_torch.serving.service import ScoringService
 from photon_ml_tpu_torch.serving.supervisor import ReplicaSupervisor
 from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

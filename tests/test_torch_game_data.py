@@ -25,6 +25,7 @@ from photon_ml_tpu_torch.data import sampling
 from photon_ml_tpu_torch.data.stats import entity_shape_histogram
 from photon_ml_tpu_torch.game import coordinates, data
 from photon_ml_tpu_torch.game.model import RandomEffectModel
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 CPU = "cpu"
 

@@ -41,6 +41,7 @@ from photon_ml_tpu_torch.native import load_game_decoder, load_score_encoder
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_game_drivers import _make_game_rows  # noqa: E402
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 CPU = ("--device", "cpu")
 FIT_TOL = 2e-3
@@ -782,22 +783,29 @@ def test_wide_per_user_effect_matches_reference(tmp_path, optimizer):
 
 
 class TestRefusals:
-    """Each flag or config the port does not run yet raises
-    NotImplementedError naming its ROADMAP Queue 1 item; the out-of-core
-    routes it once refused run as the reference's, and the settings the
+    """The flags and configs the port once refused, naming their ROADMAP
+    Queue 1 item, run: the ops plane over a GAME search, the out-of-core
+    routes as the reference's; and the settings the
     reference reads only where a mesh forms change nothing on one
     process."""
 
     def test_refusal_names_its_item(self, game_files, trained, tmp_path):
-        """A GAME search asked to mount the live ops plane."""
+        """A GAME search asked to mount the live ops plane, refused naming
+        Queue 1 item 8 until the plane was ported, now runs with it: the
+        time series brackets the search."""
+        from photon_ml_tpu_torch.telemetry import read_series
         from photon_ml_tpu_torch.tuning.__main__ import main as tune
 
         train, val, config = game_files
-        with pytest.raises(NotImplementedError, match="Queue 1 item 8"):
-            tune(["--driver", "game", "--train-data", train,
-                  "--validate-data", val, "--config", config,
-                  "--output-dir", str(tmp_path / "o"), "--metrics-port",
-                  "0", *CPU])
+        out = tmp_path / "o"
+        assert tune(["--driver", "game", "--train-data", train,
+                     "--validate-data", val, "--config", config,
+                     "--output-dir", str(out), "--trials", "2",
+                     "--workers", "2", "--metrics-port", "0",
+                     "--metrics-interval-s", "0.05", *CPU]) == 0
+        with open(out / "tuning_result.json") as f:
+            assert json.load(f)["n_trials"] == 2
+        assert len(read_series(str(out / "metrics_ts.jsonl"))) >= 2
 
     @pytest.mark.parametrize("case", ["data_parallel", "split_factor",
                                       "solver_options"])

@@ -48,6 +48,7 @@ from photon_ml_tpu_torch.optim.regularization import RegularizationContext
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_torch_game_solvers import _both, _labels  # noqa: E402
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 CPU = "cpu"
 TASKS = ["logistic", "squared", "poisson", "smoothed_hinge"]

@@ -11,6 +11,12 @@ stops on its noise floor, so factored fits hold the reference's factored
 tolerances).  Inside the port one plan is bitwise the same at depth 1 and 2,
 with and without the hot cache, prestaged or not, and from a memmap
 dataset.
+
+The reference's programs here compile in the test process, without JAX's
+persistent compilation cache (``tests/torch_ref_compile.py``): a worker of
+the ``-n 6`` run died with a segmentation fault while loading a cached
+executable for this module's reference coordinates, and its running test
+was reported failed; the parity margins are 40x inside their tolerances.
 """
 
 import dataclasses
@@ -23,6 +29,7 @@ import pytest
 import scipy.sparse as sp
 import torch
 
+import jax
 import jax.numpy as jnp
 
 from photon_ml_tpu.game import data as ref_data
@@ -65,6 +72,10 @@ from photon_ml_tpu_torch.optim.regularization import (
 
 sys.path.insert(0, os.path.dirname(__file__))
 from test_ooc_random import _zipf_data  # noqa: E402
+from torch_ref_compile import (  # noqa: E402,F401
+    reference_compiles_in_process,
+    without_persistent_cache,
+)
 
 CPU = "cpu"
 COEF_TOL = 1e-5  # tests/test_ooc_random.py's coefficient tolerance
@@ -567,3 +578,28 @@ class TestEstimatorAndDescent:
         _close(ooc.train(torch.as_tensor(base), warm_state=warm),
                ref.train(jnp.asarray(base), warm_state=ref_res.states["re"]),
                COEF_TOL)
+
+
+class TestReferenceCompileCache:
+    def test_the_reference_compiles_without_the_persistent_cache(self):
+        """Pins the repair of the order-dependent worker crash: inside this
+        module no reference program is read from the shared persistent
+        cache."""
+        from jax._src import compilation_cache
+
+        assert jax.config.jax_compilation_cache_dir is None
+        jax.jit(lambda x: x * 3.0 + 1.0)(jnp.ones(4)).block_until_ready()
+        assert not compilation_cache.is_cache_used(jax.devices()[0].client)
+
+    def test_the_previous_cache_directory_is_restored(self, tmp_path):
+        jax.config.update("jax_compilation_cache_dir", str(tmp_path))
+        jax.config.update("jax_enable_compilation_cache", True)
+        try:
+            with without_persistent_cache():
+                assert jax.config.jax_compilation_cache_dir is None
+                assert not jax.config.jax_enable_compilation_cache
+            assert jax.config.jax_compilation_cache_dir == str(tmp_path)
+            assert jax.config.jax_enable_compilation_cache
+        finally:
+            jax.config.update("jax_compilation_cache_dir", None)
+            jax.config.update("jax_enable_compilation_cache", False)

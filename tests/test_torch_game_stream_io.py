@@ -32,6 +32,7 @@ from photon_ml_tpu_torch.io import avro
 sys.path.insert(0, os.path.dirname(__file__))
 from test_game_drivers import _make_game_rows  # noqa: E402
 from test_torch_game_drivers import _write_config  # noqa: E402
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 CPU = ("--device", "cpu")
 

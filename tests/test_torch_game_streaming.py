@@ -56,6 +56,7 @@ from photon_ml_tpu_torch.optim.problem import (
     OptimizerType,
 )
 from photon_ml_tpu_torch.optim.regularization import RegularizationContext
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 CPU = "cpu"
 TOL = 5e-3  # tests/test_streaming.py's streamed-vs-resident tolerance

@@ -49,6 +49,7 @@ from photon_ml_tpu_torch.optim.problem import (
     OptimizerConfig,
 )
 from photon_ml_tpu_torch.optim.regularization import RegularizationContext
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 CPU = "cpu"
 FIT_TOL = 2e-3

@@ -35,6 +35,7 @@ from photon_ml_tpu_torch import convert
 from photon_ml_tpu_torch.data.index_map import IndexMap
 from photon_ml_tpu_torch.drivers import glm_driver
 from photon_ml_tpu_torch.io import model_store
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 N_TRAIN, N_VAL, D = 400, 200, 123
@@ -111,11 +112,12 @@ def test_artifacts_match(both_runs):
     for key in ("mean", "variance", "min", "max"):
         np.testing.assert_allclose(s[key], rs[key], rtol=1e-5, atol=1e-6)
     assert s["nnz"] == rs["nnz"] and s["count"] == rs["count"]
-    # The five stages' artifacts and the λ-grid checkpoint (telemetry and
-    # traces of the JAX driver belong to later slices of the port).
+    # The five stages' artifacts, the λ-grid checkpoint and the telemetry
+    # outputs (events, trace, end-of-run metrics and the time series).
     stage_files = {"feature_summary.json", "feature_summary.avro",
                    "index_map.json", "training_result.json", "photon.log",
-                   "checkpoints"}
+                   "checkpoints", "events.jsonl", "trace.json",
+                   "metrics.json", "metrics_ts.jsonl"}
     for lam in ("0.1", "1", "10"):
         stage_files |= {f"model_lambda_{lam}.avro",
                         f"model_lambda_{lam}.avro.meta.json"}

@@ -123,12 +123,20 @@ def test_import_leaves_jax_out_of_sys_modules():
     "photon_ml_tpu_torch.tuning.executor",
     "photon_ml_tpu_torch.tuning.__main__",
     "photon_ml_tpu_torch.experiments.serve_launch",
+    "photon_ml_tpu_torch.telemetry.timeseries",
+    "photon_ml_tpu_torch.telemetry.exporter",
+    "photon_ml_tpu_torch.telemetry.fleet",
+    "photon_ml_tpu_torch.telemetry.__main__",
+    "photon_ml_tpu_torch.chaos.__main__",
+    "photon_ml_tpu_torch.drivers.ops_plane",
+    "photon_ml_tpu_torch.data.datasets",
 ])
 def test_solver_slice_module_imports_alone_without_jax(module):
     """Each module of the solver, GAME, GAME-driver, out-of-core,
     multi-device and serving slices (GAME over a group too, the telemetry
     hub and the breaker, the process and fleet tier, freshness and the
-    fault-site registry, tensor parallelism and tuning), imported alone in a fresh process, leaves jax
+    fault-site registry, tensor parallelism and tuning, the live ops plane
+    and the chaos CLI), imported alone in a fresh process, leaves jax
     and the JAX package out of sys.modules."""
     code = (
         "import importlib, json, sys\n"

@@ -11,6 +11,7 @@ import jax.numpy as jnp
 from photon_ml_tpu.ops import losses as jax_losses
 
 from photon_ml_tpu_torch.ops import losses
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 NAMES = ("logistic", "squared", "poisson", "smoothed_hinge")
 

@@ -7,6 +7,7 @@ import pytest
 
 from photon_ml_tpu.parallel import multihost as ref_mh
 from photon_ml_tpu_torch.parallel import multihost
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 ENV = ("COORDINATOR_ADDRESS", "JAX_COORDINATOR_ADDRESS", "NUM_PROCESSES",
        "JAX_NUM_PROCESSES", "PROCESS_ID", "JAX_PROCESS_ID",

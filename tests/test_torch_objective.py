@@ -36,6 +36,7 @@ from photon_ml_tpu_torch.data.dataset import make_glm_data
 from photon_ml_tpu_torch.ops import losses
 from photon_ml_tpu_torch.ops.sparse import from_coo
 from photon_ml_tpu_torch.optim.objective import GlmObjective
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 LOSSES = ("logistic", "squared", "poisson", "smoothed_hinge")
 

@@ -48,6 +48,7 @@ from photon_ml_tpu_torch.serving.service import (
     start_http_server,
 )
 from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 ROOT = os.path.dirname(os.path.dirname(os.path.abspath(__file__)))
 
@@ -743,13 +744,14 @@ class TestSelfcheckAndLoadGen:
         (["--replicas", "2"], "7b"),
         (["--workers", "2"], "7b"),
         (["--shm-ingress"], "7b"),
-        (["--metrics-port", "0"], "item 8"),
-        (["--tenant-report", "x.jsonl"], "item 8"),
-        (["--membership", "http://127.0.0.1:1"], "item 8"),
+        (["--metrics-port", "0"], "8a"),
+        (["--tenant-report", "x.jsonl"], "8a"),
+        (["--membership", "http://127.0.0.1:1"], "item 8c"),
     ])
     def test_cli_refuses_unported_flags(self, argv, item, capsys):
-        """Item 8's flags are refused naming it; the process tier's
-        (item 7b) are ported and accepted."""
+        """The cluster package's flags (item 8c) are refused naming it;
+        the process tier's (item 7b) and the ops plane's (item 8a) are
+        ported and accepted."""
         from photon_ml_tpu_torch.serving.__main__ import (
             build_arg_parser,
             main,
@@ -757,7 +759,7 @@ class TestSelfcheckAndLoadGen:
         )
 
         full = ["--selfcheck", "--device", "cpu", *argv]
-        if item == "7b":
+        if item in ("7b", "8a"):
             assert refused_flags(build_arg_parser().parse_args(full)) == []
             return
         assert main(full) == 2

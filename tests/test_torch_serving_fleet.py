@@ -42,6 +42,7 @@ from photon_ml_tpu_torch.serving.shm_ingress import (
 )
 from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
 from photon_ml_tpu_torch.serving.tenancy import TokenBucket
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -27,6 +27,7 @@ from photon_ml_tpu_torch.serving.supervisor import ReplicaSupervisor
 from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
 from photon_ml_tpu_torch.serving.tenancy import TenancyConfig, TenantSpec
 from photon_ml_tpu_torch.utils.watchdog import RetryPolicy
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

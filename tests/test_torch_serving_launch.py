@@ -27,6 +27,7 @@ from photon_ml_tpu_torch.serving.batcher import BatcherConfig
 from photon_ml_tpu_torch.serving.runtime import RuntimeConfig, ScoringRuntime
 from photon_ml_tpu_torch.serving.service import ScoringService
 from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 MAX_BATCH = 16
 LADDER = (1, 2, 4, 8, 16)

@@ -54,6 +54,7 @@ from photon_ml_tpu_torch.serving.service import ScoringService
 from photon_ml_tpu_torch.serving.supervisor import ReplicaSupervisor
 from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
 from photon_ml_tpu_torch.serving.tenancy import TenancyConfig, TenantSpec
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 RT_CFG = dict(max_batch_size=8, hot_entities=8, device="cpu")
 

@@ -49,6 +49,7 @@ from photon_ml_tpu_torch.serving.tenancy import (
     TokenBucket,
     tenant_slug,
 )
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -38,6 +38,7 @@ from photon_ml_tpu_torch.serving.service import (
     start_http_server,
 )
 from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 
 @pytest.fixture(scope="module")

@@ -39,6 +39,7 @@ from photon_ml_tpu_torch.parallel import distributed
 from photon_ml_tpu_torch.parallel.distributed import shard_glm_data
 from photon_ml_tpu_torch.solvers import registry
 from photon_ml_tpu_torch.solvers import sharded
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 CPU = "cpu"
 REGS = {"l2": (RegularizationContext.l2, JReg.l2),

@@ -53,6 +53,7 @@ from photon_ml_tpu_torch.optim.problem import (
 )
 from photon_ml_tpu_torch.optim.regularization import RegularizationContext
 from photon_ml_tpu_torch.solvers import registry
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 
 @pytest.fixture(autouse=True, scope="module")

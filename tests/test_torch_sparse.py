@@ -28,6 +28,7 @@ from photon_ml_tpu_torch.ops.sparse_cuda import (
     CudaSparseMatrix,
     build_cuda_matrix,
 )
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 OPS = ("matvec", "rmatvec", "row_sq_matvec", "sq_rmatvec")
 RTOL = 1e-5

@@ -26,6 +26,7 @@ from photon_ml_tpu_torch.ops.sparse_cuda import (
     build_cuda_matrix,
     row_block_table,
 )
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 RTOL = 1e-5
 BLOCK = 64

@@ -37,6 +37,7 @@ from photon_ml_tpu_torch.data.streaming import (
     StreamingGlmData,
     make_streaming_glm_data,
 )
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 LAYOUTS = ["dense", "coo", "kernel"]
 

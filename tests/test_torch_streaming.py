@@ -73,6 +73,7 @@ from photon_ml_tpu_torch.optim.streaming import (
     streaming_run_grid,
 )
 from photon_ml_tpu_torch.optim.tron import TRONConfig, tron_solve
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 LAYOUTS = ["coo", "kernel", "dense"]
 

@@ -56,6 +56,7 @@ from photon_ml_tpu_torch.parallel import distributed, multihost
 
 sys.path.insert(0, os.path.dirname(__file__))
 import torch_dist_workers as workers  # noqa: E402
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 #: Seconds a spawned group may take before the test fails (it takes
 #: 6-10 s alone).

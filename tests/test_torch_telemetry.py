@@ -16,6 +16,7 @@ from photon_ml_tpu import telemetry as ref_tel
 from photon_ml_tpu.chaos.breaker import CircuitBreaker as RefBreaker
 from photon_ml_tpu_torch import telemetry
 from photon_ml_tpu_torch.chaos import CLOSED, HALF_OPEN, OPEN, CircuitBreaker
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 
 def _observed(pkg, values):

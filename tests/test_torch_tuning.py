@@ -59,6 +59,7 @@ from photon_ml_tpu_torch.tuning.state import (
 )
 from photon_ml_tpu_torch.utils import watchdog
 from photon_ml_tpu_torch.utils.watchdog import RetryPolicy
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 PORT = types.SimpleNamespace(search=search, sched=scheduler, state=state,
                              ex=executor, wd=watchdog)
@@ -797,9 +798,16 @@ class TestSelfcheck:
         with open(tmp_path / "a" / "tuning_result.json") as f:
             again = json.load(f)
         assert again["trials"] == out["trials"]
-        with pytest.raises(NotImplementedError, match="ops plane"):
-            main(argv + ["--output-dir", str(tmp_path / "b"),
-                         "--metrics-port", "0"])
+        # The ops plane mounts beside the search: the time series brackets
+        # the run and the search is the same.
+        assert main(argv + ["--output-dir", str(tmp_path / "b"),
+                            "--metrics-port", "0",
+                            "--metrics-interval-s", "0.05"]) == 0
+        with open(tmp_path / "b" / "tuning_result.json") as f:
+            assert json.load(f)["trials"] == out["trials"]
+        from photon_ml_tpu_torch.telemetry import read_series
+
+        assert len(read_series(str(tmp_path / "b" / "metrics_ts.jsonl"))) >= 2
 
     def test_cli_selfcheck_without_a_card_refuses(self, monkeypatch):
         from photon_ml_tpu_torch.tuning.__main__ import main

@@ -14,6 +14,7 @@ from photon_ml_tpu_torch.utils.watchdog import (
     RetryStats,
     run_with_retries,
 )
+from torch_ref_compile import reference_compiles_in_process  # noqa: E402,F401
 
 
 class _FakeLogger:
