@@ -364,6 +364,31 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    ``python -m photon_ml_tpu_torch.telemetry --selfcheck``, side by side
    as subprocesses started before phase 15 (they run beside it): both
    exit 0, and each scenario's verdict and seconds are printed.
+17. The cluster control plane (``photon_ml_tpu_torch/cluster``), after
+   phase 16 and alone (17a's gates are timed).  17a, ``python -m
+   photon_ml_tpu_torch.cluster --selfcheck`` on the card as a subprocess at
+   the reference's sizes (64 entities, 150 requests/s offered, lease TTL
+   1 s): it exits 0, and its gate lines are printed (the failover's
+   seconds against 1.25 x the TTL, the old and new leader, each phase's
+   admissions against its bound, the cold host bitwise).  17b, in process
+   at phase 7's width: phase 7's saved model directory published as a
+   snapshot into a fresh publication root and phase 14c's 1 % delta on top
+   of it, the root served by ``PublicationServer``; a cold host with an
+   empty cache runs ``cold_start`` over HTTP (every file's sha256 checked)
+   and its ``RemoteApplier`` applies and acks the delta (fetch MB/s and
+   cold-start seconds logged); it registers with a ``MembershipRegistry``
+   through a ``HeartbeatAgent`` and a ``MembershipWatcher`` joins it into a
+   ``FleetRouter`` beside a warm ``LocalHost`` serving the patched model;
+   under phase 13's requests at an offered 240 requests/s
+   (``host_join_drain``) the warm host is drained through the registry.
+   Checks: zero failed requests and zero rejections through the join and
+   the drain; 4,096 of phase 13's requests through the router after the
+   drain bitwise a fresh runtime on the patched model; each host's
+   ``serve_margins`` launches in the window equal its batches, and their
+   sum the kernel's count; the aggregator marks the drained host departed.
+   Every thread the phase starts is joined (a strict thread-leak
+   sentinel) and the selfcheck's process has exited (a strict
+   process-leak sentinel).
 
 Phase 7's GAME Avro files are written by a spawned process that starts
 after phase 1 and runs beside phases 2-6; phase 7 waits for it.  Phase 4's
@@ -374,9 +399,10 @@ Launch counts are zeroed just before each main-path run of phases 3, 3b,
 4, 5, 6, 7, 8, 9, 10, 11, 12, 13 (13b, 13d), 14 (14a-14b's pool,
 14b's in-process replicas, 14d's hosts, 14c's pool; each once its
 runtimes have warmed up), 15 (each 15a solve, 15b's searches and grid,
-15c's selfcheck and driver run) and 16 (each of 16a's driver runs) and
-read just after; every kernel those
-paths run must have launched.  A kernel record's ``launches`` sums its
+15c's selfcheck and driver run), 16 (each of 16a's driver runs) and 17
+(17b's join, drain and routed requests, once both hosts' runtimes have
+warmed up and the cold host has applied its delta) and read just after;
+every kernel those paths run must have launched.  A kernel record's ``launches`` sums its
 main-path runs (phases 3, 3b, 9a, 9b and 11c's group runs for the valued
 instances, 11a's for the ``.shard`` ones, phase 4's three runs, 11b's and
 11c's driver runs, 9c's and 12a's GLM driver runs, 15a's resident
@@ -386,8 +412,9 @@ phase 6's descents and estimator fits, phases 7's, 8's, 9c's and 12a's
 training runs, phase 10's descents, streamed solves and training runs and
 15c's tuning run for the ``.game`` records, phases 7's, 8's, 10e's and
 15c's validation scoring for ``.game_val``, 12b's four ranks for
-``.game_shard`` and ``.chunk_shard``; 13b's and 14c's for ``serve_margins``, 13d's, 14a's,
-14b's and 14d's for ``serve_margins.bench_serving``, every bucket).  The
+``.game_shard`` and ``.chunk_shard``; 13b's, 14c's and 17b's for
+``serve_margins``, 13d's, 14a's, 14b's and 14d's for
+``serve_margins.bench_serving``, every bucket).  The
 serving counts must equal the batches scored in their window: a
 worker's launches and batches fold into the parent's from its
 heartbeats, and the warm-up buckets of a runtime built inside a window
@@ -6114,6 +6141,7 @@ def phase_serving(smi, td):
                                                ("bench_serving", recb))
                                for bk in (1, SERVE_MAX_BATCH)}
     handoff = {"model": model, "imaps": imaps, "requests": sub,
+               "cluster_requests": requests[:CLUSTER_SCORED],
                "swap_s": metrics["swap_s"]}
     return records, launches, metrics, handoff
 
@@ -6521,8 +6549,10 @@ def phase_process_fleet(smi, td, handoff):
         target, n_rows = perturbed_copy(model, "per_user", DELTA_FRACTION,
                                         14)
         t0 = time.perf_counter()
+        # Phase 17 publishes the same delta over the wire.
+        handoff["delta"] = diff_game_models(model, target)
         with DeltaPublisher(os.path.join(td, "publications")) as publisher:
-            pub = publisher.publish(diff_game_models(model, target))
+            pub = publisher.publish(handoff["delta"])
         publish_s = time.perf_counter() - t0
         bad = os.path.join(td, "delta_flipped")
         shutil.copytree(pub.path, bad)
@@ -7197,9 +7227,10 @@ def stop_processes(procs):
             proc.communicate()
 
 
-def selfcheck_result(label, proc, t0, timeout=300):
-    """Wait for ``proc`` (killed at ``timeout``), print its scenario
-    lines, and check it exited 0."""
+def selfcheck_result(label, proc, t0, timeout=300, phase="16d"):
+    """Wait for ``proc`` (killed at ``timeout``), print its scenario and
+    gate lines, and check it exited 0; returns (its seconds, its
+    output)."""
     try:
         out, err = proc.communicate(timeout=timeout)
     except subprocess.TimeoutExpired:
@@ -7208,12 +7239,13 @@ def selfcheck_result(label, proc, t0, timeout=300):
         check(False, f"{label}: no exit in {timeout} s")
     wall = time.perf_counter() - t0
     for line in out.splitlines():
-        if line.startswith(("chaos scenario ", "telemetry selfcheck pass ")):
-            log(f"phase 16d {label}: {line}")
-    log(f"phase 16d {label}: exit {proc.returncode} in {wall:.1f} s")
+        if line.startswith(("chaos scenario ", "telemetry selfcheck pass ",
+                            "cluster selfcheck")):
+            log(f"phase {phase} {label}: {line}")
+    log(f"phase {phase} {label}: exit {proc.returncode} in {wall:.1f} s")
     check(proc.returncode == 0,
           f"{label} failed (exit {proc.returncode}): {err[-2000:]}")
-    return wall
+    return wall, out
 
 
 def phase_ops_plane(smi, drv_files, drv_runs, selfchecks):
@@ -7354,7 +7386,7 @@ def phase_ops_plane(smi, drv_files, drv_runs, selfchecks):
         log(f"phase 16c: 9c's streamed L2 run: h2d_bytes_total "
             f"{counters['h2d_bytes_total']}, h2d_chunks_total "
             f"{counters['h2d_chunks_total']} = its transfer statistics")
-        walls = {label: selfcheck_result(label, proc, t0)
+        walls = {label: selfcheck_result(label, proc, t0)[0]
                  for label, proc in procs.items()}
     finally:
         stop_processes(procs.values())
@@ -7366,6 +7398,282 @@ def phase_ops_plane(smi, drv_files, drv_runs, selfchecks):
                "seconds": time.perf_counter() - t_phase}
     log(f"phase 16 [{smi}]: {metrics['seconds']:.1f} s")
     return total, metrics
+
+
+# -- phase 17: the cluster control plane ----------------------------------
+
+CLUSTER_RATE_RPS = 240.0
+CLUSTER_SCORED = 4096
+CLUSTER_HEARTBEAT_TTL_S = 2.0
+
+
+def file_bytes(root):
+    return sum(os.path.getsize(os.path.join(d, f))
+               for d, _, names in os.walk(root) for f in names)
+
+
+def phase_cluster(smi, td, handoff):
+    """Phase 17: the cluster control plane on the card (17a the drill's
+    selfcheck as a subprocess, 17b phase 7's model cold-started over HTTP
+    behind a membership-driven router, see the module docstring).
+    ``handoff`` is phase 13's model, index maps and requests, with phase
+    14c's delta.  Returns (phase 7's model's serve_margins launches,
+    metrics)."""
+    from photon_ml_tpu_torch import telemetry
+    from photon_ml_tpu_torch.analysis.sanitizers import (
+        ProcessLeakSentinel,
+        ThreadLeakSentinel,
+    )
+    from photon_ml_tpu_torch.cluster import (
+        HeartbeatAgent,
+        MembershipRegistry,
+        MembershipWatcher,
+        PublicationClient,
+        PublicationServer,
+        RegistryClient,
+        RemoteApplier,
+        cold_start,
+    )
+    from photon_ml_tpu_torch.freshness.delta import apply_delta
+    from photon_ml_tpu_torch.freshness.publisher import DeltaPublisher
+    from photon_ml_tpu_torch.ops import _kernels
+    from photon_ml_tpu_torch.serving import loadgen
+    from photon_ml_tpu_torch.serving.batcher import BatcherConfig
+    from photon_ml_tpu_torch.serving.fleet import FleetRouter, LocalHost
+    from photon_ml_tpu_torch.serving.runtime import (
+        RuntimeConfig,
+        ScoringRuntime,
+    )
+    from photon_ml_tpu_torch.serving.service import ScoringService
+    from photon_ml_tpu_torch.serving.tenancy import TenancyConfig, TenantSpec
+    from photon_ml_tpu_torch.telemetry.fleet import FleetAggregator
+
+    def clog(msg):
+        log(f"cluster [{smi}] {msg}")
+
+    t_phase = time.perf_counter()
+    metrics = {}
+
+    # -- 17a: the drill's selfcheck, alone (its gates are timed) ----------
+    with ProcessLeakSentinel(grace_s=30.0, strict=True):
+        t0 = time.perf_counter()
+        proc = selfcheck_process("photon_ml_tpu_torch.cluster",
+                                 ("--device", DEVICE))
+        try:
+            wall, out = selfcheck_result("cluster selfcheck", proc, t0,
+                                         phase="17a")
+        finally:
+            stop_processes([proc])
+    gates = next(json.loads(line.split(": ", 1)[1])
+                 for line in out.splitlines()
+                 if line.startswith("cluster selfcheck gates: "))
+    check(gates["cold_host_bitwise"] and gates["new_leader"]
+          != gates["old_leader"], f"17a: gates {gates}")
+    metrics["selfcheck"] = dict(gates, seconds=wall)
+    clog(f"17a: failover {gates['old_leader']} -> {gates['new_leader']} in "
+         f"{gates['failover_s']:.3f} s (bound {gates['failover_bound_s']:g} "
+         f"s) at {gates['rate_rps']:g} requests/s; admitted against the "
+         f"bound by phase {json.dumps(gates['admitted_vs_bound'])}; cold "
+         f"host bitwise; {wall:.1f} s")
+
+    # -- 17b: phase 7's model cold-started over HTTP ----------------------
+    model, imaps, delta = handoff["model"], handoff["imaps"], handoff["delta"]
+    reqs = handoff["cluster_requests"]
+    cfg = RuntimeConfig(max_batch_size=SERVE_MAX_BATCH,
+                        hot_entities=SERVE_HOT, device=DEVICE)
+    bcfg = BatcherConfig(
+        max_batch_size=SERVE_MAX_BATCH, max_wait_us=1000, max_queue=1024,
+        tenancy=TenancyConfig(tenants=(TenantSpec(name="acme",
+                                                  max_queue=1024),)))
+
+    def routed_scores(submit, chunk=256):
+        out = []
+        for lo in range(0, len(reqs), chunk):
+            futs = [submit(dict(r, tenant="acme"))
+                    for r in reqs[lo:lo + chunk]]
+            out.extend(np.float32(f.result(timeout=120)["score"])
+                       for f in futs)
+        return np.asarray(out, np.float32)
+
+    with telemetry.Telemetry(sinks=[]) as hub, \
+            ThreadLeakSentinel(grace_s=10.0, strict=True):
+        t0 = time.perf_counter()
+        root = os.path.join(td, "cluster_publications")
+        with DeltaPublisher(root) as publisher:
+            snap = publisher.publish_snapshot(os.path.join(td, "full",
+                                                           "models"))
+            delta_pub = publisher.publish(delta)
+        publish_s = time.perf_counter() - t0
+        pub_server = PublicationServer(root).serve()
+        registry = MembershipRegistry(
+            heartbeat_ttl_s=CLUSTER_HEARTBEAT_TTL_S).serve()
+        reg_client = RegistryClient(registry.base_url)
+        started = []  # everything with a stop(), stopped in reverse
+        try:
+            # The cold host: an empty cache, the snapshot over HTTP (every
+            # file's sha256 checked), then the delta through the applier.
+            t0 = time.perf_counter()
+            client = PublicationClient(pub_server.base_url,
+                                       os.path.join(td, "cold_cache"))
+            local, got_snap = cold_start(client, subscriber_id="cold")
+            fetch_s = time.perf_counter() - t0
+            fetched = file_bytes(os.path.dirname(local))
+            cold_svc = ScoringService(ScoringRuntime.load(local, cfg), bcfg)
+            cold = LocalHost("cold", cold_svc).start()
+            started.append(cold)
+            applier = RemoteApplier(cold_svc, client, "cold",
+                                    start_seq=got_snap.seq)
+            applied = applier.poll_once()
+            cold_start_s = time.perf_counter() - t0
+            check(got_snap.seq == snap.seq and [r.status for r in applied]
+                  == ["swapped"] and applier.applied_seq == delta_pub.seq,
+                  f"17b: cold start at seq {got_snap.seq}, applied "
+                  f"{[r.status for r in applied]} up to "
+                  f"{applier.applied_seq}")
+            clog(f"17b: cold start fetched {fetched} bytes over HTTP in "
+                 f"{fetch_s:.3f} s ({fetched / fetch_s / 1e6:.1f} MB/s, "
+                 f"sha256 checked), loaded and applied the delta (seq "
+                 f"{delta_pub.seq}) in {cold_start_s:.2f} s; published in "
+                 f"{publish_s:.2f} s")
+
+            # The warm host serves the patched model; the watcher routes
+            # the registry's members.
+            patched = apply_delta(model, delta)
+            warm = LocalHost("warm", ScoringService(
+                ScoringRuntime(patched, imaps, cfg), bcfg)).start()
+            started.append(warm)
+            router = FleetRouter([warm.base_url],
+                                 probe_interval_s=0.1).start()
+            started.append(router)
+            reg_client.register("warm", warm.base_url)
+            warm_agent = HeartbeatAgent(
+                reg_client, "warm", warm.base_url,
+                heartbeat_ttl_s=CLUSTER_HEARTBEAT_TTL_S).start()
+            started.append(warm_agent)
+            aggregator = FleetAggregator(
+                {"warm": warm.base_url},
+                fetch=lambda url, timeout_s: {
+                    "transport": hub.metrics.transport_snapshot()},
+                stale_drop_s=10.0)
+            watcher = MembershipWatcher(reg_client, router,
+                                        aggregator=aggregator,
+                                        interval_s=0.1).start()
+            started.append(watcher)
+            cold_agent = HeartbeatAgent(
+                reg_client, "cold", cold.base_url,
+                heartbeat_ttl_s=CLUSTER_HEARTBEAT_TTL_S)
+            started.append(cold_agent)
+            runtimes = {"warm": warm.service.current_runtime,
+                        "cold": cold_svc.current_runtime}
+            # Each host's launches: its runtime's calls of the kernel's
+            # wrapper (both runtimes were built and warmed before the
+            # window, so every launch in it scores a batch).
+            per_host = dict.fromkeys(runtimes, 0)
+            for label, rt in runtimes.items():
+                def counted(*a, _launch=rt._launch, _label=label, **k):
+                    per_host[_label] += 1
+                    return _launch(*a, **k)
+                rt._launch = counted
+            with contextlib.ExitStack() as held:
+                for rt in runtimes.values():
+                    held.enter_context(rt.score_lock)
+                torch.cuda.synchronize()
+                _kernels.reset_launches()
+                b0 = {k: rt.batches for k, rt in runtimes.items()}
+
+            # The join and the drain under phase 13's requests.
+            t0 = time.perf_counter()
+            report = loadgen.run_fleet_scenario(
+                router.submit,
+                lambda i, phase, tenant: dict(reqs[i % len(reqs)],
+                                              tenant=tenant),
+                loadgen.SCENARIOS["host_join_drain"], tenant="acme",
+                base_rate_rps=CLUSTER_RATE_RPS,
+                actions={"join_host": lambda: bool(cold_agent.start()),
+                         "drain_host": lambda: reg_client.drain("warm")},
+                seed=17)
+            scenario_s = time.perf_counter() - t0
+            snap_r = report.snapshot()
+            check(report.failed == 0 and report.shed == 0
+                  and report.completed > 0
+                  and report.actions == {"join_host": True,
+                                         "drain_host": True},
+                  f"17b: host_join_drain {snap_r} {report.actions}")
+            deadline = time.perf_counter() + 10.0
+            while time.perf_counter() < deadline:
+                states = {h["url"]: h["state"]
+                          for h in router.healthz()["hosts"]}
+                if (states.get(cold.base_url) == "healthy"
+                        and states.get(warm.base_url) == "removed"):
+                    break
+                time.sleep(0.05)
+            check(states.get(cold.base_url) == "healthy"
+                  and states.get(warm.base_url) == "removed",
+                  f"17b: router hosts {router.healthz()['hosts']}")
+            by_phase = {name: report.phase(name).completed
+                        for name, *_ in report.phases}
+            clog(f"17b: host_join_drain at {CLUSTER_RATE_RPS:g} requests/s "
+                 f"in {scenario_s:.2f} s: {report.completed} completed "
+                 f"({json.dumps(by_phase)}), {report.failed} failed, "
+                 f"{report.shed} rejected; the cold host joined and the "
+                 f"warm host drained through the registry")
+
+            # After the drain: the router's scores against a fresh runtime
+            # on the patched model.
+            t0 = time.perf_counter()
+            served = routed_scores(router.submit)
+            routed_s = time.perf_counter() - t0
+            with contextlib.ExitStack() as held:
+                for rt in runtimes.values():
+                    held.enter_context(rt.score_lock)
+                launches = _kernels.LAUNCHES["serve_margins"]
+                batches = {k: rt.batches - b0[k]
+                           for k, rt in runtimes.items()}
+                counted_launches = dict(per_host)
+            check(launches == sum(counted_launches.values())
+                  and all(counted_launches[k] == batches[k] > 0
+                          for k in runtimes),
+                  f"17b: {launches} serve_margins launches; by host "
+                  f"{counted_launches} for batches {batches}")
+
+            # The aggregator follows membership: the drained host leaves.
+            warm_agent.stop(leave=True)
+            deadline = time.perf_counter() + 5.0
+            departed = False
+            while not departed and time.perf_counter() < deadline:
+                aggregator.poll_once()
+                h = aggregator.slo_report()["hosts"].get("warm")
+                departed = h is None or bool(h.get("departed"))
+                time.sleep(0.05)
+            check(departed, "17b: the aggregator never marked the drained "
+                  "host departed")
+        finally:
+            for obj in reversed(started):
+                obj.stop()
+            registry.close()
+            pub_server.close()
+    rt = ScoringRuntime(patched, imaps, cfg)
+    fresh = np.concatenate([rt.score_rows(
+        [rt.parse_request(r) for r in reqs[lo:lo + SERVE_MAX_BATCH]])[0]
+        for lo in range(0, len(reqs), SERVE_MAX_BATCH)])
+    check(served.tobytes() == fresh.tobytes(), "17b: routed scores after "
+          "the drain differ from a fresh runtime's on the patched model")
+    clog(f"17b: {len(reqs)} requests through the router after the drain in "
+         f"{routed_s:.2f} s, bitwise a fresh runtime's on the patched "
+         f"model; serve_margins launches {launches} = batches by host "
+         f"{batches}; the aggregator marked the drained host departed")
+    metrics["cold_start"] = {"fetch_bytes": fetched, "fetch_s": fetch_s,
+                             "fetch_mb_per_s": fetched / fetch_s / 1e6,
+                             "cold_start_s": cold_start_s,
+                             "publish_s": publish_s}
+    metrics["join_drain"] = {k: snap_r[k] for k in (
+        "completed", "failed", "shed")} | {"rate_rps": CLUSTER_RATE_RPS,
+                                            "by_phase": by_phase,
+                                            "launches": launches,
+                                            "batches": batches}
+    metrics["seconds"] = time.perf_counter() - t_phase
+    clog(f"phase 17: {metrics['seconds']:.1f} s")
+    return launches, metrics
 
 
 def main() -> int:
@@ -7501,7 +7809,6 @@ def _phases_from_4(smi, t_start, kern, lib_metrics, sol_records,
     torch.cuda.empty_cache()
     log("phase 14: the process and fleet tier and model freshness")
     proc_launches, proc_metrics = phase_process_fleet(smi, td, handoff)
-    del handoff
     torch.cuda.empty_cache()
     # Phase 16d's selfchecks are processes of their own: they run beside
     # phase 15 (each is mostly its interpreter's start and imports).
@@ -7522,14 +7829,22 @@ def _phases_from_4(smi, t_start, kern, lib_metrics, sol_records,
                                                     selfchecks)
     finally:
         stop_processes(selfchecks[1].values())
+    torch.cuda.empty_cache()
+    # Alone: 17a's selfcheck gates on timing.
+    log("phase 17: the cluster control plane")
+    cluster_launches, cluster_metrics = phase_cluster(smi, td, handoff)
+    del handoff
     for k, n in ops_launches.items():
         drv_launches[k] = drv_launches.get(k, 0) + n
     # The serving records count phase 13's and phase 14's launches of
-    # their geometry (phase 14's workers' folded in).
+    # their geometry (phase 14's workers' folded in), and phase 7's model's
+    # phase 17b's.
     for r in serve_records:
-        r["launches"] += proc_launches[
-            "bench_serving's model" if ".bench_serving." in r["name"]
-            else "phase 7's model"]
+        if ".bench_serving." in r["name"]:
+            r["launches"] += proc_launches["bench_serving's model"]
+        else:
+            r["launches"] += (proc_launches["phase 7's model"]
+                              + cluster_launches)
     # The binary records count phase 4's, 11b's, 11c's, 9c's and 16a's GLM
     # driver launches.
     drv_launches = {k: drv_launches.get(k, 0) + sd_launches.get(k, 0)
@@ -7658,6 +7973,7 @@ def _phases_from_4(smi, t_start, kern, lib_metrics, sol_records,
         f"; tensor parallel and tuning: "
         f"{json.dumps(tune_metrics, default=float)}"
         f"; ops plane: {json.dumps(ops_metrics, default=float)}"
+        f"; cluster: {json.dumps(cluster_metrics, default=float)}"
         f"; total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))

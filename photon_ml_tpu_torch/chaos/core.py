@@ -9,15 +9,15 @@ exception from a small registry, or a delay), and the plan replays
 EXACTLY: occurrence counters are plan-local and thread-safe, so the same
 plan against the same workload kills at the same boundary every time.
 
-The port wires the serving and freshness sites (``serving.*``,
-``publish.*``, ``online.step``, ``quota.lease``), the ten training sites
+Every site of the catalog has a caller in the port, at the reference's
+place: the serving and freshness sites (``serving.*``, ``publish.*``,
+``online.step``, ``quota.lease``), the cluster control plane's
+(``cluster.lease``/``heartbeat``/``fetch``), the training sites
 (``prefetch.pack``/``transfer``, ``staging.put``/``decode``,
 ``streaming.carry_sync``/``cache_evict``, ``checkpoint.save``/``restore``,
-``cd.iteration``, ``grid.point``) at the reference's places, and the fleet
-aggregator's ``telemetry.scrape``.  The rest of the catalog (the
-``cluster.*`` sites, ``game.repack``, ``game.bucket_shard``,
-``admm.consensus`` and ``distributed.allreduce``) has no caller in the
-port yet (ROADMAP Queue 1).
+``cd.iteration``, ``grid.point``, ``game.repack``, ``game.bucket_shard``,
+``admm.consensus``, ``distributed.allreduce``) and the fleet aggregator's
+``telemetry.scrape``.
 
 Cost contract (mirrors the telemetry hub): with no plan installed,
 every instrumented seam pays ONE module-global read + one branch

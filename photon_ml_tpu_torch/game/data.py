@@ -438,6 +438,11 @@ def build_random_effect_dataset(
     # GROUP entities into buckets; each block pads only to its members'
     # actual maxima.
     if repack == "cost_model":
+        from photon_ml_tpu_torch.chaos import core as chaos_mod
+
+        chaos_mod.maybe_fail(
+            "game.repack", n_entities=n_ent, budget=program_budget
+        )
         plan = plan_entity_buckets(
             kept_counts, act_counts, program_budget=program_budget,
             seed=repack_seed,

@@ -35,9 +35,11 @@ from typing import Optional
 import numpy as np
 
 from photon_ml_tpu_torch import telemetry as telemetry_mod
+from photon_ml_tpu_torch.chaos import core as chaos_mod
 from photon_ml_tpu_torch.game.data import EntityBlock, RandomEffectDataset
 from photon_ml_tpu_torch.game.distributed import (
     LaneShardedRandomEffectCoordinate,
+    held_shards,
     shard_count,
 )
 from photon_ml_tpu_torch.optim.problem import GlmOptimizationConfig
@@ -136,3 +138,21 @@ class ShardedBucketRandomEffectCoordinate(LaneShardedRandomEffectCoordinate):
                          self.plan.placements, reg_weight,
                          feature_shard=feature_shard, entity_key=entity_key,
                          n_shards=n_shards, device=device)
+
+    def train(self, offsets, warm_state=None):
+        # The per-placement dispatch seam, once a group this process
+        # dispatches (the split group first, then each packed shard, as
+        # the reference orders them): a fault here aborts the update
+        # before any solve; the solves are pure functions of (blocks,
+        # offsets, w0), so the retried update is bitwise the
+        # uninterrupted one.
+        held = set(held_shards(self.mesh, self.n_shards))
+        groups: dict = {}
+        for bi, p in enumerate(self.placements):
+            if p[0] == "split" or p[1] in held:
+                groups.setdefault(p, []).append(bi)
+        for key in sorted(groups, key=lambda p: (p[0] != "split", p)):
+            chaos_mod.maybe_fail(
+                "game.bucket_shard", placement=key, blocks=len(groups[key])
+            )
+        return super().train(offsets, warm_state)

@@ -51,8 +51,8 @@ kept: a group that spans more than one host is refused.
 
 The reference's telemetry is kept: the plan's
 ``game_shard_imbalance_ratio`` gauge and the prestage's
-``game_coordinate_overlap_seconds`` counter.  Its ``game.bucket_shard``
-fault site has no caller in the port yet (ROADMAP Queue 1).
+``game_coordinate_overlap_seconds`` counter, and its ``game.bucket_shard``
+fault site, once a pass group of a train pass.
 """
 
 from __future__ import annotations
@@ -67,6 +67,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch import telemetry as telemetry_mod
+from photon_ml_tpu_torch.chaos import core as chaos_mod
 from photon_ml_tpu_torch.data.prefetch import (
     HostToDevice,
     TransferStats,
@@ -625,6 +626,14 @@ class OutOfCoreRandomEffectCoordinate(RandomEffectCoordinate):
 
         def consume(gi, tensors):
             group = self.pass_plan[gi]
+            # The per-group dispatch seam (mirrors the resident bucket
+            # plan's): a fault here aborts the update mid-pass; the solves
+            # are pure functions of (block, offsets, w0), so the retried
+            # update is bitwise the uninterrupted one.
+            chaos_mod.maybe_fail(
+                "game.bucket_shard", coordinate=self.name,
+                slices=len(group),
+            )
             resident = hot.get(gi)
             items = self._unpack_train(group, tensors, resident)
             progs = [self._solver.program(blk, self._gather(padded,

@@ -34,9 +34,11 @@ on the service's readiness) and ``--metrics-interval-s`` paces the
 ``metrics_ts.jsonl`` sampler when ``--output-dir`` is set.
 ``--tenant-report metrics_ts.jsonl ...`` prints per-tenant accounting
 (rps, shed, latency percentiles) from the ``serving_tenant_*`` family of
-recorded time series and exits.  The reference's HA and fleet selfcheck
-passes, ``--membership`` and the fleet verbs need its cluster package
-(ROADMAP item 8c); those flags are refused, naming it.
+recorded time series and exits.  ``--membership REGISTRY_URL``
+registers the server with a cluster membership registry
+(``photon_ml_tpu_torch.cluster``) and heartbeats until shutdown, when it
+drains and leaves; ``--fleet-join URL`` / ``--fleet-drain HOST_ID`` are
+one-shot admin verbs against that registry.
 
 Serve a saved model (on the card unless ``--device cpu``)::
 
@@ -59,11 +61,6 @@ import sys
 import tempfile
 import threading
 import urllib.request
-
-#: flags of the reference this port refuses, with the ROADMAP item that
-#: brings each (refused when given, i.e. off their default).
-_REFUSED = {"membership": "8c", "fleet_join": "8c", "fleet_drain": "8c"}
-
 
 def build_arg_parser() -> argparse.ArgumentParser:
     p = argparse.ArgumentParser(
@@ -157,24 +154,29 @@ def build_arg_parser() -> argparse.ArgumentParser:
         "and exit; several files — one per host — merge into per-host "
         "sections plus a fleet-wide fold",
     )
-    # The reference's flags this port refuses (see _REFUSED).
-    p.add_argument("--membership", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--host-id", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--fleet-join", default=None, help=argparse.SUPPRESS)
-    p.add_argument("--fleet-drain", default=None, help=argparse.SUPPRESS)
+    p.add_argument(
+        "--membership", metavar="REGISTRY_URL", default=None,
+        help="register this server with a cluster membership registry "
+        "(photon_ml_tpu_torch.cluster) and heartbeat for the lifetime of "
+        "the process; drained and removed on shutdown",
+    )
+    p.add_argument(
+        "--host-id", default=None,
+        help="membership host id (default: host:port of the listener)",
+    )
+    p.add_argument(
+        "--fleet-join", metavar="SERVING_URL", default=None,
+        help="one-shot admin verb: register SERVING_URL with the "
+        "--membership registry and exit; the MembershipWatcher joins "
+        "it into the live rotation",
+    )
+    p.add_argument(
+        "--fleet-drain", metavar="HOST_ID", default=None,
+        help="one-shot admin verb: mark HOST_ID draining in the "
+        "--membership registry and exit; the watcher drains it from "
+        "the router once converged",
+    )
     return p
-
-
-def refused_flags(args) -> list[str]:
-    """One message per given flag that this port does not serve yet."""
-    out = []
-    parser = build_arg_parser()
-    for dest, item in _REFUSED.items():
-        if getattr(args, dest) != parser.get_default(dest):
-            flag = "--" + dest.replace("_", "-")
-            out.append(f"{flag} needs the cluster package, not ported "
-                       f"yet (ROADMAP item {item})")
-    return out
 
 
 def _make_service(args):
@@ -818,11 +820,6 @@ def tenant_report_multi(ts_paths) -> dict:
 
 def main(argv=None) -> int:
     args = build_arg_parser().parse_args(argv)
-    refused = refused_flags(args)
-    if refused:
-        for msg in refused:
-            print(msg, file=sys.stderr)
-        return 2
 
     if args.tenant_report:
         try:
@@ -831,6 +828,39 @@ def main(argv=None) -> int:
             print(f"tenant report failed: {exc}", file=sys.stderr)
             return 1
         print(json.dumps(report, indent=2))
+        return 0
+
+    if args.fleet_join or args.fleet_drain:
+        # Admin verbs against the discovery plane: membership is the
+        # source of truth, the MembershipWatcher converges the router.
+        if not args.membership:
+            print(
+                "--fleet-join / --fleet-drain need --membership "
+                "REGISTRY_URL (the registry is the source of truth; "
+                "the watcher converges the router)",
+                file=sys.stderr,
+            )
+            return 2
+        from photon_ml_tpu_torch.cluster import RegistryClient
+
+        client = RegistryClient(args.membership)
+        if args.fleet_join:
+            url = args.fleet_join.rstrip("/")
+            hid = args.host_id or url.split("//", 1)[-1]
+            member = client.register(hid, url)
+            print(json.dumps({"joined": member}, indent=2))
+        if args.fleet_drain:
+            ok = client.drain(args.fleet_drain)
+            print(json.dumps(
+                {"drained": bool(ok), "host_id": args.fleet_drain},
+                indent=2,
+            ))
+            if not ok:
+                print(
+                    f"host id {args.fleet_drain!r} is not a member",
+                    file=sys.stderr,
+                )
+                return 1
         return 0
 
     if args.selfcheck:
@@ -935,6 +965,20 @@ def _run_service(args, service, workload) -> int:
                 f"({ingress.n_slots} slots x {ingress.slot_bytes} bytes)",
                 flush=True,
             )
+        agent = None
+        if args.membership:
+            from photon_ml_tpu_torch.cluster import HeartbeatAgent
+
+            hid = args.host_id or f"{host}:{port}"
+            agent = HeartbeatAgent(
+                args.membership, hid, f"http://{host}:{port}"
+            ).start()
+            print(
+                f"membership: {hid!r} registered with "
+                f"{args.membership}, heartbeating every "
+                f"{agent.interval_s:g}s",
+                flush=True,
+            )
         print(
             f"serving on http://{host}:{port} "
             f"(/score /reload /healthz /livez /readyz /stats); "
@@ -946,6 +990,14 @@ def _run_service(args, service, workload) -> int:
         except KeyboardInterrupt:
             print("shutting down")
         finally:
+            if agent is not None:
+                # Graceful exit: drain first so the watcher finishes
+                # in-flight work, then leave the member set outright.
+                try:
+                    agent.client.drain(agent.host_id)
+                except Exception:  # noqa: BLE001 — expiry catches up
+                    pass
+                agent.stop(leave=True)
             if ingress is not None:
                 ingress.stop()
             server.shutdown()

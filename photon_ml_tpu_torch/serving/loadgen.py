@@ -470,25 +470,6 @@ SCENARIOS = {
 }
 
 
-#: scenario actions that drive the cluster membership plane (the
-#: reference's ``cluster/`` package: host join/drain through a
-#: membership coordinator, and that coordinator's kill/restart): refused
-#: until ROADMAP item 8c ports it.
-MEMBERSHIP_ACTIONS = frozenset({
-    "join_host", "drain_host", "kill_coordinator", "restart_coordinator",
-})
-
-
-def _refuse_membership(scenario: "Scenario") -> None:
-    for phase in scenario.phases:
-        if phase.action in MEMBERSHIP_ACTIONS:
-            raise ValueError(
-                f"scenario {scenario.name!r} phase {phase.name!r} needs "
-                f"action {phase.action!r}, which drives the cluster "
-                "membership plane, not ported yet (ROADMAP item 8c)"
-            )
-
-
 def run_scenario(
     submit: Callable,
     make_request: Callable,
@@ -506,9 +487,7 @@ def run_scenario(
     ``action_at_frac`` into the phase, so the load keeps flowing while
     the swap/kill happens — that concurrency is the whole point.  An
     action named by a phase but not wired raises ValueError up front
-    (silently skipping it would report a scenario that never ran); so
-    does an action of :data:`MEMBERSHIP_ACTIONS`."""
-    _refuse_membership(scenario)
+    (silently skipping it would report a scenario that never ran)."""
     actions = actions or {}
     for phase in scenario.phases:
         if phase.action is not None and phase.action not in actions:
@@ -844,7 +823,6 @@ def run_fleet_scenario(
     gates can tell admission-control sheds (RejectedError, through the
     future or at submit) from real failures.  ``make_request(i, phase,
     tenant)`` must build a wire request carrying the tenant id."""
-    _refuse_membership(scenario)
     actions = actions or {}
     for phase in scenario.phases:
         if phase.action is not None and phase.action not in actions:

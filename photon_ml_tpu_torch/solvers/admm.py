@@ -43,6 +43,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch import telemetry as telemetry_mod
+from photon_ml_tpu_torch.chaos import core as chaos_mod
 from photon_ml_tpu_torch.optim.lbfgs import (
     LBFGSConfig,
     SolveResult,
@@ -296,6 +297,11 @@ def make_sharded_solver(problem, dist, mesh, l1_mask=None):
         converged = False
         r = float("inf")
         for k in range(max_outer):
+            # The reduce seam: the step about to run carries this
+            # iteration's reduction over the shards.
+            chaos_mod.maybe_fail(
+                "distributed.allreduce", solver="admm", outer=k
+            )
             x, u, z_new, stats = step(dd, prep, x, u, z, rho, l1, l2)
             (obj_proxy, r2, dz, sum_x2, sum_u2, _iters,
              znorm) = stats.to(torch.float64).cpu().tolist()
@@ -305,6 +311,11 @@ def make_sharded_solver(problem, dist, mesh, l1_mask=None):
             values.append(obj_proxy)
             rnorms.append(r)
             z = z_new
+            # The consensus commit: z is adopted; a kill here loses only
+            # the in-flight λ, which re-solves deterministically on resume.
+            chaos_mod.maybe_fail(
+                "admm.consensus", solver="admm", outer=k, rho=rho
+            )
             eps_pri = (np.sqrt(n * d) * abstol
                        + opts.reltol * max(np.sqrt(sum_x2),
                                            np.sqrt(n) * znorm))

@@ -38,6 +38,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch import telemetry as telemetry_mod
+from photon_ml_tpu_torch.chaos import core as chaos_mod
 from photon_ml_tpu_torch.optim.lbfgs import SolveResult
 from photon_ml_tpu_torch.parallel.distributed import sum_shards
 from photon_ml_tpu_torch.solvers import registry
@@ -179,6 +180,11 @@ def make_sharded_solver(problem, dist, mesh, l1_mask=None):
         rounds = 0
         converged = False
         for k in range(max_rounds):
+            # The reduce seam: the round about to run carries its two
+            # reductions over the shards.
+            chaos_mod.maybe_fail(
+                "distributed.allreduce", solver="block_cd", outer=k
+            )
             w_new, f_total = block_round(dd, w, blocks[k % n_blocks], l1, l2)
             values.append(float(f_total))  # objective at round-START w
             w = w_new

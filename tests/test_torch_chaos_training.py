@@ -10,11 +10,19 @@ at the same occurrence index with the same context; a pass torn down by
 a pipeline fault leaks no thread and the next clean pass is bitwise a
 clean one; ``--list-sites`` prints the reference's catalog and ``--plan``
 validates or refuses a plan as the reference does; the selfcheck passes
-with ``--device cpu``.
+with ``--device cpu``.  The GAME and sharded-solver sites
+(``game.repack``, ``game.bucket_shard`` in the bucket-shard plan and out
+of core, ``distributed.allreduce`` in ADMM and block CD,
+``admm.consensus``) fire as the reference's do, and the update or solve
+they abort, run again, is bitwise the uninterrupted one; every site of
+the catalog has a caller in the port's source.
 """
+
+import ast
 
 import json
 import os
+import pathlib
 import threading
 
 import numpy as np
@@ -353,3 +361,192 @@ class TestCli:
         monkeypatch.setattr(torch.cuda, "is_available", lambda: False)
         with pytest.raises(RuntimeError, match="CUDA"):
             cli.main(["--selfcheck"])
+
+
+# -- the GAME and sharded-solver sites ---------------------------------------
+
+#: (site, workload) pairs: each site at each of the reference's places.
+LATE_SITES = (
+    ("game.repack", "repack"),
+    ("game.bucket_shard", "bucket_plan"),
+    ("game.bucket_shard", "out_of_core"),
+    ("distributed.allreduce", "admm"),
+    ("distributed.allreduce", "block_cd"),
+    ("admm.consensus", "admm"),
+)
+#: The occurrence each workload's site is armed at (a later one than the
+#: first, so the context of a running loop is compared).
+LATE_AT = {"repack": 0, "bucket_plan": 1, "out_of_core": 1, "admm": 2,
+           "block_cd": 2}
+#: The out-of-core workload's device budget: several pass groups.
+OOC_BUDGET = 20_000
+
+
+def _re_data():
+    """The reference's zipf entity draw (``tests/test_game_hierarchical.py``
+    ``_zipf_data``; ``tests/torch_dist_workers.py``)."""
+    import torch_dist_workers as workers
+
+    return workers.zipf_entities(3, 120, 5)
+
+
+def _late_workload(pkg, kind):
+    """A zero-argument callable running ``kind``'s update or solve in
+    ``pkg`` ("port" or "ref"); its result is the state to compare."""
+    keys, X, y, w, offsets = _re_data()
+    if kind == "repack":
+        if pkg == "port":
+            from photon_ml_tpu_torch.game.data import (
+                build_random_effect_dataset,
+            )
+            kw = {"device": "cpu"}
+        else:
+            from photon_ml_tpu.game.data import build_random_effect_dataset
+            kw = {}
+        return lambda: [np.asarray(b.X) for b in build_random_effect_dataset(
+            keys, X, y, w, repack="cost_model", program_budget=3,
+            **kw).blocks]
+    if kind in ("bucket_plan", "out_of_core"):
+        return _re_workload(pkg, kind, keys, X, y, w, offsets)
+    return _sharded_workload(pkg, kind)
+
+
+def _re_workload(pkg, kind, keys, X, y, w, offsets):
+    import torch_dist_workers as workers
+
+    if pkg == "port":
+        from photon_ml_tpu_torch.game.data import build_random_effect_dataset
+        from photon_ml_tpu_torch.game.hierarchical import (
+            ShardedBucketRandomEffectCoordinate,
+        )
+        from photon_ml_tpu_torch.game.ooc_random import (
+            OutOfCoreRandomEffectCoordinate,
+        )
+
+        host = build_random_effect_dataset(keys, X, y, w, device=False)
+        cfg = workers.game_config()
+        if kind == "bucket_plan":
+            coord = ShardedBucketRandomEffectCoordinate(
+                "re", host, None, "logistic", cfg, reg_weight=0.7,
+                n_shards=2, device="cpu")
+        else:
+            coord = OutOfCoreRandomEffectCoordinate(
+                "re", host, "logistic", cfg, reg_weight=0.7,
+                device_budget_bytes=OOC_BUDGET, device="cpu")
+        off = torch.from_numpy(offsets)
+        return lambda: [np.asarray(s) for s in coord.train(off)]
+    import jax
+
+    from photon_ml_tpu.game import hierarchical as ref_hier
+    from photon_ml_tpu.game import ooc_random as ref_ooc
+    from photon_ml_tpu.game.data import build_random_effect_dataset
+    from photon_ml_tpu.optim import problem as jp
+    from photon_ml_tpu.optim.regularization import RegularizationContext
+    from photon_ml_tpu.parallel.distributed import data_mesh
+
+    host = build_random_effect_dataset(keys, X, y, w, device=False)
+    cfg = jp.GlmOptimizationConfig(
+        optimizer=jp.OptimizerConfig(max_iters=25, tolerance=1e-7),
+        regularization=RegularizationContext.l2())
+    if kind == "bucket_plan":
+        coord = ref_hier.ShardedBucketRandomEffectCoordinate(
+            "re", host, data_mesh(jax.devices()[:2]), "logistic", cfg,
+            reg_weight=0.7)
+    else:
+        coord = ref_ooc.OutOfCoreRandomEffectCoordinate(
+            "re", host, "logistic", cfg, reg_weight=0.7,
+            device_budget_bytes=OOC_BUDGET)
+    return lambda: coord.train(jnp.asarray(offsets))
+
+
+def _sharded_workload(pkg, solver):
+    rng = np.random.default_rng(21)
+    n, d = 256, 10
+    X = (rng.normal(size=(n, d)) / np.sqrt(d)).astype(np.float32)
+    p = 1.0 / (1.0 + np.exp(-3.0 * (X @ rng.normal(size=d))))
+    y = (rng.uniform(size=n) < p).astype(np.float32)
+    opts = (("shards", "4"),) + ((("n_blocks", "2"), ("max_rounds", "30"))
+                                 if solver == "block_cd" else ())
+    if pkg == "port":
+        from photon_ml_tpu_torch.optim.problem import (
+            GlmOptimizationConfig,
+            GlmOptimizationProblem,
+            OptimizerConfig,
+        )
+        from photon_ml_tpu_torch.optim.regularization import (
+            RegularizationContext,
+        )
+        from photon_ml_tpu_torch.parallel.distributed import shard_glm_data
+        from photon_ml_tpu_torch.solvers import sharded
+
+        data = shard_glm_data(X, y, None, n_shards=4, device="cpu")
+    else:
+        from photon_ml_tpu.optim.problem import (
+            GlmOptimizationConfig,
+            GlmOptimizationProblem,
+            OptimizerConfig,
+        )
+        from photon_ml_tpu.optim.regularization import RegularizationContext
+        from photon_ml_tpu.parallel.distributed import shard_glm_data
+        from photon_ml_tpu.solvers import sharded
+
+        data = shard_glm_data(X, y, None, n_shards=4)
+    problem = GlmOptimizationProblem("logistic", GlmOptimizationConfig(
+        optimizer=OptimizerConfig(max_iters=50, tolerance=1e-8,
+                                  solver=solver, solver_options=opts),
+        regularization=RegularizationContext.elastic_net(0.5)))
+    return lambda: [np.asarray(m.coefficients.means) for _, m, _ in
+                    sharded.run_grid_sharded(problem, data, None, [0.1])]
+
+
+class TestLateTrainingSites:
+    @pytest.mark.parametrize("site,kind", LATE_SITES)
+    def test_site_fires_once_at_the_references_occurrence(self, site, kind):
+        at = LATE_AT[kind]
+        plans = (chaos.FaultPlan([chaos.FaultSpec(site=site, at=at)]),
+                 ref_chaos.FaultPlan([ref_chaos.FaultSpec(site=site,
+                                                          at=at)]))
+        for plan, pkg, exc in ((plans[0], "port", chaos.InjectedFault),
+                               (plans[1], "ref", ref_chaos.InjectedFault)):
+            run = _late_workload(pkg, kind)
+            with plan:
+                with pytest.raises(exc, match=site.replace(".", r"\.")):
+                    run()
+        ours, ref = plans[0].fired, plans[1].fired
+        assert len(ours) == 1 and ours[0]["occurrence"] == at
+        assert ours == ref
+        assert plans[0].occurrences(site) == plans[1].occurrences(site)
+
+    @pytest.mark.parametrize("site,kind", LATE_SITES)
+    def test_the_retried_update_is_bitwise_the_uninterrupted_one(self, site,
+                                                                  kind):
+        """The same object's update or solve, aborted at the site and run
+        again, gives the clean run's state bit for bit."""
+        clean = _late_workload("port", kind)()
+        run = _late_workload("port", kind)
+        with chaos.FaultPlan([chaos.FaultSpec(site=site, at=LATE_AT[kind])]):
+            with pytest.raises(chaos.InjectedFault):
+                run()
+        again = run()
+        assert len(again) == len(clean)
+        for a, b in zip(again, clean):
+            assert a.shape == b.shape and a.tobytes() == b.tobytes()
+
+    def test_every_catalog_site_has_a_caller_in_the_port(self):
+        """Each name of ``KNOWN_SITES`` is the literal first argument of a
+        ``maybe_fail`` call somewhere in the port outside ``chaos/``."""
+        root = pathlib.Path(chaos.__file__).resolve().parents[1]
+        called = set()
+        for path in root.rglob("*.py"):
+            if path.parent.name == "chaos":
+                continue
+            for node in ast.walk(ast.parse(path.read_text())):
+                if (isinstance(node, ast.Call) and node.args
+                        and isinstance(node.args[0], ast.Constant)
+                        and isinstance(node.args[0].value, str)
+                        and getattr(node.func, "attr",
+                                    getattr(node.func, "id", None))
+                        == "maybe_fail"):
+                    called.add(node.args[0].value)
+        assert set(chaos.KNOWN_SITES) - called == set()
+        assert called - set(chaos.KNOWN_SITES) == set()

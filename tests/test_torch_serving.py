@@ -746,24 +746,35 @@ class TestSelfcheckAndLoadGen:
         (["--shm-ingress"], "7b"),
         (["--metrics-port", "0"], "8a"),
         (["--tenant-report", "x.jsonl"], "8a"),
-        (["--membership", "http://127.0.0.1:1"], "item 8c"),
+        (["--membership", "http://127.0.0.1:1"], "8c"),
     ])
     def test_cli_refuses_unported_flags(self, argv, item, capsys):
-        """The cluster package's flags (item 8c) are refused naming it;
-        the process tier's (item 7b) and the ops plane's (item 8a) are
-        ported and accepted."""
+        """No flag of the reference is refused: the process tier's (item
+        7b), the ops plane's (8a) and the cluster's (8c) parse to the
+        reference's values; ``--fleet-join`` without ``--membership``
+        exits 2 with the reference's message."""
+        from photon_ml_tpu.serving.__main__ import (
+            build_arg_parser as ref_parser,
+        )
+        from photon_ml_tpu.serving.__main__ import main as ref_main
         from photon_ml_tpu_torch.serving.__main__ import (
             build_arg_parser,
             main,
-            refused_flags,
         )
 
-        full = ["--selfcheck", "--device", "cpu", *argv]
-        if item in ("7b", "8a"):
-            assert refused_flags(build_arg_parser().parse_args(full)) == []
+        ours = vars(build_arg_parser().parse_args(
+            ["--selfcheck", "--device", "cpu", *argv]))
+        ref = vars(ref_parser().parse_args(["--selfcheck", *argv]))
+        assert ours.pop("device") == "cpu"
+        assert ours == ref
+        if item != "8c":
             return
-        assert main(full) == 2
-        assert item in capsys.readouterr().err
+        verb = ["--fleet-join", "http://127.0.0.1:2"]
+        assert main(verb) == 2
+        err = capsys.readouterr().err
+        assert "need --membership" in err
+        assert ref_main(verb) == 2
+        assert capsys.readouterr().err == err
 
     def test_closed_loop_loadgen(self, workload):
         from photon_ml_tpu_torch.serving import loadgen

@@ -793,9 +793,9 @@ class TestScenarios:
                                       "coordinator_failover",
                                       "quota_partition"])
     def test_process_tier_scenarios_run_their_actions(self, name):
-        """A scenario of the process and fleet tier runs every phase and
-        fires every action wired to it; one that needs the cluster
-        membership plane is refused up front, naming item 8."""
+        """A scenario of the process and fleet tier, the cluster
+        membership plane's included, runs every phase and fires every
+        action wired to it."""
         scenario = loadgen.SCENARIOS[name]
         fired = []
         actions = {p.action: (lambda a=p.action: fired.append(a) or "ok")
@@ -806,12 +806,6 @@ class TestScenarios:
             fut.set_result({"score": 0.0})
             return fut
 
-        if not loadgen.MEMBERSHIP_ACTIONS.isdisjoint(actions):
-            with pytest.raises(ValueError, match="item 8"):
-                loadgen.run_scenario(submit, lambda *a: {}, scenario,
-                                     actions=actions)
-            assert fired == []
-            return
         short = loadgen.Scenario(scenario.name, scenario.description, [
             dataclasses.replace(p, duration_s=0.05)
             for p in scenario.phases])
