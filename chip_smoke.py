@@ -198,8 +198,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    resident coordinate within 1e-5 (coefficients) and 1e-4 (scores).  10d:
    the whole descent on that draw with the fixed effect streamed in chunks
    of 2^17 rows (L-BFGS, batched line search) and the three effects out of
-   core: a warm iteration, 3 timed iterations (GAME iterations/s beside
-   phase 6's resident number), the pipelined schedule bitwise the same, the
+   core: a warm iteration, 3 timed iterations (GAME iterations/s over the
+   resident descent's, a warm iteration and 3 timed right after it, under
+   the same load), the pipelined schedule bitwise the same, the
    float64 objective never rising beyond 2^-22, the final objective within
    1e-5 of the resident descent's, the scores equal to a float64 host
    re-score; then OWL-QN (elastic net), L-BFGS and TRON updates of the
@@ -260,7 +261,9 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    shard of every chunk, one all-reduce a pass) write phase 7's and phase
    9c's one-card model files byte for byte.  12b,
    ``experiments.multirank --game`` over a spawned gloo group of 4 ranks
-   sharing the card at full width (646,253 rows): the per-user plan splits
+   sharing the card at full width (646,253 rows), a process of its own
+   started before phase 8 and read here (it builds its own draw): the
+   per-user plan splits
    its costliest bucket and packs its cheapest; one descent iteration of
    the three random effects, every coefficient within 1e-6 of the largest
    |w| of one card's and every score within 1e-5 of its row's Σ|x·w|; the
@@ -389,6 +392,14 @@ Phases (any failure exits non-zero; nothing is caught and swallowed):
    Every thread the phase starts is joined (a strict thread-leak
    sentinel) and the selfcheck's process has exited (a strict
    process-leak sentinel).
+18. The port's static invariant checker and its metric lint, last, in
+   process on the checkout this script runs from: ``python -m
+   photon_ml_tpu_torch.analysis --check``'s rules over
+   ``photon_ml_tpu_torch/`` and this script, and ``python -m
+   photon_ml_tpu_torch.telemetry --lint-metrics``'s names.  Every file
+   parses, no finding lies outside the committed baseline, no baseline
+   entry is stale and every metric name conforms; the counts of files,
+   rules and findings and the phase's seconds are printed.
 
 Phase 7's GAME Avro files are written by a spawned process that starts
 after phase 1 and runs beside phases 2-6; phase 7 waits for it.  Phase 4's
@@ -431,6 +442,7 @@ import json
 import os
 import re
 import shutil
+import signal
 import subprocess
 import sys
 import tempfile
@@ -517,8 +529,37 @@ def check(ok: bool, what: str) -> None:
         raise SystemExit(f"chip_smoke: FAILED: {what}")
 
 
+#: Phase 12b's process group while it may share the host and the card
+#: with the phases it runs beside (see :func:`phase_header`).
+BESIDE_GROUP = {"proc": None}
+BESIDE_MARK = " [beside 12b's group]"
+
+
 def log(msg: str) -> None:
+    if BESIDE_GROUP["proc"] is not None:
+        msg += BESIDE_MARK
     print(msg, flush=True)
+
+
+#: The script's start on the host's clock (set again by :func:`main`).
+T_START = time.perf_counter()
+
+
+def log_phase(msg: str) -> None:
+    """A line with the script's seconds so far."""
+    log(f"{msg} [at {time.perf_counter() - T_START:.1f} s]")
+
+
+def phase_header(msg: str) -> None:
+    """A phase's or sub-phase's first line.  Every line from the start of
+    phase 12b's group to the first header after it exited carries
+    BESIDE_MARK: its timings were taken beside the group, or (for a
+    sub-phase the group's exit fell into) partly so."""
+    proc = BESIDE_GROUP["proc"]
+    if proc is not None and proc.poll() is not None:
+        BESIDE_GROUP["proc"] = None
+        log_phase(f"phase 12b's group has exited (exit {proc.returncode})")
+    log_phase(msg)
 
 
 # -- data -----------------------------------------------------------------
@@ -544,7 +585,10 @@ def bench_triples(seed=0):
 def binary_rows(rng, n, d, k):
     """(rows, cols) of n rows with about k distinct features each."""
     rows = np.repeat(np.arange(n, dtype=np.int64), k)
-    keys = np.unique(rows * d + rng.integers(0, d, size=n * k))
+    keys = np.sort(rows * d + rng.integers(0, d, size=n * k))
+    # np.unique's values, by one sort: numpy 2.3 finds them through a hash
+    # table, ~20x slower on 2^25 mostly distinct keys.
+    keys = keys[np.concatenate(([True], keys[1:] != keys[:-1]))]
     return keys // d, keys % d
 
 
@@ -1482,12 +1526,30 @@ def run_main_path(label, mod, kernels):
     return res, launches
 
 
+def layout_once(build):
+    """A stand-in for ``g8192_v2.build_layout`` that returns the last
+    layout again for the same operands."""
+    last = []
+
+    def once(cols, vals, n_rows):
+        if last and last[0] == n_rows and all(
+                np.array_equal(a, b) for a, b in zip(last[1:3], (cols, vals))):
+            return last[3]
+        last[:] = [n_rows, cols, vals, build(cols, vals, n_rows)]
+        return last[3]
+
+    return once
+
+
 def phase_experiments():
     """Phase 5: the three experiments through their entry points, then the
     ELL kernel, its graph chain and the window kernel against their plain
     versions on the reference's data."""
     from photon_ml_tpu_torch.experiments import ablate, common, g8192, g8192_v2
 
+    # g8192_v2's main and the window check below lay out the same ELL draw
+    # (seed 0): the check reads the main's layout (≈ 17 s a build).
+    g8192_v2.build_layout = layout_once(g8192_v2.build_layout)
     ell_main, ell_launches = run_main_path("g8192", g8192, ["ell_matvec"])
     win_main, win_launches = run_main_path("g8192_v2", g8192_v2,
                                            ["window_matvec"])
@@ -1597,8 +1659,9 @@ def phase_experiments():
     # -- window layout mat-vec --------------------------------------------
     t0 = time.perf_counter()
     lo, v, rhi, n_spill = g8192_v2.build_layout(cols_T.T, vals_T.T, n)
-    log(f"window: host layout build {time.perf_counter() - t0:.1f} s, "
-        f"spill {n_spill} of {n * k} entries")
+    log(f"window: host layout (g8192_v2's main's) "
+        f"{time.perf_counter() - t0:.1f} s, spill {n_spill} of {n * k} "
+        "entries")
     lo_d, vv_d, rhi_d = (torch.as_tensor(a, device=DEVICE)
                          for a in (lo, v, rhi))
     del lo, v, rhi
@@ -2516,7 +2579,7 @@ def phase_game(smi):
     (``game_cd`` and ``game_multi_re``).  Returns (kernel records at the
     fixed effect's shape, main-path launches, metrics)."""
     def glog(msg):
-        log(f"game [{smi}] {msg}")
+        log_phase(f"game [{smi}] {msg}")
 
     metrics, launches, kern, built = run_game_config(
         glog, "game_cd", game_cd_data, kernels=True)
@@ -2800,7 +2863,7 @@ def phase_game_drivers(smi, td, writer):
     from photon_ml_tpu_torch.ops.sparse_cuda import from_scipy_csr_cuda
 
     def glog(msg):
-        log(f"game drivers [{smi}] {msg}")
+        log_phase(f"game drivers [{smi}] {msg}")
 
     lib = load_game_decoder()
     check(lib is not None, "the native GAME decoder did not build")
@@ -3170,7 +3233,7 @@ def phase_game_fallback(smi, td, train, val):
     (8d).  Returns (training launches, validation-scoring matvec launches,
     metrics)."""
     def glog(msg):
-        log(f"game fallback [{smi}] {msg}")
+        log_phase(f"game fallback [{smi}] {msg}")
 
     metrics = {}
     launches = {"matvec": 0, "rmatvec": 0}
@@ -3186,13 +3249,13 @@ def phase_game_fallback(smi, td, train, val):
                        "projection_reg_weight": 0.1}}),
     )
     for label, data_fn, specs in runs:
-        log(f"phase 8: {label}")
+        phase_header(f"phase 8: {label}")
         m, ls, _, _ = run_game_config(glog, label, data_fn, re_specs=specs)
         metrics[label] = m
         for op in launches:
             launches[op] += ls[op]
         torch.cuda.empty_cache()
-    log("phase 8d: the drivers")
+    phase_header("phase 8d: the drivers")
     d_launches, d_val, metrics["drivers"] = phase_fallback_drivers(
         glog, td, train, val)
     for op in launches:
@@ -3358,7 +3421,7 @@ def phase_streaming(smi, bench, data, abs_F, X, lib_metrics):
     )
 
     def slog(msg):
-        log(f"streaming [{smi}] {msg}")
+        log_phase(f"streaming [{smi}] {msg}")
 
     t_phase = time.perf_counter()
     y = bench[3]
@@ -3740,7 +3803,7 @@ def phase_stream_drivers(smi, files, drv_runs, game_td, game_files):
     from photon_ml_tpu_torch.optim import lbfgs as port_lbfgs
 
     def slog(msg):
-        log(f"stream drivers [{smi}] {msg}")
+        log_phase(f"stream drivers [{smi}] {msg}")
 
     t_phase = time.perf_counter()
     train, val = files
@@ -4477,7 +4540,11 @@ def ooc_descent(glog, built, hosts, residents, resident_iters_per_s):
               f"ooc 10d: {h['coordinate']}'s update raised its objective by "
               f"{rise:.6g}")
         prev = h
+    # The ratio's resident side: the same coordinates timed here, warm,
+    # under whatever else shares the host and the card at this moment.
+    timed(res, 1)
     resident, res_s = timed(res, GAME_TIMED_ITERS)
+    res_ips = GAME_TIMED_ITERS / res_s
     f_ooc = float(game_objective(ooc, y_dev, run.scores, run.states, base))
     f_res = float(game_objective(res, y_dev, resident.scores,
                                  resident.states, base))
@@ -4495,9 +4562,9 @@ def ooc_descent(glog, built, hosts, residents, resident_iters_per_s):
     glog(f"10d: chunk store {store.n_chunks} chunks of {OOC_CHUNK_ROWS} rows"
          f" (host build {store_s:.2f} s); warm iteration {warm_s:.3f} s; "
          f"{GAME_TIMED_ITERS} iterations in {run_s:.3f} s = {ips:.4f} GAME "
-         f"iterations/s out of core vs {resident_iters_per_s:.4f} resident "
-         f"(phase 6, this run) = {ips / resident_iters_per_s:.4f}; the "
-         f"resident descent here {GAME_TIMED_ITERS / res_s:.4f}; pipelined "
+         f"iterations/s out of core vs {res_ips:.4f} for the resident "
+         f"descent here (warm) = {ips / res_ips:.4f}; phase 6's resident "
+         f"game_multi_re {resident_iters_per_s:.4f}; pipelined "
          f"{piped_s:.3f} s with its objective monitor, bitwise equal; "
          f"largest relative objective change across an update {worst:.3g}; "
          f"final objective {f_ooc!r} vs resident {f_res!r} (gap {gap:.3g}, "
@@ -4589,7 +4656,8 @@ def ooc_descent(glog, built, hosts, residents, resident_iters_per_s):
                       for op in ("matvec", "rmatvec")}
     return total_launches, dict(
         iters_per_s=ips, resident_iters_per_s=resident_iters_per_s,
-        ratio=ips / resident_iters_per_s, warm_s=warm_s, run_s=run_s,
+        resident_here_iters_per_s=res_ips, ratio=ips / res_ips,
+        warm_s=warm_s, run_s=run_s,
         objective_gap=gap, transfer=stats, owlqn=m_en, owlqn_kkt=kkt,
         lbfgs=m_lb, tron=m_tr, tron_gap=gap_t,
         updates=[{k: v for k, v in h.items()}
@@ -4822,7 +4890,7 @@ def phase_game_ooc(smi, td, files, resident_iters_per_s):
     (``.game`` SpMV launches, validation-scoring matvec launches,
     metrics)."""
     def glog(msg):
-        log(f"game ooc [{smi}] {msg}")
+        log_phase(f"game ooc [{smi}] {msg}")
 
     t_phase = time.perf_counter()
     tmp = tempfile.mkdtemp(prefix="ooc_spill_", dir=td)
@@ -4831,7 +4899,7 @@ def phase_game_ooc(smi, td, files, resident_iters_per_s):
     opt = game_re_opt()
     offsets = ooc_offsets(n, 100)
     hosts, residents, metrics = {}, {}, {"10a": {}}
-    log("phase 10a: out-of-core random effects on game_multi_re's draw")
+    phase_header("phase 10a: out-of-core random effects on game_multi_re's draw")
     for name, keys, Xe, cap in effects:
         hosts[name], residents[name], metrics["10a"][name] = \
             ooc_random_effect(glog, name, keys, Xe, cap, y, offsets, opt,
@@ -4839,7 +4907,7 @@ def phase_game_ooc(smi, td, files, resident_iters_per_s):
         torch.cuda.empty_cache()
     shutil.rmtree(tmp, ignore_errors=True)
     t_a = time.perf_counter()
-    log("phase 10d: the whole descent out of core")
+    phase_header("phase 10d: the whole descent out of core")
     launches, metrics["10d"] = ooc_descent(glog, built, hosts, residents,
                                            resident_iters_per_s)
     # Rank 0's row block of phase 12b's row-sharded fixed effect.
@@ -4847,15 +4915,15 @@ def phase_game_ooc(smi, td, files, resident_iters_per_s):
     del built, hosts, residents
     torch.cuda.empty_cache()
     t_d = time.perf_counter()
-    log("phase 10b: device memory at the wide per-user effect")
+    phase_header("phase 10b: device memory at the wide per-user effect")
     metrics["10b"] = ooc_wide_memory(glog, td)
     torch.cuda.empty_cache()
     t_b = time.perf_counter()
-    log("phase 10c: the out-of-core factored random effect")
+    phase_header("phase 10c: the out-of-core factored random effect")
     metrics["10c"] = ooc_factored(glog)
     torch.cuda.empty_cache()
     t_c = time.perf_counter()
-    log("phase 10e: the drivers out of core")
+    phase_header("phase 10e: the drivers out of core")
     d_launches, val_launches, metrics["10e"] = ooc_drivers(glog, td, *files)
     for op in launches:
         launches[op] += d_launches[op]
@@ -5282,27 +5350,27 @@ def model_files(root):
     return out
 
 
-def phase_group_game(smi, td):
+def phase_group_game(smi, td, group_call):
     """Phase 12a: a one-rank NCCL group runs the GAME training driver's
     group route on phase 7's files and the GLM driver's streamed route on
     phase 4's files (each rank its shard of every chunk); their model
     files must equal phase 7's and phase 9c's one-card runs byte for byte.
     Phase 12b: ``experiments.multirank --game`` over a spawned gloo group of
-    GROUP_RANKS ranks sharing this card at full width (its checks raise).
-    Then the two new shard instances of kernel #1 against their plain
-    versions.  Returns ({instance: {op: record}}, {instance: {op:
-    launches}}, metrics)."""
+    GROUP_RANKS ranks sharing this card at full width (its checks raise),
+    ``group_call`` from :func:`start_group_call`, read here.  Then the two
+    new shard instances of kernel #1 against their plain versions.
+    Returns ({instance: {op: record}}, {instance: {op: launches}},
+    metrics)."""
     import torch.distributed as dist
 
     from photon_ml_tpu_torch.data.dataset import make_glm_data
     from photon_ml_tpu_torch.drivers import game_training_driver, glm_driver
-    from photon_ml_tpu_torch.experiments import multirank
     from photon_ml_tpu_torch.ops import _kernels
     from photon_ml_tpu_torch.parallel import distributed, multihost
     from photon_ml_tpu_torch.utils.logging import PhotonLogger
 
     def glog(msg):
-        log(f"group GAME [{smi}] {msg}")
+        log_phase(f"group GAME [{smi}] {msg}")
 
     t_phase = time.perf_counter()
     launches = {"game": {"matvec": 0, "rmatvec": 0}, "unit": {}}
@@ -5384,12 +5452,8 @@ def phase_group_game(smi, td):
         dist.destroy_process_group()
     torch.cuda.empty_cache()
 
-    t0 = time.perf_counter()
-    group = multirank.main(["--game", "--ranks", str(GROUP_RANKS),
-                            "--share-card",
-                            "--device", DEVICE, "--rows", str(N_ROWS),
-                            "--game-entities", str(GAME_ENTITIES)])
-    wall = time.perf_counter() - t0
+    group = group_call_result(group_call)
+    wall, started = group["wall_s"], group_call[2]
     for name in ("per_user", "per_item", "per_context"):
         p = group[f"plan.{name}"]
         glog(f"12b plan {name} over {GROUP_RANKS} ranks: n_split "
@@ -5412,7 +5476,10 @@ def phase_group_game(smi, td):
          f"all-reduce a pass; value {st['value_err']:.3g}, gradient "
          f"{st['grad_err']:.3g} of Σ|terms| (limit 1e-5)")
     glog(f"12b times of {GROUP_RANKS} gloo ranks SHARING ONE CARD (not a "
-         f"speed across cards): whole call {wall:.1f} s, dataset builds "
+         f"speed across cards), taken beside the script's own phases (the "
+         f"lines marked{BESIDE_MARK}): from {started:.1f} s to about "
+         f"{started + wall:.1f} s by the script's clock; whole call "
+         f"{wall:.1f} s, dataset builds "
          f"{group['build_s']:.2f} s, descent warm {group['descent_s']:.3f}"
          f" s, cold {group['descent_cold_s']:.3f} s (one card warm "
          f"{group['one_card_descent_s']:.3f} s), out-of-core train+score "
@@ -5826,7 +5893,7 @@ def phase_serving(smi, td):
     from photon_ml_tpu_torch.serving.synthetic import SyntheticWorkload
 
     def slog(msg):
-        log(f"serving [{smi}] {msg}")
+        log_phase(f"serving [{smi}] {msg}")
 
     t_phase = time.perf_counter()
     metrics = {}
@@ -6236,7 +6303,7 @@ def phase_process_fleet(smi, td, handoff):
     from photon_ml_tpu_torch.serving.tenancy import TenancyConfig, TenantSpec
 
     def plog(msg):
-        log(f"process tier [{smi}] {msg}")
+        log_phase(f"process tier [{smi}] {msg}")
 
     t_phase = time.perf_counter()
     metrics, launches = {}, {}
@@ -6648,15 +6715,15 @@ def patched(obj, name, value):
 
 
 #: phase 4's LIBSVM files as parsed by :func:`parse_once`, by path and
-#: arguments: every driver run after phase 4 reads the same copies.
+#: arguments: every driver run after phase 4's first reads the same copies.
 _PARSED: dict = {}
 
 
 def parse_once():
     """A memoizing stand-in for ``data.libsvm.read_libsvm``: each file is
-    parsed once for the driver runs after phase 4 (11b's, 11c's, 9c's and
-    12a's runs, 15a's arrays, every tuning CLI run of 15b and 16a's runs
-    read the same copy)."""
+    parsed once, by phase 4's first driver run (phase 4's other runs, 11b's,
+    11c's, 9c's and 12a's runs, 15a's arrays, every tuning CLI run of 15b
+    and 16a's runs read the same copy)."""
     from photon_ml_tpu_torch.data import libsvm
 
     inner = libsvm.read_libsvm
@@ -6667,7 +6734,7 @@ def parse_once():
             t0 = time.perf_counter()
             _PARSED[key] = inner(path, **kw)
             log(f"parsed {os.path.basename(path)} once for the driver runs "
-                f"after phase 4 in {time.perf_counter() - t0:.2f} s")
+                f"from phase 4 on in {time.perf_counter() - t0:.2f} s")
         return _PARSED[key]
 
     return read
@@ -7108,15 +7175,15 @@ def phase_tuning(smi, drv_files, drv_runs, drv_td, game_td, game_files,
         X_val, y_val = libsvm.read_libsvm(
             val, n_features=X.shape[1] - 1, add_intercept=True,
             drop_out_of_range=True)
-        log("phase 15a: tensor-parallel GLM over logical tiles")
+        phase_header("phase 15a: tensor-parallel GLM over logical tiles")
         res_launches, tile_launches, tile_kern, tp_metrics = \
             phase_tensor_parallel(X, y, drv_runs, gen)
         torch.cuda.empty_cache()
-        log("phase 15b: GLM tuning through the CLI")
+        phase_header("phase 15b: GLM tuning through the CLI")
         glm_launches, tune_metrics = phase_tuning_glm(
             drv_files, drv_td, (X, y), (X_val, y_val))
     torch.cuda.empty_cache()
-    log("phase 15c: GAME tuning")
+    phase_header("phase 15c: GAME tuning")
     game_launches, game_val, game_metrics = phase_tuning_game(
         game_td, game_files)
     torch.cuda.empty_cache()
@@ -7201,7 +7268,9 @@ def stage_spans(out):
 
 def selfcheck_process(module, args=()):
     """``python -m module --selfcheck`` from the repository root, started
-    now (the caller reads it with :func:`selfcheck_result`)."""
+    now (the caller reads it with :func:`selfcheck_result`, and
+    :func:`stop_processes` reaps it in the caller's ``finally``)."""
+    # photon: disable=process-lifecycle (returned; the caller reaps it)
     return subprocess.Popen(
         [sys.executable, "-m", module, "--selfcheck", *args],
         cwd=os.path.dirname(os.path.abspath(__file__)),
@@ -7224,7 +7293,51 @@ def stop_processes(procs):
     for proc in procs:
         if proc.poll() is None:
             proc.kill()
-            proc.communicate()
+            proc.wait()
+
+
+def start_group_call(td):
+    """Phase 12b's ``experiments.multirank --game`` call, started as a
+    process of its own beside phase 8 on (it builds its own draw, and its
+    four ranks are mostly host work): (process, output file, the script's
+    seconds at its start).  It leads a session of its own, so
+    :func:`stop_group_call` stops its spawned ranks with it.  Until it has
+    exited, every phase's lines carry BESIDE_MARK (:func:`phase_header`)."""
+    out = os.path.join(td, "multirank_12b.log")
+    started = time.perf_counter() - T_START
+    with open(out, "w") as f:  # the child keeps its own descriptor
+        proc = subprocess.Popen(
+            [sys.executable, "-m", "photon_ml_tpu_torch.experiments.multirank",
+             "--game", "--ranks", str(GROUP_RANKS), "--share-card",
+             "--device", DEVICE, "--rows", str(N_ROWS),
+             "--game-entities", str(GAME_ENTITIES)],
+            cwd=os.path.dirname(os.path.abspath(__file__)),
+            stdout=f, stderr=subprocess.STDOUT, start_new_session=True)
+    BESIDE_GROUP["proc"] = proc
+    return proc, out, started
+
+
+def stop_group_call(call):
+    """Stop phase 12b's call and every process of its session."""
+    proc = call[0]
+    with contextlib.suppress(ProcessLookupError):
+        os.killpg(proc.pid, signal.SIGKILL)
+    proc.wait()
+    BESIDE_GROUP["proc"] = None
+
+
+def group_call_result(call, timeout=600):
+    """Phase 12b's result: the call's last output line, once it exits 0."""
+    proc, out, _ = call
+    try:
+        rc = proc.wait(timeout)
+    except subprocess.TimeoutExpired:
+        rc = None
+    with open(out) as f:
+        lines = f.read().splitlines()
+    check(rc == 0, f"12b: experiments.multirank --game exit {rc}:\n"
+          + "\n".join(lines[-40:]))
+    return json.loads(lines[-1])
 
 
 def selfcheck_result(label, proc, t0, timeout=300, phase="16d"):
@@ -7449,7 +7562,7 @@ def phase_cluster(smi, td, handoff):
     from photon_ml_tpu_torch.telemetry.fleet import FleetAggregator
 
     def clog(msg):
-        log(f"cluster [{smi}] {msg}")
+        log_phase(f"cluster [{smi}] {msg}")
 
     t_phase = time.perf_counter()
     metrics = {}
@@ -7676,12 +7789,52 @@ def phase_cluster(smi, td, handoff):
     return launches, metrics
 
 
+# -- phase 18: the static invariant checker and the metric lint -----------
+
+
+def phase_static_checks():
+    """Phase 18: the port's invariant checker and metric lint over this
+    checkout (see the module docstring).  Returns its counts and seconds."""
+    from photon_ml_tpu_torch import analysis
+    from photon_ml_tpu_torch.telemetry import lint
+
+    t_phase = time.perf_counter()
+    report = analysis.check()
+    n_names, problems = lint.lint_source()
+    seconds = time.perf_counter() - t_phase
+    for line in (*report.parse_errors, *map(str, report.findings),
+                 *(f"stale baseline entry: {e}"
+                   for e in report.stale_baseline),
+                 *(f"metric lint: {p}" for p in problems)):
+        log(f"phase 18: {line}")
+    metrics = {"files": report.files, "rules": report.rules,
+               "findings": len(report.findings),
+               "parse_errors": len(report.parse_errors),
+               "suppressed": report.suppressed,
+               "baselined": report.baselined,
+               "stale_baseline": len(report.stale_baseline),
+               "metric_names": n_names, "metric_problems": len(problems),
+               "seconds": seconds}
+    log(f"phase 18: the invariant checker over {report.files} files and "
+        f"{report.rules} rules: {len(report.findings)} findings, "
+        f"{len(report.parse_errors)} parse errors, {report.suppressed} "
+        f"suppressed, {report.baselined} baselined, "
+        f"{len(report.stale_baseline)} stale baseline entries; the metric "
+        f"lint: {n_names} names, {len(problems)} problems; {seconds:.2f} s")
+    check(report.ok, "18: the invariant checker has findings or parse "
+          "errors")
+    check(not report.stale_baseline, "18: stale baseline entries")
+    check(not problems, "18: the metric lint failed")
+    return metrics
+
+
 def main() -> int:
     if not torch.cuda.is_available():
         print("chip_smoke: no CUDA device; this script runs the port on the "
               "card only", file=sys.stderr)
         return 2
-    t_start = time.perf_counter()
+    global T_START
+    t_start = T_START = time.perf_counter()
     smi = phase_environment()
     torch.backends.cuda.matmul.allow_tf32 = False
     torch.backends.cudnn.allow_tf32 = False
@@ -7699,28 +7852,28 @@ def main() -> int:
 
 def _main_from_phase2(smi, t_start, td, writer):
     bench = bench_triples()
-    log("phase 2: kernel against plain version")
+    phase_header("phase 2: kernel against plain version")
     kern = phase_kernels(bench)
-    log("phase 3: library boundary")
+    phase_header("phase 3: library boundary")
     lib_launches, lib_metrics, (data, plain_data, abs_F, X) = \
         phase_library(bench)
-    log("phase 3b: solvers")
+    phase_header("phase 3b: solvers")
     sol_launches, sol_records, sol_ws = phase_solvers(
         data, plain_data, abs_F, bench[4], kern)
     del plain_data
     torch.cuda.empty_cache()
-    log("phase 9a-9b: out-of-core objective and solvers (run here, on "
-        "phase 3's matrix)")
+    phase_header("phase 9a-9b: out-of-core objective and solvers (run here, on "
+              "phase 3's matrix)")
     stream_launches, stream_metrics = phase_streaming(
         smi, bench, data, abs_F, X, lib_metrics)
-    log("phase 11a: consensus ADMM over logical shards (run here, on phase "
-        "3's matrix)")
+    phase_header("phase 11a: consensus ADMM over logical shards (run here, on "
+              "phase 3's matrix)")
     shard_launches, shard_kern, admm_metrics = phase_admm(
         X, bench[3], bench[4], sol_records, sol_ws,
         torch.Generator(device=DEVICE).manual_seed(11))
     torch.cuda.empty_cache()
-    log("phase 11c: a one-rank process group (run here, on phase 3's "
-        "matrix)")
+    phase_header("phase 11c: a one-rank process group (run here, on phase 3's "
+              "matrix)")
     grp_launches, grp_metrics = phase_group_grid(
         data, X, bench[3], os.path.join(td, "pg_store_grid"))
     # The valued kernels' main-path launches: phases 3, 3b, 9a, 9b and
@@ -7742,7 +7895,7 @@ def _main_from_phase2(smi, t_start, td, writer):
 
 def _main_from_phase4(*args):
     """The phases from 4 on, with ``read_libsvm`` put back at the end (the
-    driver runs after phase 4 read its files through :func:`parse_once`)."""
+    driver runs from phase 4 on read its files through :func:`parse_once`)."""
     from photon_ml_tpu_torch.data import libsvm
 
     original = libsvm.read_libsvm
@@ -7756,67 +7909,74 @@ def _phases_from_4(smi, t_start, kern, lib_metrics, sol_records,
                    stream_metrics, val_launches, drv_td, td, writer, multi):
     from photon_ml_tpu_torch.data import libsvm
 
-    log("phase 4: driver")
+    # Every driver run on phase 4's files after its first (phase 4's
+    # other two, 11b, 11c, 9c, 12a, 15, 16) reads them as that run parsed
+    # them: the parse is the first run's check, not theirs.
+    libsvm.read_libsvm = parse_once()
+    phase_header("phase 4: driver")
     drv_launches, drv_files, drv_runs = phase_driver(drv_td)
     torch.cuda.empty_cache()
-    # Every later driver run on phase 4's files (11b, 11c, 9c, 12a, 15,
-    # 16) reads them as parsed once, here: the parse is phase 4's check,
-    # not theirs.
-    libsvm.read_libsvm = parse_once()
-    log("phase 11b: block coordinate descent (run here, on phase 4's "
-        "files)")
+    phase_header("phase 11b: block coordinate descent (run here, on phase 4's "
+              "files)")
     bcd_launches, multi["block_cd"] = phase_block_cd(drv_files, drv_td)
     torch.cuda.empty_cache()
-    log("phase 11c: the driver under a one-rank process group")
+    phase_header("phase 11c: the driver under a one-rank process group")
     gd_launches = phase_group_driver(drv_files, drv_runs, drv_td,
                                      os.path.join(td, "pg_store_driver"))
     for extra in (bcd_launches, gd_launches):
         for k, n in extra.items():
             drv_launches[k] = drv_launches.get(k, 0) + n
     torch.cuda.empty_cache()
-    log("phase 5: experiments")
+    phase_header("phase 5: experiments")
     exp, abl_launches = phase_experiments()
     torch.cuda.empty_cache()
-    log("phase 6: GAME coordinate descent")
+    phase_header("phase 6: GAME coordinate descent")
     kern_game, game_launches, game_metrics = phase_game(smi)
     torch.cuda.empty_cache()
-    log("phase 7: GAME drivers")
+    phase_header("phase 7: GAME drivers")
     kern_val, drv_train, drv_val, drv_metrics, (train, val) = \
         phase_game_drivers(smi, td, writer)
     torch.cuda.empty_cache()
-    log("phase 8: GAME fallback and factored random effects")
-    fb_train, fb_val, fb_metrics = phase_game_fallback(smi, td, train, val)
+    # Phase 12b's process group runs beside phase 8 on, until it exits.
+    group_call = start_group_call(td)
+    try:
+        phase_header("phase 8: GAME fallback and factored random effects")
+        fb_train, fb_val, fb_metrics = phase_game_fallback(smi, td, train, val)
+        torch.cuda.empty_cache()
+        phase_header("phase 9c: the drivers' streamed route, initial models, "
+                  "reports and retries")
+        sd_launches, sd_game, sd_metrics = phase_stream_drivers(
+            smi, drv_files, drv_runs, td, (train, val))
+        stream_metrics["drivers"] = sd_metrics
+        torch.cuda.empty_cache()
+        phase_header("phase 10: GAME out of core")
+        ooc_launches, ooc_val, ooc_metrics = phase_game_ooc(
+            smi, td, (train, val),
+            game_metrics["game_multi_re"]["iters_per_s"])
+        torch.cuda.empty_cache()
+        phase_header("phase 12: GAME and the streamed mesh over a process group")
+        kern_group, grp_game, multi["game_group"] = phase_group_game(
+            smi, td, group_call)
+        for op in ("matvec", "rmatvec"):
+            ooc_launches[op] += grp_game["game"][op]
+        for k, n in grp_game["unit"].items():
+            sd_launches[k] = sd_launches.get(k, 0) + n
+    finally:
+        stop_group_call(group_call)
     torch.cuda.empty_cache()
-    log("phase 9c: the drivers' streamed route, initial models, reports "
-        "and retries")
-    sd_launches, sd_game, sd_metrics = phase_stream_drivers(
-        smi, drv_files, drv_runs, td, (train, val))
-    stream_metrics["drivers"] = sd_metrics
-    torch.cuda.empty_cache()
-    log("phase 10: GAME out of core")
-    ooc_launches, ooc_val, ooc_metrics = phase_game_ooc(
-        smi, td, (train, val), game_metrics["game_multi_re"]["iters_per_s"])
-    torch.cuda.empty_cache()
-    log("phase 12: GAME and the streamed mesh over a process group")
-    kern_group, grp_game, multi["game_group"] = phase_group_game(smi, td)
-    for op in ("matvec", "rmatvec"):
-        ooc_launches[op] += grp_game["game"][op]
-    for k, n in grp_game["unit"].items():
-        sd_launches[k] = sd_launches.get(k, 0) + n
-    torch.cuda.empty_cache()
-    log("phase 13: online serving of phase 7's model")
+    phase_header("phase 13: online serving of phase 7's model")
     serve_records, _, serve_metrics, handoff = phase_serving(smi, td)
     torch.cuda.empty_cache()
-    log("phase 14: the process and fleet tier and model freshness")
+    phase_header("phase 14: the process and fleet tier and model freshness")
     proc_launches, proc_metrics = phase_process_fleet(smi, td, handoff)
     torch.cuda.empty_cache()
     # Phase 16d's selfchecks are processes of their own: they run beside
     # phase 15 (each is mostly its interpreter's start and imports).
-    log("phase 16d: the chaos and telemetry selfchecks start, beside "
-        "phase 15")
+    phase_header("phase 16d: the chaos and telemetry selfchecks start, beside "
+              "phase 15")
     selfchecks = start_selfchecks()
     try:
-        log("phase 15: tensor parallel and tuning")
+        phase_header("phase 15: tensor parallel and tuning")
         (tp_binary, tile_launches, tile_kern, tune_game, tune_game_val,
          tune_metrics) = phase_tuning(
             smi, drv_files, drv_runs, drv_td, td, (train, val),
@@ -7824,16 +7984,18 @@ def _phases_from_4(smi, t_start, kern, lib_metrics, sol_records,
         for k, n in tp_binary.items():
             drv_launches[k] = drv_launches.get(k, 0) + n
         torch.cuda.empty_cache()
-        log("phase 16: the ops plane and the fault sites on the card")
+        phase_header("phase 16: the ops plane and the fault sites on the card")
         ops_launches, ops_metrics = phase_ops_plane(smi, drv_files, drv_runs,
                                                     selfchecks)
     finally:
         stop_processes(selfchecks[1].values())
     torch.cuda.empty_cache()
     # Alone: 17a's selfcheck gates on timing.
-    log("phase 17: the cluster control plane")
+    phase_header("phase 17: the cluster control plane")
     cluster_launches, cluster_metrics = phase_cluster(smi, td, handoff)
     del handoff
+    phase_header("phase 18: the static invariant checker and the metric lint")
+    static_metrics = phase_static_checks()
     for k, n in ops_launches.items():
         drv_launches[k] = drv_launches.get(k, 0) + n
     # The serving records count phase 13's and phase 14's launches of
@@ -7974,6 +8136,7 @@ def _phases_from_4(smi, t_start, kern, lib_metrics, sol_records,
         f"{json.dumps(tune_metrics, default=float)}"
         f"; ops plane: {json.dumps(ops_metrics, default=float)}"
         f"; cluster: {json.dumps(cluster_metrics, default=float)}"
+        f"; static checks: {json.dumps(static_metrics)}"
         f"; total {time.perf_counter() - t_start:.1f} s")
     log(smi)
     log(json.dumps({"kernels": records}))

@@ -21,6 +21,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device, to_numpy
+from photon_ml_tpu_torch.ops import ordered
 
 Tensor = torch.Tensor
 
@@ -46,7 +47,7 @@ class NormalizationContext:
         """Map scaled-space coefficients to original-space coefficients."""
         w = w_model * self.factors
         if self.intercept_index is not None:
-            corr = -torch.dot(w_model, self.factors * self.shifts)
+            corr = -ordered.dot(w_model, self.factors * self.shifts)
             w = w.clone()
             w[self.intercept_index] += corr
         return w
@@ -55,7 +56,7 @@ class NormalizationContext:
         """Inverse of :meth:`model_to_original` (factors must be nonzero)."""
         w = w_orig / self.factors
         if self.intercept_index is not None:
-            corr = -torch.dot(w, self.factors * self.shifts)
+            corr = -ordered.dot(w, self.factors * self.shifts)
             i = self.intercept_index
             w = w.clone()
             w[i] += -corr / self.factors[i]

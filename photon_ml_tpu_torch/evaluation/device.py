@@ -22,6 +22,8 @@ from typing import Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.ops import ordered
+
 Tensor = torch.Tensor
 
 
@@ -38,7 +40,7 @@ def _weighted_per_row(scores, labels, weights, kind):
         per_row = torch.logaddexp(torch.zeros_like(scores), scores) \
             - labels * scores
     elif kind == "poisson_loss":
-        per_row = torch.exp(scores) - labels * scores
+        per_row = ordered.exp(scores) - labels * scores
     elif kind in ("squared_loss", "rmse"):
         r = scores - labels
         per_row = (0.5 if kind == "squared_loss" else 1.0) * r * r
@@ -62,7 +64,7 @@ def device_pointwise_metric(
     if kind == "squared_loss":
         return num
     out = num / den
-    return torch.sqrt(out) if kind == "rmse" else out
+    return ordered.sqrt(out) if kind == "rmse" else out
 
 
 def device_evaluator_fn(evaluator):

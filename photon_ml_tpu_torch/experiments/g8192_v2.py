@@ -33,6 +33,7 @@ from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.experiments import common
 from photon_ml_tpu_torch.experiments.g8192 import K, N_ROWS, make_ell
 from photon_ml_tpu_torch.ops import _kernels
+from photon_ml_tpu_torch.ops.sparse import stable_argsort
 
 BLOCK_ROWS = 8192
 W = 64          # column windows of 128
@@ -67,14 +68,16 @@ def build_layout(cols, vals, n_rows: int):
     win = c >> 7
     lane = r_local % 128
     # fill order: sort by (block, win, lane) then assign depth slots
-    order = np.lexsort((lane, win, b))
+    key = (b * W + win) * 128 + lane
+    order = stable_argsort(key, max(NB, 1) * W * 128)
+    key = key[order]
     bs, ws, ls = b[order], win[order], lane[order]
     rh = (r_local // 128)[order]
     los = (c & 127)[order]
     vs = vals.reshape(-1)[order]
-    # depth position within each (block, win, lane) cell
-    key = (bs * W + ws) * 128 + ls
-    _, start = np.unique(key, return_index=True)
+    # depth position within each (block, win, lane) cell: the first entry
+    # of each run of the sorted key
+    start = np.flatnonzero(np.diff(key, prepend=-1))
     depth_pos = np.arange(len(key)) - np.repeat(start, np.diff(
         np.append(start, len(key))))
     ok = depth_pos < DEPTH

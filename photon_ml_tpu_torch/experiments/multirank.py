@@ -585,6 +585,7 @@ def _rank_main(rank, world, store, device_type, rows, result_path,
 
 
 def main(argv=None) -> dict:
+    t_main = time.perf_counter()
     p = argparse.ArgumentParser(description=__doc__.split("\n\n")[0])
     p.add_argument("--ranks", type=int, default=4)
     p.add_argument("--rows", type=int, default=N_ROWS)
@@ -613,26 +614,30 @@ def main(argv=None) -> dict:
     ctx = multiprocessing.get_context("spawn")
     with tempfile.TemporaryDirectory(prefix="photon_multirank_") as td:
         result = os.path.join(td, "result.json")
-        procs = [ctx.Process(target=_rank_main,
-                             args=(r, args.ranks, os.path.join(td, "store"),
-                                   dev.type, args.rows, result, args.game,
-                                   args.share_card,
-                                   args.game_entities))
-                 for r in range(args.ranks)]
-        for proc in procs:
-            proc.start()
-        deadline = time.monotonic() + TIMEOUT
-        for proc in procs:
-            proc.join(max(1.0, deadline - time.monotonic()))
-        for proc in procs:
-            if proc.is_alive():
-                proc.kill()
-                proc.join(10)
+        procs = []
+        try:
+            for r in range(args.ranks):
+                proc = ctx.Process(
+                    target=_rank_main,
+                    args=(r, args.ranks, os.path.join(td, "store"),
+                          dev.type, args.rows, result, args.game,
+                          args.share_card, args.game_entities))
+                procs.append(proc)
+                proc.start()
+            deadline = time.monotonic() + TIMEOUT
+            for proc in procs:
+                proc.join(max(1.0, deadline - time.monotonic()))
+        finally:
+            for proc in procs:
+                if proc.is_alive():
+                    proc.kill()
+                    proc.join(10)
         codes = [proc.exitcode for proc in procs]
         if codes != [0] * args.ranks:
             raise RuntimeError(f"multirank: rank exit codes {codes}")
         with open(result) as f:
             out = json.load(f)
+    out["wall_s"] = time.perf_counter() - t_main
     print(json.dumps(out))
     return out
 

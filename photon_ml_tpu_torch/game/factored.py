@@ -50,6 +50,7 @@ from photon_ml_tpu_torch.game.coordinates import (
 from photon_ml_tpu_torch.game.data import EntityBlock, RandomEffectDataset
 from photon_ml_tpu_torch.game.model import RandomEffectModel
 from photon_ml_tpu_torch.ops import losses as losses_lib
+from photon_ml_tpu_torch.ops import ordered
 from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, lbfgs_solve
 from photon_ml_tpu_torch.optim.problem import GlmOptimizationConfig
 
@@ -248,7 +249,7 @@ class FactoredRandomEffectCoordinate(Coordinate):
         _, _, l2v = self._reg()
         V = vflat.view(self.dataset.n_features, self.rank)
         v64 = vflat.double()
-        val = 0.5 * l2v * torch.dot(v64, v64)
+        val = 0.5 * l2v * ordered.dot(v64, v64)
         parts = []
         for block, off, u in zip(self.dataset.blocks, offs, u_list):
             m = _rowdot(block.X, _materialize(V, block.col_map, u)) + off
@@ -458,7 +459,7 @@ class ShardedFactoredRandomEffectCoordinate(FactoredRandomEffectCoordinate):
             payloads.append(torch.cat([val.reshape(1), g.reshape(-1)]))
         tot = sum_shards(payloads, self.mesh)
         v64 = vflat.double()
-        value = 0.5 * l2v * torch.dot(v64, v64) + tot[0]
+        value = 0.5 * l2v * ordered.dot(v64, v64) + tot[0]
         g = tot[1:].view(nf, self.rank).to(V.dtype) + l2v * V
         return value, g.reshape(-1)
 

@@ -58,6 +58,7 @@ from photon_ml_tpu_torch.game.ooc_random import (
     _slice_block,
 )
 from photon_ml_tpu_torch.ops import losses as losses_lib
+from photon_ml_tpu_torch.ops import ordered
 from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, lbfgs_solve
 from photon_ml_tpu_torch.optim.problem import GlmOptimizationConfig
 
@@ -307,7 +308,7 @@ class OutOfCoreFactoredRandomEffectCoordinate(OutOfCoreRandomEffectCoordinate):
                                          accs[r]["g"].reshape(-1)])
                               for r in self._held], self.mesh)
             val, g = tot[0], tot[1:].view(nf, rank)
-        return (val + 0.5 * l2v * torch.dot(v64, v64),
+        return (val + 0.5 * l2v * ordered.dot(v64, v64),
                 (g.to(Vm.dtype) + l2v * Vm).reshape(-1))
 
     def projection_step(self, padded: Tensor, u_list: list, V: Tensor):

@@ -21,6 +21,7 @@ import json
 import os
 import struct
 import zlib
+from concurrent.futures import ThreadPoolExecutor
 from typing import Any, BinaryIO, Iterable, Iterator, Optional
 
 MAGIC = b"Obj\x01"
@@ -641,15 +642,24 @@ def _write_container_header(f: BinaryIO, schema: Any, codec: str) -> None:
     f.write(_SYNC)
 
 
-def _write_block(f: BinaryIO, count: int, payload: bytes, codec: str) -> None:
-    """One container block: codec framing + count + payload + sync."""
+def _compress(payload: bytes, codec: str) -> bytes:
+    """A block's payload as the codec stores it."""
     if codec == "deflate":
-        payload = zlib.compress(payload)[2:-4]  # raw deflate per spec
-    elif codec == "snappy":
-        payload = _snappy_frame_avro(payload)
+        return zlib.compress(payload)[2:-4]  # raw deflate per spec
+    if codec == "snappy":
+        return _snappy_frame_avro(payload)
+    return payload
+
+
+def _write_framed(f: BinaryIO, count: int, payload: bytes) -> None:
     write_long(f, count)
     write_bytes(f, payload)
     f.write(_SYNC)
+
+
+def _write_block(f: BinaryIO, count: int, payload: bytes, codec: str) -> None:
+    """One container block: codec framing + count + payload + sync."""
+    _write_framed(f, count, _compress(payload, codec))
 
 
 def write_container(
@@ -681,6 +691,31 @@ def write_container(
             if len(block) >= records_per_block:
                 flush()
         flush()
+
+
+def write_container_blocks(
+    path: str,
+    schema: Any,
+    blocks: Iterable[tuple[int, bytes]],
+    codec: str = "deflate",
+) -> None:
+    """:func:`write_container` for records already encoded: ``blocks``
+    yields ``(record count, the records' bytes)`` a container block.  The
+    blocks are compressed on a few threads (zlib lets go of the GIL) and
+    written in order: the file is the one-thread file."""
+    assert codec in ("null", "deflate", "snappy")
+    os.makedirs(os.path.dirname(os.path.abspath(path)), exist_ok=True)
+
+    def framed(block):
+        count, payload = block
+        return count, _compress(payload, codec)
+
+    with open(path, "wb") as f, ThreadPoolExecutor(
+            max_workers=min(8, os.cpu_count() or 1)) as pool:
+        _write_container_header(f, schema, codec)
+        for count, payload in pool.map(framed, blocks):
+            if count:
+                _write_framed(f, count, payload)
 
 
 def write_scoring_container(

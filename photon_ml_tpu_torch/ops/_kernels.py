@@ -205,27 +205,37 @@ def _build_libraries(names) -> None:
     if missing:
         nvcc = _nvcc()
         BUILD_DIR.mkdir(parents=True, exist_ok=True)
-    for name in missing:
-        so, log = _artifacts(name)
-        tmp = BUILD_DIR / f".{so.name}.{os.getpid()}"
-        with open(log, "w") as out:  # the child keeps its own descriptor
-            builds[name] = (subprocess.Popen(
-                [nvcc, *_flags(name), "-I", str(CSRC), "-o", str(tmp),
-                 str(SOURCES[_split(name)[0]])],
-                stdout=out, stderr=subprocess.STDOUT,
-            ), tmp)
     seconds = {}
     failed = []
-    for name, (proc, tmp) in builds.items():
-        rc = proc.wait()
-        seconds[name] = time.perf_counter() - t0
-        so, log = _artifacts(name)
-        if rc != 0:
-            tmp.unlink(missing_ok=True)
-            failed.append(f"nvcc failed ({rc}) building {name}:\n"
-                          f"{log.read_text()}")
-        else:
-            os.replace(tmp, so)  # atomic: a concurrent build never sees half
+    try:
+        for name in missing:
+            so, log = _artifacts(name)
+            tmp = BUILD_DIR / f".{so.name}.{os.getpid()}"
+            with open(log, "w") as out:  # the child keeps its own descriptor
+                proc = subprocess.Popen(
+                    [nvcc, *_flags(name), "-I", str(CSRC), "-o", str(tmp),
+                     str(SOURCES[_split(name)[0]])],
+                    stdout=out, stderr=subprocess.STDOUT,
+                )
+            builds[name] = (proc, tmp)
+        for name, (proc, tmp) in builds.items():
+            rc = proc.wait()
+            seconds[name] = time.perf_counter() - t0
+            so, log = _artifacts(name)
+            if rc != 0:
+                tmp.unlink(missing_ok=True)
+                failed.append(f"nvcc failed ({rc}) building {name}:\n"
+                              f"{log.read_text()}")
+            else:
+                # atomic: a concurrent build never sees half
+                os.replace(tmp, so)
+    finally:
+        # An exception mid-build (a failed launch, an interrupt) leaves no
+        # compiler running behind it.
+        for proc, _ in builds.values():
+            if proc.poll() is None:
+                proc.kill()
+                proc.wait()
     if failed:
         raise RuntimeError("\n".join(failed))
     for name in todo:

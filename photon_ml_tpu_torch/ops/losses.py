@@ -11,7 +11,10 @@ and the hot loop is two sparse mat-vecs.  All functions are elementwise on
 tensors of any device.  Labels follow the reference: ``{0, 1}`` for logistic
 and smoothed hinge, nonnegative counts for Poisson, reals for squared loss.
 Softplus is ``logaddexp(m, 0)`` and the sigmoid is ``torch.sigmoid``, both
-stable at margins of any size.
+stable at margins of any size.  Poisson's ``exp`` is ``ops/ordered.py``'s:
+on the CPU ATen's ``torch.exp`` calls MKL's vector math library, whose
+bits depend on the CPU's vendor (its ``sigmoid`` and ``logaddexp`` are
+ATen's own).
 """
 
 from __future__ import annotations
@@ -20,6 +23,8 @@ import dataclasses
 from typing import Callable
 
 import torch
+
+from photon_ml_tpu_torch.ops import ordered
 
 Tensor = torch.Tensor
 
@@ -102,15 +107,15 @@ squared = PointwiseLoss(
 # Poisson loss (log link): ℓ = exp(m) - y·m
 
 def _poisson_value(margin: Tensor, label: Tensor) -> Tensor:
-    return torch.exp(margin) - label * margin
+    return ordered.exp(margin) - label * margin
 
 
 def _poisson_d1(margin: Tensor, label: Tensor) -> Tensor:
-    return torch.exp(margin) - label
+    return ordered.exp(margin) - label
 
 
 def _poisson_d2(margin: Tensor, label: Tensor) -> Tensor:
-    return torch.exp(margin)
+    return ordered.exp(margin)
 
 
 poisson = PointwiseLoss(
@@ -118,7 +123,7 @@ poisson = PointwiseLoss(
     value=_poisson_value,
     d1=_poisson_d1,
     d2=_poisson_d2,
-    mean_fn=torch.exp,
+    mean_fn=ordered.exp,
 )
 
 

@@ -23,6 +23,7 @@ import numpy as np
 import torch
 
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.ops import ordered
 
 Tensor = torch.Tensor
 
@@ -42,7 +43,14 @@ def _offsets(sorted_ids: Tensor, n: int) -> Tensor:
 
 @dataclasses.dataclass
 class DenseMatrix:
-    """Dense feature matrix of shape (n_rows, n_cols)."""
+    """Dense feature matrix of shape (n_rows, n_cols).
+
+    On the CPU the four products sum in
+    :mod:`~photon_ml_tpu_torch.ops.ordered`'s fixed order instead of the
+    host BLAS's, so their bits depend on neither the host nor where
+    ``data`` sits in memory (a logical shard's matrix is a view of one
+    stacked tensor, a rank's its own allocation); on a card they are the
+    plain products."""
 
     data: Tensor
 
@@ -59,16 +67,16 @@ class DenseMatrix:
         return self.data.shape[1]
 
     def matvec(self, w: Tensor) -> Tensor:
-        return self.data @ w
+        return ordered.matvec(self.data, w)
 
     def rmatvec(self, u: Tensor) -> Tensor:
-        return self.data.T @ u
+        return ordered.rmatvec(self.data, u)
 
     def row_sq_matvec(self, v: Tensor) -> Tensor:
-        return (self.data * self.data) @ v
+        return ordered.matvec(self.data * self.data, v)
 
     def sq_rmatvec(self, u: Tensor) -> Tensor:
-        return (self.data * self.data).T @ u
+        return ordered.rmatvec(self.data * self.data, u)
 
     def col_nnz(self, row_mask: Optional[Tensor] = None) -> Tensor:
         nz = self.data != 0
@@ -205,6 +213,22 @@ def from_scipy_csr(csr, pad_nnz: Optional[int] = None, dtype=torch.float32,
                     pad_nnz, dtype, device)
 
 
+def stable_argsort(keys: np.ndarray, key_bound: int) -> np.ndarray:
+    """``np.argsort(keys, kind="stable")`` for integer keys in
+    ``[0, key_bound)``.  Where ``key_bound · len(keys)`` fits in int64 it
+    sorts the unique composite ``key · n + position`` instead (numpy's
+    unstable sort of int64, several times faster than its stable argsort of
+    unsorted keys) and reads the positions back: the same permutation."""
+    keys = np.asarray(keys)
+    n = keys.shape[0]
+    if n < 2 or int(key_bound) * n >= 1 << 62:
+        return np.argsort(keys, kind="stable")
+    composite = keys.astype(np.int64) * np.int64(n)
+    composite += np.arange(n, dtype=np.int64)
+    composite.sort()
+    return composite % np.int64(n)
+
+
 def canonicalize_coo(
     rows: np.ndarray,
     cols: np.ndarray,
@@ -264,7 +288,7 @@ def coo_parts(rows, cols, vals, n_rows: int, n_cols: int) -> dict:
     them (a stable column sort, the two segment-offset vectors)."""
     rows = np.asarray(rows, np.int64)
     cols = np.asarray(cols, np.int64)
-    order = np.argsort(cols, kind="stable")
+    order = stable_argsort(cols, n_cols)
     return {
         "row_ids": rows,
         "col_ids": cols,

@@ -20,9 +20,10 @@ Storage classes, split at build time exactly as the reference splits them:
 - **dense stripes** — columns with ≥ ``max(256, n_rows·dense_frac)``
   entries (then rows with ≥ ``max(256, n_cols·dense_frac)`` from the rest),
   at most ``max_dense`` a side and within ``dense_budget_bytes``, stored
-  dense and applied as plain torch products outside the kernel (the
-  reference runs them as ``einsum`` outside Pallas).  The driver's intercept
-  column becomes a column stripe, as on the TPU.
+  dense and applied as ``ops/ordered.py`` products outside the kernel
+  (plain torch products on a card; the reference runs them as ``einsum``
+  outside Pallas).  The driver's intercept column becomes a column stripe,
+  as on the TPU.
 
 Binary matrices (every streamed value 1.0, detected automatically) drop the
 value stream: the kernel then reads 4 bytes an entry instead of 8.  Cold
@@ -47,7 +48,12 @@ from photon_ml_tpu_torch.ops._kernels import (
     spmv_cols,
     spmv_rows,
 )
-from photon_ml_tpu_torch.ops.sparse import DenseMatrix, canonicalize_coo
+from photon_ml_tpu_torch.ops import ordered
+from photon_ml_tpu_torch.ops.sparse import (
+    DenseMatrix,
+    canonicalize_coo,
+    stable_argsort,
+)
 
 Tensor = torch.Tensor
 
@@ -166,11 +172,11 @@ class CudaSparseMatrix:
                         unit=self.unit_vals, square=square)
         if self.has_dense_cols:
             dc = self.dense_cols * self.dense_cols if square else self.dense_cols
-            out = out + v[self.dense_col_ids] @ dc
+            out = out + ordered.rmatvec(dc, v[self.dense_col_ids])
         if self.has_dense_rows:
             dr = self.dense_rows * self.dense_rows if square else self.dense_rows
             ids = self.dense_row_ids
-            out[ids] = out[ids] + dr @ v
+            out[ids] = out[ids] + ordered.matvec(dr, v)
         return out
 
     def _cols_side(self, u: Tensor, op: str, square: bool) -> Tensor:
@@ -181,10 +187,10 @@ class CudaSparseMatrix:
         if self.has_dense_cols:
             dc = self.dense_cols * self.dense_cols if square else self.dense_cols
             ids = self.dense_col_ids
-            out[ids] = out[ids] + dc @ u
+            out[ids] = out[ids] + ordered.matvec(dc, u)
         if self.has_dense_rows:
             dr = self.dense_rows * self.dense_rows if square else self.dense_rows
-            out = out + u[self.dense_row_ids] @ dr
+            out = out + ordered.rmatvec(dr, u[self.dense_row_ids])
         return out
 
     def matvec(self, w: Tensor) -> Tensor:
@@ -371,7 +377,7 @@ def build_cuda_layout(
 
     # --- CSR (entries are already (row, col)-sorted) and CSC --------------
     f_indptr = _indptr(r, n_rows)
-    order = np.argsort(c, kind="stable")  # rows stay ascending per column
+    order = stable_argsort(c, n_cols)  # rows stay ascending per column
     b_indptr = _indptr(c, n_cols)
     b_idx = r[order]
     b_val = v[order]

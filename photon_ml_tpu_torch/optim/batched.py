@@ -41,6 +41,7 @@ import dataclasses
 
 import torch
 
+from photon_ml_tpu_torch.ops import ordered
 from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, lbfgs_solve
 from photon_ml_tpu_torch.optim.linesearch import LineSearchConfig
 from photon_ml_tpu_torch.optim.owlqn import (
@@ -111,7 +112,7 @@ class LaneGlm:
         def value_and_grad(w):
             m = (X * w).sum(1) + off
             return ((wt * self.loss.value(m, y)).sum() + 0.5 * l2
-                    * torch.dot(w, w),
+                    * ordered.dot(w, w),
                     (wt * self.loss.d1(m, y))[:, None].mul(X).sum(0) + l2 * w)
 
         def hvp(w, v, aux):
@@ -453,12 +454,12 @@ class BatchedTRON(_Program):
         boundary = (pHp <= 0.0) | (_norm(s_next) >= delta)
         pp, sp, ss = _dot(p, p), _dot(s, p), _dot(s, s)
         disc = torch.clamp(sp * sp + pp * (delta * delta - ss), min=0.0)
-        tau = (-sp + torch.sqrt(disc)) / torch.clamp(pp, min=1e-30)
+        tau = (-sp + ordered.sqrt(disc)) / torch.clamp(pp, min=1e-30)
         step = torch.where(boundary, tau, alpha)
         s_new = s + step[:, None] * p
         r_new = r - step[:, None] * Hp
         rr_new = _dot(r_new, r_new)
-        small = torch.sqrt(rr_new) <= self.cg_tol
+        small = ordered.sqrt(rr_new) <= self.cg_tol
         beta = rr_new / torch.clamp(rr, min=1e-30)
         p_new = r_new + beta[:, None] * p
         self.s = _pick(cg, s_new, s)

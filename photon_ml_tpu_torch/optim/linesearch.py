@@ -24,9 +24,10 @@ accepted step and ``n_evals`` are those of the one-trial-per-pass search.
 ``w_space`` is the reference's ``w_axis``: a :class:`WSpace` whose ``dot``
 and ``norm`` sum per-slice partials, for a coefficient vector that lives
 in feature slices (``parallel/tensor.py``).  Without it every inner
-product is ``torch.dot`` and every norm ``torch.linalg.vector_norm``, as
-they always were; the solvers (``lbfgs.py``, ``owlqn.py``, ``tron.py``)
-take the same hook.
+product is ``ops/ordered.py``'s ``dot`` (``torch.dot`` on a card; on the
+CPU the same order on every host, where the BLAS's depends on the host)
+and every norm ``torch.linalg.vector_norm``; the solvers (``lbfgs.py``,
+``owlqn.py``, ``tron.py``) take the same hook.
 """
 
 from __future__ import annotations
@@ -36,6 +37,8 @@ from typing import Callable, NamedTuple, Optional, Protocol
 
 import numpy as np
 import torch
+
+from photon_ml_tpu_torch.ops import ordered
 
 Tensor = torch.Tensor
 
@@ -54,10 +57,10 @@ class WSpace(Protocol):
 
 
 def w_ops(w_space: Optional[WSpace]):
-    """``(dot, norm)`` over coefficient space: the hook's, else the plain
-    ``torch.dot`` and ``torch.linalg.vector_norm``."""
+    """``(dot, norm)`` over coefficient space: the hook's, else
+    ``ordered.dot`` and ``torch.linalg.vector_norm``."""
     if w_space is None:
-        return torch.dot, torch.linalg.vector_norm
+        return ordered.dot, torch.linalg.vector_norm
     return w_space.dot, w_space.norm
 
 

@@ -25,6 +25,7 @@ import torch
 from photon_ml_tpu_torch.data.dataset import GlmData
 from photon_ml_tpu_torch.data.normalization import NormalizationContext
 from photon_ml_tpu_torch.device import ACCUMULATE_DTYPES
+from photon_ml_tpu_torch.ops import ordered
 from photon_ml_tpu_torch.ops.losses import PointwiseLoss
 
 Tensor = torch.Tensor
@@ -64,7 +65,7 @@ class GlmObjective:
         if norm is None:
             return data.features.matvec(w)
         m = data.features.matvec(w * norm.factors)
-        return m - torch.dot(w, norm.factors * norm.shifts)
+        return m - ordered.dot(w, norm.factors * norm.shifts)
 
     def _rmatvec(self, data: GlmData, u: Tensor) -> Tensor:
         norm = self.normalization
@@ -106,7 +107,7 @@ class GlmObjective:
         val = self.raw_value(w, data)
         if reduce is not None:
             (val,) = reduce(val)
-        return val + 0.5 * l2_weight * torch.dot(w, w)
+        return val + 0.5 * l2_weight * ordered.dot(w, w)
 
     def value_and_grad(self, w: Tensor, data: GlmData, l2_weight=0.0,
                        reduce=None):
@@ -114,7 +115,7 @@ class GlmObjective:
         if reduce is not None:
             # The treeAggregate analogue: one fused all-reduce.
             val, grad = reduce(val, grad)
-        return val + 0.5 * l2_weight * torch.dot(w, w), grad + l2_weight * w
+        return val + 0.5 * l2_weight * ordered.dot(w, w), grad + l2_weight * w
 
     def hvp(self, w: Tensor, v: Tensor, data: GlmData, l2_weight=0.0,
             d2w: Optional[Tensor] = None, reduce=None) -> Tensor:

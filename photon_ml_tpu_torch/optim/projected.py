@@ -23,6 +23,7 @@ import dataclasses
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.ops import ordered
 from photon_ml_tpu_torch.optim.lbfgs import SolveResult
 from photon_ml_tpu_torch.optim.linesearch import (
     ValueAndGrad,
@@ -95,7 +96,7 @@ def spg_solve(
     k = 0
     while not done and k < config.max_iters:
         d = project(w - float(alpha) * g) - w
-        (gd,) = host_scalars(torch.dot(g, d))
+        (gd,) = host_scalars(ordered.dot(g, d))
 
         def armijo_fails(lamb, ft_h):
             # ~(ft <= bound): a NaN trial is a failure and keeps
@@ -126,8 +127,8 @@ def spg_solve(
         # Barzilai–Borwein step for the next iteration.
         s_vec = w_next - w
         y_vec = g_next - g
-        sy, ss, pg = host_scalars(torch.dot(s_vec, y_vec),
-                                  torch.dot(s_vec, s_vec),
+        sy, ss, pg = host_scalars(ordered.dot(s_vec, y_vec),
+                                  ordered.dot(s_vec, s_vec),
                                   pg_norm(w_next, g_next))
         if sy > 0.0:
             alpha = np.clip(ss / np.maximum(sy, wt(1e-30)), alpha_min,

@@ -83,6 +83,7 @@ from photon_ml_tpu_torch.data.staging import (
 )
 from photon_ml_tpu_torch.data.streaming import StreamingGlmData
 from photon_ml_tpu_torch.device import resolve_device
+from photon_ml_tpu_torch.ops import ordered
 from photon_ml_tpu_torch.optim.objective import GlmObjective
 from photon_ml_tpu_torch.parallel.distributed import reduce_shards
 
@@ -621,7 +622,7 @@ class StreamingObjective:
 
         self._stream(step, scoring=True)
         vacc, gacc = self._reduce(accs)
-        return (vacc + 0.5 * l2_weight * torch.dot(w, w),
+        return (vacc + 0.5 * l2_weight * ordered.dot(w, w),
                 gacc + l2_weight * w)
 
     def value_and_grad_batch(self, ws: Tensor, l2_weight=0.0, offsets=None):
@@ -660,7 +661,7 @@ class StreamingObjective:
         self._stream(step, scoring=True, batch=K)
         red = self._reduce(accs)
         vaccs, gaccs = red[:K], red[K:]
-        vals = torch.stack([v + 0.5 * l2_weight * torch.dot(w, w)
+        vals = torch.stack([v + 0.5 * l2_weight * ordered.dot(w, w)
                             for v, w in zip(vaccs, wl)])
         grads = torch.stack([g + l2_weight * w for g, w in zip(gaccs, wl)])
         return vals, grads

@@ -33,6 +33,7 @@ from typing import Callable, Optional
 import numpy as np
 import torch
 
+from photon_ml_tpu_torch.ops import ordered
 from photon_ml_tpu_torch.optim.lbfgs import SolveResult
 from photon_ml_tpu_torch.optim.linesearch import (
     ValueAndGrad,
@@ -101,7 +102,7 @@ def _steihaug_cg(
         # τ ≥ 0 with ‖s + τp‖ = delta.
         pp, sp, ss = dot(p, p), dot(s, p), dot(s, s)
         disc = torch.clamp(sp * sp + pp * (delta_t * delta_t - ss), min=0.0)
-        tau_t = (-sp + torch.sqrt(disc)) / torch.maximum(pp, tiny)
+        tau_t = (-sp + ordered.sqrt(disc)) / torch.maximum(pp, tiny)
         rr_next_t = dot(r_next, r_next)
         pHp, s_next_norm, rr_next = host_scalars(
             pHp_t, norm(s_next), rr_next_t)

@@ -19,6 +19,9 @@ axis of a (data × feature) grid:
 - the solvers run on the sharded state: every w-space inner product and
   norm sums per-slice partials (``optim/linesearch.py::WSpace``, the
   reference's ``w_axis``), so an iteration is the single-device one.
+  Each partial is an ``ops/ordered.py`` dot: a logical slice is a view
+  of the whole ``w`` where a rank's is its own allocation, and the host
+  BLAS's bits may depend on that.
 
 Two forms, as ``parallel/distributed.py`` has:
 
@@ -50,6 +53,7 @@ import torch
 from photon_ml_tpu_torch.data.dataset import GlmData, make_glm_data
 from photon_ml_tpu_torch.device import resolve_device
 from photon_ml_tpu_torch.ops import losses as losses_lib
+from photon_ml_tpu_torch.ops import ordered
 from photon_ml_tpu_torch.ops.sparse import DenseMatrix
 from photon_ml_tpu_torch.optim.lbfgs import (
     LBFGSConfig,
@@ -229,20 +233,20 @@ def _ordered_sum(parts: list) -> Tensor:
 
 class _SliceSpace:
     """w-space of logical tiles: ``w`` whole, slice j its columns
-    ``j·c …``; an inner product adds the slices' partials in slice
-    order."""
+    ``j·c …``; an inner product adds the slices' ordered partials in
+    slice order."""
 
     def __init__(self, tp: int, cols_per: int):
         self.tp, self.c = tp, cols_per
 
     def dot(self, a: Tensor, b: Tensor) -> Tensor:
         c = self.c
-        return _ordered_sum([torch.dot(a[j * c:(j + 1) * c],
+        return _ordered_sum([ordered.dot(a[j * c:(j + 1) * c],
                                        b[j * c:(j + 1) * c])
                              for j in range(self.tp)])
 
     def norm(self, a: Tensor) -> Tensor:
-        return torch.sqrt(self.dot(a, a))
+        return ordered.sqrt(self.dot(a, a))
 
 
 class _GroupSpace:
@@ -254,10 +258,10 @@ class _GroupSpace:
         self.feature = feature
 
     def dot(self, a: Tensor, b: Tensor) -> Tensor:
-        return self.feature.gather_sum(torch.dot(a, b).reshape(1))[0]
+        return self.feature.gather_sum(ordered.dot(a, b).reshape(1))[0]
 
     def norm(self, a: Tensor) -> Tensor:
-        return torch.sqrt(self.dot(a, a))
+        return ordered.sqrt(self.dot(a, a))
 
 
 class TileObjective:
@@ -364,7 +368,7 @@ class TileObjective:
             vals[i] = obj._wsum(t.weights, loss.value(m, t.labels))
             us[i] = t.weights * loss.d1(m, t.labels)
         val, g = self._rmatvec_fused(us, vals)
-        dot = torch.dot if self.w_space is None else self.w_space.dot
+        dot = ordered.dot if self.w_space is None else self.w_space.dot
         return val + 0.5 * l2 * dot(w, w), self._join(g) + l2 * w
 
     def d2_weights(self, w: Tensor) -> dict:

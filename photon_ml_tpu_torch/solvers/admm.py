@@ -44,6 +44,7 @@ import torch
 
 from photon_ml_tpu_torch import telemetry as telemetry_mod
 from photon_ml_tpu_torch.chaos import core as chaos_mod
+from photon_ml_tpu_torch.ops import ordered
 from photon_ml_tpu_torch.optim.lbfgs import (
     LBFGSConfig,
     SolveResult,
@@ -140,7 +141,7 @@ def regularized(val, grad, w, l1, l2, mask):
     """The full objective's value and pseudo-gradient from the reduced data
     term (the reference's final exact evaluation)."""
     val = (val + l1 * torch.sum(w.abs() * mask)
-           + 0.5 * l2 * torch.dot(w, w))
+           + 0.5 * l2 * ordered.dot(w, w))
     return val, _pseudo_gradient(w, grad + l2 * w, l1, mask)
 
 
@@ -188,11 +189,11 @@ def make_sharded_solver(problem, dist, mesh, l1_mask=None):
         def vg(w):
             val, g = obj.raw_value_and_grad(w, local)
             dw = w - v
-            return val + 0.5 * rho * torch.dot(dw, dw), g + rho * dw
+            return val + 0.5 * rho * ordered.dot(dw, dw), g + rho * dw
 
         res = lbfgs_solve(vg, x_prev, local_cfg)
         dw = res.w - v
-        f_loc = res.value - 0.5 * rho * torch.dot(dw, dw)
+        f_loc = res.value - 0.5 * rho * ordered.dot(dw, dw)
         return res.w, float(res.iterations), f_loc
 
     def ridge_prep(local):
@@ -226,10 +227,11 @@ def make_sharded_solver(problem, dist, mesh, l1_mask=None):
         denom = l2 + rho * n
         z = _soft_threshold(rho * p_sum / denom, (l1 / denom) * mask)
         r2 = torch.clamp(
-            sum_x2 - 2.0 * torch.dot(x_sum, z) + n * torch.dot(z, z), min=0.0
+            sum_x2 - 2.0 * ordered.dot(x_sum, z) + n * ordered.dot(z, z),
+            min=0.0,
         )
         obj_proxy = (f_sum + l1 * torch.sum(z.abs() * mask)
-                     + 0.5 * l2 * torch.dot(z, z))
+                     + 0.5 * l2 * ordered.dot(z, z))
         stats = torch.stack([
             obj_proxy, r2, torch.linalg.vector_norm(z - z_prev), sum_x2,
             sum_u2, iters_sum, torch.linalg.vector_norm(z),
@@ -248,7 +250,7 @@ def make_sharded_solver(problem, dist, mesh, l1_mask=None):
                 x_new, iters, f_loc = x_update_lbfgs(local, x[s], v, rho)
             xh = alpha * x_new + (1.0 - alpha) * z
             scalars = torch.stack([
-                torch.dot(x_new, x_new), torch.dot(u[s], u[s]),
+                ordered.dot(x_new, x_new), ordered.dot(u[s], u[s]),
                 f_loc.to(torch.float32),
                 torch.tensor(iters, dtype=torch.float32, device=dev),
             ])

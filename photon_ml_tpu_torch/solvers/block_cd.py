@@ -39,6 +39,7 @@ import torch
 
 from photon_ml_tpu_torch import telemetry as telemetry_mod
 from photon_ml_tpu_torch.chaos import core as chaos_mod
+from photon_ml_tpu_torch.ops import ordered
 from photon_ml_tpu_torch.optim.lbfgs import SolveResult
 from photon_ml_tpu_torch.parallel.distributed import sum_shards
 from photon_ml_tpu_torch.solvers import registry
@@ -132,11 +133,11 @@ def make_sharded_solver(problem, dist, mesh, l1_mask=None):
         start)."""
         y, wt, off = (dd.stacked(a) for a in ("labels", "weights",
                                               "offsets"))
-        # Every product is a shard's own (a 2-D mat-vec, or sums along
+        # Every product is a shard's own (an ordered mat-vec, or sums along
         # contiguous rows), so on the CPU a shard's numbers do not depend on
-        # how many shards are batched beside it; the card's reduction
-        # kernels may split a batched sum another way.
-        m = torch.stack([x @ w for x in X]) + off  # (k, rows)
+        # how many shards are batched beside it or where its rows sit; the
+        # card's reduction kernels may split a batched sum another way.
+        m = torch.stack([ordered.matvec(x, w) for x in X]) + off  # (k, rows)
         cols = XT[:, coords, :]  # (k, b, rows)
         u0 = (wt * loss.d1(m, y)).unsqueeze(1)
         g0 = (cols * u0).sum(-1)  # (k, b)
@@ -165,7 +166,7 @@ def make_sharded_solver(problem, dist, mesh, l1_mask=None):
         upd = torch.zeros_like(w)
         upd[coords] = delta_sum / n
         f_total = (f_sum + l1 * torch.sum(w.abs() * mask)
-                   + 0.5 * l2 * torch.dot(w, w))
+                   + 0.5 * l2 * ordered.dot(w, w))
         return w + upd, f_total
 
     def solve_fn(lam, w_prev, dist_override=None) -> SolveResult:

@@ -33,9 +33,10 @@ validates the outputs:
   last-seen snapshots (failures counted, recovery observed) without
   wedging the poll loop.
 
-The reference's ``--lint-metrics`` (its ``telemetry/lint.py`` re-exports
-the static checker's metric-naming rule) waits for the port of the static
-checker.
+``--lint-metrics`` runs the metric-name lint (``telemetry/lint.py``, the
+invariant checker's ``metric-naming`` rule) over the port's source
+instead: duplicate-kind registrations and non-conforming
+``<subsystem>_<name>_<unit>`` names fail the check.
 
 Exit status 0 on success; nonzero with a diagnostic on any failure —
 CI-greppable, device-free (imports no torch device code).
@@ -753,6 +754,21 @@ def selfcheck(keep_dir: str | None = None) -> int:
     return 0
 
 
+def lint_metrics() -> int:
+    from photon_ml_tpu_torch.telemetry.lint import lint_source
+
+    n_names, problems = lint_source()
+    if problems:
+        for p_ in problems:
+            print(f"metric lint FAIL: {p_}", file=sys.stderr)
+        return 1
+    print(
+        f"metric lint OK: {n_names} metric names conform "
+        "(<subsystem>_<name>_<unit>, one kind per name)"
+    )
+    return 0
+
+
 def main(argv=None) -> int:
     p = argparse.ArgumentParser(prog="python -m photon_ml_tpu_torch.telemetry")
     p.add_argument(
@@ -762,11 +778,18 @@ def main(argv=None) -> int:
         "flight recorder) and validate every output",
     )
     p.add_argument(
+        "--lint-metrics", action="store_true",
+        help="scan the port's source for metric registrations and "
+        "enforce the naming convention + one-kind-per-name",
+    )
+    p.add_argument(
         "--keep-dir",
         help="with --selfcheck: write the outputs here (inspectable) "
         "instead of a throwaway tempdir",
     )
     args = p.parse_args(argv)
+    if args.lint_metrics:
+        return lint_metrics()
     if args.selfcheck:
         return selfcheck(args.keep_dir)
     p.print_help()

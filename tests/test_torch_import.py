@@ -114,6 +114,10 @@ def test_import_leaves_jax_out_of_sys_modules():
     "photon_ml_tpu_torch.freshness.__main__",
     "photon_ml_tpu_torch.chaos",
     "photon_ml_tpu_torch.analysis.sanitizers",
+    "photon_ml_tpu_torch.analysis",
+    "photon_ml_tpu_torch.analysis.__main__",
+    "photon_ml_tpu_torch.telemetry.lint",
+    "photon_ml_tpu_torch.ops.ordered",
     "photon_ml_tpu_torch.parallel.tensor",
     "photon_ml_tpu_torch.hyperparameter",
     "photon_ml_tpu_torch.hyperparameter.search",

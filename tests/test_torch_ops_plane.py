@@ -823,11 +823,13 @@ class TestSelfcheck:
                      os.path.join("fleet", "merged.trace.json")):
             assert os.path.exists(os.path.join(keep, name)), name
 
-    def test_lint_flag_is_left_out(self):
+    def test_lint_flag_is_left_out(self, capsys):
+        """The flag was left out until the static checker was ported; it
+        now runs the checker's metric-naming rule, clean on the port."""
         from photon_ml_tpu_torch.telemetry.__main__ import main
 
-        with pytest.raises(SystemExit):
-            main(["--lint-metrics"])
+        assert main(["--lint-metrics"]) == 0
+        assert "metric lint OK" in capsys.readouterr().out
 
 
 class TestDatasets:

@@ -33,6 +33,7 @@ from photon_ml_tpu.optim.owlqn import OWLQNConfig as JOWLQNConfig
 from photon_ml_tpu.optim.tron import TRONConfig as JTRONConfig
 from photon_ml_tpu.parallel import tensor as jtensor
 from photon_ml_tpu_torch.data.dataset import make_glm_data
+from photon_ml_tpu_torch.ops import ordered
 from photon_ml_tpu_torch.optim.lbfgs import LBFGSConfig, lbfgs_solve
 from photon_ml_tpu_torch.optim.owlqn import OWLQNConfig
 from photon_ml_tpu_torch.optim.problem import (
@@ -230,8 +231,8 @@ def test_one_tile_is_bitwise_the_resident_solve(rng, kind):
 
 def test_one_slice_hook_keeps_the_lbfgs_bits(rng):
     """A w-space hook that sums a single slice's partial is the plain
-    ``torch.dot``; with ``norm`` the plain norm, the trajectory is
-    unchanged bit for bit."""
+    dot (the solvers' default, ``ops/ordered.py``'s); with ``norm`` the
+    plain norm, the trajectory is unchanged bit for bit."""
     X, y = _wide_problem(rng, n=300, d=80)
     data = make_glm_data(X, y, device="cpu")
     prob = GlmOptimizationProblem("logistic", GlmOptimizationConfig(
@@ -239,7 +240,7 @@ def test_one_slice_hook_keeps_the_lbfgs_bits(rng):
         regularization=RegularizationContext.l2()))
 
     class OneSlice:
-        dot = staticmethod(torch.dot)
+        dot = staticmethod(ordered.dot)
         norm = staticmethod(torch.linalg.vector_norm)
 
     def vg(w):
